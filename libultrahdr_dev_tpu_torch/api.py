@@ -1,0 +1,255 @@
+"""Stable codec API of the port: staged encoder/decoder contexts.
+
+Mirrors libultrahdr_dev_tpu/api.py (the reference's ultrahdr_api.h,
+lib/src/ultrahdr_api.cpp) for the API-0 route: an encoder fed one P010
+HDR raw image, a decoder returning HDR pixels. Contexts are configured
+through setters, and one encode/decode "sails" the context (further
+configuration raises, repeated calls return the first outcome). Each
+context runs its kernels on the torch device it was built with.
+"""
+
+from __future__ import annotations
+
+from .container import mux
+from .jpegr import JpegR
+from .types import (ColorGamut, ColorTransfer, CompressedImage,
+                    DEFAULT_BASE_QUALITY, GainMapMetadata, OutputFormat,
+                    PixelFormat, RawImage, err)
+
+# Intent labels (ultrahdr_api.h:86-91).
+HDR_IMG = "hdr"
+SDR_IMG = "sdr"
+BASE_IMG = "base"
+GAIN_MAP_IMG = "gainmap"
+
+_QUEUED = "is queued in ROADMAP.md Queue A item 10 (B9/B10 routes)"
+
+
+class _Sailed:
+    """Shared sailed-state machinery (ultrahdr_api.cpp:253-260)."""
+
+    def __init__(self, device):
+        self.device = device
+        self._sailed = False
+        self._outcome: Exception | None = None
+
+    def _check_not_sailed(self, what: str):
+        if self._sailed:
+            raise err("UHDR_CODEC_INVALID_OPERATION",
+                      f"{what} not allowed after encode/decode; "
+                      "call reset() first")
+
+
+class UhdrEncoder(_Sailed):
+    def __init__(self, device="cpu"):
+        super().__init__(device)
+        self.reset()
+
+    def reset(self):
+        """uhdr_reset_encoder (ultrahdr_api.cpp:834-853)."""
+        self._sailed = False
+        self._outcome = None
+        self._hdr: RawImage | None = None
+        self._quality = DEFAULT_BASE_QUALITY
+        self._output: bytes | None = None
+        return self
+
+    def set_raw_image(self, img: RawImage, intent: str):
+        """uhdr_enc_set_raw_image (ultrahdr_api.h:223-243): the HDR
+        intent takes P010. An SDR raw intent (API-1) is not ported yet."""
+        self._check_not_sailed("set_raw_image")
+        if intent == SDR_IMG:
+            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                      f"an SDR raw intent (API-1) {_QUEUED}")
+        if intent != HDR_IMG:
+            raise err("UHDR_CODEC_INVALID_PARAM",
+                      f"invalid intent {intent} for raw image")
+        if img.fmt != PixelFormat.P010:
+            raise err("UHDR_CODEC_INVALID_PARAM",
+                      "hdr intent requires P010 input")
+        img.validate_even_dims()
+        if img.gamut == ColorGamut.UNSPECIFIED:
+            raise err("UHDR_CODEC_INVALID_PARAM", "unspecified gamut")
+        if img.transfer not in (ColorTransfer.LINEAR, ColorTransfer.HLG,
+                                ColorTransfer.PQ):
+            raise err("UHDR_CODEC_INVALID_PARAM",
+                      "hdr intent requires linear/hlg/pq transfer")
+        self._hdr = img
+        return self
+
+    def set_quality(self, quality: int, intent: str = BASE_IMG):
+        """uhdr_enc_set_quality (ultrahdr_api.h:274-283). The gain map's
+        quality is fixed at 85 on the API-0 route."""
+        self._check_not_sailed("set_quality")
+        if not 0 <= quality <= 100:
+            raise err("UHDR_CODEC_INVALID_PARAM",
+                      f"quality {quality} outside [0, 100]")
+        if intent != BASE_IMG:
+            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                      f"setting the {intent} quality {_QUEUED}")
+        self._quality = quality
+        return self
+
+    def set_output_format(self, media_type: str):
+        """uhdr_enc_set_output_format: only "jpg" is valid."""
+        if media_type != "jpg":
+            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                      f"invalid output format {media_type}, "
+                      "expects {jpg}")
+        self._check_not_sailed("set_output_format")
+        return self
+
+    def encode(self) -> CompressedImage:
+        """uhdr_encode (ultrahdr_api.cpp:666-819), API-0 route. Repeat
+        calls return the first outcome."""
+        if self._sailed:
+            if self._outcome is not None:
+                raise self._outcome
+            return self.get_encoded_stream()
+        self._sailed = True
+        try:
+            if self._hdr is None:
+                raise err("UHDR_CODEC_INVALID_OPERATION",
+                          "resources required for encode() are not "
+                          "present")
+            self._output = JpegR(self.device).encode_api0(
+                self._hdr, self._hdr.transfer, self._quality)
+        except Exception as e:
+            self._outcome = e
+            raise
+        return self.get_encoded_stream()
+
+    def get_encoded_stream(self) -> CompressedImage:
+        if self._output is None:
+            raise err("UHDR_CODEC_INVALID_OPERATION",
+                      "no encoded stream available")
+        return CompressedImage(data=self._output,
+                               gamut=ColorGamut.UNSPECIFIED)
+
+
+class UhdrDecoder(_Sailed):
+    def __init__(self, device="cpu"):
+        super().__init__(device)
+        self.reset()
+
+    def reset(self):
+        """uhdr_reset_decoder (ultrahdr_api.cpp:1281-1309)."""
+        self._sailed = False
+        self._outcome = None
+        self._probed = False
+        self._input: bytes | None = None
+        # Defaults: F16 linear output (ultrahdr_api.cpp:1287-1289).
+        self._out_fmt = PixelFormat.RGBA_F16
+        self._out_ct = ColorTransfer.LINEAR
+        self._boost = float("inf")
+        self._info = None
+        self._result = None
+        return self
+
+    def set_image(self, data: bytes):
+        self._check_not_sailed("set_image")
+        if not data:
+            raise err("UHDR_CODEC_INVALID_PARAM", "empty input")
+        self._input = bytes(data)
+        self._probed = False
+        return self
+
+    def set_out_img_format(self, fmt: PixelFormat):
+        self._check_not_sailed("set_out_img_format")
+        if fmt not in (PixelFormat.RGBA8888, PixelFormat.RGBA_F16,
+                       PixelFormat.RGBA1010102):
+            raise err("UHDR_CODEC_INVALID_PARAM",
+                      f"invalid output format {fmt}")
+        self._out_fmt = fmt
+        return self
+
+    def set_out_color_transfer(self, ct: ColorTransfer):
+        self._check_not_sailed("set_out_color_transfer")
+        if ct not in (ColorTransfer.LINEAR, ColorTransfer.HLG,
+                      ColorTransfer.PQ, ColorTransfer.SRGB):
+            raise err("UHDR_CODEC_INVALID_PARAM",
+                      f"invalid output transfer {ct}")
+        self._out_ct = ct
+        return self
+
+    def set_out_max_display_boost(self, boost: float):
+        self._check_not_sailed("set_out_max_display_boost")
+        if boost < 1.0:
+            raise err("UHDR_CODEC_INVALID_PARAM",
+                      f"invalid display boost {boost}")
+        self._boost = boost
+        return self
+
+    def probe(self):
+        """uhdr_dec_probe (ultrahdr_api.cpp:1038-1108); idempotent."""
+        if self._probed:
+            return self._info
+        if self._input is None:
+            raise err("UHDR_CODEC_INVALID_OPERATION", "no input image set")
+        self._info = JpegR(self.device).get_info(self._input)
+        if self._info.metadata is None:
+            raise err("UHDR_CODEC_ERROR", "could not parse gain map XMP")
+        self._probed = True
+        return self._info
+
+    def get_image_width(self) -> int:
+        return self.probe().width
+
+    def get_image_height(self) -> int:
+        return self.probe().height
+
+    def get_gainmap_width(self) -> int:
+        return self.probe().gainmap_width
+
+    def get_gainmap_height(self) -> int:
+        return self.probe().gainmap_height
+
+    def get_exif(self) -> bytes | None:
+        return self.probe().primary.exif
+
+    def get_icc(self) -> bytes | None:
+        return self.probe().primary.icc
+
+    def get_gainmap_metadata(self) -> GainMapMetadata:
+        return self.probe().metadata
+
+    def _output_format(self) -> OutputFormat:
+        """Validated (fmt, ct) pairing (ultrahdr_api.cpp:1201-1253):
+        srgb<->rgba8888, linear<->F16, hlg/pq<->1010102."""
+        ct, fmt = self._out_ct, self._out_fmt
+        if ct == ColorTransfer.SRGB and fmt == PixelFormat.RGBA8888:
+            return OutputFormat.SDR
+        if ct == ColorTransfer.LINEAR and fmt == PixelFormat.RGBA_F16:
+            return OutputFormat.HDR_LINEAR
+        if ct == ColorTransfer.HLG and fmt == PixelFormat.RGBA1010102:
+            return OutputFormat.HDR_HLG
+        if ct == ColorTransfer.PQ and fmt == PixelFormat.RGBA1010102:
+            return OutputFormat.HDR_PQ
+        raise err("UHDR_CODEC_INVALID_PARAM",
+                  f"unsupported output combination {fmt}/{ct}")
+
+    def decode(self) -> RawImage:
+        """uhdr_decode (ultrahdr_api.cpp:1201-1253)."""
+        if self._sailed:
+            if self._outcome is not None:
+                raise self._outcome
+            return self._result.image
+        self.probe()
+        self._sailed = True
+        try:
+            self._result = JpegR(self.device).decode(
+                self._input, self._output_format(), self._boost)
+        except Exception as e:
+            self._outcome = e
+            raise
+        return self._result.image
+
+    def get_decoded_image(self) -> RawImage:
+        if self._result is None:
+            raise err("UHDR_CODEC_INVALID_OPERATION", "decode() not called")
+        return self._result.image
+
+
+def is_uhdr_image(data: bytes) -> bool:
+    """ultrahdr_api.cpp:855-881."""
+    return mux.is_uhdr_image(data)

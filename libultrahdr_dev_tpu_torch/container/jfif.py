@@ -1,0 +1,180 @@
+"""Host-side JPEG marker stream walker.
+
+Replaces the vendored image_io JpegScanner/JpegInfoBuilder
+(third_party/image_io, used at
+lib/src/jpegr.cpp:823-876) with a ~200-line scanner:
+finds the SOI..EOI ranges of the images inside a JPEG/R blob and
+harvests APPn payloads (EXIF / XMP / ISO21496-1 / ICC) and frame
+dimensions without entropy-decoding anything.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..types import err
+
+SOI = 0xD8
+EOI = 0xD9
+SOS = 0xDA
+APP0 = 0xE0
+APP1 = 0xE1
+APP2 = 0xE2
+
+EXIF_SIG = b"Exif\x00\x00"
+XMP_SIG = b"http://ns.adobe.com/xap/1.0/\x00"
+ICC_SIG = b"ICC_PROFILE\x00"
+
+_STANDALONE = set(range(0xD0, 0xD8)) | {0x01, SOI, EOI}  # RSTn, TEM
+
+
+@dataclass
+class JpegSegment:
+    marker: int
+    offset: int          # offset of the 0xFF byte
+    payload: bytes       # segment body without the 2-byte length
+
+
+@dataclass
+class JpegInfo:
+    """Parsed metadata of one JPEG image (PARSE_ONLY analog of
+    JpegDecoderHelper::getCompressedImageParameters,
+    lib/src/jpegdecoderhelper.cpp:216-341)."""
+
+    width: int = 0
+    height: int = 0
+    num_components: int = 0
+    exif: bytes | None = None
+    exif_offset: int = -1    # offset of the payload after the sig check
+    xmp: bytes | None = None
+    icc: bytes | None = None
+    segments: list = field(default_factory=list)
+
+
+def scan_segments(data: bytes, start: int = 0):
+    """Yield JpegSegment for each marker segment of one image starting at
+    `start` (must point at SOI). Stops after SOS (entropy data follows)
+    or EOI. Returns (segments, sos_or_eoi_offset)."""
+    n = len(data)
+    if start + 2 > n or data[start] != 0xFF or data[start + 1] != SOI:
+        raise err("UHDR_CODEC_ERROR", "no SOI at image start")
+    segments = [JpegSegment(SOI, start, b"")]
+    pos = start + 2
+    while pos + 2 <= n:
+        if data[pos] != 0xFF:
+            raise err("UHDR_CODEC_ERROR", f"marker sync lost at {pos}")
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        if marker in _STANDALONE:
+            segments.append(JpegSegment(marker, pos, b""))
+            pos += 2
+            if marker == EOI:
+                break
+            continue
+        if pos + 4 > n:
+            raise err("UHDR_CODEC_ERROR", "truncated segment header")
+        seg_len = (data[pos + 2] << 8) | data[pos + 3]
+        if seg_len < 2 or pos + 2 + seg_len > n:
+            raise err("UHDR_CODEC_ERROR", "invalid segment length")
+        payload = data[pos + 4: pos + 2 + seg_len]
+        segments.append(JpegSegment(marker, pos, payload))
+        pos += 2 + seg_len
+        if marker == SOS:
+            break
+    return segments, pos
+
+
+def find_eoi(data: bytes, sos_end: int) -> int:
+    """Scan entropy-coded data from after SOS for the EOI marker;
+    returns offset just past EOI.
+
+    A single bytes.find is exact here: within entropy-coded data every
+    0xFF is either a data escape (always followed by a stuffed 0x00),
+    a fill byte (followed by 0xFF or a marker), or a marker prefix —
+    the second byte of any such pair is never 0xFF, so the first
+    literal FF D9 in the stream is, by the JPEG grammar, a real EOI
+    (possibly with fill FFs before it, which resolve to the same
+    offset). C-speed memmem vs a Python loop over candidates: our own
+    restart-interval streams carry ~20k RST markers + word-alignment
+    fill per 4K frame, which made the loop ~35 ms/image."""
+    p = data.find(b"\xff\xd9", sos_end)
+    return len(data) if p < 0 else p + 2
+
+
+def find_image_ranges(data: bytes, limit: int = 2):
+    """Locate up to `limit` complete JPEG images ((start, end) byte
+    ranges) in a JPEG/R blob — the analog of image_io JpegScanner with
+    SetImageLimit(2) (jpegr.cpp:836-847)."""
+    ranges = []
+    pos = 0
+    n = len(data)
+    while len(ranges) < limit and pos + 4 <= n:
+        # find next SOI
+        soi = -1
+        i = pos
+        while i + 1 < n:
+            if data[i] == 0xFF and data[i + 1] == SOI:
+                soi = i
+                break
+            i += 1
+        if soi < 0:
+            break
+        try:
+            _, after = scan_segments(data, soi)
+        except Exception:
+            break
+        end = find_eoi(data, after)
+        ranges.append((soi, end))
+        pos = end
+    return ranges
+
+
+_SOF_MARKERS = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}  # SOFn
+
+
+def parse_jpeg_info(data: bytes) -> JpegInfo:
+    """Extract dims + EXIF/XMP/ICC from one JPEG without decoding
+    (mirrors jpegdecoderhelper.cpp:216-341 PARSE_ONLY + marker
+    harvesting; ICC chunks are concatenated)."""
+    info = JpegInfo()
+    segments, _ = scan_segments(data, 0)
+    info.segments = segments
+    icc_chunks = []
+    for seg in segments:
+        if seg.marker == APP1:
+            if seg.payload.startswith(EXIF_SIG) and info.exif is None:
+                info.exif = seg.payload
+                # match JpegDecoderHelper::getEXIFPos: 4-byte offset past
+                # the FF E1 LL LL header (jpegr.cpp:63-73 usage).
+                info.exif_offset = seg.offset + 4
+            elif seg.payload.startswith(XMP_SIG) and info.xmp is None:
+                info.xmp = seg.payload
+        elif seg.marker == APP2:
+            if seg.payload.startswith(ICC_SIG):
+                # Strip identifier + 2 chunk bytes per APP2 chunk.
+                icc_chunks.append(seg.payload)
+        elif seg.marker in _SOF_MARKERS:
+            p = seg.payload
+            if len(p) >= 6:
+                info.height = (p[1] << 8) | p[2]
+                info.width = (p[3] << 8) | p[4]
+                info.num_components = p[5]
+    if icc_chunks:
+        # Keep the full first-chunk form (identifier included), as the
+        # reference's getICCPtr does.
+        info.icc = icc_chunks[0] if len(icc_chunks) == 1 else b"".join(
+            [icc_chunks[0]] + [c[len(ICC_SIG) + 2:] for c in icc_chunks[1:]])
+    return info
+
+
+def strip_exif(jpeg: bytes) -> tuple[bytes, bytes | None]:
+    """Remove the EXIF APP1 from a JPEG; returns (jpeg_without_exif,
+    exif_payload_or_None) (jpegr.cpp:63-73 copyJpegWithoutExif)."""
+    info = parse_jpeg_info(jpeg)
+    if info.exif is None:
+        return jpeg, None
+    pos = info.exif_offset - 4  # back to the 0xFF byte
+    seg_total = 2 + 2 + len(info.exif)  # FF E1 + length bytes + payload
+    return jpeg[:pos] + jpeg[pos + seg_total:], info.exif

@@ -1,0 +1,443 @@
+"""Host half of the baseline JPEG codec: markers, MCU interleave and the
+native Huffman stage.
+
+The subset of libultrahdr_dev_tpu/jpeg/codec.py that the port's API-0
+round trip runs. The transform half (fDCT / IDCT) is on the device, in
+jpeg/dct.py. Progressive, arithmetic-coded and multi-scan streams are
+not decoded yet: they raise UHDR_CODEC_UNSUPPORTED_FEATURE.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..container import jfif
+from ..types import err
+from . import tables
+from .native import get_lib
+
+MAX_DIM = 8192  # jpegdecoderhelper.h:42-43
+_QUEUED = "queued in ROADMAP.md Queue A item 13 (off-path decode formats)"
+
+
+def _huff_arrays(selections):
+    """Pack (bits, vals) table definitions into the [4][17]/[4][256]
+    arrays the native codec takes. selections: list of (bits, vals) or
+    None per slot."""
+    bits = np.zeros((4, 17), np.uint8)
+    vals = np.zeros((4, 256), np.uint8)
+    for i, sel in enumerate(selections):
+        if sel is None:
+            continue
+        b, v = tables.pack_huff_table(*sel)
+        bits[i] = b
+        vals[i] = v
+    return bits, vals
+
+
+def _as_u8p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _as_i16p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+
+
+def entropy_encode(blocks_zz: np.ndarray, comp_ids: np.ndarray,
+                   dc_sel, ac_sel, dc_tables, ac_tables,
+                   restart_interval: int, mcu_blocks: int) -> bytes:
+    """Huffman-code MCU-ordered zigzag blocks into a stuffed entropy
+    segment (RSTn markers included when restart_interval > 0)."""
+    lib = get_lib()
+    blocks_zz = np.ascontiguousarray(blocks_zz, np.int16)
+    comp_ids = np.ascontiguousarray(comp_ids, np.uint8)
+    dcb, dcv = _huff_arrays(dc_tables)
+    acb, acv = _huff_arrays(ac_tables)
+    dc_sel = np.asarray(dc_sel, np.uint8)
+    ac_sel = np.asarray(ac_sel, np.uint8)
+    cap = blocks_zz.shape[0] * 64 * 4 + 4096
+    out = np.empty(cap, np.uint8)
+    n = lib.uhdr_huff_encode(
+        _as_i16p(blocks_zz), blocks_zz.shape[0], _as_u8p(comp_ids),
+        len(dc_sel), _as_u8p(dc_sel), _as_u8p(ac_sel),
+        _as_u8p(dcb), _as_u8p(dcv), _as_u8p(acb), _as_u8p(acv),
+        restart_interval, mcu_blocks, _as_u8p(out), cap)
+    if n < 0:
+        raise err("UHDR_CODEC_ERROR", "entropy encode overflow")
+    return out[:n].tobytes()
+
+
+def entropy_decode(data: bytes, nblocks: int, comp_ids: np.ndarray,
+                   dc_sel, ac_sel, dc_tables, ac_tables,
+                   restart_interval: int, mcu_blocks: int) -> np.ndarray:
+    """Inverse of entropy_encode: int16 (nblocks, 64) zigzag blocks."""
+    lib = get_lib()
+    buf = np.frombuffer(data, np.uint8)
+    comp_ids = np.ascontiguousarray(comp_ids, np.uint8)
+    dcb, dcv = _huff_arrays(dc_tables)
+    acb, acv = _huff_arrays(ac_tables)
+    dc_sel = np.asarray(dc_sel, np.uint8)
+    ac_sel = np.asarray(ac_sel, np.uint8)
+    out = np.zeros((nblocks, 64), np.int16)
+    rc = lib.uhdr_huff_decode(
+        _as_u8p(buf), len(buf), nblocks, _as_u8p(comp_ids),
+        len(dc_sel), _as_u8p(dc_sel), _as_u8p(ac_sel),
+        _as_u8p(dcb), _as_u8p(dcv), _as_u8p(acb), _as_u8p(acv),
+        restart_interval, mcu_blocks, _as_i16p(out))
+    if rc != 0:
+        raise err("UHDR_CODEC_ERROR", f"entropy decode failed at block {-rc}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Encoder: markers and MCU interleave.
+# ---------------------------------------------------------------------------
+
+def _marker(m: int, payload: bytes) -> bytes:
+    length = len(payload) + 2
+    return bytes([0xFF, m, length >> 8, length & 0xFF]) + payload
+
+
+def _dqt(tbl_id: int, q_natural: np.ndarray) -> bytes:
+    zz = q_natural.reshape(64)[tables.ZIGZAG]
+    return bytes([tbl_id]) + bytes(int(v) for v in zz)
+
+
+def _dht(cls: int, tbl_id: int, bits, vals) -> bytes:
+    return bytes([(cls << 4) | tbl_id]) + bytes(bits) + bytes(vals)
+
+
+def _sof0(w: int, h: int, comps) -> bytes:
+    # comps: list of (id, h_samp, v_samp, qtbl)
+    out = bytes([8, h >> 8, h & 0xFF, w >> 8, w & 0xFF, len(comps)])
+    for cid, hs, vs, q in comps:
+        out += bytes([cid, (hs << 4) | vs, q])
+    return out
+
+
+def _sos(comps) -> bytes:
+    # comps: list of (id, dc_tbl, ac_tbl)
+    out = bytes([len(comps)])
+    for cid, dc, ac in comps:
+        out += bytes([cid, (dc << 4) | ac])
+    out += bytes([0, 63, 0])
+    return out
+
+
+def _jfif_app0() -> bytes:
+    return _marker(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+def _interleave_ycbcr(yb, ub, vb, mcus_x: int, mcus_y: int,
+                      hs: int, vs: int):
+    """Build the MCU-interleaved block array for hsxvs/1x1/1x1 sampling
+    (4:2:0, 4:2:2 or 4:4:4).
+
+    yb: (mcus_y*vs, mcus_x*hs, 64) block grid; ub/vb: (mcus_y, mcus_x,
+    64). Returns (blocks, comp_ids) with hs*vs+2 blocks per MCU.
+    """
+    n = mcus_x * mcus_y
+    yl = (yb.reshape(mcus_y, vs, mcus_x, hs, 64)
+          .transpose(0, 2, 1, 3, 4)          # (my, mx, vy, vx, 64)
+          .reshape(n, hs * vs, 64))
+    blocks = np.concatenate(
+        [yl, ub.reshape(n, 1, 64), vb.reshape(n, 1, 64)], axis=1)
+    comp_ids = np.tile(
+        np.array([0] * (hs * vs) + [1, 2], np.uint8), n)
+    return blocks.reshape(-1, 64), comp_ids
+
+
+def gray_jpeg_headers(w: int, h: int, quality: int,
+                      icc: bytes | None = None,
+                      restart_interval: int = 0) -> bytes:
+    """All markers up to (and including) SOS for a grayscale image."""
+    ql = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, quality)
+    out = bytearray()
+    out += b"\xff\xd8"
+    out += _jfif_app0()
+    if icc:
+        out += _marker(0xE2, icc)
+    out += _marker(0xDB, _dqt(0, ql))
+    out += _marker(0xC0, _sof0(w, h, [(1, 1, 1, 0)]))
+    out += _marker(0xC4, _dht(0, 0, tables.DC_LUMA_BITS,
+                              tables.DC_LUMA_VALS))
+    out += _marker(0xC4, _dht(1, 0, tables.AC_LUMA_BITS,
+                              tables.AC_LUMA_VALS))
+    if restart_interval:
+        out += _marker(0xDD, restart_interval.to_bytes(2, "big"))
+    out += _marker(0xDA, _sos([(1, 0, 0)]))
+    return bytes(out)
+
+
+def yuv420_jpeg_headers(w: int, h: int, quality: int,
+                        icc: bytes | None = None,
+                        restart_interval: int = 0) -> bytes:
+    """All markers up to (and including) SOS for 4:2:0 YCbCr."""
+    return ycbcr_jpeg_headers(w, h, quality, (2, 2), icc,
+                              restart_interval)
+
+
+def ycbcr_jpeg_headers(w: int, h: int, quality: int,
+                       sampling: tuple[int, int],
+                       icc: bytes | None = None,
+                       restart_interval: int = 0) -> bytes:
+    """All markers up to (and including) SOS for YCbCr with luma
+    sampling factors `sampling` = (h, v) in {(2,2), (2,1), (1,1)}
+    (4:2:0 / 4:2:2 / 4:4:4); chroma is always 1x1."""
+    hs, vs = sampling
+    ql = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, quality)
+    qc = tables.scale_quant_table(tables.STD_CHROMINANCE_QUANT, quality)
+    out = bytearray()
+    out += b"\xff\xd8"
+    out += _jfif_app0()
+    if icc:
+        out += _marker(0xE2, icc)
+    out += _marker(0xDB, _dqt(0, ql))
+    out += _marker(0xDB, _dqt(1, qc))
+    out += _marker(0xC0, _sof0(w, h, [(1, hs, vs, 0), (2, 1, 1, 1),
+                                      (3, 1, 1, 1)]))
+    out += _marker(0xC4, _dht(0, 0, tables.DC_LUMA_BITS,
+                              tables.DC_LUMA_VALS))
+    out += _marker(0xC4, _dht(1, 0, tables.AC_LUMA_BITS,
+                              tables.AC_LUMA_VALS))
+    out += _marker(0xC4, _dht(0, 1, tables.DC_CHROMA_BITS,
+                              tables.DC_CHROMA_VALS))
+    out += _marker(0xC4, _dht(1, 1, tables.AC_CHROMA_BITS,
+                              tables.AC_CHROMA_VALS))
+    if restart_interval:
+        out += _marker(0xDD, restart_interval.to_bytes(2, "big"))
+    out += _marker(0xDA, _sos([(1, 0, 0), (2, 1, 1), (3, 1, 1)]))
+    return bytes(out)
+
+
+def encode_yuv420_scan(yz: np.ndarray, uz: np.ndarray, vz: np.ndarray,
+                       w: int, h: int, restart_interval: int) -> bytes:
+    """Entropy segment of a 4:2:0 frame with 16-aligned dims: yz is the
+    (h/8 * w/8, 64) luma block grid, uz/vz the chroma grids."""
+    mcus_x, mcus_y = w // 16, h // 16
+    blocks, comp_ids = _interleave_ycbcr(
+        yz.reshape(mcus_y * 2, mcus_x * 2, 64),
+        uz.reshape(mcus_y, mcus_x, 64), vz.reshape(mcus_y, mcus_x, 64),
+        mcus_x, mcus_y, 2, 2)
+    return entropy_encode(
+        blocks, comp_ids, [0, 1, 1], [0, 1, 1],
+        [(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
+         (tables.DC_CHROMA_BITS, tables.DC_CHROMA_VALS)],
+        [(tables.AC_LUMA_BITS, tables.AC_LUMA_VALS),
+         (tables.AC_CHROMA_BITS, tables.AC_CHROMA_VALS)],
+        restart_interval, 6)
+
+
+def encode_gray_scan(gz: np.ndarray, restart_interval: int) -> bytes:
+    """Entropy segment of a grayscale frame from its block grid."""
+    return entropy_encode(
+        gz, np.zeros(gz.shape[0], np.uint8), [0], [0],
+        [(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS)],
+        [(tables.AC_LUMA_BITS, tables.AC_LUMA_VALS)],
+        restart_interval, 1)
+
+
+# ---------------------------------------------------------------------------
+# Decoder: marker parse + native Huffman decode + MCU de-interleave.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Component:
+    cid: int
+    h: int
+    v: int
+    qtbl: int
+    dc_tbl: int = 0
+    ac_tbl: int = 0
+
+
+@dataclass
+class DecodedCoefs:
+    """Entropy-decoded (host) stage output: per-component zigzag
+    coefficient block grids, ready for device dequant/IDCT."""
+
+    width: int
+    height: int
+    ncomp: int
+    # per component: (coefs (bh, bw, 64) int16 zigzag, qtable 8x8,
+    #                 crop_h, crop_w, (h_samp, v_samp))
+    comps: list = field(default_factory=list)
+    icc: bytes | None = None
+    exif: bytes | None = None
+    xmp: bytes | None = None
+
+
+def _parse_dht(payload: bytes, dc_tables: dict, ac_tables: dict):
+    """Parse one DHT payload with full validation — the native table
+    builder trusts bits[]/vals[] shapes, so corrupt definitions
+    (sum(bits) > 256, truncated vals, non-canonical code counts) must
+    be rejected here, not segfault there."""
+    pos = 0
+    while pos < len(payload):
+        tc, th = payload[pos] >> 4, payload[pos] & 15
+        pos += 1
+        if tc > 1 or th > 3 or pos + 16 > len(payload):
+            raise err("UHDR_CODEC_ERROR", "bad DHT header")
+        bits = list(payload[pos:pos + 16])
+        pos += 16
+        nvals = sum(bits)
+        if nvals > 256 or pos + nvals > len(payload):
+            raise err("UHDR_CODEC_ERROR", "bad DHT code counts")
+        code = 0
+        for length in range(1, 17):
+            code += bits[length - 1]
+            if code > (1 << length):
+                raise err("UHDR_CODEC_ERROR",
+                          "non-canonical DHT code counts")
+            code <<= 1
+        vals = list(payload[pos:pos + nvals])
+        pos += nvals
+        (dc_tables if tc == 0 else ac_tables)[th] = (bits, vals)
+
+
+def _read_sof(p: bytes):
+    if len(p) < 6 or len(p) < 6 + p[5] * 3:
+        raise err("UHDR_CODEC_ERROR", "truncated SOF header")
+    h = (p[1] << 8) | p[2]
+    w = (p[3] << 8) | p[4]
+    comps = [_Component(p[6 + i * 3], p[7 + i * 3] >> 4,
+                        p[7 + i * 3] & 15, p[8 + i * 3])
+             for i in range(p[5])]
+    return w, h, comps
+
+
+def decode_jpeg_coefs(data: bytes) -> DecodedCoefs:
+    """Host stage of decode for baseline single-scan Huffman JPEGs:
+    marker parse + native Huffman decode + MCU de-interleave. No device
+    work — the caller runs dequant/IDCT (jpeg/dct.py) on the grids."""
+    segments, sos_end = jfif.scan_segments(data, 0)
+    qtables: dict[int, np.ndarray] = {}
+    dc_tables: dict[int, tuple] = {}
+    ac_tables: dict[int, tuple] = {}
+    comps: list[_Component] = []
+    w = h = 0
+    restart_interval = 0
+    result = DecodedCoefs(0, 0, 0)
+    scan_comps: list[int] = []
+
+    for seg in segments:
+        if seg.marker == 0xDB:  # DQT
+            p = seg.payload
+            pos = 0
+            while pos < len(p):
+                pq, tq = p[pos] >> 4, p[pos] & 15
+                pos += 1
+                if pq == 0:
+                    zz = np.frombuffer(p[pos:pos + 64], np.uint8)
+                    pos += 64
+                else:
+                    zz = np.frombuffer(p[pos:pos + 128], ">u2")
+                    pos += 128
+                nat = np.zeros(64, np.int32)
+                nat[tables.ZIGZAG] = zz
+                qtables[tq] = nat.reshape(8, 8)
+        elif seg.marker == 0xC4:  # DHT
+            _parse_dht(seg.payload, dc_tables, ac_tables)
+        elif seg.marker in (0xC0, 0xC1):  # SOF0/1 baseline(-ish)
+            w, h, comps = _read_sof(seg.payload)
+        elif seg.marker in (0xC2, 0xC9, 0xCA):
+            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                      f"progressive/arithmetic SOF {seg.marker:#x} is "
+                      f"{_QUEUED}")
+        elif seg.marker in set(range(0xC3, 0xD0)) - {0xC4, 0xC8, 0xCC}:
+            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                      f"SOF marker {seg.marker:#x} not supported")
+        elif seg.marker == 0xDD:  # DRI
+            restart_interval = int.from_bytes(seg.payload[:2], "big")
+        elif seg.marker == 0xDA:  # SOS
+            p = seg.payload
+            if len(p) < 1 or len(p) < 1 + p[0] * 2:
+                raise err("UHDR_CODEC_ERROR", "truncated SOS header")
+            scan_comps = []
+            for i in range(p[0]):
+                cid, sel = p[1 + i * 2], p[2 + i * 2]
+                for c in comps:
+                    if c.cid == cid:
+                        c.dc_tbl, c.ac_tbl = sel >> 4, sel & 15
+                        scan_comps.append(comps.index(c))
+        elif seg.marker == 0xE1:
+            if seg.payload.startswith(jfif.EXIF_SIG) and result.exif is None:
+                result.exif = seg.payload
+            elif seg.payload.startswith(jfif.XMP_SIG) and result.xmp is None:
+                result.xmp = seg.payload
+        elif seg.marker == 0xE2:
+            if seg.payload.startswith(jfif.ICC_SIG) and result.icc is None:
+                result.icc = seg.payload
+
+    if not comps or w == 0 or h == 0:
+        raise err("UHDR_CODEC_ERROR", "no frame header found")
+    if w > MAX_DIM or h > MAX_DIM:
+        raise err("UHDR_CODEC_ERROR", f"image too large {w}x{h}")
+    if len(scan_comps) != len(comps):
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                  f"multi-scan baseline JPEG is {_QUEUED}")
+
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+    mcus_x = -(-w // (8 * hmax))
+    mcus_y = -(-h // (8 * vmax))
+
+    if len(comps) == 1:
+        # Non-interleaved single-component scan: MCU = one block.
+        bw = -(-w // 8)
+        bh = -(-h // 8)
+        nblocks = bw * bh
+        comp_ids = np.zeros(nblocks, np.uint8)
+        mcu_blocks = 1
+    else:
+        mcu_blocks = sum(c.h * c.v for c in comps)
+        nblocks = mcus_x * mcus_y * mcu_blocks
+        pattern = []
+        for i, c in enumerate(comps):
+            pattern += [i] * (c.h * c.v)
+        comp_ids = np.tile(np.asarray(pattern, np.uint8), mcus_x * mcus_y)
+
+    dc_sel = [c.dc_tbl for c in comps]
+    ac_sel = [c.ac_tbl for c in comps]
+
+    def table_list(src: dict, sels):
+        out = [None] * 4
+        for s in sels:
+            if s not in src:
+                raise err("UHDR_CODEC_ERROR", f"missing huffman table {s}")
+            out[s] = src[s]
+        return out
+
+    blocks = entropy_decode(
+        data[sos_end:], nblocks, comp_ids, dc_sel, ac_sel,
+        table_list(dc_tables, dc_sel), table_list(ac_tables, ac_sel),
+        restart_interval, mcu_blocks)
+
+    result.width, result.height, result.ncomp = w, h, len(comps)
+    for c in comps:
+        if c.qtbl not in qtables:
+            raise err("UHDR_CODEC_ERROR", "missing quant table")
+
+    if len(comps) == 1:
+        c = comps[0]
+        result.comps = [(blocks.reshape(bh, bw, 64), qtables[c.qtbl],
+                         h, w, (c.h, c.v))]
+        return result
+
+    # De-interleave per component.
+    grid = blocks.reshape(mcus_y, mcus_x, mcu_blocks, 64)
+    off = 0
+    for c in comps:
+        nb = c.h * c.v
+        sub = grid[:, :, off:off + nb, :].reshape(mcus_y, mcus_x, c.v, c.h,
+                                                  64)
+        sub = sub.transpose(0, 2, 1, 3, 4).reshape(mcus_y * c.v,
+                                                   mcus_x * c.h, 64)
+        off += nb
+        cw = -(-w * c.h // hmax)
+        ch = -(-h * c.v // vmax)
+        result.comps.append((sub, qtables[c.qtbl], ch, cw, (c.h, c.v)))
+    return result

@@ -1,0 +1,150 @@
+"""Blockwise 8x8 DCT / IDCT + (de)quantization: kernels B2 and B5.
+
+``fdct_quant`` (B2) replaces libultrahdr_dev_tpu/jpeg/dct.py:fdct_zigzag
+as parallel/sharding.py:_fdct_zigzag calls it (edge padding to
+multiples of 8 included); ``dequant_idct`` (B5) replaces
+dct.py:_idct_kernel / dequant_idct. Each wrapper runs its plain PyTorch
+version for a tensor on the CPU and the hand-written CUDA kernel
+(kernels/csrc/dct.cu) for a CUDA tensor, and counts its kernel launches
+in ``.launches``. The source note in dct.cu says what bounds the kernels
+and how their numerics meet the JAX version's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from .tables import ZIGZAG
+
+
+def _dct_matrix() -> np.ndarray:
+    """Orthonormal 8-point DCT-II matrix: F = D @ x."""
+    d = np.zeros((8, 8), np.float64)
+    for u in range(8):
+        cu = np.sqrt(0.125) if u == 0 else 0.5
+        for x in range(8):
+            d[u, x] = cu * np.cos((2 * x + 1) * u * np.pi / 16.0)
+    return d
+
+
+_D64 = _dct_matrix()
+# Float32 DCT matrix of the inverse transform (the JAX IDCT's `d`).
+D32 = _D64.astype(np.float32)
+# Forward matrix scaled by 2*sqrt(2): rows 0 and 4 become exactly +-1,
+# so the {0,4} x {0,4} coefficients are exact integer sums (times 1/8).
+DS32 = (_D64 * (2.0 * np.sqrt(2.0))).astype(np.float32)
+DS32[0] = 1.0
+DS32[4] = np.sign(_D64[4])
+ZIG = np.asarray(ZIGZAG, np.int64)
+INV_ZIG = np.argsort(ZIG)
+
+# Host copies for the kernels' by-value table argument.
+_DS_C = np.ascontiguousarray(DS32.reshape(64))
+_D_C = np.ascontiguousarray(D32.reshape(64))
+_INV_ZIG_C = np.ascontiguousarray(INV_ZIG.astype(np.int32))
+
+
+def _tables():
+    fp = ctypes.POINTER(ctypes.c_float)
+    return (_DS_C.ctypes.data_as(fp), _D_C.ctypes.data_as(fp),
+            _INV_ZIG_C.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+
+
+def blocks_dims(h: int, w: int) -> tuple[int, int]:
+    """Block-grid dims (bh, bw) of an (h, w) plane padded to 8."""
+    return -(-h // 8), -(-w // 8)
+
+
+# ---------------------------------------------------------------------------
+# B2: forward DCT + quantization + zigzag.
+# ---------------------------------------------------------------------------
+
+def fdct_quant_plain(plane_u8: torch.Tensor,
+                     q_natural: torch.Tensor) -> torch.Tensor:
+    """(n, h, w) uint8 planes -> (n, bh*bw, 64) int16 quantized
+    coefficients in zigzag order. The plane is edge-padded to multiples
+    of 8; q_natural is the (64,) int32 quant table in natural order."""
+    n, h, w = plane_u8.shape
+    bh, bw = blocks_dims(h, w)
+    dev = plane_u8.device
+    rows = torch.clamp(torch.arange(bh * 8, device=dev), max=h - 1)
+    cols = torch.clamp(torch.arange(bw * 8, device=dev), max=w - 1)
+    x = plane_u8.index_select(1, rows).index_select(2, cols)
+    x = x.to(torch.float32) - 128.0
+    xb = x.reshape(n, bh, 8, bw, 8).permute(0, 1, 3, 2, 4)
+    ds = torch.from_numpy(DS32).to(dev)
+    t = torch.matmul(torch.matmul(ds, xb), ds.T) * 0.125
+    c = t.reshape(n, bh * bw, 64)[..., torch.from_numpy(ZIG).to(dev)]
+    q = q_natural.to(device=dev, dtype=torch.float32).reshape(64)
+    q_zig = q[torch.from_numpy(ZIG).to(dev)]
+    return torch.round(c / q_zig).to(torch.int16)
+
+
+def fdct_quant(plane_u8: torch.Tensor,
+               q_natural: torch.Tensor) -> torch.Tensor:
+    """B2 wrapper: the plain version on the CPU, the CUDA kernel on a
+    CUDA tensor. Same signature and result as fdct_quant_plain."""
+    if not plane_u8.is_cuda:
+        return fdct_quant_plain(plane_u8, q_natural)
+    n, h, w = plane_u8.shape
+    build.require(plane_u8, "plane", torch.uint8)
+    build.require(q_natural, "q_natural", torch.int32, (64,))
+    bh, bw = blocks_dims(h, w)
+    out = torch.empty((n, bh * bw, 64), dtype=torch.int16,
+                      device=plane_u8.device)
+    lib = build.get_lib()
+    fdct_quant.launches += 1
+    build.check(lib.uhdr_fdct_quant(
+        plane_u8.data_ptr(), q_natural.data_ptr(), out.data_ptr(), n, h, w,
+        *_tables(), build.stream_of(plane_u8)), "uhdr_fdct_quant")
+    return out
+
+
+fdct_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B5: dequantization + inverse DCT.
+# ---------------------------------------------------------------------------
+
+def dequant_idct_plain(coefs: torch.Tensor, q_natural: torch.Tensor,
+                       bh: int, bw: int) -> torch.Tensor:
+    """(n, bh*bw, 64) int16 zigzag coefficients and (n, 64) int32 quant
+    tables in natural order -> (n, bh*8, bw*8) uint8 planes."""
+    n = coefs.shape[0]
+    dev = coefs.device
+    nat = coefs[..., torch.from_numpy(INV_ZIG).to(dev)].to(torch.float32)
+    q = q_natural.to(device=dev, dtype=torch.float32).reshape(n, 1, 64)
+    f = (nat * q).reshape(n, bh * bw, 8, 8)
+    d = torch.from_numpy(D32).to(dev)
+    # X = D^T F D, contracting the vertical frequency u first.
+    pix = torch.matmul(torch.matmul(d.T, f), d)
+    pix = torch.clamp(torch.round(pix + 128.0), 0, 255).to(torch.uint8)
+    return (pix.reshape(n, bh, bw, 8, 8).permute(0, 1, 3, 2, 4)
+            .reshape(n, bh * 8, bw * 8))
+
+
+def dequant_idct(coefs: torch.Tensor, q_natural: torch.Tensor, bh: int,
+                 bw: int) -> torch.Tensor:
+    """B5 wrapper: the plain version on the CPU, the CUDA kernel on a
+    CUDA tensor. Same signature and result as dequant_idct_plain."""
+    if not coefs.is_cuda:
+        return dequant_idct_plain(coefs, q_natural, bh, bw)
+    n = coefs.shape[0]
+    build.require(coefs, "coefs", torch.int16, (n, bh * bw, 64))
+    build.require(q_natural, "q_natural", torch.int32, (n, 64))
+    out = torch.empty((n, bh * 8, bw * 8), dtype=torch.uint8,
+                      device=coefs.device)
+    lib = build.get_lib()
+    dequant_idct.launches += 1
+    build.check(lib.uhdr_dequant_idct(
+        coefs.data_ptr(), q_natural.data_ptr(), out.data_ptr(), n, bh, bw,
+        *_tables(), build.stream_of(coefs)), "uhdr_dequant_idct")
+    return out
+
+
+dequant_idct.launches = 0

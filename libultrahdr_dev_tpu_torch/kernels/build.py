@@ -1,0 +1,146 @@
+"""Build and bind the port's CUDA kernels.
+
+The sources in ``csrc/*.cu`` export a plain C interface, so nvcc builds
+them in seconds into one shared object, without PyTorch's headers:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o _build/kernels-<hash>.so csrc/*.cu
+
+``-fmad=false`` keeps every multiply and add separately rounded, as the
+plain PyTorch versions and the JAX reference compute them; the kernels
+are bound by memory traffic, so fused multiply-adds would buy nothing.
+
+The build runs on the first kernel launch, never at import, into the
+package's git-ignored ``_build`` directory, keyed by a hash of the
+sources and flags. Each C entry point enqueues on the stream it is
+given, allocates nothing, and returns ``cudaGetLastError()``;
+``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = [ARCH, "-std=c++17", "-O3", "-fmad=false", "-shared",
+         "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signatures: every entry point returns cudaError_t as int and takes
+# the CUDA stream last.
+SIGNATURES = {
+    # y, uv, gmap, y601, u601, v601, n, h, w, cr, cb, gcb, gcr,
+    # lum_r, lum_g, lum_b, hdr_white, tf, convert, min_b, max_b,
+    # log2_min, inv_denom, m01, m02, m11, m12, m21, m22, sat, floor, stream
+    "uhdr_encode_front": [_P] * 6 + [_I] * 3 + [_F] * 8 + [_I] * 2
+                         + [_F] * 10 + [_I] * 2 + [_P],
+    # plane, q, out, n, h, w, ds, d, inv_zig, stream
+    "uhdr_fdct_quant": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # coefs, q, out, n, bh, bw, ds, d, inv_zig, stream
+    "uhdr_dequant_idct": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # y, u, v, g, 4 x (batch stride, row stride), scalars, out, n, h,
+    # w, mh, mw, scale, fmt, stream
+    "uhdr_apply_gainmap": [_P] * 4 + [_L] * 8 + [_P, _P] + [_I] * 7
+                          + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "on a machine with the CUDA toolkit")
+    return path
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _so_path(srcs) -> str:
+    h = hashlib.sha1(" ".join(FLAGS).encode())
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"kernels-{h.hexdigest()[:12]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu into the build directory (if not yet there)
+    and return the shared object's path."""
+    global build_seconds
+    srcs = _sources()
+    so = _so_path(srcs)
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                           f"{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, so)
+    return so
+
+
+def get_lib():
+    """The ctypes handle of the built kernels (builds on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name: str, dtype, shape=None):
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
+    `shape`, when given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
