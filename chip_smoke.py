@@ -3,13 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from kernels/csrc with nvcc, checks
-each against its plain PyTorch version at the shapes of a 4080x3072
-frame, drives the API-0 round trip (batched encode, batched decode,
-JpegR, UhdrEncoder / UhdrDecoder) at 4080x3072, checks what comes out,
-and times the kernels and the stages. It needs one CUDA device and
-fails (exit code != 0, no result line) without one; nothing falls back
-to the CPU. It imports nothing of JAX.
+Builds the port's six CUDA kernels from kernels/csrc with nvcc (one
+nvcc per source, in parallel), checks each against its plain PyTorch
+version at the shapes of a 4080x3072 frame (batch of 2), drives the
+API-0 round trip through the entry points a user calls (batched encode,
+batched decode, the encode -> decode handoff, JpegR, UhdrEncoder /
+UhdrDecoder, and the decode of the reference goldens in tests/goldens),
+checks what comes out, and times the kernels and the stages.
+
+Phases: B1, B2, B5, B6 kernel vs plain; B3 (Huffman encode) kernel vs
+plain and its JPEG/R bytes vs the host-Huffman route; B4 (Huffman
+decode) kernel vs plain vs the host decoder on the port's streams, on
+the restart-less goldens (DC carry) and on garbage; the main path with
+every launch counter zeroed just before and read just after (all six
+kernels launched, no host Huffman call); stage times.
+
+It needs one CUDA device and fails (exit code != 0, no result line)
+without one; nothing falls back to the CPU. It imports nothing of JAX.
 
 Output: progress lines, the card's name and power limit as nvidia-smi
 reports them, a JSON line {"kernels": [...]}, and as the last line
@@ -18,8 +28,10 @@ reports them, a JSON line {"kernels": [...]}, and as the last line
 
 from __future__ import annotations
 
+import gzip
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -29,6 +41,16 @@ import numpy as np
 W, H, FRAMES = 4080, 3072, 2
 SEED = 0
 CONFIGS = (("bt2100", "hlg"), ("bt709", "pq"))
+GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "goldens")
+# (golden encode, its F16 decode by the reference, display boost); the
+# last two are checked against the host decode only.
+GOLDEN_F16 = [(f"enc0_{g}_{t}.jpegr", f"dec0_{g}_{t}_f16.raw.gz",
+               4.926108 if t == "hlg" else 49.261084)
+              for g in ("709", "p3", "2100") for t in ("hlg", "pq")]
+GOLDEN_OTHER = ["enc0_hlg.jpegr", "enc0_pq.jpegr"]
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOPS = 67e12          # outside the tensor cores
 
 
 def log(msg: str):
@@ -142,10 +164,30 @@ def code_diff(a, b, fmt: str):
                         for s in (0, 10, 20)])
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(byte_count: float, flops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the float32 operations over the peak rate."""
+    t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int_diff(a, b):
+    """Max |a - b| and the count of differing elements."""
+    import torch
+
+    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    return int(d.max()) if d.numel() else 0, int((d > 0).sum())
+
+
 def kernel_phases(dev, results: dict):
-    """Each kernel against its plain version at the 4080x3072 shapes,
-    on inputs from a seed; the stages feed each other like the main
-    path does."""
+    """B1, B2, B5, B6 against their plain versions at the 4080x3072
+    shapes, on inputs from a seed; the stages feed each other like the
+    main path does."""
     import torch
 
     from libultrahdr_dev_tpu_torch.jpeg import dct
@@ -175,7 +217,7 @@ def kernel_phases(dev, results: dict):
         err=err_b1,
         ms=cuda_ms(lambda: gm.encode_front(y, uv, gamut, tf), 20) / FRAMES,
         plain_ms=cuda_ms(lambda: gm.encode_front_plain(y, uv, gamut, tf), 3)
-        / FRAMES)
+        / FRAMES, bytes=nbytes(y, uv, *got) / FRAMES, library_ms=None)
     gmap, yb, ub, vb = got
 
     # B2: int16 equal except +-1 on <= 1e-5 of coefficients.
@@ -185,22 +227,27 @@ def kernel_phases(dev, results: dict):
     coefs, worst, n_off, n_all = [], 0, 0, 0
     for p, q in planes:
         c = dct.fdct_quant(p, q)
-        dd = (c.to(torch.int32) - dct.fdct_quant_plain(p, q).to(
-            torch.int32)).abs()
-        worst = max(worst, int(dd.max()))
-        n_off += int((dd > 0).sum())
-        n_all += dd.numel()
+        w_, o_ = int_diff(c, dct.fdct_quant_plain(p, q))
+        worst, n_off, n_all = max(worst, w_), n_off + o_, n_all + c.numel()
         coefs.append(c)
     log(f"B2 fdct_quant: max |diff| {worst} on {n_off} of {n_all} "
         f"coefficients")
     require(worst <= 1 and n_off <= 1e-5 * n_all,
             "B2 coefficients disagree with the plain version")
+    n_blocks = sum(c.shape[1] for c in coefs)   # per frame
+    # Library yardstick, transform only: one (N, 64) x (64, 64) float32
+    # product over the frame's blocks (TF32 off).
+    xs = torch.randn(n_blocks * FRAMES, 64, device=dev)
+    kron = torch.randn(64, 64, device=dev)
+    lib_ms = cuda_ms(lambda: torch.matmul(xs, kron), 20) / FRAMES
     results["B2"] = dict(
         err=worst,
         ms=cuda_ms(lambda: [dct.fdct_quant(p, q) for p, q in planes], 20) /
         FRAMES,
         plain_ms=cuda_ms(lambda: [dct.fdct_quant_plain(p, q)
-                                  for p, q in planes], 3) / FRAMES)
+                                  for p, q in planes], 3) / FRAMES,
+        bytes=nbytes(yb, ub, vb, gmap, *coefs) / FRAMES,
+        flops=2048.0 * n_blocks, library_ms=lib_ms)
 
     # B5: u8 planes <= 1 apart on <= 1e-4 of pixels.
     idct_args = []
@@ -210,11 +257,8 @@ def kernel_phases(dev, results: dict):
     decoded, worst, n_off, n_all = [], 0, 0, 0
     for args in idct_args:
         pix = dct.dequant_idct(*args)
-        dd = (pix.to(torch.int32) - dct.dequant_idct_plain(*args).to(
-            torch.int32)).abs()
-        worst = max(worst, int(dd.max()))
-        n_off += int((dd > 0).sum())
-        n_all += dd.numel()
+        w_, o_ = int_diff(pix, dct.dequant_idct_plain(*args))
+        worst, n_off, n_all = max(worst, w_), n_off + o_, n_all + pix.numel()
         decoded.append(pix)
     log(f"B5 dequant_idct: max |diff| {worst} on {n_off} of {n_all} pixels")
     require(worst <= 1 and n_off <= 1e-4 * n_all,
@@ -224,19 +268,22 @@ def kernel_phases(dev, results: dict):
         ms=cuda_ms(lambda: [dct.dequant_idct(*a) for a in idct_args], 20) /
         FRAMES,
         plain_ms=cuda_ms(lambda: [dct.dequant_idct_plain(*a)
-                                  for a in idct_args], 3) / FRAMES)
+                                  for a in idct_args], 3) / FRAMES,
+        bytes=nbytes(*coefs, *decoded) / FRAMES, flops=2048.0 * n_blocks,
+        library_ms=lib_ms)
 
     # B6: <= 1 ten-bit code / F16 ULP, >= 99.9% bit-exact per channel.
     y8, u8, v8 = decoded[:3]
     g8 = decoded[3][:, :H // 4, :W // 4]
+    in_bytes = FRAMES * (H * W + 2 * (H // 2) * (W // 2) + (H // 4) * (W // 4))
     worst, times = 0, {}
     for fmt, (g_, t_) in (("hdr_linear", CONFIGS[0]),
                           ("hdr_hlg", CONFIGS[0]), ("hdr_pq", CONFIGS[1])):
         sc = torch.from_numpy(np.stack([batched.apply_scalars(
             batched.api0_metadata(t_), math.inf)] * FRAMES)).to(dev)
         args = (y8, u8, v8, g8, sc, fmt)
-        dd = code_diff(gm.apply_gainmap(*args), gm.apply_gainmap_plain(*args),
-                       fmt)
+        out = gm.apply_gainmap(*args)
+        dd = code_diff(out, gm.apply_gainmap_plain(*args), fmt)
         exact = float((dd == 0).double().mean())
         log(f"B6 apply_gainmap {fmt}: max |diff| {int(dd.max())}, "
             f"{int((dd > 0).sum())} of {dd.numel()} channel samples differ "
@@ -246,16 +293,224 @@ def kernel_phases(dev, results: dict):
         worst = max(worst, int(dd.max()))
         times[fmt] = (cuda_ms(lambda: gm.apply_gainmap(*args), 20) / FRAMES,
                       cuda_ms(lambda: gm.apply_gainmap_plain(*args), 3) /
-                      FRAMES)
+                      FRAMES, (in_bytes + nbytes(out)) / FRAMES)
         log(f"B6 {fmt}: kernel {times[fmt][0]:.3f} ms/frame, plain "
-            f"{times[fmt][1]:.3f} ms/frame")
+            f"{times[fmt][1]:.3f} ms/frame, bound "
+            f"{bound(times[fmt][2])[0]:.4f} ms/frame")
     results["B6"] = dict(err=worst, ms=times["hdr_linear"][0],
-                         plain_ms=times["hdr_linear"][1])
+                         plain_ms=times["hdr_linear"][1],
+                         bytes=times["hdr_linear"][2], library_ms=None)
+
+
+def b3_phase(dev, results: dict):
+    """B3 (restart-interval Huffman encode) against its plain version on
+    B2's coefficients of both configurations, and the finalized JPEG/R
+    bytes against the host-Huffman route of the same coefficients."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    r = batched.RST_INTERVAL
+    kept = {}
+    for i, (gamut, tf) in enumerate(CONFIGS):
+        y_np, uv_np = synth_p010(FRAMES, H, W, SEED + 10 + i)
+        coefs = batched.encode_coefs_stage(
+            batched.p010_to_device(y_np, dev),
+            batched.p010_to_device(uv_np, dev), gamut, tf, 95)
+        yz, uz, vz, gz = coefs
+        base = de.encode_ycbcr_rst_stream(yz, uz, vz, W // 16, H // 16, r)
+        gmap = de.encode_gray_rst_stream(gz, r)
+        pbase = de.encode_ycbcr_rst_stream_plain(yz, uz, vz, W // 16,
+                                                 H // 16, r)
+        pgmap = de.encode_gray_rst_stream_plain(gz, r)
+        for name, got, want in (("base", base, pbase), ("gain map", gmap,
+                                                        pgmap)):
+            require(torch.equal(got[0], want[0]) and
+                    torch.equal(got[1], want[1]),
+                    f"B3 {gamut}/{tf} {name}: stream or chunk bits differ "
+                    f"from the plain version")
+        streams = batched.DeviceStreams(W, H, *base, *gmap)
+        blobs = batched.assemble_api0(streams, gamut, tf, 95)[0]
+        host = batched.assemble_api0_host_huffman(coefs, W, H, gamut, tf,
+                                                  95)
+        require(blobs == host, f"B3 {gamut}/{tf}: JPEG/R bytes differ from "
+                f"the host-Huffman route")
+        log(f"B3 {gamut}/{tf}: stream {base[0].numel()} + "
+            f"{gmap[0].numel()} bytes and chunk bits equal the plain "
+            f"version; JPEG/R bytes equal the host-Huffman route "
+            f"({sum(map(len, blobs))} bytes)")
+        kept[gamut, tf] = (coefs, base, gmap, blobs)
+
+    coefs, base, gmap, _ = kept[CONFIGS[0]]
+    yz, uz, vz, gz = coefs
+
+    def kernel():
+        return (de.encode_ycbcr_rst_stream(yz, uz, vz, W // 16, H // 16, r),
+                de.encode_gray_rst_stream(gz, r))
+
+    def plain():
+        return (de.encode_ycbcr_rst_stream_plain(yz, uz, vz, W // 16,
+                                                 H // 16, r),
+                de.encode_gray_rst_stream_plain(gz, r))
+
+    results["B3"] = dict(
+        err=0, ms=cuda_ms(kernel, 5) / FRAMES,
+        plain_ms=cuda_ms(plain, 1) / FRAMES,
+        bytes=nbytes(*coefs, *base, *gmap) / FRAMES, library_ms=None)
+    return kept
+
+
+def _b4_inputs(frames, dev):
+    """Packed B4 inputs of host-parsed frames (base and gain map), on
+    the device."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    out = []
+    for k in (0, 1):
+        ln = dd.pack_streams([f.streams[k] for f in frames])
+        arrays = batched._upload([ln.src, ln.frames, ln.lanes, ln.tables],
+                                 dev)
+        out.append((ln, arrays))
+    return out
+
+
+def _b4(inputs, plain=False):
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+
+    fn = dd.decode_rst_chunks_plain if plain else dd.decode_rst_chunks
+    return [fn(*arrays, ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y)
+            for ln, arrays in inputs]
+
+
+def _host_coefs(blob):
+    from libultrahdr_dev_tpu_torch.container import mux
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+
+    return [[c[0].reshape(-1, 64) for c in codec.decode_jpeg_coefs(p).comps]
+            for p in mux.extract_primary_and_gainmap(blob)]
+
+
+def _check_b4(inputs, blobs, what: str):
+    """Kernel = plain = host decode, for every image of every frame."""
+    import torch
+
+    got, want = _b4(inputs), _b4(inputs, plain=True)
+    for g_img, w_img in zip(got, want):
+        for g, w_ in zip(g_img, w_img):
+            require(torch.equal(g, w_), f"B4 {what}: kernel differs from "
+                    f"the plain version")
+    for f, blob in enumerate(blobs):
+        for k, host in enumerate(_host_coefs(blob)):
+            for plane, h_ in zip(got[k], host):
+                require(np.array_equal(plane[f].cpu().numpy(), h_),
+                        f"B4 {what}: frame {f} image {k} differs from the "
+                        f"host decode")
+    return got
+
+
+def b4_phase(dev, results: dict, kept: dict):
+    """B4 (parallel Huffman decode) against its plain version and the
+    host decoder: on the streams B3 wrote, on the restart-less reference
+    goldens (host-scanned lanes, DC carry), and on garbage windows."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    coefs, _, _, blobs = kept[CONFIGS[0]]
+    frames = batched.decode_host_stage(blobs)
+    require(all(f.streams is not None for f in frames),
+            "the port's own blobs did not take the device route")
+    inputs = _b4_inputs(frames, dev)
+    got = _check_b4(inputs, blobs, "own streams")
+    for plane, c in zip(got[0] + got[1], coefs):
+        require(torch.equal(plane, c), "B4 did not give back B2's "
+                "coefficients")
+    log(f"B4 own streams: kernel = plain = host decode = B2's "
+        f"coefficients ({inputs[0][0].lanes.shape[0]} + "
+        f"{inputs[1][0].lanes.shape[0]} lanes)")
+    src_bytes = sum(nbytes(*a) for _, a in inputs)
+    out_bytes = sum(nbytes(*g) for g in got)
+    results["B4"] = dict(
+        err=0, ms=cuda_ms(lambda: _b4(inputs), 5) / FRAMES,
+        plain_ms=cuda_ms(lambda: _b4(inputs, plain=True), 1) / FRAMES,
+        bytes=(src_bytes + out_bytes) / FRAMES, library_ms=None)
+
+    for name in [g[0] for g in GOLDEN_F16] + GOLDEN_OTHER:
+        blob = open(os.path.join(GOLDENS, name), "rb").read()
+        gframes = batched.decode_host_stage([blob])
+        require(gframes[0].streams is not None and all(
+            s.start_bits is not None for s in gframes[0].streams),
+            f"{name}: not decoded as host-scanned restart-less lanes")
+        _check_b4(_b4_inputs(gframes, dev), [blob], name)
+    log(f"B4 goldens: kernel = plain = host decode on "
+        f"{len(GOLDEN_F16) + len(GOLDEN_OTHER)} restart-less JPEG/Rs "
+        f"(DC carry)")
+
+    rng = np.random.default_rng(SEED + 3)
+    nl, win, mx, my = 256, 384, 64, 8   # 512 MCUs, 2 per lane
+    src = rng.integers(0, 256, nl * win, dtype=np.uint8)
+    rows = np.asarray([dd.frame_row(0, src.size, win, 2, 0, nl, False, 2)],
+                      np.int32)
+    lanes = np.stack([np.arange(nl) * win, rng.integers(0, 8, nl)],
+                     1).astype(np.int32)
+    arrays = batched._upload([src, rows, lanes, dd.decode_tables(
+        dd.ANNEX_K_COLOR)[None]], dev)
+    g = dd.decode_rst_chunks(*arrays, False, (2, 2), mx, my)
+    p = dd.decode_rst_chunks_plain(*arrays, False, (2, 2), mx, my)
+    require(all(torch.equal(a, b) for a, b in zip(g, p)),
+            "B4 garbage windows: kernel differs from the plain version")
+    log(f"B4 garbage: kernel = plain on {nl} random windows "
+        f"({sum(int((a != 0).sum()) for a in g)} nonzero coefficients)")
+
+
+def psnr_f16(ours, ref_gz) -> float:
+    want = np.frombuffer(gzip.open(os.path.join(GOLDENS, ref_gz)).read(),
+                         np.uint16).reshape(720, 1280, 4)
+    a = ours.view(np.float16)[..., :3].astype(np.float64)
+    b = want[..., :3].view(np.float16).astype(np.float64)
+    mse = float(np.mean((a - b) ** 2))
+    return 99.0 if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def reset_counts():
+    """Zero every kernel launch counter and the host Huffman call
+    counters (after the work queued before is done)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+
+    torch.cuda.synchronize()
+    for fn in wrappers().values():
+        fn.launches = 0
+    codec.entropy_encode.calls = codec.entropy_decode.calls = 0
+
+
+def read_counts(label: str, need) -> dict:
+    """Read the counters after a path ran: each kernel in `need` must
+    have launched, and no host Huffman call may have run."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers().items()}
+    host = (codec.entropy_encode.calls, codec.entropy_decode.calls)
+    log(f"{label}: kernel launches {launches}, host Huffman encode/decode "
+        f"calls {host}")
+    require(all(launches[k] > 0 for k in need),
+            f"{label}: a kernel of the path never launched: {launches}")
+    require(host == (0, 0), f"{label}: host Huffman coding ran")
+    return launches
 
 
 def main_path(dev, smi: str):
-    """The API-0 round trip through the entry points a user calls; the
-    launch counters are zeroed just before and read just after."""
+    """The API-0 round trip through the entry points a user calls, the
+    encode -> decode handoff, and the decode of the reference goldens;
+    for each, every launch counter and the host Huffman call counters
+    are zeroed just before and read just after."""
     import torch
 
     from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer, JpegR,
@@ -264,23 +519,21 @@ def main_path(dev, smi: str):
                                            UhdrEncoder)
     from libultrahdr_dev_tpu_torch.api import HDR_IMG
     from libultrahdr_dev_tpu_torch.container import mux
-    from libultrahdr_dev_tpu_torch.jpeg import dct
-    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
     from libultrahdr_dev_tpu_torch.parallel import batched
 
-    wrappers = {"B1": gm.encode_front, "B2": dct.fdct_quant,
-                "B5": dct.dequant_idct, "B6": gm.apply_gainmap}
     inputs = {cfg: synth_p010(FRAMES, H, W, SEED + 1 + i)
               for i, cfg in enumerate(CONFIGS)}
-    torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
+    goldens = {n: open(os.path.join(GOLDENS, n), "rb").read()
+               for n in [g[0] for g in GOLDEN_F16] + GOLDEN_OTHER}
+    boosts = {g[0]: g[2] for g in GOLDEN_F16}
 
+    reset_counts()
     t0 = time.perf_counter()
-    blobs, outs = {}, {}
+    blobs, outs, handoffs = {}, {}, {}
     for (gamut, tf), (y, uv) in inputs.items():
-        blobs[gamut, tf] = batched.batched_encode_api0(
-            y, uv, gamut=gamut, hdr_tf=tf, quality=95, device=dev)
+        blobs[gamut, tf], handoffs[gamut, tf] = batched.batched_encode_api0(
+            y, uv, gamut=gamut, hdr_tf=tf, quality=95, device=dev,
+            return_handoff=True)
         for fmt in ("hdr_linear", f"hdr_{tf}"):
             outs[gamut, tf, fmt] = batched.batched_decode(
                 blobs[gamut, tf], fmt, device=dev).cpu()
@@ -294,14 +547,23 @@ def main_path(dev, smi: str):
     jr_img = jr.decode(jr_blob, OutputFormat.HDR_HLG).image
     api_blob = UhdrEncoder(dev).set_raw_image(raw, HDR_IMG).encode().data
     api_img = UhdrDecoder(dev).set_image(api_blob).decode()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    log(f"main path: {wall:.1f} s wall, kernel launches {launches}")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+    counts = [read_counts(f"round trip ({time.perf_counter() - t0:.1f} s)",
+                          wrappers())]
 
-    # What came out: containers, shapes, finite values, luminance.
+    reset_counts()
+    hand = {fmt: batched.batched_decode_from_handoff(
+        handoffs[gamut, tf], fmt).cpu() for fmt in ("hdr_linear", "hdr_hlg")}
+    counts.append(read_counts("handoff decode", ("B4", "B5", "B6")))
+
+    reset_counts()
+    golden_out = {n: jr.decode(b, OutputFormat.HDR_LINEAR,
+                               max_display_boost=boosts.get(n, math.inf))
+                  .image.planes["rgba"] for n, b in goldens.items()}
+    counts.append(read_counts("golden decodes", ("B4", "B5", "B6")))
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    # What came out: containers, shapes, finite values, luminance,
+    # handoff = blob decode, goldens vs the reference's decodes.
     for key, bl in blobs.items():
         for b in bl + [jr_blob, api_blob]:
             info = jr.get_info(b)
@@ -317,6 +579,15 @@ def main_path(dev, smi: str):
             "JpegR decode differs from the batched decode")
     require(api_img.planes["rgba"].shape == (H, W, 4),
             "UhdrDecoder output has the wrong shape")
+    for fmt, got in hand.items():
+        require(torch.equal(got, outs[gamut, tf, fmt]),
+                f"handoff decode ({fmt}) differs from the blob decode")
+    log("handoff: pixels bitwise equal to the blob decode (F16, HLG "
+        "1010102)")
+    for name, ref, _ in GOLDEN_F16:
+        p = psnr_f16(golden_out[name], ref)
+        log(f"golden {name}: F16 PSNR {p:.2f} dB against {ref}")
+        require(p >= 55.0, f"{name}: F16 PSNR {p:.2f} dB < 55")
     for (gamut, tf), (y, uv) in inputs.items():
         f16 = outs[gamut, tf, "hdr_linear"].numpy().view(np.float16)
         require(f16.shape == (FRAMES, H, W, 4), "F16 output shape")
@@ -335,37 +606,61 @@ def main_path(dev, smi: str):
         require(med <= 0.1, f"{gamut}/{tf} luminance round trip off")
         words = outs[gamut, tf, f"hdr_{tf}"].numpy().view(np.uint32)
         require(bool(((words >> 30) == 3).all()), "1010102 alpha bits")
+    return launches, inputs, blobs, handoffs
 
-    # Stage times, warm, per frame (batch of FRAMES, first config).
+
+def stage_times(dev, smi: str, inputs, blobs, handoffs):
+    """Warm per-frame times of the stages (batch of FRAMES, first
+    configuration), each ending synchronized."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
     gamut, tf = CONFIGS[0]
     y, uv = inputs[CONFIGS[0]]
     yd, uvd = (batched.p010_to_device(a, dev) for a in (y, uv))
+    fmt = f"hdr_{tf}"
 
     def enc_dev():
-        c = batched.encode_device_stage(yd, uvd, gamut, tf, 95)
+        s = batched.encode_device_stage(yd, uvd, gamut, tf, 95)
         torch.cuda.synchronize()
-        return c
+        return s
 
-    coefs = enc_dev()
-    frames = [batched.decode_host_stage(b) for b in blobs[gamut, tf]]
+    streams = enc_dev()
+    frames = batched.decode_host_stage(blobs[gamut, tf])
 
     def dec_dev():
-        batched.decode_device_stage(frames, f"hdr_{tf}", math.inf, dev)
+        batched.decode_device_stage(frames, fmt, math.inf, dev)
+        torch.cuda.synchronize()
+
+    def hand():
+        batched.batched_decode_from_handoff(handoffs[gamut, tf], fmt)
         torch.cuda.synchronize()
 
     stages = {
-        "encode_device": host_ms(enc_dev, 5) / FRAMES,
-        "encode_host": host_ms(lambda: batched.assemble_api0(
-            coefs, W, H, gamut, tf, 95), 2) / FRAMES,
-        "decode_host": host_ms(lambda: [batched.decode_host_stage(b)
-                                        for b in blobs[gamut, tf]], 2)
-        / FRAMES,
-        "decode_device": host_ms(dec_dev, 5) / FRAMES,
+        "encode_device (B1+B2+B3)": host_ms(enc_dev, 5),
+        "encode_host (D2H+finalize+mux)": host_ms(
+            lambda: batched.assemble_api0(streams, gamut, tf, 95), 3),
+        "decode_host (parse+destuff)": host_ms(
+            lambda: batched.decode_host_stage(blobs[gamut, tf]), 3),
+        "decode_device (H2D+B4+B5+B6)": host_ms(dec_dev, 5),
+        "handoff_decode (B4+B5+B6)": host_ms(hand, 5),
     }
     for k, v in stages.items():
-        log(f"stage {k}: {v:.2f} ms/frame ({W}x{H}, batch {FRAMES}, "
-            f"{gamut}/{tf}, {smi})")
-    return launches
+        log(f"stage {k}: {v / FRAMES:.3f} ms/frame ({W}x{H}, batch "
+            f"{FRAMES}, {gamut}/{tf} -> {fmt}, {smi})")
+
+
+def wrappers():
+    from libultrahdr_dev_tpu_torch.jpeg import dct
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+
+    return {"B1": gm.encode_front, "B2": dct.fdct_quant,
+            "B3": de.encode_ycbcr_rst_stream,
+            "B3g": de.encode_gray_rst_stream, "B4": dd.decode_rst_chunks,
+            "B5": dct.dequant_idct, "B6": gm.apply_gainmap}
 
 
 KERNELS = {
@@ -373,6 +668,10 @@ KERNELS = {
            "encode_front.cu", "libultrahdr_dev_tpu/parallel/sharding.py:570"),
     "B2": ("fdct_quant", "libultrahdr_dev_tpu_torch/kernels/csrc/dct.cu",
            "libultrahdr_dev_tpu/jpeg/dct.py:76"),
+    "B3": ("huff_encode_rst", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+           "huff_encode.cu", "libultrahdr_dev_tpu/jpeg/device_entropy.py:498"),
+    "B4": ("huff_decode_rst", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+           "huff_decode.cu", "libultrahdr_dev_tpu/jpeg/device_decode.py:403"),
     "B5": ("dequant_idct", "libultrahdr_dev_tpu_torch/kernels/csrc/dct.cu",
            "libultrahdr_dev_tpu/jpeg/dct.py:122"),
     "B6": ("apply_gainmap", "libultrahdr_dev_tpu_torch/kernels/csrc/"
@@ -406,17 +705,35 @@ def main() -> int:
         f" s)")
 
     results: dict = {}
-    kernel_phases(dev, results)
-    for k, r in results.items():
-        log(f"{k} {KERNELS[k][0]}: kernel {r['ms']:.3f} ms/frame, plain "
-            f"{r['plain_ms']:.3f} ms/frame ({W}x{H}, {smi})")
-    launches = main_path(dev, smi)
+    phases = [("kernels B1 B2 B5 B6", lambda: kernel_phases(dev, results))]
+    kept = {}
+    phases.append(("B3", lambda: kept.update(b3_phase(dev, results))))
+    phases.append(("B4", lambda: b4_phase(dev, results, kept)))
+    for label, fn in phases:
+        t = time.perf_counter()
+        fn()
+        log(f"phase {label}: {time.perf_counter() - t:.1f} s")
+    for k in KERNELS:
+        r = results[k]
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r.get("flops", 0.0))
+        log(f"{k} {KERNELS[k][0]}: kernel {r['ms']:.4f} ms/frame, plain "
+            f"{r['plain_ms']:.3f} ms/frame, bound {r['bound_ms']:.4f} "
+            f"ms/frame ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), "
+            f"library {r['library_ms']} ms/frame ({W}x{H}, {smi})")
+    t = time.perf_counter()
+    launches, inputs, blobs, handoffs = main_path(dev, smi)
+    log(f"phase main path: {time.perf_counter() - t:.1f} s")
+    launches["B3"] += launches.pop("B3g")
+    stage_times(dev, smi, inputs, blobs, handoffs)
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": launches[k],
          "max_abs_err": results[k]["err"], "ms": results[k]["ms"],
-         "plain_ms": results[k]["plain_ms"]} for k in KERNELS]}))
+         "plain_ms": results[k]["plain_ms"],
+         "bound_ms": results[k]["bound_ms"],
+         "bound_by": results[k]["bound_by"],
+         "library_ms": results[k]["library_ms"]} for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -5,13 +5,15 @@ lib/src/ultrahdr_api.cpp) for the API-0 route: an encoder fed one P010
 HDR raw image, a decoder returning HDR pixels. Contexts are configured
 through setters, and one encode/decode "sails" the context (further
 configuration raises, repeated calls return the first outcome). Each
-context runs its kernels on the torch device it was built with.
+context runs its kernels on the torch device it was built with, the
+CUDA device unless the caller names another.
 """
 
 from __future__ import annotations
 
 from .container import mux
 from .jpegr import JpegR
+from .parallel.batched import resolve_device
 from .types import (ColorGamut, ColorTransfer, CompressedImage,
                     DEFAULT_BASE_QUALITY, GainMapMetadata, OutputFormat,
                     PixelFormat, RawImage, err)
@@ -29,7 +31,7 @@ class _Sailed:
     """Shared sailed-state machinery (ultrahdr_api.cpp:253-260)."""
 
     def __init__(self, device):
-        self.device = device
+        self.device = resolve_device(device)
         self._sailed = False
         self._outcome: Exception | None = None
 
@@ -41,7 +43,7 @@ class _Sailed:
 
 
 class UhdrEncoder(_Sailed):
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         super().__init__(device)
         self.reset()
 
@@ -128,7 +130,7 @@ class UhdrEncoder(_Sailed):
 
 
 class UhdrDecoder(_Sailed):
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         super().__init__(device)
         self.reset()
 

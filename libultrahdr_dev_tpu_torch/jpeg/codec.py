@@ -50,7 +50,9 @@ def entropy_encode(blocks_zz: np.ndarray, comp_ids: np.ndarray,
                    dc_sel, ac_sel, dc_tables, ac_tables,
                    restart_interval: int, mcu_blocks: int) -> bytes:
     """Huffman-code MCU-ordered zigzag blocks into a stuffed entropy
-    segment (RSTn markers included when restart_interval > 0)."""
+    segment (RSTn markers included when restart_interval > 0). Counts
+    its calls in ``.calls``: the device route runs no host Huffman."""
+    entropy_encode.calls += 1
     lib = get_lib()
     blocks_zz = np.ascontiguousarray(blocks_zz, np.int16)
     comp_ids = np.ascontiguousarray(comp_ids, np.uint8)
@@ -70,10 +72,15 @@ def entropy_encode(blocks_zz: np.ndarray, comp_ids: np.ndarray,
     return out[:n].tobytes()
 
 
+entropy_encode.calls = 0
+
+
 def entropy_decode(data: bytes, nblocks: int, comp_ids: np.ndarray,
                    dc_sel, ac_sel, dc_tables, ac_tables,
                    restart_interval: int, mcu_blocks: int) -> np.ndarray:
-    """Inverse of entropy_encode: int16 (nblocks, 64) zigzag blocks."""
+    """Inverse of entropy_encode: int16 (nblocks, 64) zigzag blocks.
+    Counts its calls in ``.calls``."""
+    entropy_decode.calls += 1
     lib = get_lib()
     buf = np.frombuffer(data, np.uint8)
     comp_ids = np.ascontiguousarray(comp_ids, np.uint8)
@@ -90,6 +97,9 @@ def entropy_decode(data: bytes, nblocks: int, comp_ids: np.ndarray,
     if rc != 0:
         raise err("UHDR_CODEC_ERROR", f"entropy decode failed at block {-rc}")
     return out
+
+
+entropy_decode.calls = 0
 
 
 # ---------------------------------------------------------------------------

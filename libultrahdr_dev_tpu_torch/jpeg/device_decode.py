@@ -1,0 +1,643 @@
+"""Parallel restart-interval Huffman decode on the device: kernel B4.
+
+The port of libultrahdr_dev_tpu/jpeg/device_decode.py. Streams this
+codec writes carry a restart marker every few MCUs, so each interval
+(a "lane") decodes on its own; a restart-less baseline stream is cut
+into lanes by a lengths-only host scan (``scan_foreign_stream``) that
+records each lane's start bit, and the lanes' DC sums are carried
+across them after the decode (``dc_carry``).
+
+Host side: ``parse_device_stream`` reads the markers, destuffs the
+entropy segment and finds the lane starts; ``pack_streams`` lays one or
+more parsed streams out as the kernel's inputs (one byte buffer plus
+small int32 descriptor arrays), so a batch goes to the device in one
+copy. Device side: ``decode_rst_chunks`` (B4) decodes every lane of
+the batch in one launch and writes the coefficients straight into the
+per-plane zigzag grids that B5 reads; the MCU de-interleave (the JAX
+deinterleave_yuv420_device) is index arithmetic inside it.
+
+Huffman tables are data: each frame's decode tables are built from its
+own DHT definitions (``decode_tables``), so frames that differ in
+Huffman or quant tables share one launch. A table is the JAX select
+chain's sorted (boundary, symbol << 5 | length) entries; the kernel
+finds the last entry whose boundary is <= the next 16 stream bits by
+binary search, which equals the chain for any DHT, canonical or not.
+The JAX path's TPU workarounds (select-chain reads, the nibble window
+table, units per step, log emission) have no counterpart here.
+
+The wrapper runs its plain PyTorch version for CPU tensors and the CUDA
+kernel (kernels/csrc/huff_decode.cu) for CUDA tensors, and counts its
+launches in ``.launches``. The kernel's handoff mode is the same launch
+over the encoder's own chunk buffer (B3 writes JPEG byte order, so its
+word-aligned chunks are read in place; parallel/batched.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..container import jfif
+from ..kernels import build
+from ..types import UhdrError
+from . import tables
+from .device_entropy import _build_code_table
+from .native import get_lib
+
+# ---------------------------------------------------------------------------
+# Decode tables.
+# ---------------------------------------------------------------------------
+
+TABLE_WORDS = 1 + 2 * 256   # [entry count, boundaries[256], packed[256]]
+
+
+def _chain_consts(bits, vals):
+    """Per-symbol (boundary, packed) arrays, ascending by boundary:
+    boundary = the symbol's code left-aligned to 16 bits, packed =
+    (symbol << 5) | code length. The next 16 stream bits decode to the
+    LAST entry whose boundary is <= them (canonical codes partition the
+    code space in ascending order)."""
+    code, size = _build_code_table(bits, vals)
+    entries = sorted((int(code[s]) << (16 - int(size[s])),
+                      (s << 5) | int(size[s]))
+                     for s in range(256) if size[s])
+    return (np.asarray([e[0] for e in entries], np.int64),
+            np.asarray([e[1] for e in entries], np.int64))
+
+
+def decode_tables(specs) -> np.ndarray:
+    """(4, TABLE_WORDS) int32 decode tables of [DC luma, AC luma,
+    DC chroma, AC chroma] from (bits, vals) definitions; a gray stream
+    passes None for the chroma pair, which then repeats the luma one."""
+    dc_l, ac_l, dc_c, ac_c = specs
+    out = np.zeros((4, TABLE_WORDS), np.int32)
+    for i, spec in enumerate((dc_l, ac_l, dc_c or dc_l, ac_c or ac_l)):
+        bnd, pck = _chain_consts(*spec)
+        out[i, 0] = len(bnd)
+        out[i, 1:1 + len(bnd)] = bnd
+        out[i, 257:257 + len(pck)] = pck
+    return out
+
+
+def min_code_bits(specs) -> int:
+    """Shortest codeword length across the tables (2 for Annex K;
+    optimized tables may carry 1-bit codes)."""
+    m = 16
+    for spec in specs:
+        if spec is None:
+            continue
+        nz = [i for i, c in enumerate(spec[0], 1) if c]
+        if nz:
+            m = min(m, nz[0])
+    return max(m, 1)
+
+
+ANNEX_K_COLOR = ((tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
+                 (tables.AC_LUMA_BITS, tables.AC_LUMA_VALS),
+                 (tables.DC_CHROMA_BITS, tables.DC_CHROMA_VALS),
+                 (tables.AC_CHROMA_BITS, tables.AC_CHROMA_VALS))
+ANNEX_K_GRAY = ANNEX_K_COLOR[:2] + (None, None)
+
+
+# ---------------------------------------------------------------------------
+# Host prep: destuff and find lane starts.
+# ---------------------------------------------------------------------------
+
+_LEN_BUCKETS = (48, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536,
+                2048, 3072, 4096, 6144, 8192)
+
+
+def bucket_len(n: int) -> int:
+    """Window length of a lane holding n bytes: the JAX package buckets
+    it for compile reuse, and the window bounds what a lane may read,
+    so the port keeps the same buckets."""
+    for b in _LEN_BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // 8192) * 8192
+
+
+def split_rst_stream(entropy: bytes, n_chunks: int):
+    """Destuff an entropy-coded segment with RSTn markers and find its
+    intervals: (destuffed bytes, (n_chunks,) int32 start offsets,
+    window length). Raises ValueError when the marker count is not
+    n_chunks - 1."""
+    arr = np.frombuffer(entropy, np.uint8)
+    if arr.size == 0:
+        raise ValueError("empty entropy segment")
+    # 0xFF bytes are rare (~1%): classify only those.
+    ff = np.flatnonzero(arr == 0xFF)
+    ff = ff[ff + 1 < arr.size]
+    nxt = arr[ff + 1]
+    rst_ff = ff[(nxt >= 0xD0) & (nxt <= 0xD7)]
+    stuff = ff[nxt == 0x00] + 1
+    if rst_ff.size + 1 != n_chunks:
+        raise ValueError(f"expected {n_chunks} restart intervals, found "
+                         f"{rst_ff.size + 1}")
+    keep = np.ones(arr.size, bool)
+    keep[rst_ff] = False
+    keep[rst_ff + 1] = False
+    keep[stuff] = False
+    data = arr[keep]
+    # Interval k spans raw [rst_ff[k-1] + 2, rst_ff[k]) minus the
+    # stuffed zeros inside that range.
+    raw_starts = np.concatenate([[0], rst_ff + 2])
+    raw_ends = np.concatenate([rst_ff, [arr.size]])
+    lens = ((raw_ends - raw_starts)
+            - (np.searchsorted(stuff, raw_ends)
+               - np.searchsorted(stuff, raw_starts)))
+    if np.any(lens < 0):
+        raise ValueError("marker structure corrupt")
+    win = bucket_len(int(lens.max()))
+    starts = np.concatenate([[0], np.cumsum(lens)])[:-1]
+    if data.size + win >= 2**31:
+        raise ValueError("entropy segment too large")
+    return data, starts.astype(np.int32), win
+
+
+def scan_foreign_stream(entropy: bytes, n_mcus: int, gray: bool, specs,
+                        r_mcus: int, sampling=(2, 2)):
+    """Lanes for a RESTART-LESS baseline stream: the native
+    lengths-only scan (entropy.cpp uhdr_huff_scan_offsets) walks every
+    codeword once and records the bit offset of each r_mcus-aligned MCU
+    boundary. Returns (destuffed bytes, (nl,) int32 start bytes, (nl,)
+    int32 start bits, window length), or None when the scan fails
+    (corrupt stream, restart markers)."""
+    lib = get_lib()
+
+    def u8p(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+    dcb = np.zeros((4, 17), np.uint8)
+    dcv = np.zeros((4, 256), np.uint8)
+    acb = np.zeros((4, 17), np.uint8)
+    acv = np.zeros((4, 256), np.uint8)
+    dcb[0], dcv[0] = tables.pack_huff_table(*specs[0])
+    acb[0], acv[0] = tables.pack_huff_table(*specs[1])
+    if gray:
+        pattern = np.zeros(1, np.uint8)
+        sel = np.zeros(1, np.uint8)
+    else:
+        dcb[1], dcv[1] = tables.pack_huff_table(*specs[2])
+        acb[1], acv[1] = tables.pack_huff_table(*specs[3])
+        pattern = np.array([0] * (sampling[0] * sampling[1]) + [1, 2],
+                           np.uint8)
+        sel = np.array([0, 1, 1], np.uint8)
+    data = np.frombuffer(entropy, np.uint8)
+    dest = np.empty(data.size + 1024, np.uint8)
+    n_segs = -(-n_mcus // r_mcus)
+    offs = np.zeros(n_segs + 1, np.int64)
+    rc = lib.uhdr_huff_scan_offsets(
+        u8p(data), data.size, n_mcus, u8p(pattern), len(pattern),
+        u8p(sel), u8p(sel), u8p(dcb.reshape(-1)), u8p(dcv.reshape(-1)),
+        u8p(acb.reshape(-1)), u8p(acv.reshape(-1)), r_mcus, u8p(dest),
+        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)))
+    if rc <= 0:
+        return None
+    dlen = int(rc)
+    offs = offs[:n_segs]
+    ends = np.append(offs[1:], dlen * 8)
+    starts_byte = offs // 8
+    lens = (ends + 7) // 8 - starts_byte
+    # +8: the lane may read a few bytes of lookahead past its last bit.
+    win = bucket_len(int(lens.max()) + 8)
+    if dlen + win >= 2**31:
+        return None
+    return (dest[:dlen].copy(), starts_byte.astype(np.int32),
+            (offs % 8).astype(np.int32), win)
+
+
+@dataclass
+class DeviceStream:
+    """Host-parsed description of a device-decodable baseline JPEG: the
+    destuffed entropy bytes (`dest`), each lane's start byte and bit,
+    the lane window length, and what the markers said. start_bits is
+    None for real restart-interval streams; for restart-less ones it
+    holds each synthesized lane's first bit, and the decode carries DC
+    across lanes."""
+
+    width: int
+    height: int
+    gray: bool
+    restart_interval: int
+    dest: np.ndarray
+    starts_byte: np.ndarray
+    win_len: int
+    qtables: list
+    specs: tuple
+    mcus_x: int
+    mcus_y: int
+    start_bits: np.ndarray | None = None
+    sampling: tuple = (2, 2)
+    icc: bytes | None = None
+    exif: bytes | None = None
+    xmp: bytes | None = None
+
+    @property
+    def n_lanes(self) -> int:
+        return int(self.starts_byte.shape[0])
+
+
+def _parse_dqt(p: bytes, qtables: dict):
+    pos = 0
+    while pos < len(p):
+        pq, tq = p[pos] >> 4, p[pos] & 15
+        pos += 1
+        if pq == 0:
+            zz = np.frombuffer(p[pos:pos + 64], np.uint8)
+            pos += 64
+        else:
+            zz = np.frombuffer(p[pos:pos + 128], ">u2")
+            pos += 128
+        nat = np.zeros(64, np.int32)
+        nat[tables.ZIGZAG] = zz
+        qtables[tq] = nat.reshape(8, 8)
+
+
+def parse_device_stream(data: bytes) -> DeviceStream | None:
+    """Parse a JPEG and return a DeviceStream when its headers and
+    entropy segment suit the device decoder (baseline, one scan, 4:2:0,
+    4:2:2 or 4:4:4 YCbCr with U and V sharing tables, or grayscale);
+    None otherwise, and the caller decodes on the host."""
+    try:
+        segments, sos_end = jfif.scan_segments(data, 0)
+    except UhdrError:
+        return None
+    qtables, htables, scan_sel = {}, {}, {}
+    comps = []
+    w = h = restart = nscans = 0
+    icc = exif = xmp_b = None
+    progressive = False
+    for seg in segments:
+        p = seg.payload
+        if seg.marker == 0xDB:
+            _parse_dqt(p, qtables)
+        elif seg.marker in (0xC0, 0xC1):
+            if len(p) < 6 or len(p) < 6 + p[5] * 3:
+                return None
+            h = (p[1] << 8) | p[2]
+            w = (p[3] << 8) | p[4]
+            comps = [(p[6 + i * 3], p[7 + i * 3] >> 4, p[7 + i * 3] & 15,
+                      p[8 + i * 3]) for i in range(p[5])]
+        elif seg.marker == 0xC2:
+            progressive = True
+        elif seg.marker == 0xC4:
+            pos = 0
+            while pos + 17 <= len(p):
+                tc, th = p[pos] >> 4, p[pos] & 15
+                bits = list(p[pos + 1:pos + 17])
+                pos += 17
+                nvals = sum(bits)
+                if nvals > 256 or pos + nvals > len(p):
+                    return None
+                htables[(tc, th)] = (bits, list(p[pos:pos + nvals]))
+                pos += nvals
+        elif seg.marker == 0xDD:
+            restart = int.from_bytes(p[:2], "big")
+        elif seg.marker == 0xDA:
+            nscans += 1
+            if len(p) >= 1 + p[0] * 2:
+                for i in range(p[0]):
+                    scan_sel[p[1 + i * 2]] = (p[2 + i * 2] >> 4,
+                                              p[2 + i * 2] & 15)
+        elif seg.marker == 0xE1:
+            if p.startswith(jfif.EXIF_SIG) and exif is None:
+                exif = p
+            elif p.startswith(jfif.XMP_SIG) and xmp_b is None:
+                xmp_b = p
+        elif seg.marker == 0xE2:
+            if p.startswith(jfif.ICC_SIG) and icc is None:
+                icc = p
+    if progressive or nscans != 1 or not comps or w == 0 or h == 0:
+        return None
+    if len(comps) == 1:
+        gray, (hs, vs) = True, (1, 1)
+        if comps[0][1:3] != (1, 1):
+            return None
+        mcus_x, mcus_y = -(-w // 8), -(-h // 8)
+    elif len(comps) == 3:
+        gray = False
+        samp = [c[1:3] for c in comps]
+        if samp[1:] != [(1, 1), (1, 1)]:
+            return None
+        hs, vs = samp[0]
+        if (hs, vs) not in ((2, 2), (2, 1), (1, 1)):
+            return None
+        mcus_x, mcus_y = -(-w // (8 * hs)), -(-h // (8 * vs))
+    else:
+        return None
+    if any(c[3] not in qtables for c in comps):
+        return None
+    try:
+        sel = [scan_sel[c[0]] for c in comps]
+    except KeyError:
+        return None
+    if gray:
+        specs = (htables.get((0, sel[0][0])), htables.get((1, sel[0][1])),
+                 None, None)
+    else:
+        if sel[1] != sel[2]:
+            return None
+        specs = (htables.get((0, sel[0][0])), htables.get((1, sel[0][1])),
+                 htables.get((0, sel[1][0])), htables.get((1, sel[1][1])))
+    if specs[0] is None or specs[1] is None or (
+            not gray and (specs[2] is None or specs[3] is None)):
+        return None
+    # A zero-codeword table decodes nothing; the host decoder raises
+    # its proper error for it.
+    if any(s is not None and sum(s[0]) == 0 for s in specs):
+        return None
+
+    eoi = data.find(b"\xff\xd9", sos_end)
+    entropy = data[sos_end:eoi if eoi >= 0 else len(data)]
+    n_mcus = mcus_x * mcus_y
+    start_bits = None
+    if restart > 0:
+        try:
+            dest, starts_byte, win_len = split_rst_stream(
+                entropy, -(-n_mcus // restart))
+        except ValueError:
+            return None
+    else:
+        # Restart-less: one lane per `restart` MCUs, sized for about the
+        # lane count of this codec's own restart intervals.
+        restart = max(1, -(-n_mcus // 12288))
+        scanned = scan_foreign_stream(entropy, n_mcus, gray, specs,
+                                      restart, sampling=(hs, vs))
+        if scanned is None:
+            return None
+        dest, starts_byte, start_bits, win_len = scanned
+    return DeviceStream(
+        width=w, height=h, gray=gray, restart_interval=restart, dest=dest,
+        starts_byte=starts_byte, win_len=win_len,
+        qtables=[qtables[c[3]] for c in comps], specs=specs,
+        mcus_x=mcus_x, mcus_y=mcus_y, start_bits=start_bits,
+        sampling=(hs, vs), icc=icc, exif=exif, xmp=xmp_b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel inputs.
+# ---------------------------------------------------------------------------
+
+# Per-frame descriptor fields (int32).
+F_OFF, F_LEN, F_WIN, F_R, F_LANE0, F_NLANES, F_CARRY, F_MAXU = range(8)
+FRAME_FIELDS = 8
+
+
+@dataclass
+class Lanes:
+    """Host arrays of one B4 launch over a batch of same-geometry
+    streams: `src` the streams' bytes back to back; `frames` (n,
+    FRAME_FIELDS) int32 per-frame descriptors (byte offset and length
+    of the stream in src, lane window length, MCUs per lane, first lane
+    and lane count, DC carry flag, unit cap); `lanes` (nl, 2) int32
+    (start byte within the stream, start bit); `tables` (n, 4,
+    TABLE_WORDS) int32 per-frame decode tables."""
+
+    src: np.ndarray
+    frames: np.ndarray
+    lanes: np.ndarray
+    tables: np.ndarray
+    gray: bool
+    sampling: tuple
+    mcus_x: int
+    mcus_y: int
+
+
+def frame_row(off: int, length: int, win: int, r: int, lane0: int,
+              nl: int, carry: bool, mcb: int) -> list[int]:
+    """One frame's descriptor. A lane decodes at most win*8 // mcb + 1
+    units: each unit costs at least mcb bits, so with a true mcb the
+    lane has passed its window's end by then (the JAX loop's step cap,
+    which never binds on a correct min_code_bits)."""
+    if off + length + win >= 2**31:
+        raise ValueError("stream exceeds the int32 index range")
+    return [off, length, win, r, lane0, nl, int(carry),
+            win * 8 // mcb + 1]
+
+
+def pack_streams(streams: list[DeviceStream]) -> Lanes:
+    """Lay parsed streams of one geometry out for one B4 launch."""
+    s0 = streams[0]
+    geom = (s0.gray, s0.sampling, s0.mcus_x, s0.mcus_y)
+    rows, lanes, tabs, srcs = [], [], [], []
+    off = lane0 = 0
+    for s in streams:
+        if (s.gray, s.sampling, s.mcus_x, s.mcus_y) != geom:
+            raise ValueError("a B4 launch needs streams of one geometry")
+        carry = s.start_bits is not None
+        rows.append(frame_row(off, s.dest.size, s.win_len,
+                              s.restart_interval, lane0, s.n_lanes, carry,
+                              min_code_bits(s.specs)))
+        lanes.append(np.stack([
+            s.starts_byte, s.start_bits if carry
+            else np.zeros(s.n_lanes, np.int32)], axis=1))
+        tabs.append(decode_tables(s.specs))
+        srcs.append(s.dest)
+        off += s.dest.size
+        lane0 += s.n_lanes
+    return Lanes(np.concatenate(srcs), np.asarray(rows, np.int32),
+                 np.concatenate(lanes).astype(np.int32), np.stack(tabs),
+                 *geom)
+
+
+def plane_shapes(gray: bool, sampling, mcus_x: int, mcus_y: int):
+    """Block-grid dims (bh, bw) of each output plane."""
+    if gray:
+        return [(mcus_y, mcus_x)]
+    hs, vs = sampling
+    return [(mcus_y * vs, mcus_x * hs), (mcus_y, mcus_x), (mcus_y, mcus_x)]
+
+
+# ---------------------------------------------------------------------------
+# Plain version.
+# ---------------------------------------------------------------------------
+
+def _wrap32(x):
+    return ((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+
+
+def _wrap16(x):
+    return ((x & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+def _lut(tabs: torch.Tensor) -> torch.Tensor:
+    """(T, 65536) int64: the packed entry each 16-bit peek decodes to
+    in each table (the last entry whose boundary <= peek, else the
+    first)."""
+    peeks = torch.arange(65536, dtype=torch.int64, device=tabs.device)
+    out = []
+    for t in tabs.reshape(-1, TABLE_WORDS).to(torch.int64):
+        n = int(t[0])
+        i = torch.searchsorted(t[1:1 + n].contiguous(), peeks, right=True)
+        out.append(t[257:257 + n][torch.clamp(i - 1, min=0)])
+    return torch.stack(out)
+
+
+def decode_rst_chunks_plain(src, frames, lanes, tabs, gray: bool,
+                            sampling, mcus_x: int, mcus_y: int):
+    """Decode every lane of a packed batch (see Lanes) -> the per-plane
+    int16 zigzag grids, each (n, bh*bw, 64): (y, u, v), or (g,) for
+    gray. Per lane, one unit (a codeword and its extra bits) at a time,
+    as the JAX decode_rst_chunks: a unit is decoded and emitted, then
+    the lane is done once its block count reaches its target or its bit
+    position passes its window. Coefficients never emitted are 0."""
+    dev = src.device
+    n = frames.shape[0]
+    nl = lanes.shape[0]
+    hs, vs = (1, 1) if gray else sampling
+    ypm = hs * vs
+    bpm = 1 if gray else ypm + 2
+    n_mcus = mcus_x * mcus_y
+    fr = frames.to(torch.int64)
+    lane_f = torch.repeat_interleave(torch.arange(n, device=dev),
+                                     fr[:, F_NLANES])
+    f = fr[lane_f]
+    idx = torch.arange(nl, device=dev) - f[:, F_LANE0]
+    r = f[:, F_R]
+    cb = bpm * r
+    target = torch.where(idx < f[:, F_NLANES] - 1, cb,
+                         bpm * (n_mcus - r * (f[:, F_NLANES] - 1)))
+    win = f[:, F_WIN]
+    max_bits = win * 8
+    start = lanes[:, 0].to(torch.int64)
+    base = f[:, F_OFF] + start
+    avail = torch.minimum(win, f[:, F_LEN] - start)
+    srcp = torch.cat([src.to(torch.int64),
+                      torch.zeros(1, dtype=torch.int64, device=dev)])
+    lut = _lut(tabs)
+    tset = lane_f * 4
+
+    bit = lanes[:, 1].to(torch.int64)
+    blk = torch.zeros(nl, dtype=torch.int64, device=dev)
+    k = torch.zeros_like(blk)
+    units = torch.zeros_like(blk)
+    dcp = torch.zeros((nl, 3), dtype=torch.int64, device=dev)
+    done = torch.zeros(nl, dtype=torch.bool, device=dev)
+    cbmax = int(cb.max())
+    out = torch.zeros((nl, cbmax * 64), dtype=torch.int64, device=dev)
+    rows = torch.arange(nl, device=dev)
+    while not bool(done.all()):
+        live = ~done
+        byte = bit >> 3
+        w40 = torch.zeros_like(bit)
+        for i in range(5):
+            j = byte + i
+            ok = (j < avail) & live
+            w40 = (w40 << 8) | torch.where(
+                ok, srcp[torch.where(ok, base + j, -1)], 0)
+        wv = (w40 >> (8 - (bit & 7))) & 0xFFFFFFFF
+        slot = blk % bpm
+        luma = torch.ones_like(done) if gray else slot < ypm
+        is_dc = k == 0
+        t = tset + torch.where(is_dc, 0, 1) + torch.where(luma, 0, 2)
+        pk = lut[t, wv >> 16]
+        sym, clen = pk >> 5, pk & 31
+        nextra = torch.where(is_dc, sym, sym & 15)
+        extra = torch.where(
+            nextra > 0, ((wv << clen) & 0xFFFFFFFF)
+            >> ((32 - nextra) & 31), 0)
+        half = torch.where(nextra > 0, _wrap32(
+            1 << torch.clamp(nextra - 1, 0, 31)), 1)
+        full = _wrap32((1 << torch.clamp(nextra, 0, 31)) - 1)
+        e = _wrap32(extra)
+        val = torch.where(nextra > 0,
+                          torch.where(e < half, _wrap32(e - full), e), 0)
+        comp = (torch.zeros_like(blk) if gray
+                else torch.where(slot < ypm, 0, slot - (ypm - 1)))
+        new_dc = _wrap32(dcp[rows, comp] + val)
+        is_eob, is_zrl = sym == 0, sym == 0xF0
+        kk = torch.clamp(k + (sym >> 4), max=63)
+        emit = live & (is_dc | ~(is_eob | is_zrl))
+        dest = blk * 64 + torch.where(is_dc, 0, kk)
+        value = _wrap16(torch.where(is_dc, new_dc, val))
+        out[rows[emit], dest[emit]] = value[emit]
+        ends = is_eob | (kk >= 63)
+        blk_n = torch.where(is_dc, blk, torch.where(ends, blk + 1, blk))
+        k_n = torch.where(is_dc, 1, torch.where(
+            ends, 0, torch.where(is_zrl, k + 16, kk + 1)))
+        upd = live & is_dc
+        dcp[rows[upd], comp[upd]] = new_dc[upd]
+        bit = torch.where(live, bit + clen + nextra, bit)
+        blk = torch.where(live, blk_n, blk)
+        k = torch.where(live, k_n, k)
+        units = units + live.to(torch.int64)
+        done = done | (blk >= target) | (bit > max_bits) | (
+            units >= f[:, F_MAXU])
+
+    out = out.reshape(nl, cbmax, 64)
+    # DC carry for restart-less streams: each lane's DC sums (its
+    # final predictors) summed over the frame's earlier lanes.
+    carry_lane = f[:, F_CARRY] > 0
+    if bool(carry_lane.any()):
+        csum = torch.cumsum(dcp, 0) - dcp
+        first = csum[f[:, F_LANE0]]
+        carry = _wrap32(csum - first)
+        pattern = (torch.zeros(cbmax, dtype=torch.int64, device=dev) if gray
+                   else torch.tensor([0] * ypm + [1, 2], device=dev).repeat(
+                       -(-cbmax // bpm))[:cbmax])
+        add = torch.gather(carry, 1, pattern[None, :].expand(nl, cbmax))
+        out[..., 0] = torch.where(carry_lane[:, None],
+                                  _wrap16(out[..., 0] + _wrap16(add)),
+                                  out[..., 0])
+
+    # De-interleave: lane block b -> MCU idx*r + b // bpm, slot b % bpm.
+    b = torch.arange(cbmax, device=dev)[None, :]
+    m = idx[:, None] * r[:, None] + b // bpm
+    ok = (b < cb[:, None]) & (m < n_mcus)
+    slot = (b % bpm).expand(nl, cbmax)
+    fr_b = lane_f[:, None].expand(nl, cbmax)
+    grids = []
+    for p, (bh, bw) in enumerate(plane_shapes(gray, sampling, mcus_x,
+                                              mcus_y)):
+        g = torch.zeros((n, bh * bw, 64), dtype=torch.int16, device=dev)
+        if p == 0 and not gray:
+            sel = ok & (slot < ypm)
+            my, mx = m // mcus_x, m % mcus_x
+            pos = ((my * vs + slot // hs) * bw + mx * hs + slot % hs)
+        else:
+            sel = ok & (slot == (0 if gray else ypm + p - 1))
+            pos = m
+        g[fr_b[sel], pos[sel]] = out[sel].to(torch.int16)
+        grids.append(g)
+    return tuple(grids)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper.
+# ---------------------------------------------------------------------------
+
+def decode_rst_chunks(src, frames, lanes, tabs, gray: bool, sampling,
+                      mcus_x: int, mcus_y: int):
+    """B4 wrapper: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors. Same signature and result as
+    decode_rst_chunks_plain: src uint8, frames (n, FRAME_FIELDS), lanes
+    (nl, 2) and tabs (n, 4, TABLE_WORDS) int32, all on one device."""
+    if not src.is_cuda:
+        return decode_rst_chunks_plain(src, frames, lanes, tabs, gray,
+                                       sampling, mcus_x, mcus_y)
+    n, nl = frames.shape[0], lanes.shape[0]
+    build.require(src, "src", torch.uint8)
+    build.require(frames, "frames", torch.int32, (n, FRAME_FIELDS))
+    build.require(lanes, "lanes", torch.int32, (nl, 2))
+    build.require(tabs, "tabs", torch.int32, (n, 4, TABLE_WORDS))
+    hs, vs = (1, 1) if gray else sampling
+    dev = src.device
+    grids = [torch.empty((n, bh * bw, 64), dtype=torch.int16, device=dev)
+             for bh, bw in plane_shapes(gray, sampling, mcus_x, mcus_y)]
+    y, u, v = grids if not gray else grids * 3
+    dcsum = torch.empty((nl, 3), dtype=torch.int32, device=dev)
+    lib = build.get_lib()
+    decode_rst_chunks.launches += 1
+    build.check(lib.uhdr_huff_decode(
+        src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
+        tabs.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
+        dcsum.data_ptr(), n, nl, int(gray), hs, vs, mcus_x, mcus_y,
+        build.stream_of(src)), "uhdr_huff_decode")
+    return tuple(grids)
+
+
+decode_rst_chunks.launches = 0

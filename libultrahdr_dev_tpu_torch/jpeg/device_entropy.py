@@ -1,0 +1,343 @@
+"""Restart-interval Huffman encode on the device: kernel B3.
+
+The port of the production (RST) path of
+libultrahdr_dev_tpu/jpeg/device_entropy.py: ``encode_ycbcr_rst_stream``
+(4:2:0 on this path) and ``encode_gray_rst_stream`` with
+``cap_per_block=None``, plus the host tail ``finalize_rst_stream``.
+
+What B3 computes, per frame of a batch: the entropy-coded scan cut
+into restart intervals of ``r_mcus`` MCUs (4:2:0: [Y0 Y1 Y2 Y3 U V]
+per MCU, the four luma blocks in 2x2 raster order; gray: one block per
+MCU), DC prediction reset at each interval (T.81 E.2.4), each interval
+packed MSB-first and 1-filled to the next 32-bit boundary, its bit
+count recorded, and the intervals laid back to back by word offset.
+Words are stored in JPEG byte order (big-endian), so the stream is a
+plain byte buffer: the host copy needs no byte swap and the decoder
+(B4, handoff mode) reads the chunks in place. The frames of a batch
+follow one another in one buffer.
+
+The MCU interleave (the JAX interleave_blocks_device) is index
+arithmetic inside the kernel: B3 reads the per-plane zigzag grids that
+B2 writes. The JAX path's TPU workarounds (select chains, log-doubling
+scans, the sort compaction and its word-cap / overflow retry ladder)
+have no counterpart: the kernel is exact for any int16 content on its
+one launch. Each wrapper runs its plain PyTorch version for CPU
+tensors and the CUDA kernel (kernels/csrc/huff_encode.cu) for CUDA
+tensors, and counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from . import tables
+
+
+def _build_code_table(bits, vals):
+    """(code[256] u32, size[256] u8) canonical tables (T.81 Annex C)."""
+    code = np.zeros(256, np.uint32)
+    size = np.zeros(256, np.uint8)
+    c = 0
+    k = 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            sym = vals[k]
+            code[sym] = c
+            size[sym] = length
+            c += 1
+            k += 1
+        c <<= 1
+    return code, size
+
+
+def _packed(bits, vals) -> np.ndarray:
+    code, size = _build_code_table(bits, vals)
+    return ((code.astype(np.int64) << 5) | size).astype(np.int32)
+
+
+# [DC luma, AC luma, DC chroma, AC chroma], each entry (code << 5) | size;
+# a symbol the table lacks has size 0 and emits only its extra bits, as
+# the JAX lookup does.
+CODE_TABLES = np.stack([
+    _packed(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
+    _packed(tables.AC_LUMA_BITS, tables.AC_LUMA_VALS),
+    _packed(tables.DC_CHROMA_BITS, tables.DC_CHROMA_VALS),
+    _packed(tables.AC_CHROMA_BITS, tables.AC_CHROMA_VALS)])
+
+
+def n_chunks(n_mcus: int, r_mcus: int) -> int:
+    return -(-n_mcus // r_mcus)
+
+
+# ---------------------------------------------------------------------------
+# Plain version.
+# ---------------------------------------------------------------------------
+
+def _bitlen(v: torch.Tensor) -> torch.Tensor:
+    """JPEG size category of |v|, saturated at 15 (the JAX _bitlen)."""
+    a = v.abs().to(torch.int64)
+    n = torch.zeros_like(a)
+    for b in range(16):
+        n = torch.where(a >= (1 << b), b + 1, n)
+    return torch.clamp(n, max=15)
+
+
+def _magnitude_bits(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """T.81 F.1.2.1 extra bits of v in size category s."""
+    e = torch.where(v >= 0, v, v + (1 << s) - 1)
+    return e & ((1 << s) - 1)
+
+
+def _units(blocks: torch.Tensor, dc_prev: torch.Tensor,
+           luma: torch.Tensor, code_tables: torch.Tensor):
+    """Per-block emission units, the JAX _units_for_blocks: (N, 64)
+    int64 zigzag blocks, (N,) predicted DCs and (N,) luma flags ->
+    (vals, lens), each (N, 65) int64: slot 0 the DC code+extra, slots
+    1..63 an AC code+extra (or a ZRL at a zero position whose run
+    since the last nonzero is a multiple of 16 and a nonzero follows),
+    slot 64 the EOB when position 63 is zero."""
+    n = blocks.shape[0]
+    dev = blocks.device
+    dc_tab = torch.where(luma[:, None], code_tables[0], code_tables[2])
+    ac_tab = torch.where(luma[:, None], code_tables[1], code_tables[3])
+
+    diff = blocks[:, 0] - dc_prev
+    s = _bitlen(diff)
+    e = torch.gather(dc_tab, 1, s[:, None])[:, 0]
+    dc_val = ((e >> 5) << s) | _magnitude_bits(diff, s)
+    dc_len = (e & 31) + s
+
+    ac = blocks[:, 1:]
+    nz = ac != 0
+    k = torch.arange(1, 64, device=dev)[None, :]
+    pos = torch.where(nz, k, 0)
+    prev_incl = torch.cummax(pos, dim=1).values
+    prevnz = torch.cat([torch.zeros((n, 1), dtype=pos.dtype, device=dev),
+                        prev_incl[:, :-1]], dim=1)
+    rel = k - prevnz
+    later = torch.flip(torch.cummax(torch.flip(nz.to(torch.int64), [1]),
+                                    dim=1).values, [1])
+    has_later = torch.cat([later[:, 1:], torch.zeros(
+        (n, 1), dtype=later.dtype, device=dev)], dim=1) > 0
+    is_zrl = (~nz) & (rel % 16 == 0) & has_later
+    sa = _bitlen(ac)
+    sym = torch.where(nz, (((rel - 1) % 16) << 4) | sa,
+                      torch.where(is_zrl, 0xF0, 0))
+    a = torch.gather(ac_tab, 1, sym)
+    sa_u = torch.where(nz, sa, 0)
+    live = nz | is_zrl
+    ac_val = torch.where(live, ((a >> 5) << sa_u)
+                         | torch.where(nz, _magnitude_bits(ac, sa), 0), 0)
+    ac_len = torch.where(live, (a & 31) + sa_u, 0)
+
+    eob = ac_tab[:, 0]
+    need_eob = pos.max(dim=1).values < 63
+    vals = torch.cat([dc_val[:, None], ac_val,
+                      torch.where(need_eob, eob >> 5, 0)[:, None]], dim=1)
+    lens = torch.cat([dc_len[:, None], ac_len,
+                      torch.where(need_eob, eob & 31, 0)[:, None]], dim=1)
+    return vals, lens
+
+
+def _assemble(vals, lens, lane, n_lanes: int):
+    """Pack units (blocks in stream order, lane = their interval) into
+    one word-aligned chunk per lane, chunks back to back: (JPEG-order
+    bytes, (n_lanes,) int32 chunk bits)."""
+    dev = vals.device
+    blen = lens.sum(dim=1)
+    bits = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
+    bits.index_add_(0, lane, blen)
+    words = (bits + 31) >> 5
+    word_off = torch.cumsum(words, 0) - words
+    total = int(words.sum())
+    # Start bit of each block inside its lane: exclusive running sum of
+    # the block lengths, restarted at each lane.
+    run = torch.cumsum(blen, 0) - blen
+    lane_first = torch.cumsum(bits, 0) - bits
+    start = word_off[lane] * 32 + run - lane_first[lane]
+    unit_start = start[:, None] + torch.cumsum(lens, 1) - lens
+    live = lens > 0
+    p, v, ln = unit_start[live], vals[live], lens[live]
+    v = v & ((1 << ln) - 1)
+    # A unit ends `end` bits into its first word; past 32 it spills its
+    # low end - 32 bits into the next word.
+    end = (p & 31) + ln
+    hi = torch.where(end <= 32, v << torch.clamp(32 - end, min=0),
+                     v >> torch.clamp(end - 32, min=0))
+    lo = torch.where(end > 32, (v << torch.clamp(64 - end, max=32))
+                     & 0xFFFFFFFF, 0)
+    out = torch.zeros(total + 1, dtype=torch.int64, device=dev)
+    out.index_add_(0, p >> 5, hi)         # the bits are disjoint, so the
+    out.index_add_(0, (p >> 5) + 1, lo)   # sums are ORs
+    rem = bits & 31
+    fill = torch.where(rem > 0, (1 << (32 - rem)) - 1, 0)
+    out.index_add_(0, word_off + (bits >> 5), fill)
+    out = out[:total]
+    be = torch.stack([(out >> s) & 0xFF for s in (24, 16, 8, 0)], dim=1)
+    return be.to(torch.uint8).reshape(-1), bits.to(torch.int32)
+
+
+def _code_tables(dev) -> torch.Tensor:
+    return torch.from_numpy(CODE_TABLES).to(dev)
+
+
+def encode_ycbcr_rst_stream_plain(yz, uz, vz, mcus_x: int, mcus_y: int,
+                                  r_mcus: int):
+    """(n, 4*n_mcus, 64) luma and (n, n_mcus, 64) chroma int16 zigzag
+    grids of 4:2:0 frames (2*mcus_y x 2*mcus_x and mcus_y x mcus_x
+    blocks) -> (stream bytes uint8, (n, nc) int32 chunk bits); frame
+    f's chunks follow frame f-1's."""
+    n = yz.shape[0]
+    dev = yz.device
+    nm = mcus_x * mcus_y
+    yb = (yz.reshape(n, mcus_y, 2, mcus_x, 2, 64).permute(0, 1, 3, 2, 4, 5)
+          .reshape(n, nm, 4, 64))
+    blocks = torch.cat([yb, uz.reshape(n, nm, 1, 64),
+                        vz.reshape(n, nm, 1, 64)], dim=2).to(torch.int64)
+    dc = blocks[..., 0]                                   # (n, nm, 6)
+    prev = torch.zeros_like(dc)
+    prev[:, :, 1:4] = dc[:, :, 0:3]
+    prev[:, 1:, 0] = dc[:, :-1, 3]
+    prev[:, 1:, 4:] = dc[:, :-1, 4:]
+    first = (torch.arange(nm, device=dev) % r_mcus) == 0
+    prev[:, first, 0] = 0
+    prev[:, first, 4:] = 0
+    nc = n_chunks(nm, r_mcus)
+    lane = ((torch.arange(n, device=dev)[:, None] * nc
+             + torch.arange(nm, device=dev)[None, :] // r_mcus)[..., None]
+            .expand(n, nm, 6).reshape(-1))
+    luma = (torch.arange(6, device=dev) < 4).expand(n, nm, 6).reshape(-1)
+    vals, lens = _units(blocks.reshape(-1, 64), prev.reshape(-1), luma,
+                        _code_tables(dev).to(torch.int64))
+    stream, bits = _assemble(vals, lens, lane, n * nc)
+    return stream, bits.reshape(n, nc)
+
+
+def encode_gray_rst_stream_plain(gz, r_mcus: int):
+    """(n, nblocks, 64) int16 zigzag grid in raster order, one block per
+    MCU -> (stream bytes uint8, (n, nc) int32 chunk bits)."""
+    n, nb = gz.shape[:2]
+    dev = gz.device
+    blocks = gz.to(torch.int64)
+    prev = torch.zeros((n, nb), dtype=torch.int64, device=dev)
+    prev[:, 1:] = blocks[:, :-1, 0]
+    prev[:, (torch.arange(nb, device=dev) % r_mcus) == 0] = 0
+    nc = n_chunks(nb, r_mcus)
+    lane = (torch.arange(n, device=dev)[:, None] * nc
+            + torch.arange(nb, device=dev)[None, :] // r_mcus).reshape(-1)
+    luma = torch.ones(n * nb, dtype=torch.bool, device=dev)
+    vals, lens = _units(blocks.reshape(-1, 64), prev.reshape(-1), luma,
+                        _code_tables(dev).to(torch.int64))
+    stream, bits = _assemble(vals, lens, lane, n * nc)
+    return stream, bits.reshape(n, nc)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+def _launch(planes, n: int, nc: int, r_mcus: int, color: bool, mcus_x: int,
+            n_mcus: int):
+    """Count pass + scan, one sync for the total, then the write pass."""
+    y, u, v = planes
+    dev = y.device
+    tabs = _code_tables(dev)
+    bits = torch.empty((n, nc), dtype=torch.int32, device=dev)
+    words = torch.empty(n * nc, dtype=torch.int32, device=dev)
+    offs = torch.empty(n * nc + 1, dtype=torch.int64, device=dev)
+    lib = build.get_lib()
+    stream = build.stream_of(y)
+    geom = (n, nc, r_mcus, int(color), mcus_x, n_mcus, y.shape[1],
+            u.shape[1])
+    build.check(lib.uhdr_huff_encode_count(
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
+        bits.data_ptr(), words.data_ptr(), offs.data_ptr(), *geom, stream),
+        "uhdr_huff_encode_count")
+    total = int(offs[-1])  # the one sync: size the output exactly
+    out = torch.empty(max(total, 1) * 4, dtype=torch.uint8, device=dev)
+    build.check(lib.uhdr_huff_encode_write(
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
+        offs.data_ptr(), out.data_ptr(), *geom, stream),
+        "uhdr_huff_encode_write")
+    return out[:total * 4], bits
+
+
+def encode_ycbcr_rst_stream(yz, uz, vz, mcus_x: int, mcus_y: int,
+                            r_mcus: int):
+    """B3 wrapper for 4:2:0 frames: the plain version on the CPU, the
+    CUDA kernel on CUDA tensors. Same signature and result as
+    encode_ycbcr_rst_stream_plain."""
+    if not yz.is_cuda:
+        return encode_ycbcr_rst_stream_plain(yz, uz, vz, mcus_x, mcus_y,
+                                             r_mcus)
+    n, nm = yz.shape[0], mcus_x * mcus_y
+    build.require(yz, "yz", torch.int16, (n, 4 * nm, 64))
+    build.require(uz, "uz", torch.int16, (n, nm, 64))
+    build.require(vz, "vz", torch.int16, (n, nm, 64))
+    encode_ycbcr_rst_stream.launches += 1
+    return _launch((yz, uz, vz), n, n_chunks(nm, r_mcus), r_mcus, True,
+                   mcus_x, nm)
+
+
+encode_ycbcr_rst_stream.launches = 0
+
+
+def encode_gray_rst_stream(gz, r_mcus: int):
+    """B3 wrapper for single-component frames: the plain version on
+    the CPU, the CUDA kernel on CUDA tensors. Same signature and result
+    as encode_gray_rst_stream_plain."""
+    if not gz.is_cuda:
+        return encode_gray_rst_stream_plain(gz, r_mcus)
+    n, nb = gz.shape[:2]
+    build.require(gz, "gz", torch.int16, (n, nb, 64))
+    encode_gray_rst_stream.launches += 1
+    return _launch((gz, gz, gz), n, n_chunks(nb, r_mcus), r_mcus, False,
+                   nb, nb)
+
+
+encode_gray_rst_stream.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Host tail.
+# ---------------------------------------------------------------------------
+
+def finalize_rst_stream(stream: np.ndarray, chunk_bits: np.ndarray) -> bytes:
+    """Host tail of one frame's B3 output: strip each chunk's
+    word-alignment fill, byte-stuff the data, join the chunks with
+    RST0..7 markers. stream: the frame's compact chunk bytes (JPEG
+    order, a multiple of 4 long); chunk_bits: its (nc,) bit counts.
+    Vectorized (a per-chunk Python loop costs ~100 ms per 4K frame)."""
+    chunk_bits = np.asarray(chunk_bits, np.int64)
+    nc = len(chunk_bits)
+    cwords = (chunk_bits + 31) >> 5
+    dbytes = (chunk_bits + 7) >> 3
+    word_bases = np.concatenate([[0], np.cumsum(cwords)])[:-1]
+    raw = np.asarray(stream, np.uint8)[:int(cwords.sum()) * 4]
+
+    # Keep only data bytes (drop per-chunk word-alignment fill).
+    chunk_of = np.zeros(len(raw), np.int64)
+    np.add.at(chunk_of, word_bases[1:] * 4, 1)
+    chunk_of = np.cumsum(chunk_of)
+    rel = np.arange(len(raw), dtype=np.int64) - word_bases[chunk_of] * 4
+    keep = rel < dbytes[chunk_of]
+    data = raw[keep]
+
+    # Byte-stuff: 0x00 after every data 0xFF; chunk boundaries move by
+    # the stuffed bytes of the chunks before them.
+    ff_pos = np.flatnonzero(data == 0xFF)
+    nff_per_chunk = (np.bincount(chunk_of[keep][ff_pos], minlength=nc)
+                     if ff_pos.size else np.zeros(nc, np.int64))
+    if ff_pos.size:
+        data = np.insert(data, ff_pos + 1, 0)
+    if nc == 1:
+        return data.tobytes()
+
+    bounds = np.cumsum(dbytes + nff_per_chunk)[:-1]
+    markers = np.empty((nc - 1, 2), np.uint8)
+    markers[:, 0] = 0xFF
+    markers[:, 1] = 0xD0 + (np.arange(nc - 1) % 8)
+    return np.insert(data, np.repeat(bounds, 2),
+                     markers.reshape(-1)).tobytes()

@@ -1,10 +1,9 @@
 """ctypes loader for the host Huffman entropy codec.
 
-The port compiles the JAX package's standalone C++ codec
-(``libultrahdr_dev_tpu/jpeg/native/entropy.cpp``, which includes only
-<cstdint>/<cstring>) from its path in the source tree. It reads that
-file and never imports the JAX package. The shared object lands in the
-port's git-ignored build directory on first use.
+The port carries its own copy of the codec, ``jpeg/entropy.cpp`` (it
+includes only <cstdint>/<cstring>), and compiles it with g++ at first
+use into the package's git-ignored build directory. Nothing outside
+the port's package is read.
 
 There is no pure-Python fallback: if g++ cannot build the codec, the
 first call raises.
@@ -18,10 +17,9 @@ import os
 import subprocess
 import threading
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "libultrahdr_dev_tpu", "jpeg",
-                   "native", "entropy.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_HERE, "entropy.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -49,8 +47,9 @@ def _build() -> str:
 
 
 def get_lib():
-    """The ctypes library with uhdr_huff_encode / uhdr_huff_decode
-    bound. Builds on first call; raises if the build fails."""
+    """The ctypes library with uhdr_huff_encode, uhdr_huff_decode and
+    uhdr_huff_scan_offsets bound. Builds on first call; raises if the
+    build fails."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -68,5 +67,10 @@ def get_lib():
             u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
             u8p, u8p, u8p, u8p, u8p, u8p, ctypes.c_int, ctypes.c_int,
             i16p]
+        lib.uhdr_huff_scan_offsets.restype = ctypes.c_long
+        lib.uhdr_huff_scan_offsets.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
+            u8p, u8p, u8p, u8p, u8p, u8p, ctypes.c_int, u8p,
+            ctypes.POINTER(ctypes.c_long)]
         _lib = lib
         return _lib

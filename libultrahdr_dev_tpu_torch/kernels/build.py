@@ -1,10 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
 The sources in ``csrc/*.cu`` export a plain C interface, so nvcc builds
-them in seconds into one shared object, without PyTorch's headers:
+them in seconds into one shared object, without PyTorch's headers: one
+nvcc per source, all started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o _build/kernels-<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o      (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/kernels-<hash>.so *.o
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions and the JAX reference compute them; the kernels
@@ -32,8 +35,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = [ARCH, "-std=c++17", "-O3", "-fmad=false", "-shared",
-         "-Xcompiler", "-fPIC"]
+FLAGS = [ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +58,15 @@ SIGNATURES = {
     # w, mh, mw, scale, fmt, stream
     "uhdr_apply_gainmap": [_P] * 4 + [_L] * 8 + [_P, _P] + [_I] * 7
                           + [_P],
+    # y, u, v, tables, bits, words, offs, n, nc, r, color, mcus_x,
+    # n_mcus, ny, nuv, stream
+    "uhdr_huff_encode_count": [_P] * 7 + [_I] * 8 + [_P],
+    # y, u, v, tables, offs, out, n, nc, r, color, mcus_x, n_mcus, ny,
+    # nuv, stream
+    "uhdr_huff_encode_write": [_P] * 6 + [_I] * 8 + [_P],
+    # src, frames, lanes, tables, y, u, v, dcsum, n, n_lanes, gray, hs,
+    # vs, mcus_x, mcus_y, stream
+    "uhdr_huff_decode": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -83,6 +94,19 @@ def _so_path(srcs) -> str:
     return os.path.join(BUILD_DIR, f"kernels-{h.hexdigest()[:12]}.so")
 
 
+def _run(cmds) -> str:
+    """Run the commands in parallel; raise on a failure, else return
+    their standard error (where ptxas -v reports)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    logs = [p.communicate()[1] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(c)}):\n{log}")
+    return "".join(logs)
+
+
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into the build directory (if not yet there)
     and return the shared object's path."""
@@ -92,17 +116,21 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *srcs]
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in srcs]
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run([[nvcc, *FLAGS, *ptxas, "-c", s, "-o", o]
+                for s, o in zip(srcs, objs)])
+    tmp = f"{so}.{tag}"
+    _run([[nvcc, ARCH, "-shared", "-o", tmp, *objs]])
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{proc.stderr}")
+    for o in objs:
+        os.remove(o)
     if verbose:
-        print(proc.stderr, end="")
+        print(log, end="")
     os.replace(tmp, so)
     return so
 

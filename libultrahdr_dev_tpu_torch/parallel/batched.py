@@ -6,17 +6,27 @@ dimension of same-size frames on one device (no mesh). Each direction
 has a device stage and a host stage, public so that callers (and
 chip_smoke.py) can time them apart:
 
-- encode: ``encode_device_stage`` runs B1 (ops/gainmap.py:encode_front)
-  and B2 (jpeg/dct.py:fdct_quant) over the batch; ``assemble_api0`` then
-  entropy-codes each frame on the host with restart intervals
-  (jpeg/codec.py, native Huffman) and muxes the JPEG/R. The blobs have
-  the layout and metadata of sharding._assemble_rst_outputs.
-- decode: ``decode_host_stage`` splits each blob and Huffman-decodes both
-  images on the host; ``decode_device_stage`` runs B5
-  (jpeg/dct.py:dequant_idct) and B6 (ops/gainmap.py:apply_gainmap) over
-  the batch.
+- encode: ``encode_device_stage`` runs B1 (ops/gainmap.py:encode_front),
+  B2 (jpeg/dct.py:fdct_quant) and B3 (jpeg/device_entropy.py, restart-
+  interval Huffman encode) over the batch; ``assemble_api0`` copies the
+  streams to the host in one transfer, inserts byte stuffing and RSTn
+  markers, and writes headers, ICC and the JPEG/R mux.
+- decode: ``decode_host_stage`` splits each blob, parses its markers
+  and destuffs its entropy segments; ``decode_device_stage`` uploads the
+  batch in one transfer and runs B4 (jpeg/device_decode.py, parallel
+  Huffman decode), B5 (jpeg/dct.py:dequant_idct) and B6
+  (ops/gainmap.py:apply_gainmap). The route is chosen per batch from the
+  headers alone: streams that the device decoder does not take (no
+  baseline 4:2:0 base or gray gain map, several scans, ...) are
+  Huffman-decoded on the host instead (``decode_host_huffman``), which
+  raises the reference's errors for what it cannot decode either.
+- handoff: ``batched_encode_api0(..., return_handoff=True)`` also returns
+  the encoder's device-resident streams (``DeviceEncodedBatch``), which
+  ``batched_decode_from_handoff`` decodes with no re-parse and no
+  stream upload.
 
-On a CPU device every kernel runs its plain PyTorch version.
+Entry points run on the CUDA device unless the caller passes another
+device; on a CPU device every kernel runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -29,13 +39,41 @@ import torch
 
 from ..container import icc as icc_mod
 from ..container import mux, xmp
-from ..jpeg import codec, tables
+from ..jpeg import codec, device_decode as dd, device_entropy as de, tables
 from ..jpeg.dct import dequant_idct, fdct_quant
 from ..ops import color
 from ..ops.gainmap import apply_gainmap, encode_front
 from ..types import GainMapMetadata, MAP_COMPRESS_QUALITY, err
 
 RST_INTERVAL = 4  # MCUs per restart marker, as the JAX batched encoder
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. A CUDA device (the default)
+    must exist: without one the call raises, and nothing runs on the
+    CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
+                           "device='cpu' to run its plain versions on the "
+                           "CPU")
+    return dev
+
+
+def _upload(arrays, device) -> list[torch.Tensor]:
+    """Copy numpy arrays to `device` in ONE host-to-device transfer:
+    their bytes back to back (16-byte aligned) in one buffer, returned
+    as typed views of the device copy."""
+    offs, size = [], 0
+    for a in arrays:
+        offs.append(size)
+        size += -(-a.nbytes // 16) * 16
+    buf = np.zeros(max(size, 16), np.uint8)
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+    dbuf = torch.from_numpy(buf).to(device)
+    return [dbuf[o:o + a.nbytes].view(getattr(torch, a.dtype.name))
+            .reshape(a.shape) for a, o in zip(arrays, offs)]
 
 
 # ---------------------------------------------------------------------------
@@ -65,8 +103,8 @@ def p010_to_device(plane_u16: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
-                        gamut: str, hdr_tf: str, quality: int):
+def encode_coefs_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
+                       gamut: str, hdr_tf: str, quality: int):
     """B1 then B2 over a batch: int16 P010 planes (n, h, w) and
     (n, h/2, w) on the device -> zigzag coefficient blocks (y, u, v,
     gain map), each (n, nblocks, 64) int16 on the same device."""
@@ -77,19 +115,106 @@ def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
             fdct_quant(gmap, qg))
 
 
-def assemble_api0(coefs, width: int, height: int, gamut: str, hdr_tf: str,
-                  quality: int) -> list[bytes]:
-    """Host stage of the batched encode: per frame, restart-interval
-    Huffman coding of the base and gain map, headers, ICC and the
-    JPEG/R mux. `coefs` is encode_device_stage's output."""
+@dataclass
+class DeviceStreams:
+    """B3's output for a batch: each image kind's chunk bytes (JPEG byte
+    order, frames back to back) and (n, nc) int32 chunk bit counts, on
+    the device. The per-frame chunk counts (the JAX _rst_chunk_geometry)
+    are the bit arrays' widths."""
+
+    width: int
+    height: int
+    base: torch.Tensor
+    base_bits: torch.Tensor
+    gm: torch.Tensor
+    gm_bits: torch.Tensor
+
+
+def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
+                        gamut: str, hdr_tf: str,
+                        quality: int) -> DeviceStreams:
+    """B1, B2 and B3 over a batch (see encode_coefs_stage for the
+    inputs): the restart-interval entropy streams of every base image
+    and gain map, on the device."""
+    _, h, w = y_p010.shape
+    yz, uz, vz, gz = encode_coefs_stage(y_p010, uv_p010, gamut, hdr_tf,
+                                        quality)
+    base, base_bits = de.encode_ycbcr_rst_stream(yz, uz, vz, w // 16,
+                                                 h // 16, RST_INTERVAL)
+    gm, gm_bits = de.encode_gray_rst_stream(gz, RST_INTERVAL)
+    return DeviceStreams(w, h, base, base_bits, gm, gm_bits)
+
+
+@dataclass
+class DeviceEncodedBatch:
+    """Handoff from batched_encode_api0 to batched_decode_from_handoff:
+    the encoder's chunk streams stay on the device and the decoder reads
+    its lane windows straight from them, with no JFIF re-parse, no
+    destuff and no stream upload (the reference's in-process
+    encode -> decode loop, jpegr.cpp:167-247, never re-parses its own
+    buffers either). The chunk bit counts are the host copies the blob
+    assembly fetched."""
+
+    streams: DeviceStreams
+    base_bits: np.ndarray   # (n, nc)
+    gm_bits: np.ndarray     # (n, ncg)
+    quality: int
+    metadata: GainMapMetadata
+
+
+def _frame_spans(bits: np.ndarray) -> np.ndarray:
+    """Byte offsets of each frame's chunks in a B3 stream: (n + 1,)."""
+    nbytes = 4 * ((bits.astype(np.int64) + 31) >> 5).sum(axis=1)
+    return np.concatenate([[0], np.cumsum(nbytes)])
+
+
+def _headers(width: int, height: int, gamut: str, quality: int):
+    icc = icc_mod.write_icc_profile("srgb", gamut)
+    return (codec.yuv420_jpeg_headers(width, height, quality, icc=icc,
+                                      restart_interval=RST_INTERVAL),
+            codec.gray_jpeg_headers(width // 4, height // 4,
+                                    MAP_COMPRESS_QUALITY,
+                                    restart_interval=RST_INTERVAL))
+
+
+def assemble_api0(streams: DeviceStreams, gamut: str, hdr_tf: str,
+                  quality: int):
+    """Host stage of the batched encode (the JAX _assemble_rst_outputs):
+    ONE device-to-host copy of the streams and chunk bit counts, then
+    per frame the stuffing/marker tail (finalize_rst_stream), headers,
+    ICC and the JPEG/R mux. Returns (blobs, base bits, gain-map bits)."""
+    s = streams
+    nb, ng = s.base.numel(), s.gm.numel()
+    host = torch.cat([s.base, s.gm,
+                      s.base_bits.reshape(-1).view(torch.uint8),
+                      s.gm_bits.reshape(-1).view(torch.uint8)]).cpu().numpy()
+    base_bits = host[nb + ng:nb + ng + s.base_bits.numel() * 4].view(
+        np.int32).reshape(s.base_bits.shape)
+    gm_bits = host[nb + ng + s.base_bits.numel() * 4:].view(
+        np.int32).reshape(s.gm_bits.shape)
+    bspan, gspan = _frame_spans(base_bits), _frame_spans(gm_bits)
+    metadata = api0_metadata(hdr_tf)
+    base_hdr, gm_hdr = _headers(s.width, s.height, gamut, quality)
+    out = []
+    for i in range(base_bits.shape[0]):
+        base = de.finalize_rst_stream(host[bspan[i]:bspan[i + 1]],
+                                      base_bits[i])
+        gmap = de.finalize_rst_stream(host[nb + gspan[i]:nb + gspan[i + 1]],
+                                      gm_bits[i])
+        out.append(mux.append_gainmap(base_hdr + base + b"\xff\xd9",
+                                      gm_hdr + gmap + b"\xff\xd9", metadata))
+    return out, base_bits, gm_bits
+
+
+def assemble_api0_host_huffman(coefs, width: int, height: int, gamut: str,
+                               hdr_tf: str, quality: int) -> list[bytes]:
+    """The host-Huffman route of the same blobs: coefficients (the output
+    of encode_coefs_stage) to the host, then restart-interval Huffman
+    coding in C++ (jpeg/entropy.cpp). Kept as the reference that B3's
+    output is held against; the entry points do not call it."""
     yz, uz, vz, gz = (c.cpu().numpy() for c in coefs)
     metadata = api0_metadata(hdr_tf)
-    icc = icc_mod.write_icc_profile("srgb", gamut)
-    base_hdr = codec.yuv420_jpeg_headers(width, height, quality, icc=icc,
-                                         restart_interval=RST_INTERVAL)
-    gm_hdr = codec.gray_jpeg_headers(width // 4, height // 4,
-                                     MAP_COMPRESS_QUALITY,
-                                     restart_interval=RST_INTERVAL)
+    base_hdr, gm_hdr = _headers(width, height, gamut, quality)
     out = []
     for i in range(yz.shape[0]):
         base = (base_hdr + codec.encode_yuv420_scan(
@@ -102,18 +227,26 @@ def assemble_api0(coefs, width: int, height: int, gamut: str, hdr_tf: str,
 
 def batched_encode_api0(y_batch: np.ndarray, uv_batch: np.ndarray,
                         gamut: str = "bt2100", hdr_tf: str = "hlg",
-                        quality: int = 95, device="cpu") -> list[bytes]:
+                        quality: int = 95, device="cuda",
+                        return_handoff: bool = False):
     """API-0 encode of a batch of same-size P010 frames: uint16
     (n, h, w) luma and (n, h/2, w) interleaved CbCr, h and w multiples
-    of 16. Returns one JPEG/R blob per frame."""
+    of 16. Returns one JPEG/R blob per frame; with return_handoff, also
+    a DeviceEncodedBatch for batched_decode_from_handoff."""
+    dev = resolve_device(device)
     n, h, w = y_batch.shape
     if h % 16 or w % 16:
         raise err("UHDR_CODEC_INVALID_PARAM",
                   f"batched encode requires 16-aligned dims, got {w}x{h}")
-    coefs = encode_device_stage(p010_to_device(y_batch, device),
-                                p010_to_device(uv_batch, device), gamut,
-                                hdr_tf, quality)
-    return assemble_api0(coefs, w, h, gamut, hdr_tf, quality)
+    streams = encode_device_stage(p010_to_device(y_batch, dev),
+                                  p010_to_device(uv_batch, dev), gamut,
+                                  hdr_tf, quality)
+    blobs, base_bits, gm_bits = assemble_api0(streams, gamut, hdr_tf,
+                                              quality)
+    if not return_handoff:
+        return blobs
+    return blobs, DeviceEncodedBatch(streams, base_bits, gm_bits,
+                                     int(quality), api0_metadata(hdr_tf))
 
 
 # ---------------------------------------------------------------------------
@@ -149,23 +282,57 @@ def apply_scalars(metadata: GainMapMetadata,
 
 @dataclass
 class HostDecoded:
-    """One JPEG/R after the host stage: coefficient block grids
-    (bh, bw, 64) int16 zigzag and natural-order quant tables of the
-    base's Y/U/V and the gain map, plus what the container carried."""
+    """One JPEG/R after the host stage: what its container and headers
+    carried, natural-order quant tables of the base's luma and chroma
+    and of the gain map, and either the parsed entropy streams of base
+    and gain map (`streams`, the device route) or their coefficient
+    grids (`grids`, (bh, bw, 64) int16 zigzag of Y, U, V and the gain
+    map, the host route)."""
 
     width: int
     height: int
     gm_width: int
     gm_height: int
-    grids: tuple      # (y, u, v, gain map) coefficient grids
     qtables: tuple    # (luma, chroma, gain map) 8x8 int32
     metadata: GainMapMetadata
     icc: bytes | None = None
     exif: bytes | None = None
+    streams: tuple | None = None
+    grids: tuple | None = None
 
 
-def decode_host_stage(blob: bytes) -> HostDecoded:
-    """Split a JPEG/R and Huffman-decode both images on the host."""
+def _check_geometry(w: int, h: int, gw: int, gh: int):
+    if w % gw or h % gh or (w * gh != h * gw):
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                  f"non-integer map scale {w}x{h} vs {gw}x{gh}")
+
+
+def parse_device_route(blob: bytes) -> HostDecoded | None:
+    """Host stage of the device route (the JAX _decode_device_path up to
+    its launch): split the JPEG/R, parse and destuff both images. None
+    when either image's headers do not suit the device decoder (a 4:2:0
+    base and a gray gain map)."""
+    primary, gainmap = mux.extract_primary_and_gainmap(blob)
+    ds = dd.parse_device_stream(primary)
+    if ds is None or ds.gray or ds.sampling != (2, 2):
+        return None
+    dsg = dd.parse_device_stream(gainmap)
+    if dsg is None or not dsg.gray:
+        return None
+    if dsg.xmp is None:
+        raise err("UHDR_CODEC_ERROR", "gain map carries no XMP")
+    metadata = xmp.get_metadata_from_xmp(dsg.xmp)
+    _check_geometry(ds.width, ds.height, dsg.width, dsg.height)
+    check_gainmap_metadata(metadata)
+    return HostDecoded(ds.width, ds.height, dsg.width, dsg.height,
+                       (ds.qtables[0], ds.qtables[1], dsg.qtables[0]),
+                       metadata, icc=ds.icc, exif=ds.exif,
+                       streams=(ds, dsg))
+
+
+def decode_host_huffman(blob: bytes) -> HostDecoded:
+    """Host stage of the host route: split a JPEG/R and Huffman-decode
+    both images on the host (jpeg/entropy.cpp)."""
     primary, gainmap = mux.extract_primary_and_gainmap(blob)
     base = codec.decode_jpeg_coefs(primary)
     if (base.ncomp != 3 or base.comps[0][4] != (2, 2)
@@ -177,51 +344,156 @@ def decode_host_stage(blob: bytes) -> HostDecoded:
     if gmdec.xmp is None:
         raise err("UHDR_CODEC_ERROR", "gain map carries no XMP")
     metadata = xmp.get_metadata_from_xmp(gmdec.xmp)
-    w, h = base.width, base.height
     gg, qg, gh, gw, _ = gmdec.comps[0]
-    if w % gw or h % gh or (w * gh != h * gw):
-        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
-                  f"non-integer map scale {w}x{h} vs {gw}x{gh}")
+    _check_geometry(base.width, base.height, gw, gh)
     check_gainmap_metadata(metadata)
     (yg, ql, *_), (ug, qc, *_), (vg, *_) = base.comps
-    return HostDecoded(w, h, gw, gh, (yg, ug, vg, gg), (ql, qc, qg),
-                       metadata, icc=base.icc, exif=base.exif)
+    return HostDecoded(base.width, base.height, gw, gh, (ql, qc, qg),
+                       metadata, icc=base.icc, exif=base.exif,
+                       grids=(yg, ug, vg, gg))
+
+
+def decode_host_stage(blobs: list[bytes]) -> list[HostDecoded]:
+    """Host stage of a batched decode. The route is chosen from the
+    headers alone, for the whole batch: the device route when every
+    blob suits it (parse and destuff only), else host Huffman."""
+    frames = [parse_device_route(b) for b in blobs]
+    if all(f is not None for f in frames):
+        return frames
+    return [decode_host_huffman(b) for b in blobs]
+
+
+def _planes(grids, qtables: torch.Tensor, geom):
+    """B5 over the four coefficient grids, cropped to the image:
+    (y, u, v, gain map) uint8 planes."""
+    w, h, gw, gh = geom
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    shapes = (((h + 15) // 16 * 2, (w + 15) // 16 * 2), ((h + 15) // 16,
+              (w + 15) // 16), ((h + 15) // 16, (w + 15) // 16),
+              ((gh + 7) // 8, (gw + 7) // 8))
+    planes = []
+    for grid, qk, (bh, bw), crop in zip(grids, (0, 1, 1, 2), shapes,
+                                        ((h, w), (ch, cw), (ch, cw),
+                                         (gh, gw))):
+        plane = dequant_idct(grid, qtables[:, qk].contiguous(), bh, bw)
+        planes.append(plane[:, :crop[0], :crop[1]])
+    return planes
 
 
 def decode_device_stage(frames: list[HostDecoded], output_format: str,
                         max_display_boost: float, device) -> torch.Tensor:
-    """B5 then B6 over a batch of same-size decoded frames: HDR pixels
+    """Device stage of a batched decode of same-size frames: HDR pixels
     on `device`, (n, h, w, 4) int16 F16 bits for "hdr_linear" or
-    (n, h, w) int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq"."""
+    (n, h, w) int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq". The
+    device route uploads the destuffed streams, lane starts, decode and
+    quant tables and apply scalars in one copy, then runs B4 (base and
+    gain map), B5 and B6; the host route uploads coefficient grids."""
     f0 = frames[0]
     geom = (f0.width, f0.height, f0.gm_width, f0.gm_height)
     if any((f.width, f.height, f.gm_width, f.gm_height) != geom
            for f in frames):
         raise err("UHDR_CODEC_INVALID_PARAM",
                   "a decode batch needs frames of one geometry")
-    w, h, gw, gh = geom
-    ch, cw = (h + 1) // 2, (w + 1) // 2
-    planes = []
-    # (plane, its quant table, its crop): Y, U, V, gain map.
-    for k, qk, crop in ((0, 0, (h, w)), (1, 1, (ch, cw)), (2, 1, (ch, cw)),
-                        (3, 2, (gh, gw))):
-        grid = np.stack([f.grids[k] for f in frames])
-        bh, bw = grid.shape[1:3]
-        q = np.stack([f.qtables[qk].reshape(64)
-                      for f in frames]).astype(np.int32)
-        plane = dequant_idct(
-            torch.from_numpy(grid.reshape(len(frames), bh * bw, 64))
-            .to(device), torch.from_numpy(q).to(device), bh, bw)
-        planes.append(plane[:, :crop[0], :crop[1]])
-    scalars = torch.from_numpy(np.stack([
-        apply_scalars(f.metadata, max_display_boost) for f in frames]))
-    return apply_gainmap(*planes, scalars.to(device), output_format)
+    q = np.stack([np.stack([t.reshape(64) for t in f.qtables])
+                  for f in frames]).astype(np.int32)
+    scalars = np.stack([apply_scalars(f.metadata, max_display_boost)
+                        for f in frames])
+    if f0.streams is not None:
+        lb = dd.pack_streams([f.streams[0] for f in frames])
+        lg = dd.pack_streams([f.streams[1] for f in frames])
+        (src, bf, bl, bt, gf, gl, gt, qd, sd) = _upload(
+            [np.concatenate([lb.src, lg.src]), lb.frames, lb.lanes,
+             lb.tables, _shift(lg.frames, lb.src.size), lg.lanes,
+             lg.tables, q, scalars], device)
+        grids = (dd.decode_rst_chunks(src, bf, bl, bt, False, (2, 2),
+                                      lb.mcus_x, lb.mcus_y)
+                 + dd.decode_rst_chunks(src, gf, gl, gt, True, (1, 1),
+                                        lg.mcus_x, lg.mcus_y))
+    else:
+        arrays = [np.stack([f.grids[k] for f in frames]) for k in range(4)]
+        *up, qd, sd = _upload([a.reshape(len(frames), -1, 64)
+                               for a in arrays] + [q, scalars], device)
+        grids = tuple(up)
+    return apply_gainmap(*_planes(grids, qd, geom), sd, output_format)
+
+
+def _shift(frame_rows: np.ndarray, by: int) -> np.ndarray:
+    """Descriptors of streams placed `by` bytes further into src."""
+    off = frame_rows[:, dd.F_OFF].astype(np.int64) + by
+    if int((off + frame_rows[:, dd.F_LEN] + frame_rows[:, dd.F_WIN]).max()
+           ) >= 2**31:
+        raise ValueError("decode batch exceeds the int32 index range")
+    out = frame_rows.copy()
+    out[:, dd.F_OFF] = off
+    return out
 
 
 def batched_decode(blobs: list[bytes], output_format: str = "hdr_linear",
                    max_display_boost: float = float("inf"),
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """Decode same-size JPEG/R blobs to HDR pixels on `device` (see
     decode_device_stage for the layout)."""
-    return decode_device_stage([decode_host_stage(b) for b in blobs],
-                               output_format, max_display_boost, device)
+    dev = resolve_device(device)
+    return decode_device_stage(decode_host_stage(blobs), output_format,
+                               max_display_boost, dev)
+
+
+def handoff_apply_scalars(handoff: DeviceEncodedBatch,
+                          max_display_boost: float) -> np.ndarray:
+    """Apply scalars of a handoff, round-tripped through the XMP writer
+    and parser so they are bit-identical to what a decode of the
+    assembled blob computes (XMP writes boosts as decimal text)."""
+    md = xmp.get_metadata_from_xmp(
+        xmp.XMP_NAMESPACE.encode() + b"\x00"
+        + xmp.generate_xmp_for_secondary_image(handoff.metadata).encode())
+    return apply_scalars(md, max_display_boost)
+
+
+def _handoff_lanes(bits: np.ndarray, specs):
+    """B4 descriptors over one image kind of a handoff: each frame's
+    chunks in the encoder's buffer, lanes at their word-aligned starts
+    (the alignment fill is never-consumed lookahead)."""
+    n, nc = bits.shape
+    cw = (bits.astype(np.int64) + 31) >> 5
+    starts = 4 * (np.cumsum(cw, axis=1) - cw)
+    win = dd.bucket_len(4 * int(cw.max()))
+    span = _frame_spans(bits)
+    mcb = dd.min_code_bits(specs)
+    rows = np.asarray([dd.frame_row(int(span[i]), int(span[i + 1] - span[i]),
+                                    win, RST_INTERVAL, i * nc, nc, False, mcb)
+                       for i in range(n)], np.int32)
+    lanes = np.stack([starts.reshape(-1), np.zeros(n * nc, np.int64)],
+                     axis=1).astype(np.int32)
+    tabs = np.broadcast_to(dd.decode_tables(specs),
+                           (n, 4, dd.TABLE_WORDS)).copy()
+    return rows, lanes, tabs
+
+
+def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
+                                output_format: str = "hdr_linear",
+                                max_display_boost: float = float("inf"),
+                                ) -> torch.Tensor:
+    """Decode a DeviceEncodedBatch on the encoder's device: bitwise the
+    pixels batched_decode gives for the assembled blobs. B4 reads its
+    lane windows in place from the encoder's chunk bytes (its handoff
+    mode), with the encoder's own tables (Annex K, quant tables scaled
+    to the encode quality); the only upload is the small descriptor,
+    table and scalar arrays."""
+    s = handoff.streams
+    dev = s.base.device
+    n = handoff.base_bits.shape[0]
+    w, h = s.width, s.height
+    q = np.broadcast_to(np.stack([t.reshape(64) for t in quant_tables(
+        handoff.quality)]).astype(np.int32), (n, 3, 64)).copy()
+    sc = np.broadcast_to(handoff_apply_scalars(handoff, max_display_boost),
+                         (n, 4)).copy()
+    arrays = (_handoff_lanes(handoff.base_bits, dd.ANNEX_K_COLOR)
+              + _handoff_lanes(handoff.gm_bits, dd.ANNEX_K_GRAY) + (q, sc))
+    bf, bl, bt, gf, gl, gt, qd, sd = _upload(arrays, dev)
+    gw, gh = w // 4, h // 4
+    grids = (dd.decode_rst_chunks(s.base, bf, bl, bt, False, (2, 2),
+                                  w // 16, h // 16)
+             + dd.decode_rst_chunks(s.gm, gf, gl, gt, True, (1, 1),
+                                    -(-gw // 8), -(-gh // 8)))
+    return apply_gainmap(*_planes(grids, qd, (w, h, gw, gh)), sd,
+                         output_format)

@@ -1,0 +1,330 @@
+"""Kernel B4 of the port (libultrahdr_dev_tpu_torch/jpeg/device_decode.py:
+parallel restart-interval Huffman decode) through its plain PyTorch
+version, against the JAX package's decode_rst_chunks and
+parse_device_stream and against the host Huffman decoder, on the same
+streams; and the port's decode routes (device, host, handoff) against
+each other on CPU tensors.
+
+All comparisons are exact: coefficient grids, parsed stream fields, and
+decoded pixels bit for bit."""
+
+import os
+from functools import lru_cache
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from libultrahdr_dev_tpu.jpeg import device_decode as jdd
+from libultrahdr_dev_tpu_torch import JpegR, OutputFormat, UhdrError
+from libultrahdr_dev_tpu_torch.container import mux
+from libultrahdr_dev_tpu_torch.jpeg import codec, device_decode as tdd
+from libultrahdr_dev_tpu_torch.jpeg import device_entropy as tde, tables
+from libultrahdr_dev_tpu_torch.parallel import batched
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
+GOLDEN_NAMES = sorted(n for n in os.listdir(GOLDENS) if n.startswith("enc0"))
+H, W = 112, 144
+MX, MY = W // 16, H // 16
+
+
+def _rand_blocks(nb, seed, density=0.15):
+    rng = np.random.default_rng(seed)
+    b = np.zeros((nb, 64), np.int16)
+    b[:, 0] = rng.integers(-300, 300, nb)
+    m = rng.random((nb, 63)) < density
+    b[:, 1:] = np.where(m, rng.integers(-60, 60, (nb, 63)), 0)
+    return b
+
+
+def _own_streams():
+    """A 4:2:0 JPEG and a gray JPEG written by B3 (plain) + its host
+    tail, with restart interval 4."""
+    nm = MX * MY
+    y, u, v = (_rand_blocks(n, s) for n, s in ((4 * nm, 1), (nm, 2),
+                                              (nm, 3)))
+    st, bits = tde.encode_ycbcr_rst_stream(
+        *(torch.from_numpy(a)[None] for a in (y, u, v)), MX, MY, 4)
+    color = (codec.yuv420_jpeg_headers(W, H, 95, restart_interval=4)
+             + tde.finalize_rst_stream(st.numpy(), bits[0].numpy())
+             + b"\xff\xd9")
+    g = _rand_blocks(4 * 5, 4)
+    st, bits = tde.encode_gray_rst_stream(torch.from_numpy(g)[None], 4)
+    gray = (codec.gray_jpeg_headers(36, 28, 85, restart_interval=4)
+            + tde.finalize_rst_stream(st.numpy(), bits[0].numpy())
+            + b"\xff\xd9")
+    return {"color": color, "gray": gray}
+
+
+# Optimized-style tables whose shortest codes are 1 bit long: DC size 0
+# and the AC EOB get the code "0".
+ONE_BIT_DC = ([1] * 12 + [0] * 4, list(range(12)))
+ONE_BIT_AC = ([1, 0, 0, 0, 0, 0, 0, 0, 161] + [0] * 7,
+              [0] + [s for s in tables.AC_LUMA_VALS if s != 0])
+
+
+def _one_bit_jpeg(quality=60, seed=7):
+    """A 4:2:0 JPEG with restart interval 4 whose DHTs carry 1-bit
+    codes, written by the host coder."""
+    nm = MX * MY
+    rng = np.random.default_rng(seed)
+    blocks = np.zeros((nm * 6, 64), np.int16)
+    blocks[::3, 0] = rng.integers(-5, 5, len(blocks[::3]))
+    blocks[::5, 1] = rng.integers(-3, 4, len(blocks[::5]))
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2], np.uint8), nm)
+    scan = codec.entropy_encode(blocks, comp, [0, 1, 1], [0, 1, 1],
+                                [ONE_BIT_DC, ONE_BIT_DC],
+                                [ONE_BIT_AC, ONE_BIT_AC], 4, 6)
+    ql = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, quality)
+    qc = tables.scale_quant_table(tables.STD_CHROMINANCE_QUANT, quality)
+    m = codec._marker
+    hdr = (b"\xff\xd8" + codec._jfif_app0()
+           + m(0xDB, codec._dqt(0, ql)) + m(0xDB, codec._dqt(1, qc))
+           + m(0xC0, codec._sof0(W, H, [(1, 2, 2, 0), (2, 1, 1, 1),
+                                        (3, 1, 1, 1)]))
+           + b"".join(m(0xC4, codec._dht(c, t, *spec)) for c, spec in
+                      ((0, ONE_BIT_DC), (1, ONE_BIT_AC)) for t in (0, 1))
+           + m(0xDD, (4).to_bytes(2, "big"))
+           + m(0xDA, codec._sos([(1, 0, 0), (2, 1, 1), (3, 1, 1)])))
+    return hdr + scan + b"\xff\xd9"
+
+
+def _golden_part(name, k):
+    blob = open(os.path.join(GOLDENS, name), "rb").read()
+    return mux.extract_primary_and_gainmap(blob)[k]
+
+
+def _windows(ds):
+    """(lanes, win) u8 lane windows as the JAX device path gathers them:
+    the destuffed stream from each lane's start, zero past its end."""
+    padded = np.concatenate([ds.dest, np.zeros(ds.win_len, np.uint8)])
+    return padded[ds.starts_byte[:, None]
+                  + np.arange(ds.win_len)[None, :]]
+
+
+@lru_cache(maxsize=None)
+def _jax_kernel(r, n_mcus, gray, tkey, carry, units):
+    chains = jdd.chains_from_key(tkey) if tkey else None
+    mcb = jdd.min_code_len_from_key(tkey)
+    return jax.jit(lambda ch, sb: jdd.decode_rst_chunks(
+        ch, r, n_mcus, gray, chains, mcb, start_bits=sb if carry else None,
+        dc_carry=carry, units_per_step=units))
+
+
+def _jax_grids(ch, r, mcus_x, mcus_y, gray, tkey=None, start_bits=None,
+               units=None):
+    carry = start_bits is not None
+    sb = start_bits if carry else np.zeros(ch.shape[0], np.int32)
+    out = np.asarray(_jax_kernel(r, mcus_x * mcus_y, gray, tkey, carry,
+                                 units)(ch, sb))
+    if gray:
+        return (out[:mcus_x * mcus_y],)
+    return tuple(np.asarray(p) for p in jdd.deinterleave_ycbcr_device(
+        out, mcus_x, mcus_y))
+
+
+def _port_grids(streams):
+    ln = tdd.pack_streams(streams)
+    return tdd.decode_rst_chunks(
+        *(torch.from_numpy(a) for a in (ln.src, ln.frames, ln.lanes,
+                                        ln.tables)),
+        ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y)
+
+
+def _host_grids(data):
+    dec = codec.decode_jpeg_coefs(data)
+    return tuple(c[0].reshape(-1, 64) for c in dec.comps)
+
+
+def _assert_grids(port, want):
+    assert len(port) == len(want)
+    for p, w in zip(port, want):
+        np.testing.assert_array_equal(p[0].numpy(), w)
+
+
+# ---------------------------------------------------------------------------
+# Host parse.
+# ---------------------------------------------------------------------------
+
+def _all_inputs():
+    own = _own_streams()
+    out = {k: own[k] for k in own}
+    out["one_bit"] = _one_bit_jpeg()
+    out["golden_base"] = _golden_part("enc0_709_hlg.jpegr", 0)
+    out["golden_gm"] = _golden_part("enc0_709_hlg.jpegr", 1)
+    return out
+
+
+@pytest.mark.parametrize("which", ["color", "gray", "one_bit",
+                                   "golden_base", "golden_gm"])
+def test_parse_matches_jax(which):
+    data = _all_inputs()[which]
+    ours, theirs = tdd.parse_device_stream(data), jdd.parse_device_stream(
+        data)
+    assert ours is not None and theirs is not None
+    np.testing.assert_array_equal(ours.dest, theirs.dest)
+    np.testing.assert_array_equal(ours.starts_byte, theirs.starts_byte)
+    assert ours.win_len == theirs.win_len
+    if theirs.start_bits is None:
+        assert ours.start_bits is None
+    else:
+        np.testing.assert_array_equal(ours.start_bits, theirs.start_bits)
+    for a, b in zip(ours.qtables, theirs.qtables):
+        np.testing.assert_array_equal(a, b)
+    assert (ours.restart_interval, ours.mcus_x, ours.mcus_y, ours.gray,
+            ours.sampling) == (theirs.restart_interval, theirs.mcus_x,
+                               theirs.mcus_y, theirs.gray, theirs.sampling)
+    assert tdd.min_code_bits(ours.specs) == jdd.min_code_len_from_key(
+        theirs.tables_key)
+
+
+# ---------------------------------------------------------------------------
+# B4, plain version.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("which", ["color", "gray"])
+def test_plain_b4_own_streams_match_jax_and_host(which):
+    data = _own_streams()[which]
+    ds = tdd.parse_device_stream(data)
+    port = _port_grids([ds])
+    _assert_grids(port, _jax_grids(_windows(ds), 4, ds.mcus_x, ds.mcus_y,
+                                   ds.gray))
+    _assert_grids(port, _host_grids(data))
+
+
+@pytest.mark.parametrize("gray,units", [(False, 2), (False, 3), (True, 1),
+                                        (True, 3)])
+def test_plain_b4_garbage_matches_jax(gray, units):
+    """Arbitrary bytes: lanes stop by their bit budget or block count
+    exactly where the JAX loop stops them, and emit the same values
+    (JAX's test_device_decode.py::test_garbage_chunks_identical_
+    truncation, across its units-per-step settings)."""
+    mx, my = (8, 1) if gray else (4, 2)
+    specs = tdd.ANNEX_K_GRAY if gray else tdd.ANNEX_K_COLOR
+    for seed in range(4):
+        ch = np.random.default_rng(11 + seed).integers(0, 256, (4, 96),
+                                                       np.uint8)
+        frames = np.asarray([tdd.frame_row(0, ch.size, 96, 2, 0, 4, False,
+                                           2)], np.int32)
+        lanes = np.stack([np.arange(4) * 96, np.zeros(4)], 1).astype(
+            np.int32)
+        port = tdd.decode_rst_chunks(
+            torch.from_numpy(ch.reshape(-1)), torch.from_numpy(frames),
+            torch.from_numpy(lanes),
+            torch.from_numpy(tdd.decode_tables(specs)[None]), gray,
+            (2, 2), mx, my)
+        _assert_grids(port, _jax_grids(ch, 2, mx, my, gray, units=units))
+
+
+def test_plain_b4_one_bit_codes():
+    """Tables with 1-bit codes (min_code_bits 1) from the stream's own
+    DHTs: equal to JAX with its chains from the same DHTs, and to the
+    host decoder."""
+    data = _one_bit_jpeg()
+    ds = tdd.parse_device_stream(data)
+    assert tdd.min_code_bits(ds.specs) == 1
+    port = _port_grids([ds])
+    _assert_grids(port, _jax_grids(_windows(ds), 4, MX, MY, False,
+                                   jdd.parse_device_stream(data).tables_key))
+    _assert_grids(port, _host_grids(data))
+
+
+@pytest.mark.parametrize("name", GOLDEN_NAMES)
+def test_plain_b4_goldens_dc_carry(name):
+    """The reference's restart-less encodes: lanes synthesized by the
+    host scan (start_bits), DC carried across them."""
+    for k in (0, 1):
+        data = _golden_part(name, k)
+        ds = tdd.parse_device_stream(data)
+        jds = jdd.parse_device_stream(data)
+        assert ds.start_bits is not None
+        port = _port_grids([ds])
+        _assert_grids(port, _host_grids(data))
+        _assert_grids(port, _jax_grids(
+            _windows(ds), ds.restart_interval, ds.mcus_x, ds.mcus_y,
+            ds.gray, jds.tables_key, ds.start_bits))
+
+
+def test_b4_wrapper_runs_plain_on_cpu():
+    ds = tdd.parse_device_stream(_own_streams()["gray"])
+    before = tdd.decode_rst_chunks.launches
+    ln = tdd.pack_streams([ds])
+    args = [torch.from_numpy(a) for a in (ln.src, ln.frames, ln.lanes,
+                                          ln.tables)]
+    got = tdd.decode_rst_chunks(*args, True, (1, 1), ln.mcus_x, ln.mcus_y)
+    want = tdd.decode_rst_chunks_plain(*args, True, (1, 1), ln.mcus_x,
+                                       ln.mcus_y)
+    assert torch.equal(got[0], want[0])
+    assert tdd.decode_rst_chunks.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Decode routes.
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _encoded(seed=0, quality=95):
+    from test_torch_jpegr import synth_p010
+    ys, uvs = zip(*(synth_p010(H, W, seed=seed + i) for i in range(2)))
+    return batched.batched_encode_api0(
+        np.stack(ys), np.stack(uvs), "bt2100", "hlg", quality,
+        device="cpu", return_handoff=True)
+
+
+@pytest.mark.parametrize("fmt", ["HDR_LINEAR", "HDR_HLG", "HDR_PQ"])
+def test_jpegr_decode_device_route_equals_host_route(fmt):
+    blob = _encoded()[0][0]
+    calls = codec.entropy_decode.calls
+    got = JpegR("cpu").decode(blob, OutputFormat[fmt]).image.planes["rgba"]
+    assert codec.entropy_decode.calls == calls   # no host Huffman ran
+    host = batched.decode_device_stage(
+        [batched.decode_host_huffman(blob)], OutputFormat[fmt].value,
+        float("inf"), "cpu")[0].numpy()
+    assert codec.entropy_decode.calls == calls + 2
+    np.testing.assert_array_equal(got.view(host.dtype), host)
+
+
+@pytest.mark.parametrize("fmt", ["hdr_linear", "hdr_hlg"])
+def test_handoff_equals_blob_decode(fmt):
+    blobs, handoff = _encoded()
+    got = batched.batched_decode_from_handoff(handoff, fmt)
+    want = batched.batched_decode(blobs, fmt, device="cpu")
+    assert torch.equal(got, want)
+
+
+def test_mixed_table_batch_decodes_in_one_batch():
+    """Frames that differ in quant tables (quality 95 vs 60) and in
+    Huffman tables (Annex K vs 1-bit codes) share one device-route
+    batch; each frame equals its own decode."""
+    blob_a = _encoded()[0][0]
+    _, gm = mux.extract_primary_and_gainmap(blob_a)
+    blob_b = mux.append_gainmap(_one_bit_jpeg(quality=60), gm,
+                                batched.api0_metadata("hlg"))
+    frames = batched.decode_host_stage([blob_a, blob_b])
+    assert all(f.streams is not None for f in frames)
+    both = batched.batched_decode([blob_a, blob_b], "hdr_hlg", device="cpu")
+    for i, b in enumerate((blob_a, blob_b)):
+        assert torch.equal(both[i], batched.batched_decode(
+            [b], "hdr_hlg", device="cpu")[0])
+
+
+def test_non_420_base_takes_host_route_and_raises():
+    """A 4:4:4 base is routed to the host from its headers alone, which
+    raises the reference's error."""
+    nb = (W // 8) * (H // 8)
+    blocks = np.zeros((nb * 3, 64), np.int16)
+    scan = codec.entropy_encode(
+        blocks, np.tile(np.arange(3, dtype=np.uint8), nb), [0, 1, 1],
+        [0, 1, 1], [(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
+                    (tables.DC_CHROMA_BITS, tables.DC_CHROMA_VALS)],
+        [(tables.AC_LUMA_BITS, tables.AC_LUMA_VALS),
+         (tables.AC_CHROMA_BITS, tables.AC_CHROMA_VALS)], 0, 3)
+    base = codec.ycbcr_jpeg_headers(W, H, 90, (1, 1)) + scan + b"\xff\xd9"
+    _, gm = mux.extract_primary_and_gainmap(_encoded()[0][0])
+    blob = mux.append_gainmap(base, gm, batched.api0_metadata("hlg"))
+    assert batched.parse_device_route(blob) is None
+    calls = codec.entropy_decode.calls
+    with pytest.raises(UhdrError, match="not YCbCr 4:2:0"):
+        JpegR("cpu").decode(blob, OutputFormat.HDR_HLG)
+    assert codec.entropy_decode.calls == calls + 1

@@ -1,9 +1,12 @@
 """The port imports neither JAX nor the JAX package: a process where
-``import jax`` fails can import it and run an API-0 round trip, and no
-source of the port (nor chip_smoke.py) has such an import."""
+``import jax`` fails can import it and run an API-0 round trip, no
+source of the port (nor chip_smoke.py) has such an import, and a copy
+of the port's package alone runs, so it reads no file of the JAX
+package either. Its entry points run on CUDA unless told otherwise."""
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -27,8 +30,8 @@ def test_round_trip_with_jax_unimportable():
         raw = P.RawImage(fmt=P.PixelFormat.P010, width=64, height=64,
                          gamut=P.ColorGamut.BT2100,
                          planes={"y": y, "uv": uv})
-        blob = P.JpegR().encode_api0(raw, P.ColorTransfer.HLG)
-        img = P.JpegR().decode(blob, P.OutputFormat.HDR_HLG).image
+        blob = P.JpegR("cpu").encode_api0(raw, P.ColorTransfer.HLG)
+        img = P.JpegR("cpu").decode(blob, P.OutputFormat.HDR_HLG).image
         assert img.planes["rgba"].shape == (64, 64)
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
@@ -48,3 +51,65 @@ def test_no_source_imports_jax():
     assert len(files) > 10
     offenders = [f for f in files if _IMPORT.search(open(f).read())]
     assert offenders == []
+
+
+def test_round_trip_from_a_lone_copy_of_the_package(tmp_path):
+    """The port's package copied alone (no JAX package beside it, no
+    build from elsewhere) builds its own host codec from its own
+    entropy.cpp and runs an API-0 round trip on the CPU."""
+    shutil.copytree(PORT, tmp_path / "libultrahdr_dev_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["libultrahdr_dev_tpu"] = None
+        import numpy as np
+        import libultrahdr_dev_tpu_torch as P
+        from libultrahdr_dev_tpu_torch.jpeg import codec, native
+        assert native.SRC.startswith(sys.argv[1]), native.SRC
+        y = np.full((32, 48), 600 << 6, np.uint16)
+        y[8:24, 16:40] = 880 << 6
+        uv = np.full((16, 48), 500 << 6, np.uint16)
+        raw = P.RawImage(fmt=P.PixelFormat.P010, width=48, height=32,
+                         gamut=P.ColorGamut.BT709,
+                         planes={"y": y, "uv": uv})
+        blob = P.JpegR("cpu").encode_api0(raw, P.ColorTransfer.PQ)
+        img = P.JpegR("cpu").decode(blob, P.OutputFormat.HDR_PQ).image
+        assert img.planes["rgba"].shape == (32, 48)
+        assert codec.entropy_decode.calls == 0
+        from libultrahdr_dev_tpu_torch.parallel import batched
+        f = batched.decode_host_huffman(blob)   # builds entropy.cpp
+        assert f.grids is not None
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, env=env,
+                         timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert list((tmp_path / "libultrahdr_dev_tpu_torch" / "_build").glob(
+        "entropy-*.so"))
+
+
+def test_entry_points_default_to_cuda():
+    """Without a device argument every entry point selects CUDA: on a
+    machine without one it raises instead of running on the CPU."""
+    import numpy as np
+    import pytest
+    import torch
+
+    from libultrahdr_dev_tpu_torch import JpegR, UhdrDecoder, UhdrEncoder
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    y = np.zeros((1, 16, 16), np.uint16)
+    uv = np.zeros((1, 8, 16), np.uint16)
+    calls = [JpegR, UhdrEncoder, UhdrDecoder,
+             lambda: batched.batched_encode_api0(y, uv),
+             lambda: batched.batched_decode([b""])]
+    if torch.cuda.is_available():
+        assert JpegR().device.type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

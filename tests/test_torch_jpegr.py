@@ -64,7 +64,7 @@ def encode_both(gamut, tf):
             JRawImage(fmt=JPixelFormat.P010, width=W, height=H,
                       gamut=JGamut[gamut], planes={"y": y, "uv": uv}),
             JTransfer[tf], 95)
-        tb = JpegR().encode_api0(
+        tb = JpegR("cpu").encode_api0(
             RawImage(fmt=PixelFormat.P010, width=W, height=H,
                      gamut=ColorGamut[gamut], planes={"y": y, "uv": uv}),
             ColorTransfer[tf], 95)
@@ -77,7 +77,7 @@ def test_api0_bytes_identical_to_jax(gamut, tf):
     jb, tb = encode_both(gamut, tf)
     assert tb == jb
     assert is_uhdr_image(tb)
-    info = JpegR().get_info(tb)
+    info = JpegR("cpu").get_info(tb)
     assert (info.width, info.height) == (W, H)
     assert (info.gainmap_width, info.gainmap_height) == (W // 4, H // 4)
 
@@ -115,7 +115,7 @@ def test_decode_matches_jax_host_route(gamut, tf, fmt):
     _, blob = encode_both(gamut, tf)
     want, jax_qtables, jax_meta = jax_host_decode(
         blob, OutputFormat[fmt].value)
-    res = JpegR().decode(blob, OutputFormat[fmt])
+    res = JpegR("cpu").decode(blob, OutputFormat[fmt])
     got = res.image.planes["rgba"]
     assert got.shape == want.shape and got.dtype == want.dtype
     d = channel_diff(got, want, OutputFormat[fmt].value)
@@ -123,7 +123,7 @@ def test_decode_matches_jax_host_route(gamut, tf, fmt):
     assert float((d == 0).mean()) >= 0.999
     # Both packages decoded from identical state.
     assert res.metadata == metadata_from_jax(jax_meta)
-    frame = batched.decode_host_stage(blob)
+    frame, = batched.decode_host_stage([blob])
     for ours, theirs in zip(to_torch_qtables(*frame.qtables),
                             to_torch_qtables(*jax_qtables)):
         assert bool((ours == theirs).all())
@@ -139,8 +139,8 @@ def test_golden_f16_decode_psnr(gn, tn):
     the port against the reference binary's own F16 decodes."""
     blob = open(os.path.join(GOLDENS, f"enc0_{gn}_{tn}.jpegr"), "rb").read()
     boost = 4.926108 if tn == "hlg" else 49.261084
-    res = JpegR().decode(blob, OutputFormat.HDR_LINEAR,
-                         max_display_boost=boost)
+    res = JpegR("cpu").decode(blob, OutputFormat.HDR_LINEAR,
+                              max_display_boost=boost)
     ours = res.image.planes["rgba"].view(np.float16)[..., :3].astype(
         np.float64)
     want = np.frombuffer(gzip.open(os.path.join(
@@ -157,8 +157,8 @@ def test_stable_api_quick_start():
     hdr = RawImage(fmt=PixelFormat.P010, width=96, height=64,
                    gamut=ColorGamut.BT2100, transfer=ColorTransfer.HLG,
                    planes={"y": y, "uv": uv})
-    blob = UhdrEncoder().set_raw_image(hdr, HDR_IMG).encode().data
-    dec = UhdrDecoder()
+    blob = UhdrEncoder("cpu").set_raw_image(hdr, HDR_IMG).encode().data
+    dec = UhdrDecoder("cpu")
     dec.set_image(blob)
     img = dec.decode()
     assert img.fmt == PixelFormat.RGBA_F16
@@ -169,9 +169,10 @@ def test_stable_api_quick_start():
     assert dec.get_gainmap_metadata().max_content_boost == \
         pytest.approx(1000 / 203, rel=1e-5)
     # Batched entry points give the same bytes and pixels.
-    blobs = batched.batched_encode_api0(y[None], uv[None], "bt2100", "hlg")
+    blobs = batched.batched_encode_api0(y[None], uv[None], "bt2100", "hlg",
+                                        device="cpu")
     assert blobs == [blob]
-    out = batched.batched_decode(blobs, "hdr_linear")
+    out = batched.batched_decode(blobs, "hdr_linear", device="cpu")
     np.testing.assert_array_equal(out[0].numpy().view(np.uint16), pixels)
 
 
@@ -180,8 +181,8 @@ def test_unported_routes_raise():
     raw = RawImage(fmt=PixelFormat.P010, width=96, height=72,
                    gamut=ColorGamut.BT2100, planes={"y": y, "uv": uv})
     with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
-        JpegR().encode_api0(raw, ColorTransfer.HLG)  # 72 is not 16-aligned
+        JpegR("cpu").encode_api0(raw, ColorTransfer.HLG)  # 72 is not 16-aligned
     _, blob = encode_both(*CONFIGS[0])
     for fmt in (OutputFormat.SDR, OutputFormat.HDR_LINEAR_RGB_10BIT):
         with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
-            JpegR().decode(blob, fmt)
+            JpegR("cpu").decode(blob, fmt)
