@@ -3,20 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from kernels/csrc with nvcc (one
-nvcc per source, in parallel), checks each against its plain PyTorch
-version at the shapes of a 4080x3072 frame (batch of 2), drives the
-API-0 round trip through the entry points a user calls (batched encode,
-batched decode, the encode -> decode handoff, JpegR, UhdrEncoder /
-UhdrDecoder, and the decode of the reference goldens in tests/goldens),
-checks what comes out, and times the kernels and the stages.
+Builds the port's CUDA kernels from kernels/csrc with nvcc (one nvcc
+per source, in parallel), checks each of the nine (B1-B7, B9, B11)
+against its plain PyTorch version at the shapes of a 4080x3072 frame
+(batch of 2), drives the API-0 round trip and the API-1 encode, SDR
+decode and table-transfer (use_luts) decode through the entry points a
+user calls (batched encode/decode, the encode -> decode handoff, JpegR,
+UhdrEncoder / UhdrDecoder, and the decode of the reference goldens in
+tests/goldens), checks what comes out, and times the kernels and the
+stages.
 
-Phases: B1, B2, B5, B6 kernel vs plain; B3 (Huffman encode) kernel vs
-plain and its JPEG/R bytes vs the host-Huffman route; B4 (Huffman
-decode) kernel vs plain vs the host decoder on the port's streams, on
-the restart-less goldens (DC carry) and on garbage; the main path with
-every launch counter zeroed just before and read just after (all six
-kernels launched, no host Huffman call); stage times.
+Phases: B1, B2, B5, B6, B11, B7 kernel vs plain; B3 (Huffman encode)
+kernel vs plain and its JPEG/R bytes vs the host-Huffman route; B9
+(API-1 front end) kernel vs plain and its JPEG/R bytes vs the
+host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
+decoder on the port's streams, on the restart-less goldens (DC carry)
+and on garbage; the main-path windows (API-0 round trip, handoff,
+goldens, API-1 encode + HDR decode, SDR decode, use_luts decode), each
+with every launch counter zeroed just before and read just after (each
+window's kernels launched, no host Huffman call); stage times.
 
 It needs one CUDA device and fails (exit code != 0, no result line)
 without one; nothing falls back to the CPU. It imports nothing of JAX.
@@ -41,6 +46,8 @@ import numpy as np
 W, H, FRAMES = 4080, 3072, 2
 SEED = 0
 CONFIGS = (("bt2100", "hlg"), ("bt709", "pq"))
+# API-1: (SDR gamut, HDR gamut, transfer).
+API1_CONFIGS = (("bt709", "bt2100", "hlg"), ("p3", "bt2100", "pq"))
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                        "goldens")
 # (golden encode, its F16 decode by the reference, display boost); the
@@ -51,6 +58,33 @@ GOLDEN_F16 = [(f"enc0_{g}_{t}.jpegr", f"dec0_{g}_{t}_f16.raw.gz",
 GOLDEN_OTHER = ["enc0_hlg.jpegr", "enc0_pq.jpegr"]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # outside the tensor cores
+FP64_FLOPS = 34e12          # H100 SXM data sheet, outside the tensor cores
+
+# Operations per sample, counted from the kernels' sources (the branch a
+# sample usually takes): float32 operations (a fused multiply-add 2;
+# add, multiply, min, max, compare, convert, sqrt, log, exp2 and divide
+# 1 each), and the double pow()s of the exactly rounded power laws at
+# POW_F64_OPS float64 operations each (a double log and exp of about 25
+# operations each; an estimate, not a count of the compiled code).
+POW_F64_OPS = 50
+OPS = {
+    # apply.cu per output pixel: 8 load/normalize, 14 YUV -> RGB,
+    # 15 + 3 pow sRGB inverse OETF, 52 IDW weights and blend, 10 gain
+    # factor and scale, then 3 F16 converts, or 21 HLG OETF (+ 0 pow) /
+    # 21 PQ OETF (+ 6 pow) and 12 for the 10-bit pack.
+    "B6 hdr_linear": (102, 3), "B6 hdr_hlg": (132, 3),
+    "B6 hdr_pq": (132, 9),
+    # B11: the table reads replace the transfer functions: 9 for the
+    # sRGB index, 9 for the OETF index, no pow.
+    "B11 hdr_linear": (96, 0), "B11 hdr_hlg": (114, 0),
+    "B11 hdr_pq": (114, 0),
+    # sdr_out.cu per output pixel: 5 converts, 8 colour matrix, 12
+    # round/clip/convert (the integer upsample is not counted).
+    "B7": (25, 0),
+    # encode_front.cu per gain-map sample (HLG: 114 + 3 pow; PQ: 9 pow)
+    # and per 2x2 quad of the BT.601 re-encode (63).
+    "B9 map hlg": (114, 3), "B9 map pq": (114, 9), "B9 quad": (63, 0),
+}
 
 
 def log(msg: str):
@@ -168,12 +202,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(byte_count: float, flops: float = 0.0) -> tuple[float, str]:
-    """Least time (ms) the card could take: the larger of the bytes over
-    the memory rate and the float32 operations over the peak rate."""
+def bound(byte_count: float, flops: float = 0.0,
+          dflops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) the card could take: the largest of the bytes
+    over the memory rate, the float32 operations over their peak rate
+    and the float64 operations over theirs."""
     t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = max(flops / FP32_FLOPS, dflops / FP64_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ops(key: str, samples: float) -> dict:
+    """flops / dflops of `samples` samples of the work OPS[key] counts."""
+    f32, pows = OPS[key]
+    return dict(flops=f32 * samples, dflops=pows * POW_F64_OPS * samples)
 
 
 def int_diff(a, b):
@@ -185,13 +227,13 @@ def int_diff(a, b):
 
 
 def kernel_phases(dev, results: dict):
-    """B1, B2, B5, B6 against their plain versions at the 4080x3072
-    shapes, on inputs from a seed; the stages feed each other like the
-    main path does."""
+    """B1, B2, B5, B6, B11 and B7 against their plain versions at the
+    4080x3072 shapes, on inputs from a seed; the stages feed each other
+    like the main path does."""
     import torch
 
     from libultrahdr_dev_tpu_torch.jpeg import dct
-    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.ops import color, gainmap as gm
     from libultrahdr_dev_tpu_torch.parallel import batched
 
     y_np, uv_np = synth_p010(FRAMES, H, W, SEED)
@@ -273,33 +315,66 @@ def kernel_phases(dev, results: dict):
         library_ms=lib_ms)
 
     # B6: <= 1 ten-bit code / F16 ULP, >= 99.9% bit-exact per channel.
+    # B11 (its table arms): bit-exact.
     y8, u8, v8 = decoded[:3]
     g8 = decoded[3][:, :H // 4, :W // 4]
     in_bytes = FRAMES * (H * W + 2 * (H // 2) * (W // 2) + (H // 4) * (W // 4))
-    worst, times = 0, {}
-    for fmt, (g_, t_) in (("hdr_linear", CONFIGS[0]),
-                          ("hdr_hlg", CONFIGS[0]), ("hdr_pq", CONFIGS[1])):
-        sc = torch.from_numpy(np.stack([batched.apply_scalars(
-            batched.api0_metadata(t_), math.inf)] * FRAMES)).to(dev)
-        args = (y8, u8, v8, g8, sc, fmt)
-        out = gm.apply_gainmap(*args)
-        dd = code_diff(out, gm.apply_gainmap_plain(*args), fmt)
-        exact = float((dd == 0).double().mean())
-        log(f"B6 apply_gainmap {fmt}: max |diff| {int(dd.max())}, "
-            f"{int((dd > 0).sum())} of {dd.numel()} channel samples differ "
-            f"({exact:.6f} exact)")
-        require(int(dd.max()) <= 1 and exact >= 0.999,
-                f"B6 {fmt} disagrees with the plain version")
-        worst = max(worst, int(dd.max()))
-        times[fmt] = (cuda_ms(lambda: gm.apply_gainmap(*args), 20) / FRAMES,
-                      cuda_ms(lambda: gm.apply_gainmap_plain(*args), 3) /
-                      FRAMES, (in_bytes + nbytes(out)) / FRAMES)
-        log(f"B6 {fmt}: kernel {times[fmt][0]:.3f} ms/frame, plain "
-            f"{times[fmt][1]:.3f} ms/frame, bound "
-            f"{bound(times[fmt][2])[0]:.4f} ms/frame")
-    results["B6"] = dict(err=worst, ms=times["hdr_linear"][0],
-                         plain_ms=times["hdr_linear"][1],
-                         bytes=times["hdr_linear"][2], library_ms=None)
+    for name, luts in (("B6", False), ("B11", True)):
+        worst, rows = 0, {}
+        for fmt, (g_, t_) in (("hdr_linear", CONFIGS[0]),
+                              ("hdr_hlg", CONFIGS[0]), ("hdr_pq", CONFIGS[1])):
+            sc = torch.from_numpy(np.stack([batched.apply_scalars(
+                batched.api0_metadata(t_), math.inf)] * FRAMES)).to(dev)
+            args = (y8, u8, v8, g8, sc, fmt, luts)
+            out = gm.apply_gainmap(*args)
+            dd = code_diff(out, gm.apply_gainmap_plain(*args), fmt)
+            exact = float((dd == 0).double().mean())
+            log(f"{name} apply_gainmap {fmt}: max |diff| {int(dd.max())}, "
+                f"{int((dd > 0).sum())} of {dd.numel()} channel samples "
+                f"differ ({exact:.6f} exact)")
+            if luts:
+                require(int(dd.max()) == 0,
+                        f"B11 {fmt} is not bit-exact with the plain version")
+            require(int(dd.max()) <= 1 and exact >= 0.999,
+                    f"{name} {fmt} disagrees with the plain version")
+            worst = max(worst, int(dd.max()))
+            # The tables cross the memory bus once, like an input.
+            tables = 0
+            if luts:
+                tables = nbytes(color.lut_tensor("srgb_inv", dev))
+                if fmt != "hdr_linear":
+                    tables += nbytes(color.lut_tensor(fmt[4:] + "_oetf", dev))
+            row = dict(
+                ms=cuda_ms(lambda: gm.apply_gainmap(*args), 20) / FRAMES,
+                plain_ms=cuda_ms(lambda: gm.apply_gainmap_plain(*args), 3) /
+                FRAMES, bytes=(in_bytes + nbytes(out) + tables) / FRAMES,
+                **ops(f"{name} {fmt}", H * W))
+            row["bound_ms"], row["bound_by"] = bound(
+                row["bytes"], row["flops"], row["dflops"])
+            rows[fmt] = row
+            log(f"{name} {fmt}: kernel {row['ms']:.4f} ms/frame, plain "
+                f"{row['plain_ms']:.3f} ms/frame, bound "
+                f"{row['bound_ms']:.4f} ms/frame ({row['bound_by']}; "
+                f"{row['bytes'] / 1e6:.1f} MB, {row['flops'] / 1e9:.3f} "
+                f"GFLOP f32, {row['dflops'] / 1e9:.3f} GFLOP f64)")
+        # The kernels line reports B6's F16 row and B11's HLG row (the
+        # format the use_luts window of the main path decodes first).
+        results[name] = dict(rows["hdr_hlg" if luts else "hdr_linear"],
+                             err=worst, library_ms=None, rows=rows)
+
+    # B7: bit-exact.
+    out = gm.yuv420_to_rgba8888(y8, u8, v8)
+    err_b7 = int((out != gm.yuv420_to_rgba8888_plain(y8, u8, v8)).sum())
+    log(f"B7 yuv420_to_rgba8888: {err_b7} of {out.numel()} words differ "
+        f"from the plain version")
+    require(err_b7 == 0, "B7 is not bit-exact with the plain version")
+    results["B7"] = dict(
+        err=0, ms=cuda_ms(lambda: gm.yuv420_to_rgba8888(y8, u8, v8), 20) /
+        FRAMES,
+        plain_ms=cuda_ms(lambda: gm.yuv420_to_rgba8888_plain(y8, u8, v8),
+                         3) / FRAMES,
+        bytes=(in_bytes - FRAMES * (H // 4) * (W // 4) + nbytes(out)) /
+        FRAMES, library_ms=None, **ops("B7", H * W))
 
 
 def b3_phase(dev, results: dict):
@@ -359,6 +434,69 @@ def b3_phase(dev, results: dict):
         plain_ms=cuda_ms(plain, 1) / FRAMES,
         bytes=nbytes(*coefs, *base, *gmap) / FRAMES, library_ms=None)
     return kept
+
+
+def sdr_rendition(y_np, uv_np, sdr_gamut: str, dev):
+    """The SDR frame of an API-1 input: the top 8 bits of the seeded HDR
+    frame, re-encoded from BT.2100 YUV to the SDR gamut's with the
+    port's plain conversion. numpy uint8 (n, h, w), (n, h/2, w/2)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+
+    top = [torch.from_numpy((a >> 8).astype(np.uint8)).to(dev)
+           for a in (y_np, uv_np[..., 0::2], uv_np[..., 1::2])]
+    return [p.cpu().numpy()
+            for p in gm.convert_yuv_encoding_plain(*top, "bt2100", sdr_gamut)]
+
+
+def b9_phase(dev, results: dict):
+    """B9 (API-1 front end) against its plain version for both API-1
+    configurations (gain codes <= 1 apart on <= 1e-4 of samples, base
+    planes bit-exact), and the API-1 JPEG/R bytes through B2 and B3
+    against the host-Huffman route of the same coefficients."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    for i, (sg, hg, tf) in enumerate(API1_CONFIGS):
+        y_np, uv_np = synth_p010(FRAMES, H, W, SEED + 20 + i)
+        planes = ([batched.p010_to_device(a, dev) for a in (y_np, uv_np)]
+                  + [torch.from_numpy(p).to(dev)
+                     for p in sdr_rendition(y_np, uv_np, sg, dev)])
+        got = gm.encode_front_api1(*planes, sg, hg, tf)
+        ref = gm.encode_front_api1_plain(*planes, sg, hg, tf)
+        d = (got[0].to(torch.int32) - ref[0].to(torch.int32)).abs()
+        n_off = int((d > 0).sum())
+        log(f"B9 encode_front_api1 {sg}/{hg}/{tf}: max |diff| gain "
+            f"{int(d.max())} on {n_off} of {d.numel()} samples; base planes "
+            f"{'equal' if all(map(torch.equal, got[1:], ref[1:])) else 'DIFFER'}")
+        require(int(d.max()) <= 1 and n_off <= 1e-4 * d.numel(),
+                f"B9 {sg}/{hg}/{tf} gain codes disagree with the plain version")
+        require(all(map(torch.equal, got[1:], ref[1:])),
+                f"B9 {sg}/{hg}/{tf} base planes differ from the plain version")
+        coefs = batched.encode_coefs_stage_api1(*planes, sg, hg, tf, 95)
+        streams = batched.encode_device_stage_api1(*planes, sg, hg, tf, 95)
+        blobs = batched.assemble_api0(streams, sg, tf, 95)[0]
+        host = batched.assemble_api0_host_huffman(coefs, W, H, sg, tf, 95)
+        require(blobs == host, f"B9 {sg}/{hg}/{tf}: API-1 JPEG/R bytes "
+                f"differ from the host-Huffman route")
+        log(f"B9 {sg}/{hg}/{tf}: API-1 JPEG/R bytes through B3 equal the "
+            f"host-Huffman route ({sum(map(len, blobs))} bytes)")
+        if i:
+            continue
+        samples = ops(f"B9 map {tf}", (H // 4) * (W // 4))
+        quads = ops("B9 quad", (H // 2) * (W // 2))
+        results["B9"] = dict(
+            err=int(d.max()),
+            ms=cuda_ms(lambda: gm.encode_front_api1(*planes, sg, hg, tf),
+                       20) / FRAMES,
+            plain_ms=cuda_ms(lambda: gm.encode_front_api1_plain(
+                *planes, sg, hg, tf), 3) / FRAMES,
+            bytes=nbytes(*planes, *got) / FRAMES, library_ms=None,
+            flops=samples["flops"] + quads["flops"],
+            dflops=samples["dflops"])
 
 
 def _b4_inputs(frames, dev):
@@ -483,8 +621,8 @@ def reset_counts():
     from libultrahdr_dev_tpu_torch.jpeg import codec
 
     torch.cuda.synchronize()
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
     codec.entropy_encode.calls = codec.entropy_decode.calls = 0
 
 
@@ -496,7 +634,7 @@ def read_counts(label: str, need) -> dict:
     from libultrahdr_dev_tpu_torch.jpeg import codec
 
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers().items()}
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     host = (codec.entropy_encode.calls, codec.entropy_decode.calls)
     log(f"{label}: kernel launches {launches}, host Huffman encode/decode "
         f"calls {host}")
@@ -548,7 +686,7 @@ def main_path(dev, smi: str):
     api_blob = UhdrEncoder(dev).set_raw_image(raw, HDR_IMG).encode().data
     api_img = UhdrDecoder(dev).set_image(api_blob).decode()
     counts = [read_counts(f"round trip ({time.perf_counter() - t0:.1f} s)",
-                          wrappers())]
+                          API0_KERNELS)]
 
     reset_counts()
     hand = {fmt: batched.batched_decode_from_handoff(
@@ -609,9 +747,144 @@ def main_path(dev, smi: str):
     return launches, inputs, blobs, handoffs
 
 
-def stage_times(dev, smi: str, inputs, blobs, handoffs):
+def main_path_api1(dev, smi: str):
+    """API-1 through the entry points a user calls, in three windows,
+    each with every launch counter and the host Huffman call counters
+    zeroed just before and read just after: (1) the API-1 encode
+    (batched, JpegR, UhdrEncoder with HDR and SDR raw intents) and the
+    HDR decode of its blobs; (2) the SDR decode (batched, handoff,
+    JpegR, UhdrDecoder RGBA8888 + sRGB), which decodes the base alone;
+    (3) the use_luts decode (HLG and PQ, batched and JpegR)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer, JpegR,
+                                           OutputFormat, PixelFormat,
+                                           RawImage, UhdrDecoder,
+                                           UhdrEncoder)
+    from libultrahdr_dev_tpu_torch.api import HDR_IMG, SDR_IMG
+    from libultrahdr_dev_tpu_torch.ops import color, gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    inputs = {}
+    for i, (sg, hg, tf) in enumerate(API1_CONFIGS):
+        y, uv = synth_p010(FRAMES, H, W, SEED + 30 + i)
+        inputs[sg, hg, tf] = (y, uv, *sdr_rendition(y, uv, sg, dev))
+    key = API1_CONFIGS[0]
+    sg, hg, tf = key
+    y, uv, sy, su, sv = inputs[key]
+    hdr = RawImage(fmt=PixelFormat.P010, width=W, height=H,
+                   gamut=ColorGamut(hg), transfer=ColorTransfer(tf),
+                   planes={"y": y[0], "uv": uv[0]})
+    sdr = RawImage(fmt=PixelFormat.YUV420, width=W, height=H,
+                   gamut=ColorGamut(sg),
+                   planes={"y": sy[0], "u": su[0], "v": sv[0]})
+    jr = JpegR(dev)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    blobs, handoffs, outs = {}, {}, {}
+    for k, (y_, uv_, *sdr_) in inputs.items():
+        blobs[k], handoffs[k] = batched.batched_encode_api1(
+            y_, uv_, *sdr_, sdr_gamut=k[0], hdr_gamut=k[1], hdr_tf=k[2],
+            quality=95, device=dev, return_handoff=True)
+        for fmt in ("hdr_linear", f"hdr_{k[2]}"):
+            outs[k, fmt] = batched.batched_decode(blobs[k], fmt,
+                                                  device=dev).cpu()
+    jr_blob = jr.encode_api1(hdr, sdr, ColorTransfer(tf), 95)
+    api_blob = (UhdrEncoder(dev).set_raw_image(hdr, HDR_IMG)
+                .set_raw_image(sdr, SDR_IMG).encode().data)
+    counts = [read_counts(f"API-1 encode + HDR decode "
+                          f"({time.perf_counter() - t0:.1f} s)",
+                          ("B9", "B2", "B3", "B3g", "B4", "B5", "B6"))]
+    require(counts[0]["B1"] == 0, "API-1 encode launched B1")
+    require(jr_blob == blobs[key][0] == api_blob,
+            "API-1: JpegR / UhdrEncoder bytes differ from the batched encode")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    sdr_b = batched.batched_decode(blobs[key], "sdr", device=dev).cpu()
+    sdr_h = batched.batched_decode_from_handoff(handoffs[key], "sdr").cpu()
+    sdr_j = jr.decode(blobs[key][0], OutputFormat.SDR).image.planes["rgba"]
+    dec = UhdrDecoder(dev).set_image(blobs[key][0])
+    dec.set_out_img_format(PixelFormat.RGBA8888)
+    dec.set_out_color_transfer(ColorTransfer.SRGB)
+    sdr_a = dec.decode().planes["rgba"]
+    c = read_counts(f"SDR decode ({time.perf_counter() - t0:.1f} s)",
+                    ("B4", "B5", "B7"))
+    # Four decodes of the base alone: one B4 call and three B5 calls
+    # each, and no gain-map apply.
+    require(c["B6"] == c["B11"] == 0, "SDR decode ran the gain-map apply")
+    require(c["B4"] == 4 and c["B5"] == 12,
+            f"SDR decode decoded more than the base: {c}")
+    counts.append(c)
+    require(torch.equal(sdr_b, sdr_h), "SDR: handoff differs from batched")
+    for other, name in ((sdr_j, "JpegR"), (sdr_a, "UhdrDecoder")):
+        require(np.array_equal(other, sdr_b[0].numpy().view(np.uint32)),
+                f"SDR: {name} differs from the batched decode")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    lut = {}
+    for k in API1_CONFIGS:
+        fmt = f"hdr_{k[2]}"
+        lut[k] = batched.batched_decode(blobs[k], fmt, device=dev,
+                                        use_luts=True).cpu()
+        lut_j = jr.decode(blobs[k][0], OutputFormat(fmt),
+                          use_luts=True).image.planes["rgba"]
+        require(np.array_equal(lut_j, lut[k][0].numpy().view(np.uint32)),
+                f"use_luts {fmt}: JpegR differs from the batched decode")
+    c = read_counts(f"use_luts decode ({time.perf_counter() - t0:.1f} s)",
+                    ("B4", "B5", "B11"))
+    require(c["B6"] == 0, "use_luts decode ran the computed apply")
+    counts.append(c)
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    # What came out: geometry, finite F16, luminance against the input
+    # (taken in the SDR gamut, as the gain map takes it), the SDR decode
+    # against the SDR input, the table decode against the computed one.
+    for k, bl in blobs.items():
+        for b in bl:
+            info = jr.get_info(b)
+            require((info.width, info.height, info.gainmap_width,
+                     info.gainmap_height) == (W, H, W // 4, H // 4),
+                    f"{k}: bad JPEG/R geometry")
+        f16 = outs[k, "hdr_linear"].numpy().view(np.float16)
+        require(f16.shape == (FRAMES, H, W, 4) and
+                bool(np.isfinite(f16).all()), f"{k}: bad F16 output")
+        y_, uv_ = inputs[k][:2]
+        sub = (slice(None), slice(0, H, 4), slice(0, W, 4))
+        want, white, _ = hdr_nits_reference(y_, uv_, k[1], k[2])
+        kw = color.LUMINANCE[k[0]]
+        rgb = f16[sub].astype(np.float64)
+        got = (kw[0] * rgb[..., 0] + kw[1] * rgb[..., 1]
+               + kw[2] * rgb[..., 2]) * white
+        want = want[sub]
+        keep = (want > 1.0) & (got > 0)
+        med = float(np.median(np.abs(np.log2(got[keep] / want[keep]))))
+        log(f"API-1 {'/'.join(k)}: median |log2(decoded/input luminance)| "
+            f"{med:.4f} over {int(keep.sum())} pixels")
+        require(med <= 0.1, f"API-1 {k} luminance round trip off")
+        dl = code_diff(lut[k], outs[k, f"hdr_{k[2]}"], f"hdr_{k[2]}")
+        log(f"API-1 {'/'.join(k)}: use_luts vs computed decode, max |diff| "
+            f"{int(dl.max())} codes, {float((dl == 0).double().mean()):.6f} "
+            f"equal")
+    sdr_in = [torch.from_numpy(p).to(dev) for p in inputs[key][2:]]
+    ref = gm.yuv420_to_rgba8888_plain(*gm.convert_yuv_encoding_plain(
+        *sdr_in, sg, "p3")).cpu()
+    a, b = (t.numpy().view(np.uint8).reshape(FRAMES, H, W, 4)[..., :3]
+            .astype(np.float64) for t in (sdr_b, ref))
+    psnr = 10 * math.log10(255.0 ** 2 / max(float(np.mean((a - b) ** 2)),
+                                            1e-12))
+    log(f"SDR decode of API-1 {sg}/{hg}/{tf} vs the SDR input: PSNR "
+        f"{psnr:.2f} dB")
+    require(psnr >= 30.0, f"SDR decode PSNR {psnr:.2f} dB < 30")
+    return launches, inputs, blobs, handoffs
+
+
+def stage_times(dev, smi: str, inputs, blobs, handoffs, api1):
     """Warm per-frame times of the stages (batch of FRAMES, first
-    configuration), each ending synchronized."""
+    configuration of each route), each ending synchronized. `api1` is
+    (inputs, blobs) of main_path_api1."""
     import torch
 
     from libultrahdr_dev_tpu_torch.parallel import batched
@@ -637,6 +910,20 @@ def stage_times(dev, smi: str, inputs, blobs, handoffs):
         batched.batched_decode_from_handoff(handoffs[gamut, tf], fmt)
         torch.cuda.synchronize()
 
+    k1 = API1_CONFIGS[0]
+    planes1 = ([batched.p010_to_device(a, dev) for a in api1[0][k1][:2]]
+               + [torch.from_numpy(p).to(dev) for p in api1[0][k1][2:]])
+
+    def enc_dev_api1():
+        batched.encode_device_stage_api1(*planes1, *k1, 95)
+        torch.cuda.synchronize()
+
+    frames_sdr = batched.decode_host_stage(api1[1][k1], "sdr")
+
+    def dec_dev_sdr():
+        batched.decode_device_stage(frames_sdr, "sdr", math.inf, dev)
+        torch.cuda.synchronize()
+
     stages = {
         "encode_device (B1+B2+B3)": host_ms(enc_dev, 5),
         "encode_host (D2H+finalize+mux)": host_ms(
@@ -649,18 +936,35 @@ def stage_times(dev, smi: str, inputs, blobs, handoffs):
     for k, v in stages.items():
         log(f"stage {k}: {v / FRAMES:.3f} ms/frame ({W}x{H}, batch "
             f"{FRAMES}, {gamut}/{tf} -> {fmt}, {smi})")
+    for k, v in {"encode_device API-1 (B9+B2+B3)": host_ms(enc_dev_api1, 5),
+                 "decode_device SDR (H2D+B4+B5+B7)": host_ms(dec_dev_sdr, 5),
+                 }.items():
+        log(f"stage {k}: {v / FRAMES:.3f} ms/frame ({W}x{H}, batch "
+            f"{FRAMES}, {'/'.join(k1)}, {smi})")
 
 
-def wrappers():
+API0_KERNELS = ("B1", "B2", "B3", "B3g", "B4", "B5", "B6")
+
+
+def counters():
+    """Each kernel's launch counter: name -> (wrapper, attribute). B3
+    counts its 4:2:0 and gray wrappers apart (B3, B3g); B11 is the
+    table arm of B6's wrapper."""
     from libultrahdr_dev_tpu_torch.jpeg import dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
     from libultrahdr_dev_tpu_torch.ops import gainmap as gm
 
-    return {"B1": gm.encode_front, "B2": dct.fdct_quant,
-            "B3": de.encode_ycbcr_rst_stream,
-            "B3g": de.encode_gray_rst_stream, "B4": dd.decode_rst_chunks,
-            "B5": dct.dequant_idct, "B6": gm.apply_gainmap}
+    return {"B1": (gm.encode_front, "launches"),
+            "B2": (dct.fdct_quant, "launches"),
+            "B3": (de.encode_ycbcr_rst_stream, "launches"),
+            "B3g": (de.encode_gray_rst_stream, "launches"),
+            "B4": (dd.decode_rst_chunks, "launches"),
+            "B5": (dct.dequant_idct, "launches"),
+            "B6": (gm.apply_gainmap, "launches"),
+            "B7": (gm.yuv420_to_rgba8888, "launches"),
+            "B9": (gm.encode_front_api1, "launches"),
+            "B11": (gm.apply_gainmap, "lut_launches")}
 
 
 KERNELS = {
@@ -676,6 +980,12 @@ KERNELS = {
            "libultrahdr_dev_tpu/jpeg/dct.py:122"),
     "B6": ("apply_gainmap", "libultrahdr_dev_tpu_torch/kernels/csrc/"
            "apply.cu", "libultrahdr_dev_tpu/ops/gainmap.py:296"),
+    "B7": ("yuv420_to_rgba8888", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+           "sdr_out.cu", "libultrahdr_dev_tpu/ops/gainmap.py:407"),
+    "B9": ("encode_front_api1", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+           "encode_front.cu", "libultrahdr_dev_tpu/parallel/sharding.py:622"),
+    "B11": ("apply_gainmap_lut", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+            "apply.cu", "libultrahdr_dev_tpu/ops/color.py:254"),
 }
 
 
@@ -705,9 +1015,11 @@ def main() -> int:
         f" s)")
 
     results: dict = {}
-    phases = [("kernels B1 B2 B5 B6", lambda: kernel_phases(dev, results))]
+    phases = [("kernels B1 B2 B5 B6 B11 B7",
+               lambda: kernel_phases(dev, results))]
     kept = {}
     phases.append(("B3", lambda: kept.update(b3_phase(dev, results))))
+    phases.append(("B9", lambda: b9_phase(dev, results)))
     phases.append(("B4", lambda: b4_phase(dev, results, kept)))
     for label, fn in phases:
         t = time.perf_counter()
@@ -715,16 +1027,22 @@ def main() -> int:
         log(f"phase {label}: {time.perf_counter() - t:.1f} s")
     for k in KERNELS:
         r = results[k]
-        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r.get("flops", 0.0))
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r.get("flops", 0.0),
+                                             r.get("dflops", 0.0))
         log(f"{k} {KERNELS[k][0]}: kernel {r['ms']:.4f} ms/frame, plain "
             f"{r['plain_ms']:.3f} ms/frame, bound {r['bound_ms']:.4f} "
             f"ms/frame ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), "
             f"library {r['library_ms']} ms/frame ({W}x{H}, {smi})")
     t = time.perf_counter()
     launches, inputs, blobs, handoffs = main_path(dev, smi)
-    log(f"phase main path: {time.perf_counter() - t:.1f} s")
+    log(f"phase main path API-0: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches1, inputs1, blobs1, _ = main_path_api1(dev, smi)
+    log(f"phase main path API-1 / SDR / use_luts: "
+        f"{time.perf_counter() - t:.1f} s")
+    launches = {k: launches[k] + launches1[k] for k in launches}
     launches["B3"] += launches.pop("B3g")
-    stage_times(dev, smi, inputs, blobs, handoffs)
+    stage_times(dev, smi, inputs, blobs, handoffs, (inputs1, blobs1))
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

@@ -50,6 +50,9 @@ SIGNATURES = {
     # log2_min, inv_denom, m01, m02, m11, m12, m21, m22, sat, floor, stream
     "uhdr_encode_front": [_P] * 6 + [_I] * 3 + [_F] * 8 + [_I] * 2
                          + [_F] * 10 + [_I] * 2 + [_P],
+    # y, uv, sdr y, u, v, gmap, y601, u601, v601, n, h, w, float params
+    # (host), int params (host), stream
+    "uhdr_encode_front_api1": [_P] * 9 + [_I] * 3 + [_P] * 3,
     # plane, q, out, n, h, w, ds, d, inv_zig, stream
     "uhdr_fdct_quant": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # coefs, q, out, n, bh, bw, ds, d, inv_zig, stream
@@ -58,6 +61,12 @@ SIGNATURES = {
     # w, mh, mw, scale, fmt, stream
     "uhdr_apply_gainmap": [_P] * 4 + [_L] * 8 + [_P, _P] + [_I] * 7
                           + [_P],
+    # as uhdr_apply_gainmap, then the sRGB and OETF tables, stream
+    "uhdr_apply_gainmap_lut": [_P] * 4 + [_L] * 8 + [_P, _P] + [_I] * 7
+                              + [_P] * 3,
+    # y, u, v, 3 x (batch stride, row stride), out, n, h, w, stream
+    "uhdr_yuv420_to_rgba8888": [_P] * 3 + [_L] * 6 + [_P] + [_I] * 3
+                               + [_P],
     # y, u, v, tables, bits, words, offs, n, nc, r, color, mcus_x,
     # n_mcus, ny, nuv, stream
     "uhdr_huff_encode_count": [_P] * 7 + [_I] * 8 + [_P],

@@ -1,8 +1,12 @@
-// B6: gain-map apply for the port's ops/gainmap.py.
+// B6 and B11: gain-map apply for the port's ops/gainmap.py.
 //
-// Replaces libultrahdr_dev_tpu/ops/gainmap.py:_apply_kernel (with
+// B6 replaces libultrahdr_dev_tpu/ops/gainmap.py:_apply_kernel (with
 // _upsample2, _idw_upsample and ops/color.py srgb_inv_oetf, hlg_oetf,
-// pq_oetf, pack_rgba1010102, pack_rgba_f16).
+// pq_oetf, pack_rgba1010102, pack_rgba_f16). B11 is the same kernel
+// compiled with kLut: the use_luts=True arms of _apply_kernel
+// (gainmap.py:297,323,326), which read the sRGB inverse OETF and the
+// HLG / PQ OETF from ops/color.py's tables (_lut_lookup) instead of
+// computing them; exp2 stays computed, as in the JAX apply.
 //
 // Bound: the output write. A 4080x3072 frame writes 100 MB of RGBA F16
 // or 50 MB of RGBA1010102 and reads about 16 MB of u8 planes, so the
@@ -11,13 +15,19 @@
 // writes 256 (F16, one 8-byte store per thread) or 128 consecutive
 // bytes. The 4:2:0 chroma sample, the four gain-map neighbours and their
 // Shepard inverse-distance weights are computed in place from (x, y):
-// no upsampled plane or weight table ever reaches device memory.
+// no upsampled plane or weight table ever reaches device memory. The
+// computed transfer functions (a double pow per channel for sRGB and
+// PQ) make B6 bound by operations; B11 trades them for table reads. Its
+// 4 KB sRGB table is copied into each CTA's shared memory; the 256 KB
+// HLG / PQ tables exceed what an SM holds, so they are read through the
+// read-only path (__ldg) and stay resident in L2.
 //
 // Numerics follow ops/gainmap.py:apply_gainmap_plain operation by
 // operation, with its roundings (color.cuh): the edge cells take
 // inc_r = inc_b = 0, the d1 == 0 cell takes the map sample itself,
-// F16 rounds to nearest even (__float2half_rn), and the
-// 10-bit pack truncates after clamping, with alpha bits 0xC0000000.
+// F16 rounds to nearest even (__float2half_rn), the table index is
+// trunc(fma(x, n - 1, 0.5)) clamped to the table, and the 10-bit pack
+// truncates after clamping, with alpha bits 0xC0000000.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
@@ -28,28 +38,35 @@
 namespace {
 
 using uhdr::clamp01;
+using uhdr::Plane;
 
 enum Fmt : int { kF16 = 0, kHlgOut = 1, kPqOut = 2 };
 
-struct Plane {
-  const uint8_t* p;
-  long long batch_stride, row_stride;
-  __device__ __forceinline__ uint8_t at(int b, int y, int x) const {
-    return p[b * batch_stride + y * row_stride + x];
-  }
-};
+// Table sizes (ops/color.py SRGB_INV_OETF_NUM_ENTRIES,
+// HLG_OETF_NUM_ENTRIES = PQ_OETF_NUM_ENTRIES).
+constexpr int kSrgbLutN = 1 << 10;
+constexpr int kOetfLutN = 1 << 16;
 
 __device__ __forceinline__ uint32_t pack10(float c) {
   return (uint32_t)(clamp01(c) * 1023.0f) & 0x3FFu;
 }
 
+template <bool kLut>
 __global__ void apply_kernel(Plane yp, Plane up, Plane vp, Plane gp,
                              const float* __restrict__ scalars,
                              void* __restrict__ out, int h, int w, int mh,
-                             int mw, int scale, int fmt) {
+                             int mw, int scale, int fmt,
+                             const float* __restrict__ srgb_lut,
+                             const float* __restrict__ oetf_lut) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y;
   int b = blockIdx.z;
+  __shared__ float srgb[kLut ? kSrgbLutN : 1];
+  if (kLut) {
+    for (int i = threadIdx.x; i < kSrgbLutN; i += blockDim.x)
+      srgb[i] = srgb_lut[i];
+    __syncthreads();
+  }
   if (x >= w) return;
 
   // BT.601 YUV -> RGB of the decoded base, sRGB linearized
@@ -63,9 +80,15 @@ __global__ void apply_kernel(Plane yp, Plane up, Plane vp, Plane gp,
       (float)(0.299 * 1.402 / 0.587)};
   float r, g, bl;
   to_rgb(yf, uf, vf, &r, &g, &bl);
-  r = uhdr::srgb_inv_oetf(r);
-  g = uhdr::srgb_inv_oetf(g);
-  bl = uhdr::srgb_inv_oetf(bl);
+  if (kLut) {
+    r = srgb[uhdr::lut_index(r, kSrgbLutN)];
+    g = srgb[uhdr::lut_index(g, kSrgbLutN)];
+    bl = srgb[uhdr::lut_index(bl, kSrgbLutN)];
+  } else {
+    r = uhdr::srgb_inv_oetf(r);
+    g = uhdr::srgb_inv_oetf(g);
+    bl = uhdr::srgb_inv_oetf(bl);
+  }
 
   // Shepard IDW over the 4 surrounding map samples
   // (gainmapmath.cpp:66-110, 686-720).
@@ -111,7 +134,11 @@ __global__ void apply_kernel(Plane yp, Plane up, Plane vp, Plane gp,
     reinterpret_cast<ushort4*>(out)[pix] = v;
     return;
   }
-  if (fmt == kHlgOut) {
+  if (kLut) {  // the HLG or PQ OETF table, as fmt says
+    r = __ldg(oetf_lut + uhdr::lut_index(r, kOetfLutN));
+    g = __ldg(oetf_lut + uhdr::lut_index(g, kOetfLutN));
+    bl = __ldg(oetf_lut + uhdr::lut_index(bl, kOetfLutN));
+  } else if (fmt == kHlgOut) {
     r = uhdr::hlg_oetf(r);
     g = uhdr::hlg_oetf(g);
     bl = uhdr::hlg_oetf(bl);
@@ -122,6 +149,22 @@ __global__ void apply_kernel(Plane yp, Plane up, Plane vp, Plane gp,
   }
   reinterpret_cast<uint32_t*>(out)[pix] =
       pack10(r) | (pack10(g) << 10) | (pack10(bl) << 20) | 0xC0000000u;
+}
+
+template <bool kLut>
+int launch(const void* y, const void* u, const void* v, const void* g,
+           long long ysb, long long ysr, long long usb, long long usr,
+           long long vsb, long long vsr, long long gsb, long long gsr,
+           const void* scalars, void* out, int n, int h, int w, int mh,
+           int mw, int scale, int fmt, const void* srgb_lut,
+           const void* oetf_lut, void* stream) {
+  Plane yp{(const uint8_t*)y, ysb, ysr}, up{(const uint8_t*)u, usb, usr};
+  Plane vp{(const uint8_t*)v, vsb, vsr}, gp{(const uint8_t*)g, gsb, gsr};
+  dim3 grid((w + 255) / 256, h, n);
+  apply_kernel<kLut><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      yp, up, vp, gp, (const float*)scalars, out, h, w, mh, mw, scale, fmt,
+      (const float*)srgb_lut, (const float*)oetf_lut);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -138,13 +181,25 @@ int uhdr_apply_gainmap(const void* y, const void* u, const void* v,
                        long long vsr, long long gsb, long long gsr,
                        const void* scalars, void* out, int n, int h, int w,
                        int mh, int mw, int scale, int fmt, void* stream) {
-  Plane yp{(const uint8_t*)y, ysb, ysr}, up{(const uint8_t*)u, usb, usr};
-  Plane vp{(const uint8_t*)v, vsb, vsr}, gp{(const uint8_t*)g, gsb, gsr};
-  dim3 grid((w + 255) / 256, h, n);
-  apply_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      yp, up, vp, gp, (const float*)scalars, out, h, w, mh, mw, scale,
-      fmt);
-  return (int)cudaGetLastError();
+  return launch<false>(y, u, v, g, ysb, ysr, usb, usr, vsb, vsr, gsb, gsr,
+                       scalars, out, n, h, w, mh, mw, scale, fmt, nullptr,
+                       nullptr, stream);
+}
+
+// B11: as uhdr_apply_gainmap, with the float32 sRGB inverse OETF table
+// (1,024 entries) and, for fmt 1 / 2, the HLG / PQ OETF table (65,536
+// entries) on the device; oetf_lut is unused for fmt 0.
+int uhdr_apply_gainmap_lut(const void* y, const void* u, const void* v,
+                           const void* g, long long ysb, long long ysr,
+                           long long usb, long long usr, long long vsb,
+                           long long vsr, long long gsb, long long gsr,
+                           const void* scalars, void* out, int n, int h,
+                           int w, int mh, int mw, int scale, int fmt,
+                           const void* srgb_lut, const void* oetf_lut,
+                           void* stream) {
+  return launch<true>(y, u, v, g, ysb, ysr, usb, usr, vsb, vsr, gsb, gsr,
+                      scalars, out, n, h, w, mh, mw, scale, fmt, srgb_lut,
+                      oetf_lut, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@
 // following the JAX reference as XLA compiles it. A division by a
 // constant is a multiplication by the constant's float32 reciprocal,
 // and pow() is evaluated in double, as in ops/color.py. Shared by
-// encode_front.cu (B1) and apply.cu (B6).
+// encode_front.cu (B1, B9), apply.cu (B6, B11) and sdr_out.cu (B7).
 // Constants are written (float)<double> so that they round the way the
 // Python constants do (decimal -> double -> float32).
 #pragma once
@@ -95,10 +95,42 @@ struct YuvToRgb {
   }
 };
 
+// m0*x0 + m1*x1 as ops/color.py:dot2 rounds it: XLA on the CPU fuses
+// the first product of the sum into the add, unless m0 < 0 <= m1, where
+// it rewrites the sum as a difference led by the second term.
+__device__ __forceinline__ float dot2(float m0, float x0, float m1,
+                                      float x1) {
+  if (m0 < 0.0f && m1 >= 0.0f) return fmaf(m1, x1, m0 * x0);
+  return fmaf(m0, x0, m1 * x1);
+}
+
+// m0*x0 + m1*x1 + m2*x2 (ops/color.py:dot3).
+__device__ __forceinline__ float dot3(const float* m, float x0, float x1,
+                                      float x2) {
+  return fmaf(m[2], x2, dot2(m[0], x0, m[1], x1));
+}
+
 // kr*r + kg*g + kb*b, fused as ops/color.py:luminance fuses it.
 __device__ __forceinline__ float luminance(float kr, float kg, float kb,
                                            float r, float g, float b) {
   return fmaf(kb, b, fmaf(kr, r, kg * g));
 }
+
+// Index of x in an n-entry transfer table (ops/color.py:lut_index):
+// trunc(x * (n - 1) + 0.5) with the multiply-add fused, clamped.
+__device__ __forceinline__ int lut_index(float x, int n) {
+  int i = (int)fmaf(x, (float)(n - 1), 0.5f);
+  return min(max(i, 0), n - 1);
+}
+
+// A u8 plane of a batch with its own (batch, row) strides in bytes and
+// unit column stride: B5's crops of padded IDCT output, read in place.
+struct Plane {
+  const uint8_t* p;
+  long long batch_stride, row_stride;
+  __device__ __forceinline__ uint8_t at(int b, int y, int x) const {
+    return p[b * batch_stride + y * row_stride + x];
+  }
+};
 
 }  // namespace uhdr

@@ -1,19 +1,28 @@
-// B1: API-0 encode front end for the port's ops/gainmap.py.
+// B1 and B9: the encode front ends for the port's ops/gainmap.py.
 //
-// Replaces libultrahdr_dev_tpu/parallel/sharding.py:_gainmap_and_coefs
-// (the part before the fDCT) with _encode_one_image_coefs' tonemap, and
-// the ops/gainmap.py helpers it runs: p010_to_float, yuv420_to_float,
-// _box_mean, _convert_yuv_kernel, and ops/color.py:encode_gain.
+// B1 (uhdr_encode_front, API-0) replaces
+// libultrahdr_dev_tpu/parallel/sharding.py:_gainmap_and_coefs (the part
+// before the fDCT) with _encode_one_image_coefs' tonemap, and the
+// ops/gainmap.py helpers it runs: p010_to_float, yuv420_to_float,
+// _box_mean, _convert_yuv_kernel, and ops/color.py:encode_gain. B9
+// (uhdr_encode_front_api1, API-1) replaces the same _gainmap_and_coefs
+// as sharding.py:_batched_encode_api1_kernel runs it: the SDR comes in
+// as its own u8 planes, the SDR and HDR signals each have their gamut's
+// YUV matrix, the linear HDR RGB is converted into the SDR gamut
+// (ops/color.py:hdr_gamut_conversion_matrix) before its luminance, both
+// luminances take the SDR gamut's weights, and the base is the SDR
+// re-encoded from its gamut's YUV to BT.601.
 //
 // Bound: DRAM reads of the P010 frame (24 MB for 4080x3072, plus 19 MB
-// of u8 output). Two launches, each one streaming pass:
+// of u8 output; API-1 also reads the 19 MB SDR frame). Two launches per
+// call, each one streaming pass:
 //  (a) one thread per gain-map sample sums its 4x4 luma box and 2x2
-//      chroma box of the u16 input, as SDR codes (u16 >> 8) and as
+//      chroma box, as SDR codes (u16 >> 8, or the SDR planes) and as
 //      10-bit HDR codes (u16 >> 6), in integers, then runs the colour
 //      chain and writes one u8 gain code;
-//  (b) one thread per 2x2 luma quad (one chroma sample) writes the
-//      tonemapped base re-encoded to BT.601 YUV (gainmap.py:434-448);
-//      for the P3 gamut the re-encode is the identity.
+//  (b) one thread per 2x2 luma quad (one chroma sample) writes the SDR
+//      re-encoded to BT.601 YUV (gainmap.py:434-448); for a P3 SDR the
+//      re-encode is the identity.
 // The (a) threads re-read luma that (b) also reads; both passes stay
 // within L2-friendly row bands, and a fused single pass is later work.
 //
@@ -23,7 +32,8 @@
 // the box means, which can move a gain code by 1 where the log-ratio
 // sits on a code boundary; the chip check allows that on <= 1e-4 of
 // samples. The boundary codes of encode_gain (saturate at 254) come in
-// from the host, computed in float64 as ops/color.py does.
+// from the host, computed in float64 as ops/color.py does. The base
+// planes round as the plain version does and are bit-exact.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -33,12 +43,14 @@
 namespace {
 
 struct GainParams {
-  uhdr::YuvToRgb to_rgb;  // the gamut's own YUV matrix (SDR and HDR)
-  float lum_r, lum_g, lum_b;
+  uhdr::YuvToRgb sdr_rgb, hdr_rgb;  // each signal's gamut's YUV matrix
+  float lum_r, lum_g, lum_b;        // the SDR gamut's weights
   int tf;
   float hdr_white;
   float min_b, max_b, log2_min, inv_denom;
   int sat_code, floor_code;
+  int gamut;    // 1: gm takes linear HDR RGB into the SDR gamut
+  float gm[9];  // row-major 3x3
 };
 
 struct ConvertParams {
@@ -46,15 +58,20 @@ struct ConvertParams {
   float m01, m02, m11, m12, m21, m22;
 };
 
-__device__ __forceinline__ float luminance(const GainParams& p, float r,
-                                           float g, float b) {
-  return uhdr::luminance(p.lum_r, p.lum_g, p.lum_b, r, g, b);
-}
+// The SDR input of the kernels' kPlanes variant (API-1): its own u8
+// planes. Without kPlanes (API-0) the SDR is the top 8 bits of the P010
+// samples, API-0's tonemap, and these pointers are unused.
+struct SdrPlanes {
+  const uint8_t* y;
+  const uint8_t* u;
+  const uint8_t* v;
+};
 
+template <bool kPlanes>
 __global__ void gain_kernel(const uint16_t* __restrict__ y,
                             const uint16_t* __restrict__ uv,
-                            uint8_t* __restrict__ gmap, int h, int w,
-                            const GainParams p) {
+                            const SdrPlanes sdr, uint8_t* __restrict__ gmap,
+                            int h, int w, const GainParams p) {
   int mw = w / 4, mh = h / 4;
   int mx = blockIdx.x * blockDim.x + threadIdx.x;
   int my = blockIdx.y;
@@ -66,11 +83,11 @@ __global__ void gain_kernel(const uint16_t* __restrict__ y,
   int sy8 = 0, sy10 = 0;
 #pragma unroll
   for (int dy = 0; dy < 4; ++dy) {
-    const uint16_t* row = yb + (size_t)(my * 4 + dy) * w + mx * 4;
+    size_t i = (size_t)(my * 4 + dy) * w + mx * 4;
 #pragma unroll
     for (int dx = 0; dx < 4; ++dx) {
-      sy8 += row[dx] >> 8;
-      sy10 += row[dx] >> 6;
+      sy8 += kPlanes ? sdr.y[(size_t)b * h * w + i + dx] : yb[i + dx] >> 8;
+      sy10 += yb[i + dx] >> 6;
     }
   }
   int su8 = 0, sv8 = 0, su10 = 0, sv10 = 0;
@@ -79,10 +96,11 @@ __global__ void gain_kernel(const uint16_t* __restrict__ y,
     // Interleaved CbCr: chroma samples 2mx, 2mx+1 are u16 pairs at
     // columns 4mx .. 4mx+3 of the uv plane.
     const uint16_t* row = uvb + (size_t)(my * 2 + dy) * w + mx * 4;
+    size_t ci = ((size_t)b * (h / 2) + my * 2 + dy) * (w / 2) + mx * 2;
 #pragma unroll
     for (int dx = 0; dx < 2; ++dx) {
-      su8 += row[2 * dx] >> 8;
-      sv8 += row[2 * dx + 1] >> 8;
+      su8 += kPlanes ? sdr.u[ci + dx] : row[2 * dx] >> 8;
+      sv8 += kPlanes ? sdr.v[ci + dx] : row[2 * dx + 1] >> 8;
       su10 += row[2 * dx] >> 6;
       sv10 += row[2 * dx + 1] >> 6;
     }
@@ -100,16 +118,25 @@ __global__ void gain_kernel(const uint16_t* __restrict__ y,
   float hv = fmaf((float)(sv10 - 4 * 64) * inv896, 0.25f, -0.5f);
 
   float r, g, bl;
-  p.to_rgb(sy, su, sv, &r, &g, &bl);
-  float sdr_nits = luminance(p, uhdr::srgb_inv_oetf(r),
-                             uhdr::srgb_inv_oetf(g),
-                             uhdr::srgb_inv_oetf(bl)) *
+  p.sdr_rgb(sy, su, sv, &r, &g, &bl);
+  float sdr_nits = uhdr::luminance(p.lum_r, p.lum_g, p.lum_b,
+                                   uhdr::srgb_inv_oetf(r),
+                                   uhdr::srgb_inv_oetf(g),
+                                   uhdr::srgb_inv_oetf(bl)) *
                    203.0f;
-  p.to_rgb(hy, hu, hv, &r, &g, &bl);
-  float hdr_nits = luminance(p, uhdr::hdr_inv_oetf(r, p.tf),
-                             uhdr::hdr_inv_oetf(g, p.tf),
-                             uhdr::hdr_inv_oetf(bl, p.tf)) *
-                   p.hdr_white;
+  p.hdr_rgb(hy, hu, hv, &r, &g, &bl);
+  r = uhdr::hdr_inv_oetf(r, p.tf);
+  g = uhdr::hdr_inv_oetf(g, p.tf);
+  bl = uhdr::hdr_inv_oetf(bl, p.tf);
+  if (p.gamut) {  // ops/color.py:apply_matrix3
+    float r2 = uhdr::dot3(p.gm, r, g, bl);
+    float g2 = uhdr::dot3(p.gm + 3, r, g, bl);
+    bl = uhdr::dot3(p.gm + 6, r, g, bl);
+    r = r2;
+    g = g2;
+  }
+  float hdr_nits =
+      uhdr::luminance(p.lum_r, p.lum_g, p.lum_b, r, g, bl) * p.hdr_white;
 
   // encode_gain (gainmapmath.cpp:529-541).
   float gain = sdr_nits > 0.0f ? hdr_nits / fmaxf(sdr_nits, (float)1e-30)
@@ -126,9 +153,10 @@ __device__ __forceinline__ uint8_t to_u8(float x, float bias) {
   return (uint8_t)fminf(fmaxf(fmaf(x, 255.0f, bias), 0.0f), 255.0f);
 }
 
+template <bool kPlanes>
 __global__ void base_kernel(const uint16_t* __restrict__ y,
                             const uint16_t* __restrict__ uv,
-                            uint8_t* __restrict__ y601,
+                            const SdrPlanes sdr, uint8_t* __restrict__ y601,
                             uint8_t* __restrict__ u601,
                             uint8_t* __restrict__ v601, int h, int w,
                             const ConvertParams m) {
@@ -139,16 +167,20 @@ __global__ void base_kernel(const uint16_t* __restrict__ y,
   if (cx >= cw) return;
   size_t ci = ((size_t)b * ch + cy) * cw + cx;
   const uint16_t* uvrow = uv + ((size_t)b * ch + cy) * w;
-  int u8 = uvrow[2 * cx] >> 8, v8 = uvrow[2 * cx + 1] >> 8;
-  const uint16_t* yb = y + (size_t)b * h * w;
-  uint8_t* yo = y601 + (size_t)b * h * w;
+  int u8 = kPlanes ? sdr.u[ci] : uvrow[2 * cx] >> 8;
+  int v8 = kPlanes ? sdr.v[ci] : uvrow[2 * cx + 1] >> 8;
+  size_t base = (size_t)b * h * w;
+  uint8_t* yo = y601 + base;
+  auto luma = [&](size_t i) -> int {
+    return kPlanes ? sdr.y[base + i] : y[base + i] >> 8;
+  };
   if (!m.enabled) {
     u601[ci] = (uint8_t)u8;
     v601[ci] = (uint8_t)v8;
     for (int dy = 0; dy < 2; ++dy)
       for (int dx = 0; dx < 2; ++dx) {
         size_t i = (size_t)(2 * cy + dy) * w + 2 * cx + dx;
-        yo[i] = (uint8_t)(yb[i] >> 8);
+        yo[i] = (uint8_t)luma(i);
       }
     return;
   }
@@ -157,15 +189,33 @@ __global__ void base_kernel(const uint16_t* __restrict__ y,
   const float inv255 = (float)(1.0 / 255.0);
   float u = ((float)u8 - 128.0f) * inv255;
   float v = ((float)v8 - 128.0f) * inv255;
-  float y_shift = fmaf(m.m01, u, m.m02 * v);
-  u601[ci] = to_u8(fmaf(m.m11, u, m.m12 * v), 128.5f);
-  v601[ci] = to_u8(fmaf(m.m21, u, m.m22 * v), 128.5f);
+  float y_shift = uhdr::dot2(m.m01, u, m.m02, v);
+  u601[ci] = to_u8(uhdr::dot2(m.m11, u, m.m12, v), 128.5f);
+  v601[ci] = to_u8(uhdr::dot2(m.m21, u, m.m22, v), 128.5f);
   for (int dy = 0; dy < 2; ++dy)
     for (int dx = 0; dx < 2; ++dx) {
       size_t i = (size_t)(2 * cy + dy) * w + 2 * cx + dx;
-      float yf = (float)(yb[i] >> 8) * inv255;
+      float yf = (float)luma(i) * inv255;
       yo[i] = to_u8(yf + y_shift, 0.5f);
     }
+}
+
+template <bool kPlanes>
+int launch(const void* y, const void* uv, SdrPlanes sdr, void* gmap,
+           void* y601, void* u601, void* v601, int n, int h, int w,
+           const GainParams& p, const ConvertParams& m, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 ggrid((w / 4 + 127) / 128, h / 4, n);
+  gain_kernel<kPlanes><<<ggrid, 128, 0, s>>>(
+      (const uint16_t*)y, (const uint16_t*)uv, sdr, (uint8_t*)gmap, h, w,
+      p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dim3 bgrid((w / 2 + 127) / 128, h / 2, n);
+  base_kernel<kPlanes><<<bgrid, 128, 0, s>>>(
+      (const uint16_t*)y, (const uint16_t*)uv, sdr, (uint8_t*)y601,
+      (uint8_t*)u601, (uint8_t*)v601, h, w, m);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -182,21 +232,33 @@ int uhdr_encode_front(const void* y, const void* uv, void* gmap,
                       float log2_min, float inv_denom, float m01, float m02,
                       float m11, float m12, float m21, float m22,
                       int sat_code, int floor_code, void* stream) {
-  GainParams p{{cr, cb, gcb, gcr}, lum_r, lum_g, lum_b, tf, hdr_white,
-               min_b, max_b, log2_min, inv_denom, sat_code, floor_code};
+  GainParams p{{cr, cb, gcb, gcr}, {cr, cb, gcb, gcr}, lum_r, lum_g, lum_b,
+               tf, hdr_white, min_b, max_b, log2_min, inv_denom, sat_code,
+               floor_code, 0, {}};
   ConvertParams m{convert, m01, m02, m11, m12, m21, m22};
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 ggrid((w / 4 + 127) / 128, h / 4, n);
-  gain_kernel<<<ggrid, 128, 0, s>>>((const uint16_t*)y,
-                                    (const uint16_t*)uv, (uint8_t*)gmap, h,
-                                    w, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dim3 bgrid((w / 2 + 127) / 128, h / 2, n);
-  base_kernel<<<bgrid, 128, 0, s>>>((const uint16_t*)y, (const uint16_t*)uv,
-                                    (uint8_t*)y601, (uint8_t*)u601,
-                                    (uint8_t*)v601, h, w, m);
-  return (int)cudaGetLastError();
+  return launch<false>(y, uv, SdrPlanes{nullptr, nullptr, nullptr}, gmap,
+                       y601, u601, v601, n, h, w, p, m, stream);
+}
+
+// As uhdr_encode_front, with the SDR frame as u8 planes sy (n, h, w),
+// su/sv (n, h/2, w/2). The parameters come in host arrays:
+// fp[0:4] SDR and fp[4:8] HDR (cr, cb, gcb, gcr), fp[8:11] luminance
+// weights, fp[11] HDR white, fp[12:16] (min_b, max_b, log2_min,
+// inv_denom), fp[16:25] the gamut matrix, fp[25:31] (m01, m02, m11,
+// m12, m21, m22); ip = (tf, gamut, convert, sat_code, floor_code).
+int uhdr_encode_front_api1(const void* y, const void* uv, const void* sy,
+                           const void* su, const void* sv, void* gmap,
+                           void* y601, void* u601, void* v601, int n, int h,
+                           int w, const float* fp, const int* ip,
+                           void* stream) {
+  GainParams p{{fp[0], fp[1], fp[2], fp[3]}, {fp[4], fp[5], fp[6], fp[7]},
+               fp[8], fp[9], fp[10], ip[0], fp[11], fp[12], fp[13], fp[14],
+               fp[15], ip[3], ip[4], ip[1], {}};
+  for (int i = 0; i < 9; ++i) p.gm[i] = fp[16 + i];
+  ConvertParams m{ip[2], fp[25], fp[26], fp[27], fp[28], fp[29], fp[30]};
+  SdrPlanes sdr{(const uint8_t*)sy, (const uint8_t*)su, (const uint8_t*)sv};
+  return launch<true>(y, uv, sdr, gmap, y601, u601, v601, n, h, w, p, m,
+                      stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Color science for the gain-map codec, as plain PyTorch.
 
-The port of libultrahdr_dev_tpu/ops/color.py: the transfer functions,
-luminance weights, YUV<->RGB matrices, the u8 gain code and the output
-packs of the reference's gainmapmath
+The port of libultrahdr_dev_tpu/ops/color.py: the transfer functions
+and their tables, luminance weights, YUV<->RGB and gamut matrices, the
+u8 gain code and the output packs of the reference's gainmapmath
 (lib/src/gainmapmath.cpp:112-732). Every function works elementwise on
 float32 tensors of any shape and on any device, in the same order of
 operations and roundings as the JAX version (see ``fma``), so that the
@@ -93,11 +93,26 @@ def pow_rn(x, p: float):
     return torch.pow(x.to(torch.float64), _f32(p)).to(torch.float32)
 
 
+def dot2(m0: float, x0, m1: float, x1):
+    """m0*x0 + m1*x1 rounded as XLA on the CPU rounds it: one product
+    fused into a multiply-add, the other rounded first. Which one
+    depends on the signs of the constants: XLA rewrites a sum whose
+    first term has a negative constant as a difference (x1*m1 -
+    x0*|m0|) and then fuses the first operand of the sum."""
+    if m0 < 0 and m1 >= 0:
+        return fma(m1, x1, _f32(m0) * x0)
+    return fma(m0, x0, _f32(m1) * x1)
+
+
+def dot3(m, xs):
+    """m[0]*x0 + m[1]*x1 + m[2]*x2 with XLA's CPU rounding: dot2 of the
+    first two terms, then the third fused."""
+    return fma(m[2], xs[2], dot2(m[0], xs[0], m[1], xs[1]))
+
+
 def luminance(coeffs, rgb):
     """kr*r + kg*g + kb*b, fused as fma(kb, b, fma(kr, r, kg*g))."""
-    r, g, b = rgb
-    kr, kg, kb = coeffs
-    return fma(kb, b, fma(kr, r, kg * g))
+    return dot3(coeffs, rgb)
 
 
 def luminance_fn(gamut: str):
@@ -222,6 +237,186 @@ def yuv_conversion_matrix(src_gamut: str, dst_gamut: str):
     if src == dst:
         return None
     return _YUV_CONVERSIONS[(src, dst)]
+
+
+# ---------------------------------------------------------------------------
+# Gamut conversions on linear RGB (gainmapmath.cpp:359-393).
+# ---------------------------------------------------------------------------
+
+BT709_TO_P3 = ((0.82254, 0.17755, 0.00006),
+               (0.03312, 0.96684, -0.00001),
+               (0.01706, 0.07240, 0.91049))
+BT709_TO_BT2100 = ((0.62740, 0.32930, 0.04332),
+                   (0.06904, 0.91958, 0.01138),
+                   (0.01636, 0.08799, 0.89555))
+P3_TO_BT709 = ((1.22482, -0.22490, -0.00007),
+               (-0.04196, 1.04199, 0.00001),
+               (-0.01961, -0.07865, 1.09831))
+P3_TO_BT2100 = ((0.75378, 0.19862, 0.04754),
+                (0.04576, 0.94177, 0.01250),
+                (-0.00121, 0.01757, 0.98359))
+BT2100_TO_BT709 = ((1.66045, -0.58764, -0.07286),
+                   (-0.12445, 1.13282, -0.00837),
+                   (-0.01811, -0.10057, 1.11878))
+BT2100_TO_P3 = ((1.34369, -0.28223, -0.06135),
+                (-0.06533, 1.07580, -0.01051),
+                (0.00283, -0.01957, 1.01679))
+
+# (SDR gamut, HDR gamut) -> the matrix taking linear HDR RGB into the
+# SDR gamut.
+_GAMUT_CONVERSIONS = {
+    ("bt709", "p3"): P3_TO_BT709,
+    ("bt709", "bt2100"): BT2100_TO_BT709,
+    ("p3", "bt709"): BT709_TO_P3,
+    ("p3", "bt2100"): BT2100_TO_P3,
+    ("bt2100", "bt709"): BT709_TO_BT2100,
+    ("bt2100", "p3"): P3_TO_BT2100,
+}
+
+
+def hdr_gamut_conversion_matrix(sdr_gamut: str, hdr_gamut: str):
+    """Matrix converting linear HDR RGB into the SDR gamut, or None for
+    identity (gainmapmath.cpp:397-440 getHdrConversionFn)."""
+    if sdr_gamut == hdr_gamut:
+        return None
+    return _GAMUT_CONVERSIONS[(sdr_gamut, hdr_gamut)]
+
+
+def apply_matrix3(m, rgb):
+    """y_i = sum_j m[i][j] * x_j, elementwise, rounded as XLA on the CPU
+    rounds it (dot3)."""
+    return tuple(dot3(m[i], rgb) for i in range(3))
+
+
+# ---------------------------------------------------------------------------
+# Table variants of the transfer functions (gainmapmath.cpp:21-64):
+# index = trunc(x * (n - 1) + 0.5), clamped to the table. The tables are
+# built in numpy float32 exactly as the JAX package builds them, so both
+# packages index identical tables.
+# ---------------------------------------------------------------------------
+
+SRGB_INV_OETF_NUM_ENTRIES = 1 << 10
+HLG_OETF_NUM_ENTRIES = 1 << 16
+HLG_INV_OETF_NUM_ENTRIES = 1 << 12
+PQ_OETF_NUM_ENTRIES = 1 << 16
+PQ_INV_OETF_NUM_ENTRIES = 1 << 12
+GAIN_FACTOR_NUM_ENTRIES = 1 << 10
+
+
+def _np_srgb_inv_oetf(x):
+    x = np.asarray(x, np.float32)
+    return np.where(x <= 0.04045, x / np.float32(12.92),
+                    ((x + np.float32(0.055)) / np.float32(1.055))
+                    ** np.float32(2.4)).astype(np.float32)
+
+
+def _np_hlg_oetf(x):
+    x = np.asarray(x, np.float32)
+    return np.where(x <= 1.0 / 12.0, np.sqrt(np.maximum(3.0 * x, 0.0)),
+                    _HLG_A * np.log(np.maximum(12.0 * x - _HLG_B, 1e-12))
+                    + _HLG_C).astype(np.float32)
+
+
+def _np_hlg_inv_oetf(x):
+    x = np.asarray(x, np.float32)
+    return np.where(x <= 0.5, x * x / 3.0,
+                    (np.exp((x - _HLG_C) / _HLG_A) + _HLG_B) / 12.0
+                    ).astype(np.float32)
+
+
+def _np_pq_oetf(x):
+    x = np.asarray(x, np.float32)
+    ep = np.maximum(x, 0.0) ** _PQ_M1
+    out = ((_PQ_C1 + _PQ_C2 * ep) / (1.0 + _PQ_C3 * ep)) ** _PQ_M2
+    return np.where(x <= 0.0, 0.0, out).astype(np.float32)
+
+
+def _np_pq_inv_oetf(x):
+    x = np.asarray(x, np.float32)
+    ef = np.maximum(x, 1e-5) ** _PQ_INV_F
+    out = np.maximum((_PQ_INV_A * ef - _PQ_INV_B)
+                     / (_PQ_INV_C - _PQ_INV_D * ef), 0.0) ** _PQ_INV_E
+    return np.where(x <= 0.0001, 0.0, out).astype(np.float32)
+
+
+# name -> (numpy builder, entries)
+LUT_SPECS = {
+    "srgb_inv": (_np_srgb_inv_oetf, SRGB_INV_OETF_NUM_ENTRIES),
+    "hlg_oetf": (_np_hlg_oetf, HLG_OETF_NUM_ENTRIES),
+    "hlg_inv": (_np_hlg_inv_oetf, HLG_INV_OETF_NUM_ENTRIES),
+    "pq_oetf": (_np_pq_oetf, PQ_OETF_NUM_ENTRIES),
+    "pq_inv": (_np_pq_inv_oetf, PQ_INV_OETF_NUM_ENTRIES),
+}
+_LUTS: dict = {}         # name -> numpy float32 table, built once
+_DEVICE_LUTS: dict = {}  # (name, device) -> the table on that device
+
+
+def lut_table(name: str) -> np.ndarray:
+    """The float32 table `name`, built once per process."""
+    if name not in _LUTS:
+        np_fn, n = LUT_SPECS[name]
+        xs = np.arange(n, dtype=np.float32) / np.float32(n - 1)
+        _LUTS[name] = np.asarray(np_fn(xs), np.float32)
+    return _LUTS[name]
+
+
+def lut_tensor(name: str, device) -> torch.Tensor:
+    """The table `name` on `device`, uploaded once per device."""
+    dev = torch.device(device)
+    key = (name, str(dev))
+    if key not in _DEVICE_LUTS:
+        _DEVICE_LUTS[key] = torch.from_numpy(lut_table(name)).to(dev)
+    return _DEVICE_LUTS[key]
+
+
+def lut_index(x, n: int):
+    """clamp(trunc(x * (n - 1) + 0.5), 0, n - 1), the multiply-add fused
+    as XLA fuses it."""
+    return torch.clamp(fma(x, float(n - 1), 0.5).to(torch.int32), 0, n - 1)
+
+
+def _lut_lookup(name: str, x):
+    table = lut_tensor(name, x.device)
+    return table[lut_index(x, table.numel()).to(torch.int64)]
+
+
+def srgb_inv_oetf_lut(x):
+    return _lut_lookup("srgb_inv", x)
+
+
+def hlg_oetf_lut(x):
+    return _lut_lookup("hlg_oetf", x)
+
+
+def hlg_inv_oetf_lut(x):
+    return _lut_lookup("hlg_inv", x)
+
+
+def pq_oetf_lut(x):
+    return _lut_lookup("pq_oetf", x)
+
+
+def pq_inv_oetf_lut(x):
+    return _lut_lookup("pq_inv", x)
+
+
+def gain_factor_lut(gain01, min_content_boost: float,
+                    max_content_boost: float,
+                    display_boost: float | None = None):
+    """Table variant of the gain factor exp2(log boost), quantized as the
+    reference's GainLUT (gainmapmath.h:149-182). No decode path of either
+    package calls it."""
+    n = GAIN_FACTOR_NUM_ENTRIES
+    xs = np.arange(n, dtype=np.float32) / np.float32(n - 1)
+    log_boost = (math.log2(min_content_boost) * (1.0 - xs)
+                 + math.log2(max_content_boost) * xs)
+    if display_boost is not None:
+        boost_factor = (display_boost / max_content_boost
+                        if display_boost > 0 else 1.0)
+        log_boost = log_boost * boost_factor
+    table = torch.from_numpy(np.exp2(log_boost).astype(np.float32)).to(
+        gain01.device)
+    return table[lut_index(gain01, n).to(torch.int64)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,35 @@
-"""Gain-map generation and application: kernels B1 and B6.
+"""Gain-map generation and application, SDR output: kernels B1, B9,
+B6, B11 and B7.
 
-``encode_front`` (B1) is the API-0 encode front end: the P010 -> u8
-tonemap, the gain map, and the BT.601 re-encode of the base. It replaces
-libultrahdr_dev_tpu/parallel/sharding.py:_gainmap_and_coefs (before the
-fDCT) with _encode_one_image_coefs' tonemap. ``apply_gainmap`` (B6)
-rebuilds HDR pixels from a decoded base and gain map; it replaces
-libultrahdr_dev_tpu/ops/gainmap.py:_apply_kernel.
+- ``encode_front`` (B1) is the API-0 encode front end: the P010 -> u8
+  tonemap, the gain map, and the BT.601 re-encode of the base. It
+  replaces libultrahdr_dev_tpu/parallel/sharding.py:_gainmap_and_coefs
+  (before the fDCT) with _encode_one_image_coefs' tonemap.
+- ``encode_front_api1`` (B9) is the API-1 front end: the same program
+  with a supplied SDR frame, the SDR and HDR gamuts apart
+  (sharding.py:_batched_encode_api1_kernel).
+- ``apply_gainmap`` (B6) rebuilds HDR pixels from a decoded base and
+  gain map; it replaces libultrahdr_dev_tpu/ops/gainmap.py:_apply_kernel.
+  With ``use_luts=True`` it launches B11, the table arms of the same
+  program (its transfer functions read from ops/color.py's tables).
+- ``yuv420_to_rgba8888`` (B7) turns a decoded base into SDR RGBA8888
+  pixels (gainmap.py:yuv420_to_rgba8888).
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
-its hand-written CUDA kernel (kernels/csrc/encode_front.cu, apply.cu)
-for CUDA tensors, and counts its kernel launches in ``.launches``. The
-plain versions follow the JAX programs operation by operation, rounding
-as XLA does on the CPU (ops/color.py, ``fma``). Planes
-travel as torch tensors: P010 samples as int16 holding the uint16 bits,
-u8 planes as uint8, RGBA1010102 words as int32 holding the uint32 bits,
+its hand-written CUDA kernel (kernels/csrc/encode_front.cu, apply.cu,
+sdr_out.cu) for CUDA tensors, and counts its kernel launches in
+``.launches`` (B11's in ``apply_gainmap.lut_launches``). The plain
+versions follow the JAX programs operation by operation, rounding as
+XLA does on the CPU (ops/color.py, ``fma``). Planes travel as torch
+tensors: P010 samples as int16 holding the uint16 bits, u8 planes as
+uint8, RGBA1010102 and RGBA8888 words as int32 holding the uint32 bits,
 F16 pixels as (..., 4) int16 holding the half-float bits. All take a
 leading batch dimension.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels import build
@@ -56,11 +66,19 @@ def yuv420_to_float(y_u8, u_u8, v_u8):
 
 
 def _box_mean(x, factor: int):
-    """Mean over non-overlapping factor x factor blocks of (n, h, w)."""
+    """Mean over non-overlapping factor x factor blocks of (n, h, w),
+    each block summed in row-major order from 0, as the JAX package's
+    reduce_window sums it on the CPU at the codec's shapes
+    (bit-identical there; at a few small widths XLA adds a 2x2 window's
+    rows as pairs instead)."""
     n, h, w = x.shape
     hh, ww = h // factor, w // factor
-    x = x[:, :hh * factor, :ww * factor]
-    s = x.reshape(n, hh, factor, ww, factor).sum(dim=(2, 4))
+    blocks = x[:, :hh * factor, :ww * factor].reshape(n, hh, factor, ww,
+                                                      factor)
+    s = torch.zeros((n, hh, ww), dtype=x.dtype, device=x.device)
+    for dy in range(factor):
+        for dx in range(factor):
+            s = s + blocks[:, :, dy, :, dx]
     return s * (1.0 / (factor * factor))
 
 
@@ -75,7 +93,7 @@ def _unsigned16(t):
 
 
 # ---------------------------------------------------------------------------
-# B1: API-0 encode front end.
+# B1 and B9: the encode front ends.
 # ---------------------------------------------------------------------------
 
 def _check_p010(y_p010, uv_p010):
@@ -89,6 +107,58 @@ def _check_p010(y_p010, uv_p010):
     return n, h, w
 
 
+def _to_u8(x, bias):
+    return torch.clamp(color.fma(x, 255.0, bias), 0, 255).to(torch.uint8)
+
+
+def convert_yuv_encoding_plain(y8, u8, v8, src_gamut: str,
+                               dst_gamut: str = "p3"):
+    """YUV420 planes of `src_gamut`'s YUV encoding re-encoded to
+    `dst_gamut`'s (by default BT.601, the P3 encoding of a JPEG base),
+    uint8 (gainmap.py:428-458 convert_yuv_encoding). The luma shift
+    comes from the shared chroma sample, chroma from chroma alone;
+    planes already in the destination encoding are returned as they
+    are."""
+    m = color.yuv_conversion_matrix(src_gamut, dst_gamut)
+    if m is None:
+        return tuple(p.to(torch.uint8) for p in (y8, u8, v8))
+    yf, uf, vf = yuv420_to_float(y8, u8, v8)
+    y_new = yf + _upsample2(color.dot2(m[0][1], uf, m[0][2], vf))
+    return (_to_u8(y_new, 0.5),
+            _to_u8(color.dot2(m[1][1], uf, m[1][2], vf), 128.5),
+            _to_u8(color.dot2(m[2][1], uf, m[2][2], vf), 128.5))
+
+
+def _front_plain(y8, u8, v8, y, uv, sdr_gamut: str, hdr_gamut: str,
+                 hdr_tf: str):
+    """sharding.py:_gainmap_and_coefs before the fDCT: the u8 gain map
+    of SDR planes (y8, u8, v8) against the P010 samples (y, uv, int32
+    values), and the SDR re-encoded to BT.601."""
+    hdr_inv_oetf, hdr_white = color.hdr_inv_oetf_fn(hdr_tf)
+    luminance = color.luminance_fn(sdr_gamut)
+    gamut_m = color.hdr_gamut_conversion_matrix(sdr_gamut, hdr_gamut)
+    max_boost = hdr_white / color.SDR_WHITE_NITS
+
+    sy, su, sv = yuv420_to_float(y8, u8, v8)
+    sy = _box_mean(sy, SCALE)
+    su = _box_mean(su, SCALE // 2)
+    sv = _box_mean(sv, SCALE // 2)
+    sdr_rgb = color.apply_channelwise(
+        color.srgb_inv_oetf, color.yuv_to_rgb_fn(sdr_gamut)((sy, su, sv)))
+    sdr_nits = luminance(sdr_rgb) * color.SDR_WHITE_NITS
+    hy, hu, hv = p010_to_float(y, uv)
+    hy = _box_mean(hy, SCALE)
+    hu = _box_mean(hu, SCALE // 2)
+    hv = _box_mean(hv, SCALE // 2)
+    hdr_rgb = color.apply_channelwise(
+        hdr_inv_oetf, color.yuv_to_rgb_fn(hdr_gamut)((hy, hu, hv)))
+    if gamut_m is not None:
+        hdr_rgb = color.apply_matrix3(gamut_m, hdr_rgb)
+    hdr_nits = luminance(hdr_rgb) * hdr_white
+    gmap = color.encode_gain(sdr_nits, hdr_nits, 1.0, max_boost)
+    return (gmap, *convert_yuv_encoding_plain(y8, u8, v8, sdr_gamut))
+
+
 def encode_front_plain(y_p010, uv_p010, gamut: str, hdr_tf: str):
     """(n, h, w) / (n, h/2, w) int16 P010 planes (uint16 bits) ->
     (gain map (n, h/4, w/4), y (n, h, w), u, v (n, h/2, w/2)), all
@@ -97,46 +167,37 @@ def encode_front_plain(y_p010, uv_p010, gamut: str, hdr_tf: str):
     _check_p010(y_p010, uv_p010)
     y = _unsigned16(y_p010)
     uv = _unsigned16(uv_p010)
-    y8, u8, v8 = y >> 8, uv[..., 0::2] >> 8, uv[..., 1::2] >> 8
+    return _front_plain(y >> 8, uv[..., 0::2] >> 8, uv[..., 1::2] >> 8, y,
+                        uv, gamut, gamut, hdr_tf)
 
-    hdr_inv_oetf, hdr_white = color.hdr_inv_oetf_fn(hdr_tf)
-    luminance = color.luminance_fn(gamut)
-    yuv_to_rgb = color.yuv_to_rgb_fn(gamut)
-    max_boost = hdr_white / color.SDR_WHITE_NITS
 
-    sy, su, sv = yuv420_to_float(y8, u8, v8)
-    sy = _box_mean(sy, SCALE)
-    su = _box_mean(su, SCALE // 2)
-    sv = _box_mean(sv, SCALE // 2)
-    sdr_rgb = color.apply_channelwise(color.srgb_inv_oetf,
-                                      yuv_to_rgb((sy, su, sv)))
-    sdr_nits = luminance(sdr_rgb) * color.SDR_WHITE_NITS
-    hy, hu, hv = p010_to_float(y, uv)
-    hy = _box_mean(hy, SCALE)
-    hu = _box_mean(hu, SCALE // 2)
-    hv = _box_mean(hv, SCALE // 2)
-    hdr_rgb = color.apply_channelwise(hdr_inv_oetf,
-                                      yuv_to_rgb((hy, hu, hv)))
-    hdr_nits = luminance(hdr_rgb) * hdr_white
-    gmap = color.encode_gain(sdr_nits, hdr_nits, 1.0, max_boost)
+def _gain_params(hdr_tf: str):
+    """(hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor)."""
+    _, hdr_white = color.hdr_inv_oetf_fn(hdr_tf)
+    min_b, max_b, log2_min, denom, sat, floor = color.gain_code_params(
+        1.0, hdr_white / color.SDR_WHITE_NITS)
+    return hdr_white, min_b, max_b, log2_min, color.recip(denom), sat, floor
 
+
+def _rgb_params(gamut: str):
+    """(cr, cb, gcb, gcr) of color.yuv_to_rgb for `gamut`."""
+    (kr, kg, kb), cb, cr = color.YUV_PARAMS[color.GAMUT_YUV_PARAMS[gamut]]
+    return cr, cb, kb * cb / kg, kr * cr / kg
+
+
+def _convert_params(gamut: str):
+    """(enabled, (m01, m02, m11, m12, m21, m22)) of the re-encode."""
     m = color.yuv_conversion_matrix(gamut, "p3")
     if m is None:
-        return (gmap, y8.to(torch.uint8), u8.to(torch.uint8),
-                v8.to(torch.uint8))
-    # transformYuv420: the luma shift comes from the shared chroma
-    # sample, chroma from chroma alone (gainmap.py:428-448).
-    yf, uf, vf = yuv420_to_float(y8, u8, v8)
-    y_shift = color.fma(m[0][1], uf, m[0][2] * vf)
-    y_new = yf + _upsample2(y_shift)
-    u_new = color.fma(m[1][1], uf, m[1][2] * vf)
-    v_new = color.fma(m[2][1], uf, m[2][2] * vf)
+        return 0, (0.0,) * 6
+    return 1, (m[0][1], m[0][2], m[1][1], m[1][2], m[2][1], m[2][2])
 
-    def to_u8(x, bias):
-        return torch.clamp(color.fma(x, 255.0, bias), 0,
-                           255).to(torch.uint8)
 
-    return gmap, to_u8(y_new, 0.5), to_u8(u_new, 128.5), to_u8(v_new, 128.5)
+def _front_outputs(n, h, w, dev):
+    gmap = torch.empty((n, h // 4, w // 4), dtype=torch.uint8, device=dev)
+    y601 = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+    u601 = torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    return gmap, y601, u601, torch.empty_like(u601)
 
 
 def encode_front(y_p010, uv_p010, gamut: str, hdr_tf: str):
@@ -147,33 +208,81 @@ def encode_front(y_p010, uv_p010, gamut: str, hdr_tf: str):
     n, h, w = _check_p010(y_p010, uv_p010)
     build.require(y_p010, "y_p010", torch.int16)
     build.require(uv_p010, "uv_p010", torch.int16)
-    dev = y_p010.device
-    gmap = torch.empty((n, h // 4, w // 4), dtype=torch.uint8, device=dev)
-    y601 = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
-    u601 = torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=dev)
-    v601 = torch.empty_like(u601)
-
-    (kr, kg, kb), cb, cr = color.YUV_PARAMS[color.GAMUT_YUV_PARAMS[gamut]]
-    _, hdr_white = color.hdr_inv_oetf_fn(hdr_tf)
-    min_b, max_b, log2_min, denom, sat, floor = color.gain_code_params(
-        1.0, hdr_white / color.SDR_WHITE_NITS)
-    m = color.yuv_conversion_matrix(gamut, "p3")
-    mvals = ((m[0][1], m[0][2], m[1][1], m[1][2], m[2][1], m[2][2])
-             if m is not None else (0.0,) * 6)
+    out = _front_outputs(n, h, w, y_p010.device)
+    hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor = \
+        _gain_params(hdr_tf)
+    convert, mvals = _convert_params(gamut)
     lib = build.get_lib()
     encode_front.launches += 1
     build.check(lib.uhdr_encode_front(
-        y_p010.data_ptr(), uv_p010.data_ptr(), gmap.data_ptr(),
-        y601.data_ptr(), u601.data_ptr(), v601.data_ptr(), n, h, w,
-        cr, cb, kb * cb / kg, kr * cr / kg, *color.LUMINANCE[gamut],
-        hdr_white, TF_IDS[hdr_tf], int(m is not None), min_b, max_b,
-        log2_min, color.recip(denom), *mvals, sat, floor,
-        build.stream_of(y_p010)),
+        y_p010.data_ptr(), uv_p010.data_ptr(), *(t.data_ptr() for t in out),
+        n, h, w, *_rgb_params(gamut), *color.LUMINANCE[gamut], hdr_white,
+        TF_IDS[hdr_tf], convert, min_b, max_b, log2_min, inv_denom, *mvals,
+        sat, floor, build.stream_of(y_p010)),
         "uhdr_encode_front")
-    return gmap, y601, u601, v601
+    return out
 
 
 encode_front.launches = 0
+
+
+def _check_sdr(sdr_y, sdr_u, sdr_v, n, h, w):
+    if tuple(sdr_y.shape) != (n, h, w) or any(
+            tuple(p.shape) != (n, h // 2, w // 2) for p in (sdr_u, sdr_v)):
+        raise ValueError("SDR planes do not match the P010 frame: "
+                         f"{[tuple(p.shape) for p in (sdr_y, sdr_u, sdr_v)]}"
+                         f" for {w}x{h}")
+
+
+def encode_front_api1_plain(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
+                            sdr_gamut: str, hdr_gamut: str, hdr_tf: str):
+    """API-1 front end: P010 planes as encode_front_plain takes them and
+    the SDR frame as uint8 YUV420 planes (n, h, w) and (n, h/2, w/2) in
+    `sdr_gamut`'s YUV encoding -> (gain map, y, u, v) uint8: the gain
+    map of the SDR against the HDR (linear HDR RGB taken into the SDR
+    gamut first), and the SDR re-encoded to BT.601 YUV."""
+    n, h, w = _check_p010(y_p010, uv_p010)
+    _check_sdr(sdr_y, sdr_u, sdr_v, n, h, w)
+    return _front_plain(sdr_y, sdr_u, sdr_v, _unsigned16(y_p010),
+                        _unsigned16(uv_p010), sdr_gamut, hdr_gamut, hdr_tf)
+
+
+def encode_front_api1(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
+                      sdr_gamut: str, hdr_gamut: str, hdr_tf: str):
+    """B9 wrapper: the plain version on the CPU, the CUDA kernel on CUDA
+    tensors. Same signature and result as encode_front_api1_plain."""
+    if not y_p010.is_cuda:
+        return encode_front_api1_plain(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
+                                       sdr_gamut, hdr_gamut, hdr_tf)
+    n, h, w = _check_p010(y_p010, uv_p010)
+    _check_sdr(sdr_y, sdr_u, sdr_v, n, h, w)
+    build.require(y_p010, "y_p010", torch.int16)
+    build.require(uv_p010, "uv_p010", torch.int16)
+    for t, name in ((sdr_y, "sdr_y"), (sdr_u, "sdr_u"), (sdr_v, "sdr_v")):
+        build.require(t, name, torch.uint8)
+    out = _front_outputs(n, h, w, y_p010.device)
+    hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor = \
+        _gain_params(hdr_tf)
+    gm = color.hdr_gamut_conversion_matrix(sdr_gamut, hdr_gamut)
+    convert, mvals = _convert_params(sdr_gamut)
+    fp = np.asarray(
+        [*_rgb_params(sdr_gamut), *_rgb_params(hdr_gamut),
+         *color.LUMINANCE[sdr_gamut], hdr_white, min_b, max_b, log2_min,
+         inv_denom, *(v for row in (gm or ((0.0,) * 3,) * 3) for v in row),
+         *mvals], np.float32)
+    ip = np.asarray([TF_IDS[hdr_tf], int(gm is not None), convert, sat,
+                     floor], np.int32)
+    lib = build.get_lib()
+    encode_front_api1.launches += 1
+    build.check(lib.uhdr_encode_front_api1(
+        y_p010.data_ptr(), uv_p010.data_ptr(), sdr_y.data_ptr(),
+        sdr_u.data_ptr(), sdr_v.data_ptr(), *(t.data_ptr() for t in out), n,
+        h, w, fp.ctypes.data, ip.ctypes.data, build.stream_of(y_p010)),
+        "uhdr_encode_front_api1")
+    return out
+
+
+encode_front_api1.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -219,12 +328,15 @@ def _idw_upsample(gmap01, scale: int, out_h: int, out_w: int):
     return torch.where(d1 <= 0.0, e1, blended)
 
 
-def apply_gainmap_plain(y8, u8, v8, gmap, scalars, output_format: str):
+def apply_gainmap_plain(y8, u8, v8, gmap, scalars, output_format: str,
+                        use_luts: bool = False):
     """(n, h, w) Y, (n, ceil(h/2), ceil(w/2)) U/V and (n, mh, mw) gain
     map uint8 planes, with (n, 4) float32 scalars per frame [log2(min
     boost), log2(max boost), boost factor, display boost] -> HDR pixels:
     (n, h, w, 4) int16 F16 bits for "hdr_linear", (n, h, w) int32
-    RGBA1010102 words for "hdr_hlg" / "hdr_pq"."""
+    RGBA1010102 words for "hdr_hlg" / "hdr_pq". With use_luts, the sRGB
+    inverse OETF and the HLG / PQ OETF are table lookups
+    (gainmap.py:297,323,326)."""
     if output_format not in OUTPUT_FORMATS:
         raise ValueError(f"unsupported output format {output_format}")
     n, h, w = y8.shape
@@ -234,8 +346,8 @@ def apply_gainmap_plain(y8, u8, v8, gmap, scalars, output_format: str):
     v = _upsample2(v)[:, :h, :w]
     # Decoded JPEG base: always BT.601 YUV, sRGB transfer
     # (ultrahdr.cpp:437-445).
-    rgb = color.apply_channelwise(color.srgb_inv_oetf,
-                                  color.p3_yuv_to_rgb((y, u, v)))
+    srgb_inv = color.srgb_inv_oetf_lut if use_luts else color.srgb_inv_oetf
+    rgb = color.apply_channelwise(srgb_inv, color.p3_yuv_to_rgb((y, u, v)))
     gain01 = _idw_upsample(gmap.to(torch.float32) * color.recip(255.0),
                            scale, h, w)
     s = scalars.to(torch.float32).reshape(n, 4, 1, 1)
@@ -244,7 +356,10 @@ def apply_gainmap_plain(y8, u8, v8, gmap, scalars, output_format: str):
     rgb = tuple(c * factor for c in rgb)
     if output_format == "hdr_linear":
         return color.pack_rgba_f16(rgb)
-    oetf = color.hlg_oetf if output_format == "hdr_hlg" else color.pq_oetf
+    if output_format == "hdr_hlg":
+        oetf = color.hlg_oetf_lut if use_luts else color.hlg_oetf
+    else:
+        oetf = color.pq_oetf_lut if use_luts else color.pq_oetf
     return color.pack_rgba1010102(color.apply_channelwise(oetf, rgb))
 
 
@@ -256,21 +371,34 @@ def _plane_strides(t, name):
     return t.stride(0), t.stride(1)
 
 
-def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str):
-    """B6 wrapper: the plain version on the CPU, the CUDA kernel on CUDA
-    tensors. Same signature and result as apply_gainmap_plain; the
-    kernel reads row-strided planes (crops of padded IDCT output) in
-    place."""
+def _check_chroma(y8, u8, v8):
+    n, h, w = y8.shape
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    if tuple(u8.shape) != (n, ch, cw) or tuple(v8.shape) != (n, ch, cw):
+        raise ValueError(f"chroma planes {tuple(u8.shape)}, "
+                         f"{tuple(v8.shape)} do not match luma "
+                         f"{tuple(y8.shape)}")
+    return n, h, w
+
+
+_OETF_LUTS = {"hdr_hlg": "hlg_oetf", "hdr_pq": "pq_oetf"}
+
+
+def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
+                  use_luts: bool = False):
+    """B6 wrapper (B11 with use_luts): the plain version on the CPU, the
+    CUDA kernel on CUDA tensors. Same signature and result as
+    apply_gainmap_plain; the kernel reads row-strided planes (crops of
+    padded IDCT output) in place. B6 launches count in ``.launches``,
+    B11 launches in ``.lut_launches``."""
     if not y8.is_cuda:
         return apply_gainmap_plain(y8, u8, v8, gmap, scalars,
-                                   output_format)
+                                   output_format, use_luts)
     if output_format not in OUTPUT_FORMATS:
         raise ValueError(f"unsupported output format {output_format}")
-    n, h, w = y8.shape
+    n, h, w = _check_chroma(y8, u8, v8)
     mh, mw = gmap.shape[1:]
-    ch, cw = (h + 1) // 2, (w + 1) // 2
-    if tuple(u8.shape) != (n, ch, cw) or tuple(v8.shape) != (n, ch, cw) \
-            or gmap.shape[0] != n or w % mw or w * mh != h * mw:
+    if gmap.shape[0] != n or w % mw or w * mh != h * mw:
         raise ValueError("apply_gainmap: inconsistent plane shapes")
     strides = [s for t, name in ((y8, "y8"), (u8, "u8"), (v8, "v8"),
                                  (gmap, "gmap"))
@@ -281,13 +409,91 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str):
         out = torch.empty((n, h, w, 4), dtype=torch.int16, device=y8.device)
     else:
         out = torch.empty((n, h, w), dtype=torch.int32, device=y8.device)
+    args = (y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), gmap.data_ptr(),
+            *strides, scalars.data_ptr(), out.data_ptr(), n, h, w, mh, mw,
+            w // mw, fmt)
     lib = build.get_lib()
-    apply_gainmap.launches += 1
-    build.check(lib.uhdr_apply_gainmap(
-        y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), gmap.data_ptr(),
-        *strides, scalars.data_ptr(), out.data_ptr(), n, h, w, mh, mw,
-        w // mw, fmt, build.stream_of(y8)), "uhdr_apply_gainmap")
+    if not use_luts:
+        apply_gainmap.launches += 1
+        build.check(lib.uhdr_apply_gainmap(*args, build.stream_of(y8)),
+                    "uhdr_apply_gainmap")
+        return out
+    srgb = color.lut_tensor("srgb_inv", y8.device)
+    oetf = (color.lut_tensor(_OETF_LUTS[output_format], y8.device)
+            if fmt else None)
+    apply_gainmap.lut_launches += 1
+    build.check(lib.uhdr_apply_gainmap_lut(
+        *args, srgb.data_ptr(), oetf.data_ptr() if fmt else None,
+        build.stream_of(y8)), "uhdr_apply_gainmap_lut")
     return out
 
 
 apply_gainmap.launches = 0
+apply_gainmap.lut_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B7: SDR RGBA8888 output. The reference gets it from libjpeg itself
+# (DECODE_TO_RGBA, jpegr.cpp:692-697, 770-788): the triangular ("fancy")
+# h2v2 chroma upsample and full-range BT.601 YCbCr -> RGB.
+# ---------------------------------------------------------------------------
+
+RGBA8888_ALPHA = -(1 << 24)  # 0xFF000000 as int32
+
+
+def _fancy_upsample2(c):
+    """libjpeg h2v2 fancy (triangle) upsample of (n, ch, cw) chroma to
+    (n, 2ch, 2cw) int32, in the integer arithmetic of jdsample.c
+    h2v2_fancy_upsample, edges replicated (gainmap.py:383-403)."""
+    c = c.to(torch.int32)
+    n, ch, cw = c.shape
+    up = 3 * c + torch.cat([c[:, :1], c[:, :-1]], 1)     # toward the row above
+    down = 3 * c + torch.cat([c[:, 1:], c[:, -1:]], 1)   # toward the row below
+    rows = torch.stack([up, down], 2).reshape(n, 2 * ch, cw)
+    left = (3 * rows + torch.cat([rows[..., :1], rows[..., :-1]], -1)
+            + 8) >> 4
+    right = (3 * rows + torch.cat([rows[..., 1:], rows[..., -1:]], -1)
+             + 7) >> 4
+    return torch.stack([left, right], -1).reshape(n, 2 * ch, 2 * cw)
+
+
+def yuv420_to_rgba8888_plain(y8, u8, v8):
+    """(n, h, w) Y and (n, ceil(h/2), ceil(w/2)) U/V uint8 planes of a
+    full-range BT.601 base -> (n, h, w) int32 RGBA8888 words (uint32
+    bits, alpha 0xFF). The colour matrix is fused as XLA on the CPU
+    fuses the JAX expression: r and b one multiply-add each, g two, the
+    Cb term first; rounding is half to even."""
+    n, h, w = _check_chroma(y8, u8, v8)
+    y = y8.to(torch.float32)
+    cb = _fancy_upsample2(u8)[:, :h, :w].to(torch.float32) - 128.0
+    cr = _fancy_upsample2(v8)[:, :h, :w].to(torch.float32) - 128.0
+    r = color.fma(1.40200, cr, y)
+    g = color.fma(-0.71414, cr, color.fma(-0.34414, cb, y))
+    b = color.fma(1.77200, cb, y)
+
+    def to8(x):
+        return torch.clamp(torch.round(x), 0, 255).to(torch.int32)
+
+    return to8(r) | (to8(g) << 8) | (to8(b) << 16) | RGBA8888_ALPHA
+
+
+def yuv420_to_rgba8888(y8, u8, v8):
+    """B7 wrapper: the plain version on the CPU, the CUDA kernel on CUDA
+    tensors. Same signature and result as yuv420_to_rgba8888_plain; the
+    kernel reads row-strided planes in place."""
+    if not y8.is_cuda:
+        return yuv420_to_rgba8888_plain(y8, u8, v8)
+    n, h, w = _check_chroma(y8, u8, v8)
+    strides = [s for t, name in ((y8, "y8"), (u8, "u8"), (v8, "v8"))
+               for s in _plane_strides(t, name)]
+    out = torch.empty((n, h, w), dtype=torch.int32, device=y8.device)
+    lib = build.get_lib()
+    yuv420_to_rgba8888.launches += 1
+    build.check(lib.uhdr_yuv420_to_rgba8888(
+        y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), *strides,
+        out.data_ptr(), n, h, w, build.stream_of(y8)),
+        "uhdr_yuv420_to_rgba8888")
+    return out
+
+
+yuv420_to_rgba8888.launches = 0

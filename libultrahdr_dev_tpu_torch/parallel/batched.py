@@ -1,4 +1,4 @@
-"""Batched API-0 encode and JPEG/R decode on one device.
+"""Batched API-0 / API-1 encode and JPEG/R decode on one device.
 
 The port of the encode/decode entry points of
 libultrahdr_dev_tpu/parallel/sharding.py. A batch is a leading
@@ -6,16 +6,22 @@ dimension of same-size frames on one device (no mesh). Each direction
 has a device stage and a host stage, public so that callers (and
 chip_smoke.py) can time them apart:
 
-- encode: ``encode_device_stage`` runs B1 (ops/gainmap.py:encode_front),
-  B2 (jpeg/dct.py:fdct_quant) and B3 (jpeg/device_entropy.py, restart-
-  interval Huffman encode) over the batch; ``assemble_api0`` copies the
-  streams to the host in one transfer, inserts byte stuffing and RSTn
-  markers, and writes headers, ICC and the JPEG/R mux.
+- encode: ``encode_device_stage`` runs B1 (ops/gainmap.py:encode_front,
+  API-0: the HDR frame alone) or ``encode_device_stage_api1`` B9
+  (ops/gainmap.py:encode_front_api1, API-1: an HDR frame and its SDR
+  rendition), then B2 (jpeg/dct.py:fdct_quant) and B3
+  (jpeg/device_entropy.py, restart-interval Huffman encode) over the
+  batch; ``assemble_api0`` copies the streams to the host in one
+  transfer, inserts byte stuffing and RSTn markers, and writes headers,
+  ICC and the JPEG/R mux.
 - decode: ``decode_host_stage`` splits each blob, parses its markers
   and destuffs its entropy segments; ``decode_device_stage`` uploads the
   batch in one transfer and runs B4 (jpeg/device_decode.py, parallel
   Huffman decode), B5 (jpeg/dct.py:dequant_idct) and B6
-  (ops/gainmap.py:apply_gainmap). The route is chosen per batch from the
+  (ops/gainmap.py:apply_gainmap; B11, its table arms, with use_luts)
+  for HDR output, or B4 and B5 over the base alone and B7
+  (ops/gainmap.py:yuv420_to_rgba8888) for SDR output, which reads
+  nothing of the gain map. The route is chosen per batch from the
   headers alone: streams that the device decoder does not take (no
   baseline 4:2:0 base or gray gain map, several scans, ...) are
   Huffman-decoded on the host instead (``decode_host_huffman``), which
@@ -42,7 +48,8 @@ from ..container import mux, xmp
 from ..jpeg import codec, device_decode as dd, device_entropy as de, tables
 from ..jpeg.dct import dequant_idct, fdct_quant
 from ..ops import color
-from ..ops.gainmap import apply_gainmap, encode_front
+from ..ops.gainmap import (apply_gainmap, encode_front, encode_front_api1,
+                           yuv420_to_rgba8888)
 from ..types import GainMapMetadata, MAP_COMPRESS_QUALITY, err
 
 RST_INTERVAL = 4  # MCUs per restart marker, as the JAX batched encoder
@@ -103,16 +110,32 @@ def p010_to_device(plane_u16: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _coefs(front, quality: int):
+    """B2 over a front end's (gain map, y, u, v) planes."""
+    gmap, yb, ub, vb = front
+    ql, qc, qg = (torch.from_numpy(q.reshape(64)).to(yb.device)
+                  for q in quant_tables(quality))
+    return (fdct_quant(yb, ql), fdct_quant(ub, qc), fdct_quant(vb, qc),
+            fdct_quant(gmap, qg))
+
+
 def encode_coefs_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
                        gamut: str, hdr_tf: str, quality: int):
     """B1 then B2 over a batch: int16 P010 planes (n, h, w) and
     (n, h/2, w) on the device -> zigzag coefficient blocks (y, u, v,
     gain map), each (n, nblocks, 64) int16 on the same device."""
-    gmap, yb, ub, vb = encode_front(y_p010, uv_p010, gamut, hdr_tf)
-    ql, qc, qg = (torch.from_numpy(q.reshape(64)).to(y_p010.device)
-                  for q in quant_tables(quality))
-    return (fdct_quant(yb, ql), fdct_quant(ub, qc), fdct_quant(vb, qc),
-            fdct_quant(gmap, qg))
+    return _coefs(encode_front(y_p010, uv_p010, gamut, hdr_tf), quality)
+
+
+def encode_coefs_stage_api1(y_p010: torch.Tensor, uv_p010: torch.Tensor,
+                            sdr_y: torch.Tensor, sdr_u: torch.Tensor,
+                            sdr_v: torch.Tensor, sdr_gamut: str,
+                            hdr_gamut: str, hdr_tf: str, quality: int):
+    """B9 then B2 over a batch: the P010 planes as encode_coefs_stage
+    takes them and the SDR frame as uint8 (n, h, w), (n, h/2, w/2)
+    planes on the same device -> the same four coefficient arrays."""
+    return _coefs(encode_front_api1(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
+                                    sdr_gamut, hdr_gamut, hdr_tf), quality)
 
 
 @dataclass
@@ -130,6 +153,15 @@ class DeviceStreams:
     gm_bits: torch.Tensor
 
 
+def _streams(coefs, w: int, h: int) -> DeviceStreams:
+    """B3 over a batch's coefficients."""
+    yz, uz, vz, gz = coefs
+    base, base_bits = de.encode_ycbcr_rst_stream(yz, uz, vz, w // 16,
+                                                 h // 16, RST_INTERVAL)
+    gm, gm_bits = de.encode_gray_rst_stream(gz, RST_INTERVAL)
+    return DeviceStreams(w, h, base, base_bits, gm, gm_bits)
+
+
 def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
                         gamut: str, hdr_tf: str,
                         quality: int) -> DeviceStreams:
@@ -137,12 +169,21 @@ def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
     inputs): the restart-interval entropy streams of every base image
     and gain map, on the device."""
     _, h, w = y_p010.shape
-    yz, uz, vz, gz = encode_coefs_stage(y_p010, uv_p010, gamut, hdr_tf,
-                                        quality)
-    base, base_bits = de.encode_ycbcr_rst_stream(yz, uz, vz, w // 16,
-                                                 h // 16, RST_INTERVAL)
-    gm, gm_bits = de.encode_gray_rst_stream(gz, RST_INTERVAL)
-    return DeviceStreams(w, h, base, base_bits, gm, gm_bits)
+    return _streams(encode_coefs_stage(y_p010, uv_p010, gamut, hdr_tf,
+                                       quality), w, h)
+
+
+def encode_device_stage_api1(y_p010: torch.Tensor, uv_p010: torch.Tensor,
+                             sdr_y: torch.Tensor, sdr_u: torch.Tensor,
+                             sdr_v: torch.Tensor, sdr_gamut: str,
+                             hdr_gamut: str, hdr_tf: str,
+                             quality: int) -> DeviceStreams:
+    """B9, B2 and B3 over a batch (see encode_coefs_stage_api1 for the
+    inputs): the entropy streams, on the device."""
+    _, h, w = y_p010.shape
+    return _streams(encode_coefs_stage_api1(
+        y_p010, uv_p010, sdr_y, sdr_u, sdr_v, sdr_gamut, hdr_gamut, hdr_tf,
+        quality), w, h)
 
 
 @dataclass
@@ -182,7 +223,9 @@ def assemble_api0(streams: DeviceStreams, gamut: str, hdr_tf: str,
     """Host stage of the batched encode (the JAX _assemble_rst_outputs):
     ONE device-to-host copy of the streams and chunk bit counts, then
     per frame the stuffing/marker tail (finalize_rst_stream), headers,
-    ICC and the JPEG/R mux. Returns (blobs, base bits, gain-map bits)."""
+    ICC and the JPEG/R mux. `gamut` is the base's (the SDR gamut of an
+    API-1 encode); the metadata is API-0's for both routes. Returns
+    (blobs, base bits, gain-map bits)."""
     s = streams
     nb, ng = s.base.numel(), s.gm.numel()
     host = torch.cat([s.base, s.gm,
@@ -234,19 +277,55 @@ def batched_encode_api0(y_batch: np.ndarray, uv_batch: np.ndarray,
     of 16. Returns one JPEG/R blob per frame; with return_handoff, also
     a DeviceEncodedBatch for batched_decode_from_handoff."""
     dev = resolve_device(device)
-    n, h, w = y_batch.shape
-    if h % 16 or w % 16:
-        raise err("UHDR_CODEC_INVALID_PARAM",
-                  f"batched encode requires 16-aligned dims, got {w}x{h}")
+    _check_aligned(y_batch.shape)
     streams = encode_device_stage(p010_to_device(y_batch, dev),
                                   p010_to_device(uv_batch, dev), gamut,
                                   hdr_tf, quality)
+    return _finish_encode(streams, gamut, hdr_tf, quality, return_handoff)
+
+
+def _check_aligned(shape):
+    _, h, w = shape
+    if h % 16 or w % 16:
+        raise err("UHDR_CODEC_INVALID_PARAM",
+                  f"batched encode requires 16-aligned dims, got {w}x{h}")
+
+
+def _finish_encode(streams: DeviceStreams, gamut: str, hdr_tf: str,
+                   quality: int, return_handoff: bool):
     blobs, base_bits, gm_bits = assemble_api0(streams, gamut, hdr_tf,
                                               quality)
     if not return_handoff:
         return blobs
     return blobs, DeviceEncodedBatch(streams, base_bits, gm_bits,
                                      int(quality), api0_metadata(hdr_tf))
+
+
+def batched_encode_api1(p010_y_batch: np.ndarray, p010_uv_batch: np.ndarray,
+                        sdr_y_batch: np.ndarray, sdr_u_batch: np.ndarray,
+                        sdr_v_batch: np.ndarray, sdr_gamut: str = "bt709",
+                        hdr_gamut: str = "bt2100", hdr_tf: str = "hlg",
+                        quality: int = 95, device="cuda",
+                        return_handoff: bool = False):
+    """API-1 encode of a batch of same-size frames (the JAX
+    sharding.batched_encode_api1): P010 as batched_encode_api0 takes it
+    and the SDR rendition as uint8 YUV420 planes (n, h, w) and
+    (n, h/2, w/2) in `sdr_gamut`'s YUV encoding, h and w multiples of
+    16. All five planes go to the device in one copy. Returns one JPEG/R
+    blob per frame; with return_handoff, also a DeviceEncodedBatch."""
+    dev = resolve_device(device)
+    _check_aligned(p010_y_batch.shape)
+    planes = _upload([np.ascontiguousarray(p010_y_batch, np.uint16)
+                      .view(np.int16),
+                      np.ascontiguousarray(p010_uv_batch, np.uint16)
+                      .view(np.int16)]
+                     + [np.ascontiguousarray(a, np.uint8)
+                        for a in (sdr_y_batch, sdr_u_batch, sdr_v_batch)],
+                     dev)
+    streams = encode_device_stage_api1(*planes, sdr_gamut, hdr_gamut,
+                                       hdr_tf, quality)
+    return _finish_encode(streams, sdr_gamut, hdr_tf, quality,
+                          return_handoff)
 
 
 # ---------------------------------------------------------------------------
@@ -287,14 +366,16 @@ class HostDecoded:
     and of the gain map, and either the parsed entropy streams of base
     and gain map (`streams`, the device route) or their coefficient
     grids (`grids`, (bh, bw, 64) int16 zigzag of Y, U, V and the gain
-    map, the host route)."""
+    map, the host route). A stage for SDR output reads the base alone:
+    no gain-map stream, grid, table or metadata, and gm_width =
+    gm_height = 0."""
 
     width: int
     height: int
     gm_width: int
     gm_height: int
-    qtables: tuple    # (luma, chroma, gain map) 8x8 int32
-    metadata: GainMapMetadata
+    qtables: tuple    # (luma, chroma[, gain map]) 8x8 int32
+    metadata: GainMapMetadata | None
     icc: bytes | None = None
     exif: bytes | None = None
     streams: tuple | None = None
@@ -307,15 +388,19 @@ def _check_geometry(w: int, h: int, gw: int, gh: int):
                   f"non-integer map scale {w}x{h} vs {gw}x{gh}")
 
 
-def parse_device_route(blob: bytes) -> HostDecoded | None:
+def parse_device_route(blob: bytes, sdr: bool = False) -> HostDecoded | None:
     """Host stage of the device route (the JAX _decode_device_path up to
-    its launch): split the JPEG/R, parse and destuff both images. None
-    when either image's headers do not suit the device decoder (a 4:2:0
-    base and a gray gain map)."""
+    its launch): split the JPEG/R, parse and destuff both images, or the
+    base alone for SDR output. None when an image's headers do not suit
+    the device decoder (a 4:2:0 base and a gray gain map)."""
     primary, gainmap = mux.extract_primary_and_gainmap(blob)
     ds = dd.parse_device_stream(primary)
     if ds is None or ds.gray or ds.sampling != (2, 2):
         return None
+    if sdr:
+        return HostDecoded(ds.width, ds.height, 0, 0,
+                           (ds.qtables[0], ds.qtables[1]), None, icc=ds.icc,
+                           exif=ds.exif, streams=(ds,))
     dsg = dd.parse_device_stream(gainmap)
     if dsg is None or not dsg.gray:
         return None
@@ -330,14 +415,19 @@ def parse_device_route(blob: bytes) -> HostDecoded | None:
                        streams=(ds, dsg))
 
 
-def decode_host_huffman(blob: bytes) -> HostDecoded:
+def decode_host_huffman(blob: bytes, sdr: bool = False) -> HostDecoded:
     """Host stage of the host route: split a JPEG/R and Huffman-decode
-    both images on the host (jpeg/entropy.cpp)."""
+    both images on the host (jpeg/entropy.cpp), or the base alone for
+    SDR output."""
     primary, gainmap = mux.extract_primary_and_gainmap(blob)
     base = codec.decode_jpeg_coefs(primary)
     if (base.ncomp != 3 or base.comps[0][4] != (2, 2)
             or base.comps[1][4] != (1, 1) or base.comps[2][4] != (1, 1)):
         raise err("UHDR_CODEC_ERROR", "base image is not YCbCr 4:2:0")
+    (yg, ql, *_), (ug, qc, *_), (vg, *_) = base.comps
+    if sdr:
+        return HostDecoded(base.width, base.height, 0, 0, (ql, qc), None,
+                           icc=base.icc, exif=base.exif, grids=(yg, ug, vg))
     gmdec = codec.decode_jpeg_coefs(gainmap)
     if gmdec.ncomp != 1:
         raise err("UHDR_CODEC_ERROR", "gain map is not grayscale")
@@ -347,25 +437,29 @@ def decode_host_huffman(blob: bytes) -> HostDecoded:
     gg, qg, gh, gw, _ = gmdec.comps[0]
     _check_geometry(base.width, base.height, gw, gh)
     check_gainmap_metadata(metadata)
-    (yg, ql, *_), (ug, qc, *_), (vg, *_) = base.comps
     return HostDecoded(base.width, base.height, gw, gh, (ql, qc, qg),
                        metadata, icc=base.icc, exif=base.exif,
                        grids=(yg, ug, vg, gg))
 
 
-def decode_host_stage(blobs: list[bytes]) -> list[HostDecoded]:
+def decode_host_stage(blobs: list[bytes],
+                      output_format: str = "hdr_linear") -> list[HostDecoded]:
     """Host stage of a batched decode. The route is chosen from the
     headers alone, for the whole batch: the device route when every
-    blob suits it (parse and destuff only), else host Huffman."""
-    frames = [parse_device_route(b) for b in blobs]
+    blob suits it (parse and destuff only), else host Huffman. For
+    "sdr" output only the base is read: the gain map's headers, XMP and
+    stream are never looked at (the JAX SDR branch, jpegr.py:451-464,
+    555-570)."""
+    sdr = output_format == "sdr"
+    frames = [parse_device_route(b, sdr) for b in blobs]
     if all(f is not None for f in frames):
         return frames
-    return [decode_host_huffman(b) for b in blobs]
+    return [decode_host_huffman(b, sdr) for b in blobs]
 
 
 def _planes(grids, qtables: torch.Tensor, geom):
-    """B5 over the four coefficient grids, cropped to the image:
-    (y, u, v, gain map) uint8 planes."""
+    """B5 over the coefficient grids (Y, U, V and, for HDR output, the
+    gain map), cropped to the image: uint8 planes in the same order."""
     w, h, gw, gh = geom
     ch, cw = (h + 1) // 2, (w + 1) // 2
     shapes = (((h + 15) // 16 * 2, (w + 15) // 16 * 2), ((h + 15) // 16,
@@ -381,19 +475,21 @@ def _planes(grids, qtables: torch.Tensor, geom):
 
 
 def decode_device_stage(frames: list[HostDecoded], output_format: str,
-                        max_display_boost: float, device) -> torch.Tensor:
-    """Device stage of a batched decode of same-size frames: HDR pixels
-    on `device`, (n, h, w, 4) int16 F16 bits for "hdr_linear" or
-    (n, h, w) int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq". The
-    device route uploads the destuffed streams, lane starts, decode and
-    quant tables and apply scalars in one copy, then runs B4 (base and
-    gain map), B5 and B6; the host route uploads coefficient grids."""
+                        max_display_boost: float, device,
+                        use_luts: bool = False) -> torch.Tensor:
+    """Device stage of a batched decode of same-size frames: pixels on
+    `device`, (n, h, w, 4) int16 F16 bits for "hdr_linear", (n, h, w)
+    int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq", or (n, h, w) int32
+    RGBA8888 words for "sdr". The device route uploads the destuffed
+    streams, lane starts, decode and quant tables and apply scalars in
+    one copy, then runs B4 (base and gain map), B5 and B6 (B11 with
+    use_luts); for "sdr", B4 and B5 over the base and B7. The host route
+    uploads coefficient grids instead of streams."""
+    if output_format == "sdr":
+        return _decode_device_sdr(frames, device)
     f0 = frames[0]
     geom = (f0.width, f0.height, f0.gm_width, f0.gm_height)
-    if any((f.width, f.height, f.gm_width, f.gm_height) != geom
-           for f in frames):
-        raise err("UHDR_CODEC_INVALID_PARAM",
-                  "a decode batch needs frames of one geometry")
+    _check_batch(frames, geom)
     q = np.stack([np.stack([t.reshape(64) for t in f.qtables])
                   for f in frames]).astype(np.int32)
     scalars = np.stack([apply_scalars(f.metadata, max_display_boost)
@@ -414,7 +510,37 @@ def decode_device_stage(frames: list[HostDecoded], output_format: str,
         *up, qd, sd = _upload([a.reshape(len(frames), -1, 64)
                                for a in arrays] + [q, scalars], device)
         grids = tuple(up)
-    return apply_gainmap(*_planes(grids, qd, geom), sd, output_format)
+    return apply_gainmap(*_planes(grids, qd, geom), sd, output_format,
+                         use_luts)
+
+
+def _check_batch(frames, geom):
+    if any((f.width, f.height, f.gm_width, f.gm_height)[:len(geom)] != geom
+           for f in frames):
+        raise err("UHDR_CODEC_INVALID_PARAM",
+                  "a decode batch needs frames of one geometry")
+
+
+def _decode_device_sdr(frames: list[HostDecoded], device) -> torch.Tensor:
+    """decode_device_stage for "sdr": the base alone (its streams or
+    grids and its two quant tables, whatever else the frames carry) in
+    one copy, then B4, B5 and B7."""
+    f0 = frames[0]
+    geom = (f0.width, f0.height)
+    _check_batch(frames, geom)
+    q = np.stack([np.stack([t.reshape(64) for t in f.qtables[:2]])
+                  for f in frames]).astype(np.int32)
+    if f0.streams is not None:
+        lb = dd.pack_streams([f.streams[0] for f in frames])
+        src, bf, bl, bt, qd = _upload(
+            [lb.src, lb.frames, lb.lanes, lb.tables, q], device)
+        grids = dd.decode_rst_chunks(src, bf, bl, bt, False, (2, 2),
+                                     lb.mcus_x, lb.mcus_y)
+    else:
+        *grids, qd = _upload([np.stack([f.grids[k] for f in frames])
+                              .reshape(len(frames), -1, 64)
+                              for k in range(3)] + [q], device)
+    return yuv420_to_rgba8888(*_planes(grids, qd, geom + (0, 0)))
 
 
 def _shift(frame_rows: np.ndarray, by: int) -> np.ndarray:
@@ -430,12 +556,13 @@ def _shift(frame_rows: np.ndarray, by: int) -> np.ndarray:
 
 def batched_decode(blobs: list[bytes], output_format: str = "hdr_linear",
                    max_display_boost: float = float("inf"),
-                   device="cuda") -> torch.Tensor:
-    """Decode same-size JPEG/R blobs to HDR pixels on `device` (see
+                   device="cuda", use_luts: bool = False) -> torch.Tensor:
+    """Decode same-size JPEG/R blobs to pixels on `device` (see
     decode_device_stage for the layout)."""
     dev = resolve_device(device)
-    return decode_device_stage(decode_host_stage(blobs), output_format,
-                               max_display_boost, dev)
+    return decode_device_stage(decode_host_stage(blobs, output_format),
+                               output_format, max_display_boost, dev,
+                               use_luts)
 
 
 def handoff_apply_scalars(handoff: DeviceEncodedBatch,
@@ -472,23 +599,32 @@ def _handoff_lanes(bits: np.ndarray, specs):
 def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
                                 output_format: str = "hdr_linear",
                                 max_display_boost: float = float("inf"),
-                                ) -> torch.Tensor:
+                                use_luts: bool = False) -> torch.Tensor:
     """Decode a DeviceEncodedBatch on the encoder's device: bitwise the
     pixels batched_decode gives for the assembled blobs. B4 reads its
     lane windows in place from the encoder's chunk bytes (its handoff
     mode), with the encoder's own tables (Annex K, quant tables scaled
     to the encode quality); the only upload is the small descriptor,
-    table and scalar arrays."""
+    table and scalar arrays. For "sdr" only the base lanes are decoded,
+    then B5 and B7."""
     s = handoff.streams
     dev = s.base.device
     n = handoff.base_bits.shape[0]
     w, h = s.width, s.height
-    q = np.broadcast_to(np.stack([t.reshape(64) for t in quant_tables(
-        handoff.quality)]).astype(np.int32), (n, 3, 64)).copy()
+    sdr = output_format == "sdr"
+    qt = quant_tables(handoff.quality)[:2 if sdr else 3]
+    q = np.broadcast_to(np.stack([t.reshape(64) for t in qt]).astype(
+        np.int32), (n, len(qt), 64)).copy()
+    base_lanes = _handoff_lanes(handoff.base_bits, dd.ANNEX_K_COLOR)
+    if sdr:
+        bf, bl, bt, qd = _upload([*base_lanes, q], dev)
+        grids = dd.decode_rst_chunks(s.base, bf, bl, bt, False, (2, 2),
+                                     w // 16, h // 16)
+        return yuv420_to_rgba8888(*_planes(grids, qd, (w, h, 0, 0)))
     sc = np.broadcast_to(handoff_apply_scalars(handoff, max_display_boost),
                          (n, 4)).copy()
-    arrays = (_handoff_lanes(handoff.base_bits, dd.ANNEX_K_COLOR)
-              + _handoff_lanes(handoff.gm_bits, dd.ANNEX_K_GRAY) + (q, sc))
+    arrays = (base_lanes + _handoff_lanes(handoff.gm_bits, dd.ANNEX_K_GRAY)
+              + (q, sc))
     bf, bl, bt, gf, gl, gt, qd, sd = _upload(arrays, dev)
     gw, gh = w // 4, h // 4
     grids = (dd.decode_rst_chunks(s.base, bf, bl, bt, False, (2, 2),
@@ -496,4 +632,4 @@ def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
              + dd.decode_rst_chunks(s.gm, gf, gl, gt, True, (1, 1),
                                     -(-gw // 8), -(-gh // 8)))
     return apply_gainmap(*_planes(grids, qd, (w, h, gw, gh)), sd,
-                         output_format)
+                         output_format, use_luts)

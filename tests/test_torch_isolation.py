@@ -104,9 +104,13 @@ def test_entry_points_default_to_cuda():
 
     y = np.zeros((1, 16, 16), np.uint16)
     uv = np.zeros((1, 8, 16), np.uint16)
+    sdr = (np.zeros((1, 16, 16), np.uint8), np.zeros((1, 8, 8), np.uint8),
+           np.zeros((1, 8, 8), np.uint8))
     calls = [JpegR, UhdrEncoder, UhdrDecoder,
              lambda: batched.batched_encode_api0(y, uv),
-             lambda: batched.batched_decode([b""])]
+             lambda: batched.batched_encode_api1(y, uv, *sdr),
+             lambda: batched.batched_decode([b""]),
+             lambda: batched.batched_decode([b""], "sdr", use_luts=True)]
     if torch.cuda.is_available():
         assert JpegR().device.type == "cuda"
         return
