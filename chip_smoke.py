@@ -4,24 +4,31 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from kernels/csrc with nvcc (one nvcc
-per source, in parallel), checks each of the nine (B1-B7, B9, B11)
-against its plain PyTorch version at the shapes of a 4080x3072 frame
-(batch of 2), drives the API-0 round trip and the API-1 encode, SDR
-decode and table-transfer (use_luts) decode through the entry points a
-user calls (batched encode/decode, the encode -> decode handoff, JpegR,
-UhdrEncoder / UhdrDecoder, and the decode of the reference goldens in
-tests/goldens), checks what comes out, and times the kernels and the
-stages.
+per source, in parallel), checks each of the thirteen (B1-B7, B9, B10a,
+B10b, B10c, B11, B12) against its plain PyTorch version at the shapes of
+the main path (a 4080x3072 frame, batch of 2; the general routes' B10
+and B12 at one 4000x3000 frame), drives the API-0 round trip, the API-1
+encode, SDR decode, table-transfer (use_luts) decode and the general
+encode routes (non-16-aligned and EXIF encodes, API-2/3/4/x) through
+the entry points a user calls (batched encode/decode, the encode ->
+decode handoff, JpegR, UhdrEncoder / UhdrDecoder, and the decode of the
+reference goldens in tests/goldens), checks what comes out, and times
+the kernels and the stages.
 
 Phases: B1, B2, B5, B6, B11, B7 kernel vs plain; B3 (Huffman encode)
 kernel vs plain and its JPEG/R bytes vs the host-Huffman route; B9
 (API-1 front end) kernel vs plain and its JPEG/R bytes vs the
 host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
 decoder on the port's streams, on the restart-less goldens (DC carry)
-and on garbage; the main-path windows (API-0 round trip, handoff,
-goldens, API-1 encode + HDR decode, SDR decode, use_luts decode), each
-with every launch counter zeroed just before and read just after (each
-window's kernels launched, no host Huffman call); stage times.
+and on garbage; B10 (B10a tonemap and B10c re-encode bit-exact, B10b in
+five variants); B12 (decode_jpeg's device route on gray, 4:2:0, 4:2:2,
+4:4:4 and a restart-marked 4:2:0 stream: kernels = plain = host-Huffman
+route); the main-path windows (API-0 round trip, handoff, goldens,
+API-1 encode + HDR decode, SDR decode, use_luts decode, general
+routes), each with every launch counter zeroed just before and read
+just after (each window's kernels launched; no host Huffman call but
+the general routes', which Huffman-code each JPEG they generate on the
+host, as the JAX package does); stage times.
 
 It needs one CUDA device and fails (exit code != 0, no result line)
 without one; nothing falls back to the CPU. It imports nothing of JAX.
@@ -44,7 +51,11 @@ import time
 import numpy as np
 
 W, H, FRAMES = 4080, 3072, 2
+# The general encode routes and the plain-JPEG codec: one 12 MP 4:3
+# camera frame, 3000 rows (not 16-aligned).
+GW, GH = 4000, 3000
 SEED = 0
+EXIF = b"Exif\x00\x00MM\x00\x2a\x00\x00\x00\x08\x00\x00"
 CONFIGS = (("bt2100", "hlg"), ("bt709", "pq"))
 # API-1: (SDR gamut, HDR gamut, transfer).
 API1_CONFIGS = (("bt709", "bt2100", "hlg"), ("p3", "bt2100", "pq"))
@@ -84,6 +95,10 @@ OPS = {
     # encode_front.cu per gain-map sample (HLG: 114 + 3 pow; PQ: 9 pow)
     # and per 2x2 quad of the BT.601 re-encode (63).
     "B9 map hlg": (114, 3), "B9 map pq": (114, 9), "B9 quad": (63, 0),
+    # B10b is B9's map arm (the counts above); its table arm replaces the
+    # six computed transfer functions (33 operations and every pow) by
+    # six table indexes (4 each).
+    "B10b lut": (105, 0),
 }
 
 
@@ -163,6 +178,34 @@ def cuda_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device milliseconds per call of fn's kernels alone: `iters` calls
+    captured in one CUDA graph and replayed, so no host work (argument
+    packing, allocation, the ctypes call) sits between the launches. For
+    kernels shorter than their wrapper's host work, where cuda_ms
+    measures the enqueue rate."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -499,6 +542,175 @@ def b9_phase(dev, results: dict):
             dflops=samples["dflops"])
 
 
+def b10_phase(dev, results: dict):
+    """B10a (tonemap) and B10c (BT.601 re-encode) bit-exact with their
+    plain versions, and B10b (gain map) in five variants within B1's and
+    B9's bar (codes <= 1 apart on <= 1e-4 of samples, equal elsewhere),
+    at the 4000x3000 shapes of the general routes' main path."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import color, gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 40)
+    y, uv = (batched.p010_to_device(a, dev) for a in (y_np, uv_np))
+    tm = gm.tonemap_p010(y, uv)
+    require(all(map(torch.equal, tm, gm.tonemap_p010_plain(y, uv))),
+            "B10a differs from the plain version")
+    results["B10a"] = dict(
+        err=0, ms=graph_ms(lambda: gm.tonemap_p010(y, uv), 20),
+        enqueue_ms=cuda_ms(lambda: gm.tonemap_p010(y, uv), 20),
+        plain_ms=cuda_ms(lambda: gm.tonemap_p010_plain(y, uv), 5),
+        bytes=nbytes(y, uv, *tm), library_ms=None)
+    conv = gm.convert_yuv_encoding(*tm, "bt2100", "p3")
+    require(all(map(torch.equal, conv, gm.convert_yuv_encoding_plain(
+        *tm, "bt2100", "p3"))), "B10c differs from the plain version")
+    results["B10c"] = dict(
+        err=0, ms=graph_ms(lambda: gm.convert_yuv_encoding(
+            *tm, "bt2100", "p3"), 20),
+        enqueue_ms=cuda_ms(lambda: gm.convert_yuv_encoding(
+            *tm, "bt2100", "p3"), 20),
+        plain_ms=cuda_ms(lambda: gm.convert_yuv_encoding_plain(
+            *tm, "bt2100", "p3"), 5),
+        bytes=nbytes(*tm, *conv), library_ms=None,
+        flops=ops("B9 quad", (GH // 2) * (GW // 2))["flops"])
+    log(f"B10a tonemap_p010, B10c convert_yuv_encoding: bit-exact with "
+        f"the plain versions ({GW}x{GH}); kernel ms/frame by CUDA graph "
+        f"{results['B10a']['ms']:.4f}, {results['B10c']['ms']:.4f}, "
+        f"launched one by one {results['B10a']['enqueue_ms']:.4f}, "
+        f"{results['B10c']['enqueue_ms']:.4f}")
+
+    sdr709, sdr601 = ([torch.from_numpy(p).to(dev)
+                       for p in sdr_rendition(y_np, uv_np, g, dev)]
+                      for g in ("bt709", "p3"))
+    variants = (
+        ("tonemapped bt2100/hlg (API-0)", tm, "bt2100", "hlg", False, False),
+        ("bt709 + bt2100/pq (API-1)", sdr709, "bt709", "pq", False, False),
+        ("sdr_is_601 p3 + bt2100/hlg (API-3)", sdr601, "p3", "hlg", True,
+         False),
+        ("use_luts bt2100/hlg", tm, "bt2100", "hlg", False, True),
+        ("use_luts bt709 + bt2100/pq", sdr709, "bt709", "pq", False, True))
+    worst, rows = 0, {}
+    for label, sdr, sg, tf, is601, luts in variants:
+        kw = dict(sdr_gamut=sg, hdr_gamut="bt2100", hdr_tf=tf,
+                  sdr_is_601=is601, use_luts=luts)
+        got, md = gm.generate_gainmap(*sdr, y, uv, **kw)
+        ref, md_ref = gm.generate_gainmap_plain(*sdr, y, uv, **kw)
+        d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+        n_off = int((d > 0).sum())
+        log(f"B10b generate_gainmap {label}: max |diff| {int(d.max())} on "
+            f"{n_off} of {d.numel()} samples")
+        require(md == md_ref and int(d.max()) <= 1
+                and n_off <= 1e-4 * d.numel(),
+                f"B10b {label} disagrees with the plain version")
+        worst = max(worst, int(d.max()))
+        tables = 0
+        if luts:
+            tables = nbytes(color.lut_tensor("srgb_inv", dev),
+                            color.lut_tensor(f"{tf}_inv", dev))
+        row = dict(
+            ms=graph_ms(lambda: gm.generate_gainmap(*sdr, y, uv, **kw), 20),
+            enqueue_ms=cuda_ms(lambda: gm.generate_gainmap(*sdr, y, uv,
+                                                           **kw), 20),
+            plain_ms=cuda_ms(lambda: gm.generate_gainmap_plain(
+                *sdr, y, uv, **kw), 3),
+            bytes=nbytes(*sdr, y, uv, got) + tables,
+            **ops("B10b lut" if luts else f"B9 map {tf}",
+                  (GH // 4) * (GW // 4)))
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"],
+                                                 row["dflops"])
+        rows[label] = row
+        log(f"B10b {label}: kernel {row['ms']:.4f} ms/frame (CUDA graph; "
+            f"{row['enqueue_ms']:.4f} launched one by one), plain "
+            f"{row['plain_ms']:.3f} ms/frame, bound {row['bound_ms']:.4f} "
+            f"ms/frame ({row['bound_by']}, {row['bytes'] / 1e6:.2f} MB)")
+    # The kernels line reports the API-0 variant (the general window's
+    # first encode).
+    results["B10b"] = dict(rows[variants[0][0]], err=worst, library_ms=None)
+
+
+def _b12_inputs(ds, dev):
+    """B4's and B5's inputs for one parsed stream, on the device (as
+    jpeg/device_decode.py:decode_stream_device lays them out)."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    ln = dd.pack_streams([ds])
+    q = np.stack([t.reshape(64) for t in ds.qtables]).astype(np.int32)
+    return ds, batched._upload([ln.src, ln.frames, ln.lanes, ln.tables, q],
+                               dev)
+
+
+def _b12(inputs, plain=False):
+    """B4 then B5 per plane (their plain versions with plain): the
+    uncropped planes."""
+    from libultrahdr_dev_tpu_torch.jpeg import dct
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+
+    ds, (src, frames, lanes, tabs, qd) = inputs
+    b4 = dd.decode_rst_chunks_plain if plain else dd.decode_rst_chunks
+    b5 = dct.dequant_idct_plain if plain else dct.dequant_idct
+    grids = b4(src, frames, lanes, tabs, ds.gray, ds.sampling, ds.mcus_x,
+               ds.mcus_y)
+    return [b5(g, qd[k:k + 1], bh, bw) for k, (g, (bh, bw)) in enumerate(
+        zip(grids, dd.plane_shapes(ds.gray, ds.sampling, ds.mcus_x,
+                                   ds.mcus_y)))]
+
+
+def b12_phase(dev, results: dict, kept: dict):
+    """B12's decode half, decode_jpeg's device route (B4 then B5), on
+    4000x3000 JPEGs that encode_jpeg wrote (gray, 4:2:0, 4:2:2, 4:4:4,
+    restart-less) and on the 4:2:0 primary of a device-route JPEG/R
+    (restart markers): the kernels' planes bitwise equal to the plain
+    versions', and decode_jpeg's planes bitwise equal to the host-Huffman
+    + B5 route's."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.container import mux
+    from libultrahdr_dev_tpu_torch.jpeg import codec, dct
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 50)
+    y8 = (y_np[0] >> 8).astype(np.uint8)
+    u8, v8 = ((uv_np[0, :, k::2] >> 8).astype(np.uint8) for k in (0, 1))
+    u2, v2 = (np.repeat(c, 2, 0) for c in (u8, v8))
+    u4, v4 = (np.repeat(c, 2, 1) for c in (u2, v2))
+    streams = {name: codec.encode_jpeg(p, 90, device=dev) for name, p in (
+        ("gray", {"y": y8}), ("4:2:0", {"y": y8, "u": u8, "v": v8}),
+        ("4:2:2", {"y": y8, "u": u2, "v": v2}),
+        ("4:4:4", {"y": y8, "u": u4, "v": v4}))}
+    streams["4:2:0 with restarts (4080x3072 JPEG/R primary)"] = \
+        mux.extract_primary_and_gainmap(kept[CONFIGS[0]][3][0])[0]
+    for name, data in streams.items():
+        ds = dd.parse_device_stream(data)
+        require(ds is not None and (ds.start_bits is None) ==
+                ("restarts" in name), f"B12 {name}: not on the device route")
+        inputs = _b12_inputs(ds, dev)
+        got = _b12(inputs)
+        require(all(map(torch.equal, got, _b12(inputs, plain=True))),
+                f"B12 {name}: kernels differ from the plain versions")
+        dec = codec.decode_jpeg(data, dev)
+        host = codec.decode_jpeg_coefs(data)
+        for plane, g, (grid, q, ch, cw, _) in zip(dec.planes, got,
+                                                    host.comps):
+            hp = dct.dequant_idct(
+                torch.from_numpy(grid.reshape(1, -1, 64)).to(dev),
+                torch.from_numpy(q.reshape(1, 64).astype(np.int32)).to(dev),
+                grid.shape[0], grid.shape[1])[0, :ch, :cw]
+            require(torch.equal(plane, hp) and torch.equal(
+                plane, g[0, :ch, :cw]), f"B12 {name}: decode_jpeg differs "
+                f"from the host-Huffman route")
+        log(f"B12 {name}: {len(data)} bytes, {ds.n_lanes} lanes; kernels = "
+            f"plain = host-Huffman + B5 route, planes "
+            f"{[tuple(p.shape) for p in dec.planes]}")
+    inputs = _b12_inputs(dd.parse_device_stream(streams["4:2:0"]), dev)
+    out = _b12(inputs)
+    results["B12"] = dict(
+        err=0, ms=cuda_ms(lambda: _b12(inputs), 10),
+        plain_ms=cuda_ms(lambda: _b12(inputs, plain=True), 1),
+        bytes=nbytes(*inputs[1], *out), library_ms=None)
+
+
 def _b4_inputs(frames, dev):
     """Packed B4 inputs of host-parsed frames (base and gain map), on
     the device."""
@@ -626,9 +838,10 @@ def reset_counts():
     codec.entropy_encode.calls = codec.entropy_decode.calls = 0
 
 
-def read_counts(label: str, need) -> dict:
+def read_counts(label: str, need, host_encodes: int = 0) -> dict:
     """Read the counters after a path ran: each kernel in `need` must
-    have launched, and no host Huffman call may have run."""
+    have launched, host Huffman encoding must have run `host_encodes`
+    times (0 on the device routes) and host Huffman decoding never."""
     import torch
 
     from libultrahdr_dev_tpu_torch.jpeg import codec
@@ -640,7 +853,9 @@ def read_counts(label: str, need) -> dict:
         f"calls {host}")
     require(all(launches[k] > 0 for k in need),
             f"{label}: a kernel of the path never launched: {launches}")
-    require(host == (0, 0), f"{label}: host Huffman coding ran")
+    require(host == (host_encodes, 0),
+            f"{label}: host Huffman calls {host}, expected "
+            f"({host_encodes}, 0)")
     return launches
 
 
@@ -881,6 +1096,163 @@ def main_path_api1(dev, smi: str):
     return launches, inputs, blobs, handoffs
 
 
+def _median_log2(f16, y, uv, hdr_gamut: str, tf: str, sdr_gamut: str):
+    """Median |log2(decoded / input luminance)| over every 4th pixel of
+    an F16 decode (linear RGB in the SDR gamut, as the gain map takes
+    it) against the P010 input."""
+    from libultrahdr_dev_tpu_torch.ops import color
+
+    sub = (slice(0, None, 4), slice(0, None, 4))
+    want, white, _ = hdr_nits_reference(y, uv, hdr_gamut, tf)
+    kw = color.LUMINANCE[sdr_gamut]
+    rgb = f16[sub].astype(np.float64)
+    got = (kw[0] * rgb[..., 0] + kw[1] * rgb[..., 1]
+           + kw[2] * rgb[..., 2]) * white
+    want = want[sub]
+    keep = (want > 1.0) & (got > 0)
+    return float(np.median(np.abs(np.log2(got[keep] / want[keep])))), \
+        int(keep.sum())
+
+
+def main_path_general(dev, smi: str):
+    """The general encode routes at 4000x3000 through the entry points a
+    user calls, in one window with every launch counter and the host
+    Huffman call counters zeroed just before and read just after: API-0
+    BT.2100 HLG with EXIF (JpegR and UhdrEncoder.set_exif_data), API-1
+    BT.709 SDR + PQ with EXIF, a Display-P3 base by encode_jpeg with its
+    ICC, API-3 (HLG) from it, API-2 (HLG, the base's raw P3 planes) and
+    API-4 through UhdrEncoder, API-x (HLG, BT.709)
+    through JpegR (the stable API has no API-x route), then every
+    output decoded on the card to F16, HLG and SDR. Host Huffman codes
+    each JPEG the route generates (JAX's route), none for API-4, and
+    decodes nothing."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer,
+                                           CompressedImage, JpegR,
+                                           OutputFormat, PixelFormat,
+                                           RawImage, UhdrEncoder)
+    from libultrahdr_dev_tpu_torch.api import BASE_IMG, HDR_IMG, SDR_IMG
+    from libultrahdr_dev_tpu_torch.container import icc as icc_mod
+    from libultrahdr_dev_tpu_torch.container import jfif, mux
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 60)
+    y, uv = y_np[0], uv_np[0]
+
+    def p010(tf):
+        return RawImage(fmt=PixelFormat.P010, width=GW, height=GH,
+                        gamut=ColorGamut.BT2100, transfer=ColorTransfer(tf),
+                        planes={"y": y, "uv": uv})
+
+    def yuv420(gamut):
+        py, pu, pv = (p[0] for p in sdr_rendition(y_np, uv_np, gamut, dev))
+        return RawImage(fmt=PixelFormat.YUV420, width=GW, height=GH,
+                        gamut=ColorGamut(gamut),
+                        planes={"y": py, "u": pu, "v": pv})
+
+    hlg, pq = p010("hlg"), p010("pq")
+    sdr709, sdr_p3 = yuv420("bt709"), yuv420("p3")
+    # API-x's raw gain map: B10b's of the BT.709 SDR against the HLG HDR.
+    gmap_t, md_x = gm.generate_gainmap(
+        *(torch.from_numpy(sdr709.planes[k][None]).to(dev)
+          for k in ("y", "u", "v")),
+        *(batched.p010_to_device(a[None], dev) for a in (y, uv)),
+        sdr_gamut="bt709", hdr_gamut="bt2100", hdr_tf="hlg")
+    gmap_x = gmap_t[0].cpu().numpy()
+    jr = JpegR(dev)
+    calls: dict = {}
+    out: dict = {}
+
+    def encode(label, fn):
+        c0 = codec.entropy_encode.calls
+        blob = fn()
+        calls[label] = codec.entropy_encode.calls - c0
+        return blob
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out["API-0"] = encode("API-0", lambda: jr.encode_api0(
+        hlg, ColorTransfer.HLG, 95, exif=EXIF))
+    api0_enc = encode("API-0 UhdrEncoder", lambda: UhdrEncoder(dev)
+                      .set_raw_image(hlg, HDR_IMG).set_exif_data(EXIF)
+                      .encode().data)
+    out["API-1"] = encode("API-1", lambda: jr.encode_api1(
+        pq, sdr709, ColorTransfer.PQ, 95, exif=EXIF))
+    base = encode("P3 base", lambda: codec.encode_jpeg(
+        {k: sdr_p3.planes[k] for k in ("y", "u", "v")}, 95,
+        icc=icc_mod.write_icc_profile("srgb", "p3"), device=dev))
+    out["API-3"] = encode("API-3", lambda: jr.encode_api3(
+        hlg, base, ColorTransfer.HLG))
+    out["API-2"] = encode("API-2", lambda: UhdrEncoder(dev)
+                          .set_raw_image(hlg, HDR_IMG)
+                          .set_raw_image(sdr_p3, SDR_IMG)
+                          .set_compressed_image(CompressedImage(base),
+                                                SDR_IMG).encode().data)
+    gm_jpeg = mux.extract_primary_and_gainmap(out["API-3"])[1]
+    md3 = jr.get_info(out["API-3"]).metadata
+    out["API-4"] = encode("API-4", lambda: UhdrEncoder(dev)
+                          .set_compressed_image(CompressedImage(base),
+                                                BASE_IMG)
+                          .set_gainmap_image(CompressedImage(gm_jpeg), md3)
+                          .set_exif_data(EXIF).encode().data)
+    out["API-x"] = encode("API-x", lambda: jr.encode_apix(
+        sdr709, gmap_x, md_x, 95, exif=EXIF))
+    t_enc = time.perf_counter() - t0
+    decoded = {k: {fmt: jr.decode(b, fmt).image.planes["rgba"]
+                   for fmt in (OutputFormat.HDR_LINEAR, OutputFormat.HDR_HLG,
+                               OutputFormat.SDR)}
+               for k, b in out.items()}
+    c = read_counts(f"general routes ({t_enc:.1f} s encode, "
+                    f"{time.perf_counter() - t0 - t_enc:.1f} s decode)",
+                    ("B10a", "B10b", "B10c", "B2", "B4", "B5", "B6", "B7",
+                     "B12"), host_encodes=sum(calls.values()))
+    log(f"general routes: host Huffman encodes per call {calls}")
+    require(c["B1"] == c["B3"] == c["B9"] == 0,
+            "the general routes launched B1, B3 or B9")
+    # Two JPEGs (base and gain map) per generated encode; API-2 and API-3
+    # code the gain map alone, the P3 base is one JPEG, API-4 codes none.
+    want = {"API-0": 2, "API-0 UhdrEncoder": 2, "API-1": 2, "P3 base": 1,
+            "API-3": 1, "API-2": 1, "API-4": 0, "API-x": 2}
+    require(calls == want, f"host Huffman encodes per call {calls}, "
+            f"expected {want}")
+    require(api0_enc == out["API-0"],
+            "API-0: UhdrEncoder bytes differ from JpegR's")
+
+    def scan(jpeg):
+        return jpeg[jfif.scan_segments(jpeg, 0)[1]:]
+
+    for k in ("API-2", "API-3", "API-4"):
+        require(scan(mux.extract_primary_and_gainmap(out[k])[0])
+                == scan(base), f"{k}: the primary is not the given base")
+    info = {k: jr.get_info(b) for k, b in out.items()}
+    require(info["API-0"].primary.exif is not None, "API-0 lost its EXIF")
+    # (HDR transfer, SDR gamut) each output was made from.
+    made = {"API-0": ("hlg", "bt2100"), "API-1": ("pq", "bt709"),
+            "API-3": ("hlg", "p3"), "API-2": ("hlg", "p3"),
+            "API-4": ("hlg", "p3"), "API-x": ("hlg", "bt709")}
+    for k, (tf, sg) in made.items():
+        require((info[k].width, info[k].height, info[k].gainmap_width,
+                 info[k].gainmap_height) == (GW, GH, GW // 4, GH // 4),
+                f"{k}: bad JPEG/R geometry")
+        f16 = decoded[k][OutputFormat.HDR_LINEAR].view(np.float16)
+        words = decoded[k][OutputFormat.HDR_HLG]
+        sdr = decoded[k][OutputFormat.SDR]
+        require(f16.shape == (GH, GW, 4) and bool(np.isfinite(f16).all()),
+                f"{k}: bad F16 decode")
+        require(words.shape == (GH, GW) and bool(((words >> 30) == 3).all()),
+                f"{k}: bad HLG decode")
+        require(sdr.shape == (GH, GW) and bool(((sdr >> 24) == 255).all()),
+                f"{k}: bad SDR decode")
+        med, n = _median_log2(f16, y, uv, "bt2100", tf, sg)
+        log(f"general {k} ({len(out[k])} bytes): median |log2(decoded/input "
+            f"luminance)| {med:.4f} over {n} pixels")
+        require(med <= 0.1, f"general {k}: luminance round trip off")
+    return c, dict(y=y, uv=uv, base=base)
+
+
 def stage_times(dev, smi: str, inputs, blobs, handoffs, api1):
     """Warm per-frame times of the stages (batch of FRAMES, first
     configuration of each route), each ending synchronized. `api1` is
@@ -943,13 +1315,50 @@ def stage_times(dev, smi: str, inputs, blobs, handoffs, api1):
             f"{FRAMES}, {'/'.join(k1)}, {smi})")
 
 
+def stage_times_general(dev, smi: str, general: dict):
+    """Warm times of the general route's stages (one 4000x3000 frame,
+    API-0 BT.2100 HLG with EXIF) and of decode_jpeg's device stage on
+    the general window's P3 base, each ending synchronized."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import jpegr
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+
+    yd, uvd = jpegr.upload_frame(general["y"], general["uv"], None, dev)
+
+    def enc_dev():
+        c = jpegr.general_device_stage(yd, uvd, None, "bt2100", "bt2100",
+                                       "hlg", 95)
+        torch.cuda.synchronize()
+        return c
+
+    coefs = enc_dev()
+    ds = dd.parse_device_stream(general["base"])
+
+    def dec_dev():
+        dd.decode_stream_device(ds, dev)
+        torch.cuda.synchronize()
+
+    for k, v in {
+            "encode general API-0 device (B10a+B10b+B10c+B2)":
+                host_ms(enc_dev, 5),
+            "encode general host (D2H + Huffman + mux)":
+                host_ms(lambda: jpegr.general_host_stage(coefs, EXIF), 3),
+            "decode_jpeg device 4:2:0 (H2D + B4 + B5)": host_ms(dec_dev, 5),
+            }.items():
+        log(f"stage {k}: {v:.3f} ms/frame ({GW}x{GH}, batch 1, {smi})")
+
+
 API0_KERNELS = ("B1", "B2", "B3", "B3g", "B4", "B5", "B6")
+# Kernels checked and timed at the general routes' 4000x3000 frame.
+GENERAL_KERNELS = ("B10a", "B10b", "B10c", "B12")
 
 
 def counters():
     """Each kernel's launch counter: name -> (wrapper, attribute). B3
     counts its 4:2:0 and gray wrappers apart (B3, B3g); B11 is the
-    table arm of B6's wrapper."""
+    table arm of B6's wrapper; B12 counts decode_jpeg's device-route
+    calls (each one B4 and B5 launches)."""
     from libultrahdr_dev_tpu_torch.jpeg import dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
@@ -964,7 +1373,11 @@ def counters():
             "B6": (gm.apply_gainmap, "launches"),
             "B7": (gm.yuv420_to_rgba8888, "launches"),
             "B9": (gm.encode_front_api1, "launches"),
-            "B11": (gm.apply_gainmap, "lut_launches")}
+            "B10a": (gm.tonemap_p010, "launches"),
+            "B10b": (gm.generate_gainmap, "launches"),
+            "B10c": (gm.convert_yuv_encoding, "launches"),
+            "B11": (gm.apply_gainmap, "lut_launches"),
+            "B12": (dd.decode_stream_device, "launches")}
 
 
 KERNELS = {
@@ -984,8 +1397,17 @@ KERNELS = {
            "sdr_out.cu", "libultrahdr_dev_tpu/ops/gainmap.py:407"),
     "B9": ("encode_front_api1", "libultrahdr_dev_tpu_torch/kernels/csrc/"
            "encode_front.cu", "libultrahdr_dev_tpu/parallel/sharding.py:622"),
+    "B10a": ("tonemap_p010", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+             "encode_front.cu", "libultrahdr_dev_tpu/ops/gainmap.py:90"),
+    "B10b": ("generate_gainmap", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+             "encode_front.cu", "libultrahdr_dev_tpu/ops/gainmap.py:103"),
+    "B10c": ("convert_yuv_encoding", "libultrahdr_dev_tpu_torch/kernels/"
+             "csrc/encode_front.cu", "libultrahdr_dev_tpu/ops/gainmap.py:427"),
     "B11": ("apply_gainmap_lut", "libultrahdr_dev_tpu_torch/kernels/csrc/"
             "apply.cu", "libultrahdr_dev_tpu/ops/color.py:254"),
+    "B12": ("decode_jpeg_device", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+            "huff_decode.cu + libultrahdr_dev_tpu_torch/kernels/csrc/dct.cu",
+            "libultrahdr_dev_tpu/jpeg/device_decode.py:876"),
 }
 
 
@@ -1021,6 +1443,8 @@ def main() -> int:
     phases.append(("B3", lambda: kept.update(b3_phase(dev, results))))
     phases.append(("B9", lambda: b9_phase(dev, results)))
     phases.append(("B4", lambda: b4_phase(dev, results, kept)))
+    phases.append(("B10", lambda: b10_phase(dev, results)))
+    phases.append(("B12", lambda: b12_phase(dev, results, kept)))
     for label, fn in phases:
         t = time.perf_counter()
         fn()
@@ -1032,7 +1456,8 @@ def main() -> int:
         log(f"{k} {KERNELS[k][0]}: kernel {r['ms']:.4f} ms/frame, plain "
             f"{r['plain_ms']:.3f} ms/frame, bound {r['bound_ms']:.4f} "
             f"ms/frame ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), "
-            f"library {r['library_ms']} ms/frame ({W}x{H}, {smi})")
+            f"library {r['library_ms']} ms/frame ("
+            f"{f'{GW}x{GH}' if k in GENERAL_KERNELS else f'{W}x{H}'}, {smi})")
     t = time.perf_counter()
     launches, inputs, blobs, handoffs = main_path(dev, smi)
     log(f"phase main path API-0: {time.perf_counter() - t:.1f} s")
@@ -1040,9 +1465,14 @@ def main() -> int:
     launches1, inputs1, blobs1, _ = main_path_api1(dev, smi)
     log(f"phase main path API-1 / SDR / use_luts: "
         f"{time.perf_counter() - t:.1f} s")
-    launches = {k: launches[k] + launches1[k] for k in launches}
+    t = time.perf_counter()
+    launches2, general = main_path_general(dev, smi)
+    log(f"phase main path general routes: {time.perf_counter() - t:.1f} s")
+    launches = {k: launches[k] + launches1[k] + launches2[k]
+                for k in launches}
     launches["B3"] += launches.pop("B3g")
     stage_times(dev, smi, inputs, blobs, handoffs, (inputs1, blobs1))
+    stage_times_general(dev, smi, general)
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

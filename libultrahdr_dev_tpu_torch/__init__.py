@@ -1,32 +1,44 @@
 """libultrahdr_dev_tpu_torch: the PyTorch + CUDA port of
 libultrahdr_dev_tpu, the Ultra HDR (JPEG/R) codec.
 
-It imports torch and never JAX or the JAX package. This slice covers
-the raw-input encodes and the decode: encode a P010 HDR frame (API-0),
-or a P010 HDR frame with its YUV420 SDR rendition (API-1), into JPEG/R,
-and decode a JPEG/R to HDR pixels (F16 linear, HLG or PQ RGBA1010102,
-computed or through the transfer tables) or to SDR RGBA8888. Nine
-hand-written CUDA kernels (kernels/csrc) run its device work on an
-NVIDIA H100; on a CPU device each runs its plain PyTorch version:
+It imports torch and never JAX or the JAX package. It covers the encode
+APIs and the decode: API-0 (a P010 HDR frame), API-1 (with its YUV420
+SDR rendition), API-2 / API-3 (with a given base JPEG), API-4 (mux) and
+API-x (SDR + raw gain map) encode into JPEG/R, with EXIF and at any even
+frame size; a JPEG/R decodes to HDR pixels (F16 linear, HLG or PQ
+RGBA1010102, computed or through the transfer tables) or to SDR
+RGBA8888; plain JPEGs encode and decode (jpeg.codec.encode_jpeg /
+decode_jpeg). Hand-written CUDA kernels (kernels/csrc) run its device
+work on an NVIDIA H100; on a CPU device each runs its plain PyTorch
+version:
 
-  B1  ops.gainmap.encode_front                API-0 P010 -> gain map + BT.601
-  B9  ops.gainmap.encode_front_api1           API-1 P010 + SDR -> the same
-  B2  jpeg.dct.fdct_quant                     fDCT + quantization + zigzag
-  B3  jpeg.device_entropy.encode_*_rst_stream restart-interval Huffman encode
-  B4  jpeg.device_decode.decode_rst_chunks    parallel Huffman decode
-  B5  jpeg.dct.dequant_idct                   dequantization + IDCT
-  B6  ops.gainmap.apply_gainmap               gain-map apply + output pack
-  B11 ops.gainmap.apply_gainmap(use_luts=True) the same with table TFs
-  B7  ops.gainmap.yuv420_to_rgba8888          SDR output (fancy upsample)
+  B1   ops.gainmap.encode_front                API-0 P010 -> gain map + BT.601
+  B9   ops.gainmap.encode_front_api1           API-1 P010 + SDR -> the same
+  B10a ops.gainmap.tonemap_p010                P010 -> u8 YUV (general route)
+  B10b ops.gainmap.generate_gainmap            gain map (general route)
+  B10c ops.gainmap.convert_yuv_encoding        BT.601 re-encode (general route)
+  B2   jpeg.dct.fdct_quant                     fDCT + quantization + zigzag
+  B3   jpeg.device_entropy.encode_*_rst_stream restart-interval Huffman encode
+  B4   jpeg.device_decode.decode_rst_chunks    parallel Huffman decode
+  B5   jpeg.dct.dequant_idct                   dequantization + IDCT
+  B12  jpeg.device_decode.decode_stream_device plain-JPEG decode (B4 + B5)
+  B6   ops.gainmap.apply_gainmap               gain-map apply + output pack
+  B11  ops.gainmap.apply_gainmap(use_luts=True) the same with table TFs
+  B7   ops.gainmap.yuv420_to_rgba8888          SDR output (fancy upsample)
 
-The host keeps the marker work: byte stuffing and RSTn markers after
-B3, parse and destuff before B4, and a host Huffman route (the port's
-jpeg/entropy.cpp, built with g++) for streams the device decoder does
-not take. Entry points run on the CUDA device unless the caller passes
-device="cpu". Public surface:
-  - api.UhdrEncoder (HDR and SDR raw intents) / api.UhdrDecoder /
-    is_uhdr_image
-  - jpegr.JpegR — encode_api0, encode_api1, decode, get_info
+16-aligned API-0 / API-1 encodes without EXIF take the device route (B1
+or B9, B2, B3); every other encode takes the general route, as in the
+JAX package (B10a-c, B2, then host Huffman of restart-less JPEGs). The
+host keeps the marker work: byte stuffing and RSTn markers after B3,
+parse and destuff before B4, and a host Huffman route (the port's
+jpeg/entropy.cpp, built with g++) for the general encodes and for
+streams the device decoder does not take. Entry points run on the CUDA
+device unless the caller passes device="cpu". Public surface:
+  - api.UhdrEncoder (raw and compressed intents, EXIF) /
+    api.UhdrDecoder / is_uhdr_image
+  - jpegr.JpegR — encode_api0 .. encode_api4, encode_apix, decode,
+    get_info
+  - jpeg.codec — encode_jpeg, decode_jpeg
   - parallel.batched — batched_encode_api0 / batched_encode_api1 /
     batched_decode / batched_decode_from_handoff over a leading batch
     dimension on one device

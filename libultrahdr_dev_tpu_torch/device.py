@@ -1,0 +1,37 @@
+"""The torch device an entry point runs on, and the one-copy upload.
+
+Shared by parallel/batched.py, jpegr.py, api.py and jpeg/codec.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. A CUDA device (the default)
+    must exist: without one the call raises, and nothing runs on the
+    CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
+                           "device='cpu' to run its plain versions on the "
+                           "CPU")
+    return dev
+
+
+def upload(arrays, device) -> list[torch.Tensor]:
+    """Copy numpy arrays to `device` in ONE host-to-device transfer:
+    their bytes back to back (16-byte aligned) in one buffer, returned
+    as typed views of the device copy."""
+    offs, size = [], 0
+    for a in arrays:
+        offs.append(size)
+        size += -(-a.nbytes // 16) * 16
+    buf = np.zeros(max(size, 16), np.uint8)
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+    dbuf = torch.from_numpy(buf).to(device)
+    return [dbuf[o:o + a.nbytes].view(getattr(torch, a.dtype.name))
+            .reshape(a.shape) for a, o in zip(arrays, offs)]

@@ -1,10 +1,15 @@
-"""Host half of the baseline JPEG codec: markers, MCU interleave and the
-native Huffman stage.
+"""Baseline JPEG codec: markers, MCU interleave, the native Huffman
+stage, and the plain-JPEG encode and decode on the device.
 
-The subset of libultrahdr_dev_tpu/jpeg/codec.py that the port's API-0
-round trip runs. The transform half (fDCT / IDCT) is on the device, in
-jpeg/dct.py. Progressive, arithmetic-coded and multi-scan streams are
-not decoded yet: they raise UHDR_CODEC_UNSUPPORTED_FEATURE.
+The subset of libultrahdr_dev_tpu/jpeg/codec.py that the port runs.
+``encode_jpeg`` encodes gray, 4:2:0, 4:2:2 or 4:4:4 planes: the edge
+padding and the fDCT (kernel B2, jpeg/dct.py) run on the device, and the
+restart-less entropy segment is Huffman-coded on the host, the JAX
+package's route as well. ``decode_jpeg`` decodes to planes: streams the
+device decoder takes go through B4 then B5 on the device
+(jpeg/device_decode.py:decode_jpeg_device), all others through the host
+Huffman decoder then B5. Progressive, arithmetic-coded and multi-scan
+streams are not decoded yet: they raise UHDR_CODEC_UNSUPPORTED_FEATURE.
 """
 
 from __future__ import annotations
@@ -13,10 +18,14 @@ import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..container import jfif
+from ..device import resolve_device, upload
 from ..types import err
 from . import tables
+from .dct import dequant_idct, fdct_quant
+from .device_decode import decode_jpeg_device
 from .native import get_lib
 
 MAX_DIM = 8192  # jpegdecoderhelper.h:42-43
@@ -223,22 +232,32 @@ def ycbcr_jpeg_headers(w: int, h: int, quality: int,
     return bytes(out)
 
 
-def encode_yuv420_scan(yz: np.ndarray, uz: np.ndarray, vz: np.ndarray,
-                       w: int, h: int, restart_interval: int) -> bytes:
-    """Entropy segment of a 4:2:0 frame with 16-aligned dims: yz is the
-    (h/8 * w/8, 64) luma block grid, uz/vz the chroma grids."""
-    mcus_x, mcus_y = w // 16, h // 16
+def encode_ycbcr_scan(yz: np.ndarray, uz: np.ndarray, vz: np.ndarray,
+                      mcus_x: int, mcus_y: int, sampling: tuple[int, int],
+                      restart_interval: int) -> bytes:
+    """Entropy segment of a YCbCr frame of mcus_x x mcus_y MCUs at luma
+    sampling `sampling` = (hs, vs): yz is the (mcus_y*vs * mcus_x*hs,
+    64) luma block grid, uz/vz the (mcus_y * mcus_x, 64) chroma grids."""
+    hs, vs = sampling
     blocks, comp_ids = _interleave_ycbcr(
-        yz.reshape(mcus_y * 2, mcus_x * 2, 64),
+        yz.reshape(mcus_y * vs, mcus_x * hs, 64),
         uz.reshape(mcus_y, mcus_x, 64), vz.reshape(mcus_y, mcus_x, 64),
-        mcus_x, mcus_y, 2, 2)
+        mcus_x, mcus_y, hs, vs)
     return entropy_encode(
         blocks, comp_ids, [0, 1, 1], [0, 1, 1],
         [(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
          (tables.DC_CHROMA_BITS, tables.DC_CHROMA_VALS)],
         [(tables.AC_LUMA_BITS, tables.AC_LUMA_VALS),
          (tables.AC_CHROMA_BITS, tables.AC_CHROMA_VALS)],
-        restart_interval, 6)
+        restart_interval, hs * vs + 2)
+
+
+def encode_yuv420_scan(yz: np.ndarray, uz: np.ndarray, vz: np.ndarray,
+                       w: int, h: int, restart_interval: int) -> bytes:
+    """Entropy segment of a 4:2:0 frame with 16-aligned dims: yz is the
+    (h/8 * w/8, 64) luma block grid, uz/vz the chroma grids."""
+    return encode_ycbcr_scan(yz, uz, vz, w // 16, h // 16, (2, 2),
+                             restart_interval)
 
 
 def encode_gray_scan(gz: np.ndarray, restart_interval: int) -> bytes:
@@ -248,6 +267,166 @@ def encode_gray_scan(gz: np.ndarray, restart_interval: int) -> bytes:
         [(tables.DC_LUMA_BITS, tables.DC_LUMA_VALS)],
         [(tables.AC_LUMA_BITS, tables.AC_LUMA_VALS)],
         restart_interval, 1)
+
+
+# ---------------------------------------------------------------------------
+# encode_jpeg: device padding and fDCT, host Huffman (codec.py:365-528).
+# ---------------------------------------------------------------------------
+
+_QUEUED_RST = ("restart intervals in encode_jpeg (the B12 encode half) are "
+               "queued in ROADMAP.md Queue A item 11")
+_QUEUED_ARITH = ("arithmetic coding in encode_jpeg is queued in ROADMAP.md "
+                 "Queue A item 13")
+
+
+def _align(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _infer_sampling(y_shape, u_shape) -> tuple[int, int]:
+    """Luma sampling factors from the chroma plane's size relative to
+    luma: (2,2)=4:2:0, (2,1)=4:2:2, (1,1)=4:4:4. For odd luma dims both
+    ceil-half and floor-half chroma planes count as subsampled (the
+    missing row/column is edge-padded)."""
+    h, w = y_shape
+    ch, cw = u_shape
+    hs = (2 if w > 1 and cw in ((w + 1) // 2, w // 2)
+          else 1 if cw == w else 0)
+    vs = (2 if h > 1 and ch in ((h + 1) // 2, h // 2)
+          else 1 if ch == h else 0)
+    if not hs or not vs or (hs, vs) == (1, 2):
+        raise err("UHDR_CODEC_INVALID_PARAM",
+                  f"unsupported chroma geometry {cw}x{ch} for luma "
+                  f"{w}x{h} (expected 4:2:0, 4:2:2 or 4:4:4)")
+    return hs, vs
+
+
+def assemble_gray_jpeg(yz: np.ndarray, w: int, h: int, quality: int,
+                       icc: bytes | None = None) -> bytes:
+    """Markers + host entropy coding of a restart-less grayscale image
+    whose zigzag coefficients (of the 8-padded plane) the device
+    computed."""
+    return (gray_jpeg_headers(w, h, quality, icc)
+            + encode_gray_scan(yz, 0) + b"\xff\xd9")
+
+
+def assemble_ycbcr_jpeg(yz: np.ndarray, uz: np.ndarray, vz: np.ndarray,
+                        w: int, h: int, quality: int,
+                        sampling: tuple[int, int] = (2, 2),
+                        icc: bytes | None = None) -> bytes:
+    """Markers + MCU interleave + host entropy coding of a restart-less
+    YCbCr image: yz covers the MCU-aligned luma plane, uz/vz the chroma
+    planes padded to cover it."""
+    hs, vs = sampling
+    mcus_x, mcus_y = -(-w // (8 * hs)), -(-h // (8 * vs))
+    return (ycbcr_jpeg_headers(w, h, quality, sampling, icc)
+            + encode_ycbcr_scan(yz, uz, vz, mcus_x, mcus_y, sampling, 0)
+            + b"\xff\xd9")
+
+
+def _edge_pad(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """(h, w) plane edge-replicated to (ph, pw), on its device."""
+    h, w = p.shape
+    if (ph, pw) == (h, w):
+        return p
+    rows = torch.clamp(torch.arange(ph, device=p.device), max=h - 1)
+    cols = torch.clamp(torch.arange(pw, device=p.device), max=w - 1)
+    return p.index_select(0, rows).index_select(1, cols)
+
+
+@dataclass
+class JpegCoefs:
+    """encode_jpeg's device stage output: the quantized zigzag blocks of
+    each component (int16 tensors (1, nblocks, 64) on the device: the
+    MCU-aligned luma plane, the chroma planes padded to cover it), with
+    the image size, the quality they were quantized at and the luma
+    sampling (None for gray)."""
+
+    width: int
+    height: int
+    quality: int
+    sampling: tuple[int, int] | None
+    coefs: list
+
+
+def jpeg_coefs(planes: dict, quality: int,
+               sampling: tuple[int, int] | None = None,
+               device="cuda") -> JpegCoefs:
+    """The device stage of encode_jpeg: YCbCr planes {y, u, v} or
+    grayscale {y} (2-D uint8 numpy arrays or tensors) on their device
+    (tensors) or `device` (numpy), edge-padded as the JAX package pads
+    them (codec.py:495-526: luma to whole MCUs, chroma to cover the
+    padded luma, gray to 8), then B2 (jpeg/dct.py:fdct_quant)."""
+    y = planes["y"]
+    dev = y.device if isinstance(y, torch.Tensor) else resolve_device(device)
+
+    def on_dev(p):
+        if isinstance(p, torch.Tensor):
+            return p.to(dev, torch.uint8)
+        return torch.from_numpy(np.ascontiguousarray(p, np.uint8)).to(dev)
+
+    y = on_dev(y)
+    h, w = y.shape
+    if h > MAX_DIM or w > MAX_DIM:
+        raise err("UHDR_CODEC_INVALID_PARAM", f"dims too large {w}x{h}")
+
+    def dct(p, std):
+        q = tables.scale_quant_table(std, quality).reshape(64)
+        return fdct_quant(p.contiguous()[None],
+                          torch.from_numpy(q.astype(np.int32)).to(dev))
+
+    if "u" not in planes:   # B2 pads to 8 itself
+        return JpegCoefs(w, h, quality, None,
+                         [dct(y, tables.STD_LUMINANCE_QUANT)])
+    u, v = on_dev(planes["u"]), on_dev(planes["v"])
+    if u.shape != v.shape:
+        raise err("UHDR_CODEC_INVALID_PARAM", "u/v shape mismatch")
+    hs, vs = _infer_sampling((h, w), tuple(u.shape))
+    if sampling is not None and tuple(sampling) != (hs, vs):
+        raise err("UHDR_CODEC_INVALID_PARAM",
+                  f"requested sampling {tuple(sampling)} inconsistent "
+                  f"with plane geometry (implies {(hs, vs)})")
+    yp_h, yp_w = _align(h, 8 * vs), _align(w, 8 * hs)
+    # Chroma covers the padded luma at its sampling: whole 8x8 blocks.
+    ch, cw = yp_h // vs, yp_w // hs
+    coefs = [dct(_edge_pad(y, yp_h, yp_w), tables.STD_LUMINANCE_QUANT)]
+    coefs += [dct(_edge_pad(c, ch, cw), tables.STD_CHROMINANCE_QUANT)
+              for c in (u, v)]
+    return JpegCoefs(w, h, quality, (hs, vs), coefs)
+
+
+def assemble_jpeg(c: JpegCoefs, icc: bytes | None = None) -> bytes:
+    """The host stage of encode_jpeg: the blocks to the host in one
+    copy, then markers, MCU interleave and restart-less Huffman coding
+    (entropy_encode), the JAX package's route for a stream without
+    restart markers (codec.py:375-393)."""
+    flat = torch.cat([t.reshape(-1) for t in c.coefs]).cpu().numpy()
+    blocks = np.split(flat.reshape(-1, 64),
+                      np.cumsum([t.shape[1] for t in c.coefs])[:-1])
+    if c.sampling is None:
+        return assemble_gray_jpeg(blocks[0], c.width, c.height, c.quality,
+                                  icc)
+    return assemble_ycbcr_jpeg(*blocks, c.width, c.height, c.quality,
+                               c.sampling, icc)
+
+
+def encode_jpeg(planes: dict, quality: int, icc: bytes | None = None,
+                restart_interval: int = 0,
+                sampling: tuple[int, int] | None = None,
+                arithmetic: bool = False, device="cuda") -> bytes:
+    """Encode YCbCr planes {y, u, v} or grayscale {y} (2-D uint8 numpy
+    arrays or tensors) to baseline JFIF, as the JAX package's
+    encode_jpeg does (codec.py:479-528): chroma subsampling inferred
+    from the chroma planes' shape (4:2:0, 4:2:2, 4:4:4) unless
+    `sampling` pins it, ICC as one APP2 after APP0. Tensor planes are
+    encoded on their device, numpy planes on `device`: the padding and
+    the fDCT (B2) there (jpeg_coefs), the Huffman coding of the
+    restart-less stream on the host (assemble_jpeg)."""
+    if restart_interval:
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE", _QUEUED_RST)
+    if arithmetic:
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE", _QUEUED_ARITH)
+    return assemble_jpeg(jpeg_coefs(planes, quality, sampling, device), icc)
 
 
 # ---------------------------------------------------------------------------
@@ -450,4 +629,69 @@ def decode_jpeg_coefs(data: bytes) -> DecodedCoefs:
         cw = -(-w * c.h // hmax)
         ch = -(-h * c.v // vmax)
         result.comps.append((sub, qtables[c.qtbl], ch, cw, (c.h, c.v)))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# decode_jpeg: planes on the device (codec.py:1278-1348).
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DecodedJpeg:
+    """A JPEG decoded to its component planes at their natural sizes
+    (no chroma upsampling): uint8 (h, w) tensors on the decode's device,
+    with each component's (h, v) sampling factors."""
+
+    width: int
+    height: int
+    ncomp: int
+    planes: list = field(default_factory=list)
+    sampling: list = field(default_factory=list)
+    icc: bytes | None = None
+    exif: bytes | None = None
+    xmp: bytes | None = None
+
+
+def decode_jpeg(data: bytes, device="cuda") -> DecodedJpeg:
+    """Decode a baseline JPEG to per-component planes on `device` (the
+    JAX decode_jpeg; JPEG/R's API-3 reads the 4:2:0 planes directly, as
+    the reference's jpeg_read_raw_data path does). The route is chosen
+    from the headers alone: streams that jpeg/device_decode.py:
+    parse_device_stream takes (one baseline scan, gray or 4:2:0 / 4:2:2
+    / 4:4:4, restart markers or not) decode on the device as B4 then B5,
+    each component with its own quant table; all others through the
+    host Huffman decoder (decode_jpeg_coefs) then B5, which raises the
+    reference's errors for what it cannot decode. No size gate: the
+    JAX package's 1-MP gate is a TPU cost heuristic, and both routes
+    give the same planes."""
+    dev = resolve_device(device)
+    res = decode_jpeg_device(data, dev)
+    if res is not None:
+        ds, planes = res
+        w, h = ds.width, ds.height
+        result = DecodedJpeg(w, h, 1 if ds.gray else 3, icc=ds.icc,
+                             exif=ds.exif, xmp=ds.xmp)
+        if ds.gray:
+            crops, samps = [(h, w)], [(1, 1)]
+        else:
+            hs, vs = ds.sampling
+            ch, cw = -(-h // vs), -(-w // hs)
+            crops = [(h, w), (ch, cw), (ch, cw)]
+            samps = [ds.sampling, (1, 1), (1, 1)]
+        for plane, (ph, pw), samp in zip(planes, crops, samps):
+            result.planes.append(plane[0, :ph, :pw].contiguous())
+            result.sampling.append(samp)
+        return result
+    coefs = decode_jpeg_coefs(data)
+    result = DecodedJpeg(coefs.width, coefs.height, coefs.ncomp,
+                         icc=coefs.icc, exif=coefs.exif, xmp=coefs.xmp)
+    grids = upload([g.reshape(1, -1, 64) for g, *_ in coefs.comps]
+                   + [np.stack([q.reshape(64) for _, q, *_ in coefs.comps])
+                      .astype(np.int32)], dev)
+    qd = grids.pop()
+    for k, (grid, (g, _, ch, cw, samp)) in enumerate(zip(grids,
+                                                          coefs.comps)):
+        plane = dequant_idct(grid, qd[k:k + 1], g.shape[0], g.shape[1])
+        result.planes.append(plane[0, :ch, :cw].contiguous())
+        result.sampling.append(samp)
     return result

@@ -30,6 +30,9 @@ kernel (kernels/csrc/huff_decode.cu) for CUDA tensors, and counts its
 launches in ``.launches``. The kernel's handoff mode is the same launch
 over the encoder's own chunk buffer (B3 writes JPEG byte order, so its
 word-aligned chunks are read in place; parallel/batched.py).
+``decode_jpeg_device`` decodes a plain JPEG (gray, 4:2:0, 4:2:2 or
+4:4:4, with restarts or without) to planes as B4 then B5: the device
+route of jpeg/codec.py:decode_jpeg.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..container import jfif
+from ..device import upload
 from ..kernels import build
 from ..types import UhdrError
 from . import tables
@@ -641,3 +645,43 @@ def decode_rst_chunks(src, frames, lanes, tabs, gray: bool, sampling,
 
 
 decode_rst_chunks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain-JPEG decode on the device (B12's decode half).
+# ---------------------------------------------------------------------------
+
+def decode_stream_device(ds: DeviceStream, device) -> list:
+    """Decode a parsed stream on `device`: one upload of its destuffed
+    bytes, lane and decode tables and its per-component quant tables,
+    then B4 (decode_rst_chunks) and B5 (dct.dequant_idct) per plane.
+    Returns uint8 planes (1, bh*8, bw*8), uncropped: the gray plane, or
+    Y, U, V. The port of libultrahdr_dev_tpu/jpeg/device_decode.py:
+    _decode_to_planes_kernel (dense emission); counts its calls on a
+    CUDA device, each one B4 and B5 launches, in ``.launches``."""
+    from .dct import dequant_idct
+
+    ln = pack_streams([ds])
+    q = np.stack([t.reshape(64) for t in ds.qtables]).astype(np.int32)
+    src, frames, lanes, tabs, qd = upload(
+        [ln.src, ln.frames, ln.lanes, ln.tables, q], device)
+    if src.is_cuda:
+        decode_stream_device.launches += 1
+    grids = decode_rst_chunks(src, frames, lanes, tabs, ds.gray, ds.sampling,
+                              ds.mcus_x, ds.mcus_y)
+    shapes = plane_shapes(ds.gray, ds.sampling, ds.mcus_x, ds.mcus_y)
+    return [dequant_idct(g, qd[k:k + 1], bh, bw)
+            for k, (g, (bh, bw)) in enumerate(zip(grids, shapes))]
+
+
+decode_stream_device.launches = 0
+
+
+def decode_jpeg_device(data: bytes, device):
+    """(DeviceStream, decode_stream_device's planes) of a JPEG whose
+    headers suit the device decoder, else None (the JAX
+    device_decode.py:decode_jpeg_device)."""
+    ds = parse_device_stream(data)
+    if ds is None:
+        return None
+    return ds, decode_stream_device(ds, device)

@@ -53,6 +53,13 @@ SIGNATURES = {
     # y, uv, sdr y, u, v, gmap, y601, u601, v601, n, h, w, float params
     # (host), int params (host), stream
     "uhdr_encode_front_api1": [_P] * 9 + [_I] * 3 + [_P] * 3,
+    # y, uv, y8, u8, v8, n, h, w, stream
+    "uhdr_tonemap_p010": [_P] * 5 + [_I] * 3 + [_P],
+    # sdr y, u, v, y, uv, gmap, n, h, w, float params (host), int params
+    # (host), sRGB table (or null), inverse-OETF table (or null), stream
+    "uhdr_generate_gainmap": [_P] * 6 + [_I] * 3 + [_P] * 5,
+    # y, u, v, y out, u out, v out, n, h, w, matrix (host), stream
+    "uhdr_convert_yuv": [_P] * 6 + [_I] * 3 + [_P] * 2,
     # plane, q, out, n, h, w, ds, d, inv_zig, stream
     "uhdr_fdct_quant": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # coefs, q, out, n, bh, bw, ds, d, inv_zig, stream

@@ -1,5 +1,5 @@
 """Gain-map generation and application, SDR output: kernels B1, B9,
-B6, B11 and B7.
+B10a, B10b, B10c, B6, B11 and B7.
 
 - ``encode_front`` (B1) is the API-0 encode front end: the P010 -> u8
   tonemap, the gain map, and the BT.601 re-encode of the base. It
@@ -8,6 +8,12 @@ B6, B11 and B7.
 - ``encode_front_api1`` (B9) is the API-1 front end: the same program
   with a supplied SDR frame, the SDR and HDR gamuts apart
   (sharding.py:_batched_encode_api1_kernel).
+- ``tonemap_p010`` (B10a), ``generate_gainmap`` (B10b, with its
+  ``sdr_is_601`` and ``use_luts`` arms) and ``convert_yuv_encoding``
+  (B10c) are the same work as three launches for any even frame size:
+  the general encode routes (jpegr.py: non-16-aligned or EXIF encodes,
+  API-2, API-3), replacing libultrahdr_dev_tpu/ops/gainmap.py:
+  tonemap_p010, _generate_kernel and _convert_yuv_kernel.
 - ``apply_gainmap`` (B6) rebuilds HDR pixels from a decoded base and
   gain map; it replaces libultrahdr_dev_tpu/ops/gainmap.py:_apply_kernel.
   With ``use_luts=True`` it launches B11, the table arms of the same
@@ -18,7 +24,8 @@ B6, B11 and B7.
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 its hand-written CUDA kernel (kernels/csrc/encode_front.cu, apply.cu,
 sdr_out.cu) for CUDA tensors, and counts its kernel launches in
-``.launches`` (B11's in ``apply_gainmap.lut_launches``). The plain
+``.launches`` (B11's in ``apply_gainmap.lut_launches``; B10b's table
+arm counts in ``generate_gainmap.launches``). The plain
 versions follow the JAX programs operation by operation, rounding as
 XLA does on the CPU (ops/color.py, ``fma``). Planes travel as torch
 tensors: P010 samples as int16 holding the uint16 bits, u8 planes as
@@ -33,7 +40,8 @@ import numpy as np
 import torch
 
 from ..kernels import build
-from ..types import MAP_DIMENSION_SCALE_FACTOR
+from ..types import (GAIN_MAP_VERSION, GainMapMetadata,
+                     MAP_DIMENSION_SCALE_FACTOR)
 from . import color
 
 SCALE = MAP_DIMENSION_SCALE_FACTOR
@@ -129,12 +137,24 @@ def convert_yuv_encoding_plain(y8, u8, v8, src_gamut: str,
             _to_u8(color.dot2(m[2][1], uf, m[2][2], vf), 128.5))
 
 
-def _front_plain(y8, u8, v8, y, uv, sdr_gamut: str, hdr_gamut: str,
-                 hdr_tf: str):
-    """sharding.py:_gainmap_and_coefs before the fDCT: the u8 gain map
-    of SDR planes (y8, u8, v8) against the P010 samples (y, uv, int32
-    values), and the SDR re-encoded to BT.601."""
+_INV_LUTS = {"hlg": color.hlg_inv_oetf_lut, "pq": color.pq_inv_oetf_lut}
+
+
+def _gain_plain(y8, u8, v8, y, uv, sdr_gamut: str, hdr_gamut: str,
+                hdr_tf: str, sdr_is_601: bool = False,
+                use_luts: bool = False):
+    """The u8 gain map of SDR planes (y8, u8, v8) against the P010
+    samples (y, uv, int32 values), as gainmap.py:_generate_kernel
+    computes it: box means, YUV -> RGB (BT.601 for the SDR with
+    sdr_is_601), inverse OETFs (tables with use_luts), the HDR taken
+    into the SDR gamut, both luminances with the SDR gamut's weights."""
     hdr_inv_oetf, hdr_white = color.hdr_inv_oetf_fn(hdr_tf)
+    srgb_inv = color.srgb_inv_oetf
+    if use_luts:
+        hdr_inv_oetf = _INV_LUTS.get(hdr_tf, hdr_inv_oetf)
+        srgb_inv = color.srgb_inv_oetf_lut
+    sdr_to_rgb = (color.p3_yuv_to_rgb if sdr_is_601
+                  else color.yuv_to_rgb_fn(sdr_gamut))
     luminance = color.luminance_fn(sdr_gamut)
     gamut_m = color.hdr_gamut_conversion_matrix(sdr_gamut, hdr_gamut)
     max_boost = hdr_white / color.SDR_WHITE_NITS
@@ -143,8 +163,7 @@ def _front_plain(y8, u8, v8, y, uv, sdr_gamut: str, hdr_gamut: str,
     sy = _box_mean(sy, SCALE)
     su = _box_mean(su, SCALE // 2)
     sv = _box_mean(sv, SCALE // 2)
-    sdr_rgb = color.apply_channelwise(
-        color.srgb_inv_oetf, color.yuv_to_rgb_fn(sdr_gamut)((sy, su, sv)))
+    sdr_rgb = color.apply_channelwise(srgb_inv, sdr_to_rgb((sy, su, sv)))
     sdr_nits = luminance(sdr_rgb) * color.SDR_WHITE_NITS
     hy, hu, hv = p010_to_float(y, uv)
     hy = _box_mean(hy, SCALE)
@@ -155,8 +174,15 @@ def _front_plain(y8, u8, v8, y, uv, sdr_gamut: str, hdr_gamut: str,
     if gamut_m is not None:
         hdr_rgb = color.apply_matrix3(gamut_m, hdr_rgb)
     hdr_nits = luminance(hdr_rgb) * hdr_white
-    gmap = color.encode_gain(sdr_nits, hdr_nits, 1.0, max_boost)
-    return (gmap, *convert_yuv_encoding_plain(y8, u8, v8, sdr_gamut))
+    return color.encode_gain(sdr_nits, hdr_nits, 1.0, max_boost)
+
+
+def _front_plain(y8, u8, v8, y, uv, sdr_gamut: str, hdr_gamut: str,
+                 hdr_tf: str):
+    """sharding.py:_gainmap_and_coefs before the fDCT: the gain map and
+    the SDR re-encoded to BT.601."""
+    return (_gain_plain(y8, u8, v8, y, uv, sdr_gamut, hdr_gamut, hdr_tf),
+            *convert_yuv_encoding_plain(y8, u8, v8, sdr_gamut))
 
 
 def encode_front_plain(y_p010, uv_p010, gamut: str, hdr_tf: str):
@@ -179,9 +205,11 @@ def _gain_params(hdr_tf: str):
     return hdr_white, min_b, max_b, log2_min, color.recip(denom), sat, floor
 
 
-def _rgb_params(gamut: str):
-    """(cr, cb, gcb, gcr) of color.yuv_to_rgb for `gamut`."""
-    (kr, kg, kb), cb, cr = color.YUV_PARAMS[color.GAMUT_YUV_PARAMS[gamut]]
+def _rgb_params(gamut: str, bt601: bool = False):
+    """(cr, cb, gcb, gcr) of color.yuv_to_rgb for `gamut`'s YUV matrix,
+    or for BT.601's (color.p3_yuv_to_rgb) with bt601."""
+    key = "bt601" if bt601 else color.GAMUT_YUV_PARAMS[gamut]
+    (kr, kg, kb), cb, cr = color.YUV_PARAMS[key]
     return cr, cb, kb * cb / kg, kr * cr / kg
 
 
@@ -261,17 +289,8 @@ def encode_front_api1(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
     for t, name in ((sdr_y, "sdr_y"), (sdr_u, "sdr_u"), (sdr_v, "sdr_v")):
         build.require(t, name, torch.uint8)
     out = _front_outputs(n, h, w, y_p010.device)
-    hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor = \
-        _gain_params(hdr_tf)
-    gm = color.hdr_gamut_conversion_matrix(sdr_gamut, hdr_gamut)
-    convert, mvals = _convert_params(sdr_gamut)
-    fp = np.asarray(
-        [*_rgb_params(sdr_gamut), *_rgb_params(hdr_gamut),
-         *color.LUMINANCE[sdr_gamut], hdr_white, min_b, max_b, log2_min,
-         inv_denom, *(v for row in (gm or ((0.0,) * 3,) * 3) for v in row),
-         *mvals], np.float32)
-    ip = np.asarray([TF_IDS[hdr_tf], int(gm is not None), convert, sat,
-                     floor], np.int32)
+    fp, ip = _gain_arrays(sdr_gamut, hdr_gamut, hdr_tf, False,
+                          *_convert_params(sdr_gamut))
     lib = build.get_lib()
     encode_front_api1.launches += 1
     build.check(lib.uhdr_encode_front_api1(
@@ -283,6 +302,173 @@ def encode_front_api1(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
 
 
 encode_front_api1.launches = 0
+
+
+def _gain_arrays(sdr_gamut: str, hdr_gamut: str, hdr_tf: str,
+                 sdr_is_601: bool, convert: int = 0,
+                 mvals=(0.0,) * 6):
+    """The host parameter arrays (fp float32, ip int32) of the gain-map
+    kernels' C entry points (encode_front.cu:unpack_gain)."""
+    hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor = \
+        _gain_params(hdr_tf)
+    gm = color.hdr_gamut_conversion_matrix(sdr_gamut, hdr_gamut)
+    fp = np.asarray(
+        [*_rgb_params(sdr_gamut, sdr_is_601), *_rgb_params(hdr_gamut),
+         *color.LUMINANCE[sdr_gamut], hdr_white, min_b, max_b, log2_min,
+         inv_denom, *(v for row in (gm or ((0.0,) * 3,) * 3) for v in row),
+         *mvals], np.float32)
+    ip = np.asarray([TF_IDS[hdr_tf], int(gm is not None), convert, sat,
+                     floor], np.int32)
+    return fp, ip
+
+
+# ---------------------------------------------------------------------------
+# B10a, B10b, B10c: the general encode routes' device programs, each a
+# launch of its own (gainmap.py:90-96 tonemap_p010, :103-175
+# generate_gainmap, :427-458 convert_yuv_encoding), for any even frame
+# size. B1 and B9 fuse the same work for 16-aligned frames.
+# ---------------------------------------------------------------------------
+
+def _check_frame(y_p010, uv_p010):
+    n, h, w = y_p010.shape
+    if h % 2 or w % 2 or h < 4 or w < 4:
+        raise ValueError(f"the encode programs need even dims of at least "
+                         f"4, got {w}x{h}")
+    if tuple(uv_p010.shape) != (n, h // 2, w):
+        raise ValueError(f"uv plane shape {tuple(uv_p010.shape)} does not "
+                         f"match y {tuple(y_p010.shape)}")
+    return n, h, w
+
+
+def tonemap_p010_plain(y_p010, uv_p010):
+    """(n, h, w) / (n, h/2, w) int16 P010 planes (uint16 bits) -> uint8
+    (y (n, h, w), u, v (n, h/2, w/2)): each 10-bit code >> 2, i.e. the
+    sample >> 8, with the CbCr pairs split."""
+    _check_frame(y_p010, uv_p010)
+    y, uv = _unsigned16(y_p010), _unsigned16(uv_p010)
+    return tuple((p >> 8).to(torch.uint8)
+                 for p in (y, uv[..., 0::2], uv[..., 1::2]))
+
+
+def tonemap_p010(y_p010, uv_p010):
+    """B10a wrapper: the plain version on the CPU, the CUDA kernel on
+    CUDA tensors. Same signature and result as tonemap_p010_plain."""
+    if not y_p010.is_cuda:
+        return tonemap_p010_plain(y_p010, uv_p010)
+    n, h, w = _check_frame(y_p010, uv_p010)
+    build.require(y_p010, "y_p010", torch.int16)
+    build.require(uv_p010, "uv_p010", torch.int16)
+    dev = y_p010.device
+    y8 = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+    u8 = torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    v8 = torch.empty_like(u8)
+    lib = build.get_lib()
+    tonemap_p010.launches += 1
+    build.check(lib.uhdr_tonemap_p010(
+        y_p010.data_ptr(), uv_p010.data_ptr(), y8.data_ptr(), u8.data_ptr(),
+        v8.data_ptr(), n, h, w, build.stream_of(y_p010)),
+        "uhdr_tonemap_p010")
+    return y8, u8, v8
+
+
+tonemap_p010.launches = 0
+
+
+def gainmap_metadata(hdr_tf: str) -> GainMapMetadata:
+    """The metadata of a generated gain map (gainmap.py:165-174,
+    ultrahdr.cpp:247-257): boosts from 1 to the transfer's peak white
+    over SDR white."""
+    max_boost = color.hdr_inv_oetf_fn(hdr_tf)[1] / color.SDR_WHITE_NITS
+    return GainMapMetadata(version=GAIN_MAP_VERSION,
+                           max_content_boost=max_boost,
+                           min_content_boost=1.0, gamma=1.0, offset_sdr=0.0,
+                           offset_hdr=0.0, hdr_capacity_min=1.0,
+                           hdr_capacity_max=max_boost)
+
+
+def generate_gainmap_plain(sdr_y, sdr_u, sdr_v, hdr_y, hdr_uv, *,
+                           sdr_gamut: str, hdr_gamut: str, hdr_tf: str,
+                           sdr_is_601: bool = False,
+                           use_luts: bool = False):
+    """SDR uint8 planes (n, h, w), (n, h/2, w/2) and P010 int16 planes
+    (n, h, w), (n, h/2, w) -> (gain map (n, h//4, w//4) uint8,
+    GainMapMetadata), as gainmap.py:generate_gainmap returns them. Box
+    remainders are cropped (gainmap.py:_box_mean)."""
+    n, h, w = _check_frame(hdr_y, hdr_uv)
+    _check_sdr(sdr_y, sdr_u, sdr_v, n, h, w)
+    gmap = _gain_plain(sdr_y, sdr_u, sdr_v, _unsigned16(hdr_y),
+                       _unsigned16(hdr_uv), sdr_gamut, hdr_gamut, hdr_tf,
+                       sdr_is_601, use_luts)
+    return gmap, gainmap_metadata(hdr_tf)
+
+
+def generate_gainmap(sdr_y, sdr_u, sdr_v, hdr_y, hdr_uv, *, sdr_gamut: str,
+                     hdr_gamut: str, hdr_tf: str, sdr_is_601: bool = False,
+                     use_luts: bool = False):
+    """B10b wrapper: the plain version on the CPU, the CUDA kernel on
+    CUDA tensors (its table arm with use_luts). Same signature and
+    result as generate_gainmap_plain."""
+    if not hdr_y.is_cuda:
+        return generate_gainmap_plain(
+            sdr_y, sdr_u, sdr_v, hdr_y, hdr_uv, sdr_gamut=sdr_gamut,
+            hdr_gamut=hdr_gamut, hdr_tf=hdr_tf, sdr_is_601=sdr_is_601,
+            use_luts=use_luts)
+    n, h, w = _check_frame(hdr_y, hdr_uv)
+    _check_sdr(sdr_y, sdr_u, sdr_v, n, h, w)
+    build.require(hdr_y, "hdr_y", torch.int16)
+    build.require(hdr_uv, "hdr_uv", torch.int16)
+    for t, name in ((sdr_y, "sdr_y"), (sdr_u, "sdr_u"), (sdr_v, "sdr_v")):
+        build.require(t, name, torch.uint8)
+    gmap = torch.empty((n, h // 4, w // 4), dtype=torch.uint8,
+                       device=hdr_y.device)
+    fp, ip = _gain_arrays(sdr_gamut, hdr_gamut, hdr_tf, sdr_is_601)
+    srgb = inv = None
+    if use_luts:
+        srgb = color.lut_tensor("srgb_inv", hdr_y.device).data_ptr()
+        if hdr_tf in _INV_LUTS:
+            inv = color.lut_tensor(f"{hdr_tf}_inv", hdr_y.device).data_ptr()
+    lib = build.get_lib()
+    generate_gainmap.launches += 1
+    build.check(lib.uhdr_generate_gainmap(
+        sdr_y.data_ptr(), sdr_u.data_ptr(), sdr_v.data_ptr(),
+        hdr_y.data_ptr(), hdr_uv.data_ptr(), gmap.data_ptr(), n, h, w,
+        fp.ctypes.data, ip.ctypes.data, srgb, inv, build.stream_of(hdr_y)),
+        "uhdr_generate_gainmap")
+    return gmap, gainmap_metadata(hdr_tf)
+
+
+generate_gainmap.launches = 0
+
+
+def convert_yuv_encoding(y8, u8, v8, src_gamut: str, dst_gamut: str):
+    """B10c wrapper: the plain version (convert_yuv_encoding_plain) on
+    the CPU, the CUDA kernel on CUDA tensors, for (n, h, w) and
+    (n, h/2, w/2) uint8 planes of an even-sized frame. Planes already in
+    the destination encoding come back as they are, with no launch, as
+    the JAX package runs no program for them."""
+    m = color.yuv_conversion_matrix(src_gamut, dst_gamut)
+    if not y8.is_cuda or m is None:
+        return convert_yuv_encoding_plain(y8, u8, v8, src_gamut, dst_gamut)
+    n, h, w = y8.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"convert_yuv_encoding needs even dims, got "
+                         f"{w}x{h}")
+    build.require(y8, "y8", torch.uint8)
+    for t, name in ((u8, "u8"), (v8, "v8")):
+        build.require(t, name, torch.uint8, (n, h // 2, w // 2))
+    out = (torch.empty_like(y8), torch.empty_like(u8), torch.empty_like(v8))
+    mvals = np.asarray([m[0][1], m[0][2], m[1][1], m[1][2], m[2][1],
+                        m[2][2]], np.float32)
+    lib = build.get_lib()
+    convert_yuv_encoding.launches += 1
+    build.check(lib.uhdr_convert_yuv(
+        y8.data_ptr(), u8.data_ptr(), v8.data_ptr(),
+        *(t.data_ptr() for t in out), n, h, w, mvals.ctypes.data,
+        build.stream_of(y8)), "uhdr_convert_yuv")
+    return out
+
+
+convert_yuv_encoding.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -204,14 +204,18 @@ def test_uhdr_encoder_api1_error_codes_match_jax():
 
 
 def test_api1_unported_routes_raise():
+    """API-1 with EXIF (the general route) gives the JAX package's bytes,
+    and a compressed SDR image is stored for the encode, as in the JAX
+    package: neither raises now."""
     hdr, sdr = _raws(*CONFIGS[0], seed=2)
-    jr = JpegR("cpu")
-    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
-        jr.encode_api1(port_raw(hdr), port_raw(sdr), ColorTransfer.HLG,
-                       exif=b"Exif\x00\x00")
-    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
-        UhdrEncoder("cpu").set_compressed_image(
-            CompressedImage(data=b"\xff\xd8\xff\xd9"), SDR_IMG)
+    exif = b"Exif\x00\x00"
+    tb = JpegR("cpu").encode_api1(port_raw(hdr), port_raw(sdr),
+                                  ColorTransfer.HLG, exif=exif)
+    assert tb == jjpegr.JpegR().encode_api1(jax_raw(hdr), jax_raw(sdr),
+                                            JTransfer.HLG, exif=exif)
+    enc = UhdrEncoder("cpu")
+    assert enc.set_compressed_image(
+        CompressedImage(data=b"\xff\xd8\xff\xd9"), SDR_IMG) is enc
 
 
 def test_b9_wrapper_runs_plain_on_cpu():

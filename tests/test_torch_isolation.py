@@ -33,6 +33,14 @@ def test_round_trip_with_jax_unimportable():
         blob = P.JpegR("cpu").encode_api0(raw, P.ColorTransfer.HLG)
         img = P.JpegR("cpu").decode(blob, P.OutputFormat.HDR_HLG).image
         assert img.planes["rgba"].shape == (64, 64)
+        # The general route (EXIF: B10a-c, encode_jpeg) and decode_jpeg.
+        from libultrahdr_dev_tpu_torch import device
+        from libultrahdr_dev_tpu_torch.jpeg import codec
+        gen = P.JpegR("cpu").encode_api0(raw, P.ColorTransfer.HLG,
+                                         exif=b"Exif\\x00\\x00")
+        base = P.container.mux.extract_primary_and_gainmap(gen)[0]
+        assert codec.decode_jpeg(base, "cpu").planes[1].shape == (32, 32)
+        assert device.resolve_device("cpu").type == "cpu"
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("ok")

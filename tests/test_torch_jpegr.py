@@ -177,11 +177,16 @@ def test_stable_api_quick_start():
 
 
 def test_unported_routes_raise():
+    """A 72-row frame (not 16-aligned) now encodes, on the general route,
+    to the JAX package's bytes; the 10-bit planar decode is still
+    queued and raises."""
     y, uv = synth_p010(72, 96)
     raw = RawImage(fmt=PixelFormat.P010, width=96, height=72,
                    gamut=ColorGamut.BT2100, planes={"y": y, "uv": uv})
-    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
-        JpegR("cpu").encode_api0(raw, ColorTransfer.HLG)  # 72 is not 16-aligned
+    jraw = JRawImage(fmt=JPixelFormat.P010, width=96, height=72,
+                     gamut=JGamut.BT2100, planes={"y": y, "uv": uv})
+    assert JpegR("cpu").encode_api0(raw, ColorTransfer.HLG) == \
+        jjpegr.JpegR().encode_api0(jraw, JTransfer.HLG)
     _, blob = encode_both(*CONFIGS[0])
     with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
         JpegR("cpu").decode(blob, OutputFormat.HDR_LINEAR_RGB_10BIT)
