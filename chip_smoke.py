@@ -4,18 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from kernels/csrc with nvcc (one nvcc
-per source, in parallel), checks each of the thirteen (B1-B7, B9, B10a,
-B10b, B10c, B11, B12) against its plain PyTorch version at the shapes of
-the main path (a 4080x3072 frame, batch of 2; the general routes' B10
-and B12 at one 4000x3000 frame), drives the API-0 round trip, the API-1
-encode, SDR decode, table-transfer (use_luts) decode and the general
-encode routes (non-16-aligned and EXIF encodes, API-2/3/4/x) through
-the entry points a user calls (batched encode/decode, the encode ->
-decode handoff, JpegR, UhdrEncoder / UhdrDecoder, and the decode of the
-reference goldens in tests/goldens), checks what comes out, and times
-the kernels and the stages.
+per source, in parallel), checks each of the fifteen (B1-B7, B6's 10-bit
+planar arm, B9, B10a, B10b, B10c, B11, B12, B13) against its plain
+PyTorch version at the shapes of the main path (a 4080x3072 frame, batch
+of 2; the general routes' B10 and B12 and the converter's B13 at one
+4000x3000 frame), drives the API-0 round trip, the API-1 encode, SDR
+decode, table-transfer (use_luts) decode, the general encode routes
+(non-16-aligned and EXIF encodes, API-2/3/4/x) and the UltraHdr
+converter (a JPEG/R edited by an effect chain into a JPEG/R and raw
+pixels) through the entry points a user calls (batched encode/decode,
+the encode -> decode handoff, JpegR, UhdrEncoder / UhdrDecoder,
+UltraHdr, and the decode of the reference goldens in tests/goldens),
+checks what comes out, and times the kernels and the stages.
 
-Phases: B1, B2, B5, B6, B11, B7 kernel vs plain; B3 (Huffman encode)
+Phases: B1, B2, B5, B6 (with its 10-bit planar arm), B11, B7 kernel vs
+plain; B3 (Huffman encode)
 kernel vs plain and its JPEG/R bytes vs the host-Huffman route; B9
 (API-1 front end) kernel vs plain and its JPEG/R bytes vs the
 host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
@@ -23,11 +26,14 @@ decoder on the port's streams, on the restart-less goldens (DC carry)
 and on garbage; B10 (B10a tonemap and B10c re-encode bit-exact, B10b in
 five variants); B12 (decode_jpeg's device route on gray, 4:2:0, 4:2:2,
 4:4:4 and a restart-marked 4:2:0 stream: kernels = plain = host-Huffman
-route); the main-path windows (API-0 round trip, handoff, goldens,
-API-1 encode + HDR decode, SDR decode, use_luts decode, general
-routes), each with every launch counter zeroed just before and read
-just after (each window's kernels launched; no host Huffman call but
-the general routes', which Huffman-code each JPEG they generate on the
+route); B13 (each single effect, the converter's 4-step chain and a
+chain longer than one launch on a 4000x3000 YUV420 frame and its
+1000x750 gain map, bitwise equal to the plain version); the main-path
+windows (API-0 round trip, handoff, goldens, API-1 encode + HDR decode,
+SDR decode, use_luts decode, general routes, converter), each with
+every launch counter zeroed just before and read just after (each
+window's kernels launched; no host Huffman call but the general routes'
+and the converter's, which Huffman-code each JPEG they generate on the
 host, as the JAX package does); stage times.
 
 It needs one CUDA device and fails (exit code != 0, no result line)
@@ -54,6 +60,10 @@ W, H, FRAMES = 4080, 3072, 2
 # The general encode routes and the plain-JPEG codec: one 12 MP 4:3
 # camera frame, 3000 rows (not 16-aligned).
 GW, GH = 4000, 3000
+# The converter window's chain on the GW x GH frame (converter_chain):
+# crop to rows CONV_ROWS, rotate 90, mirror, resize to CONV_SIZE (w, h).
+CONV_ROWS = (376, 2624)
+CONV_SIZE = (1080, 1920)
 SEED = 0
 EXIF = b"Exif\x00\x00MM\x00\x2a\x00\x00\x00\x08\x00\x00"
 CONFIGS = (("bt2100", "hlg"), ("bt709", "pq"))
@@ -89,6 +99,10 @@ OPS = {
     # sRGB index, 9 for the OETF index, no pow.
     "B11 hdr_linear": (96, 0), "B11 hdr_hlg": (114, 0),
     "B11 hdr_pq": (114, 0),
+    # The 10-bit planar arm: F16's count less its 3 converts, plus a
+    # clamp (2), multiply and convert per channel.
+    "B6 hdr_linear_rgb_10bit": (111, 3),
+    "B11 hdr_linear_rgb_10bit": (105, 0),
     # sdr_out.cu per output pixel: 5 converts, 8 colour matrix, 12
     # round/clip/convert (the integer upsample is not counted).
     "B7": (25, 0),
@@ -237,6 +251,8 @@ def code_diff(a, b, fmt: str):
     if fmt == "hdr_linear":
         return (a[..., :3].to(torch.int32)
                 - b[..., :3].to(torch.int32)).abs()
+    if fmt == "hdr_linear_rgb_10bit":
+        return (a.to(torch.int32) - b.to(torch.int32)).abs()
     return torch.stack([(((a >> s) & 1023) - ((b >> s) & 1023)).abs()
                         for s in (0, 10, 20)])
 
@@ -357,7 +373,8 @@ def kernel_phases(dev, results: dict):
         bytes=nbytes(*coefs, *decoded) / FRAMES, flops=2048.0 * n_blocks,
         library_ms=lib_ms)
 
-    # B6: <= 1 ten-bit code / F16 ULP, >= 99.9% bit-exact per channel.
+    # B6: <= 1 ten-bit code / F16 ULP, >= 99.9% bit-exact per channel,
+    # in each output format, the 10-bit planar arm (B6r) included.
     # B11 (its table arms): bit-exact.
     y8, u8, v8 = decoded[:3]
     g8 = decoded[3][:, :H // 4, :W // 4]
@@ -365,7 +382,8 @@ def kernel_phases(dev, results: dict):
     for name, luts in (("B6", False), ("B11", True)):
         worst, rows = 0, {}
         for fmt, (g_, t_) in (("hdr_linear", CONFIGS[0]),
-                              ("hdr_hlg", CONFIGS[0]), ("hdr_pq", CONFIGS[1])):
+                              ("hdr_hlg", CONFIGS[0]), ("hdr_pq", CONFIGS[1]),
+                              ("hdr_linear_rgb_10bit", CONFIGS[0])):
             sc = torch.from_numpy(np.stack([batched.apply_scalars(
                 batched.api0_metadata(t_), math.inf)] * FRAMES)).to(dev)
             args = (y8, u8, v8, g8, sc, fmt, luts)
@@ -385,13 +403,13 @@ def kernel_phases(dev, results: dict):
             tables = 0
             if luts:
                 tables = nbytes(color.lut_tensor("srgb_inv", dev))
-                if fmt != "hdr_linear":
+                if fmt in ("hdr_hlg", "hdr_pq"):
                     tables += nbytes(color.lut_tensor(fmt[4:] + "_oetf", dev))
             row = dict(
                 ms=cuda_ms(lambda: gm.apply_gainmap(*args), 20) / FRAMES,
                 plain_ms=cuda_ms(lambda: gm.apply_gainmap_plain(*args), 3) /
                 FRAMES, bytes=(in_bytes + nbytes(out) + tables) / FRAMES,
-                **ops(f"{name} {fmt}", H * W))
+                err=int(dd.max()), **ops(f"{name} {fmt}", H * W))
             row["bound_ms"], row["bound_by"] = bound(
                 row["bytes"], row["flops"], row["dflops"])
             rows[fmt] = row
@@ -404,6 +422,9 @@ def kernel_phases(dev, results: dict):
         # format the use_luts window of the main path decodes first).
         results[name] = dict(rows["hdr_hlg" if luts else "hdr_linear"],
                              err=worst, library_ms=None, rows=rows)
+        if not luts:
+            results["B6r"] = dict(rows["hdr_linear_rgb_10bit"],
+                                  library_ms=None)
 
     # B7: bit-exact.
     out = gm.yuv420_to_rgba8888(y8, u8, v8)
@@ -1349,20 +1370,295 @@ def stage_times_general(dev, smi: str, general: dict):
         log(f"stage {k}: {v:.3f} ms/frame ({GW}x{GH}, batch 1, {smi})")
 
 
+def converter_chain():
+    """The converter window's effect chain on a 4000x3000 frame: crop to
+    rows 376-2624, rotate 90 degrees, mirror, resize to 1080x1920. Its
+    gain map (1000x750, the chain scaled by 4) ends at 270x480, an
+    integer 4:1 ratio to the SDR."""
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    return [editor.CropEffect(0, GW, *CONV_ROWS), editor.RotateEffect(90),
+            editor.MirrorEffect("horizontal"), editor.ResizeEffect(*CONV_SIZE)]
+
+
+def _touched(img, effects) -> int:
+    """Distinct source bytes a chain reads: the plain chain run over
+    planes that hold their own element indices."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    idx = {k: torch.arange(p.numel(), dtype=torch.int32,
+                           device=p.device).reshape(p.shape)
+           for k, p in img.planes.items()}
+    out = editor.apply_effects_plain(
+        type(img)(img.fmt, img.width, img.height, planes=idx), effects)
+    return sum(int(torch.unique(p).numel()) for p in out.planes.values())
+
+
+def _library_calls(img, e):
+    """One PyTorch call per plane computing effect `e` (the yardstick):
+    a sliced .contiguous() for crop, torch.flip, torch.rot90(p,
+    k).contiguous(), an advanced-index gather for resize."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    calls = []
+    for name, ((kind, h, w, a, b, c, d),) in editor.plan_effects(
+            img, [e])[2].items():
+        p = img.planes[name]
+        if kind == editor.CROP:
+            calls.append(lambda p=p, a=a, b=b, c=c, d=d:
+                         p[a:a + c, b:b + d].contiguous())
+        elif kind == editor.MIRROR:
+            calls.append(lambda p=p, a=a: torch.flip(p, (1 if a else 0,)))
+        elif kind == editor.ROTATE:
+            k = {90: 3, 180: 2, 270: 1}[a]
+            calls.append(lambda p=p, k=k: torch.rot90(p, k).contiguous())
+        else:
+            rows = (torch.arange(c, device=p.device) * h // c)[:, None]
+            cols = (torch.arange(d, device=p.device) * w // d)[None, :]
+            calls.append(lambda p=p, r=rows, q=cols: p[r, q])
+    return lambda: [f() for f in calls]
+
+
+def b13_phase(dev, results: dict):
+    """B13 (the effect chain) bitwise equal to its plain version on a
+    4000x3000 YUV420 frame: each single effect (timed beside one PyTorch
+    call per plane), the converter's 4-step chain on the frame and its
+    1000x750 gain map (the kernels line's row), and a 22-step chain that
+    takes two launches per plane."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import PixelFormat, RawImage
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 70)
+    planes = [(a >> 8).astype(np.uint8) for a in
+              (y_np[0], uv_np[0, :, 0::2], uv_np[0, :, 1::2])]
+    frame = RawImage(fmt=PixelFormat.YUV420, width=GW, height=GH,
+                     planes={k: torch.from_numpy(p).to(dev)
+                             for k, p in zip("yuv", planes)})
+    gmap = RawImage(fmt=PixelFormat.MONOCHROME, width=GW // 4,
+                    height=GH // 4, planes={"y": torch.from_numpy(
+                        np.ascontiguousarray(planes[0][::4, ::4])).to(dev)})
+
+    def same(a, b):
+        return (a.width, a.height) == (b.width, b.height) and all(
+            torch.equal(a.planes[k], b.planes[k]) for k in a.planes)
+
+    chain = converter_chain()
+    # The single crop cuts columns too: a crop of whole rows is a view in
+    # PyTorch, and its .contiguous() copies nothing.
+    crop = editor.CropEffect(GW // 20, GW - GW // 20, *CONV_ROWS)
+    singles = {f"crop {crop.right - crop.left}x{crop.bottom - crop.top}":
+               crop,
+               "mirror horizontal": chain[2],
+               "rotate 90": chain[1],
+               "rotate 180": editor.RotateEffect(180),
+               "resize {}x{}".format(*CONV_SIZE): chain[3]}
+    rows = {}
+    for label, e in singles.items():
+        got = editor.apply_effects(frame, [e])
+        require(same(got, editor.apply_effects_plain(frame, [e])),
+                f"B13 {label}: kernel differs from the plain version")
+        row = dict(
+            ms=graph_ms(lambda: editor.apply_effects(frame, [e]), 20),
+            plain_ms=cuda_ms(lambda: editor.apply_effects_plain(frame, [e]),
+                             5),
+            library_ms=graph_ms(_library_calls(frame, e), 20),
+            bytes=_touched(frame, [e]) + nbytes(*got.planes.values()))
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"])
+        rows[label] = row
+        log(f"B13 {label}: bitwise = plain; kernel {row['ms']:.4f} ms "
+            f"(3 launches, CUDA graph), library {row['library_ms']:.4f} "
+            f"ms, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bytes'] / 1e6:.2f} MB)")
+
+    gchain = editor.scale_effects(chain, 4)
+
+    def run():
+        return (editor.apply_effects(frame, chain),
+                editor.apply_effects(gmap, gchain))
+
+    got = run()
+    require(same(got[0], editor.apply_effects_plain(frame, chain)) and
+            same(got[1], editor.apply_effects_plain(gmap, gchain)),
+            "B13 converter chain: kernel differs from the plain version")
+    cw, ch = CONV_SIZE
+    require((got[0].width, got[0].height, got[1].width, got[1].height) ==
+            (cw, ch, cw // 4, ch // 4), "B13 converter chain: bad geometry")
+    long_chain = [editor.RotateEffect(90), editor.MirrorEffect("vertical"),
+                  editor.RotateEffect(270),
+                  editor.MirrorEffect("horizontal")] * 5 + chain[:2]
+    require(len(long_chain) > editor.MAX_STEPS and same(
+        editor.apply_effects(frame, long_chain),
+        editor.apply_effects_plain(frame, long_chain)),
+        "B13 22-step chain: kernel differs from the plain version")
+    results["B13"] = dict(
+        err=0, ms=graph_ms(run, 20), enqueue_ms=cuda_ms(run, 20),
+        plain_ms=cuda_ms(lambda: (editor.apply_effects_plain(frame, chain),
+                                  editor.apply_effects_plain(gmap, gchain)),
+                         5),
+        bytes=(_touched(frame, chain) + _touched(gmap, gchain)
+               + nbytes(*got[0].planes.values(), *got[1].planes.values())),
+        library_ms=None, rows=rows)
+    r = results["B13"]
+    log(f"B13 converter chain (frame + gain map, 4 launches): bitwise = "
+        f"plain; kernel {r['ms']:.4f} ms by CUDA graph ({r['enqueue_ms']:.4f}"
+        f" launched one by one), plain {r['plain_ms']:.3f} ms, "
+        f"{r['bytes'] / 1e6:.2f} MB; the 22-step chain (two launches per "
+        f"plane) = plain")
+
+
+def main_path_converter(dev, smi: str):
+    """The UltraHdr converter at 4000x3000 through the entry points a user
+    calls, in one window with every launch counter and the host Huffman
+    call counters zeroed just before and read just after: a JPEG/R of
+    the general route (API-0 HLG + EXIF, encoded before the window) is
+    added to a session and converted to a JPEG/R through the 4-step
+    chain, the result decoded by UhdrDecoder to F16 with its gain-map
+    image, and the session converted to YUV420, RGBA8888 and 10-bit
+    planar RGB through the same chain. Host Huffman codes the two JPEGs
+    of the one generated JPEG/R and decodes nothing."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer, JpegR,
+                                           OutputFormat, PixelFormat,
+                                           RawImage, UhdrDecoder, UltraHdr,
+                                           UltraHdrConfig)
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 80)
+    hlg = RawImage(fmt=PixelFormat.P010, width=GW, height=GH,
+                   gamut=ColorGamut.BT2100, transfer=ColorTransfer.HLG,
+                   planes={"y": y_np[0], "uv": uv_np[0]})
+    jr = JpegR(dev)
+    blob = jr.encode_api0(hlg, ColorTransfer.HLG, 95, exif=EXIF)
+    unedited = jr.decode(blob, OutputFormat.HDR_LINEAR).image.planes["rgba"]
+    chain = converter_chain()
+    raw_fmts = (PixelFormat.YUV420, PixelFormat.RGBA8888,
+                PixelFormat.RGB_10BIT_PLANAR)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    session = UltraHdr(dev).add_image(blob)
+    out = session.convert(UltraHdrConfig("jpeg_r", effects=chain))
+    t_conv = time.perf_counter() - t0
+    dec = UhdrDecoder(dev).set_image(out)
+    f16 = dec.decode().planes["rgba"]
+    gm_image = dec.get_gain_map_image()
+    raws = {f: session.convert_to_raw(UltraHdrConfig(
+        effects=chain, output_pixel_format=f)) for f in raw_fmts}
+    c = read_counts(f"converter ({t_conv:.2f} s convert, "
+                    f"{time.perf_counter() - t0 - t_conv:.2f} s decode and "
+                    f"raw outputs)",
+                    ("B2", "B4", "B5", "B6", "B6r", "B7", "B12", "B13"),
+                    host_encodes=2)
+    require(all(c[k] == 0 for k in ("B1", "B3", "B9", "B10a", "B10b",
+                                     "B10c", "B11")),
+            f"the converter launched a kernel off its path: {c}")
+
+    info = jr.get_info(out)
+    cw, ch = CONV_SIZE
+    require((info.width, info.height, info.gainmap_width,
+             info.gainmap_height) == (cw, ch, cw // 4, ch // 4),
+            "converter: bad JPEG/R geometry")
+    require(info.primary.exif is not None, "converter: EXIF lost")
+    require(gm_image.shape == (ch // 4, cw // 4) and
+            gm_image.dtype == np.uint8, "converter: bad gain-map image")
+    require(f16.shape == (ch, cw, 4) and
+            bool(np.isfinite(f16.view(np.float16)).all()),
+            "converter: bad F16 decode")
+    yuv = raws[PixelFormat.YUV420]
+    ref = editor.apply_effects_plain(session.sdr_raw, chain)
+    require(all(np.array_equal(yuv.planes[k], ref.planes[k].cpu().numpy())
+                for k in ("y", "u", "v")),
+            "converter: YUV420 output differs from the plain editor")
+    rgba = raws[PixelFormat.RGBA8888].planes["rgba"]
+    require(rgba.shape == (ch, cw) and bool(((rgba >> 24) == 255).all()),
+            "converter: bad RGBA8888 output")
+    rgb10 = raws[PixelFormat.RGB_10BIT_PLANAR].planes["rgba"]
+    require(rgb10.shape == (3, ch, cw) and int(rgb10.max()) <= 1023,
+            "converter: bad 10-bit planar output")
+
+    # The edited decode's luminance against the plain editor applied to
+    # the unedited decode's luminance (BT.2100 weights; both in the
+    # base's gamut).
+    def lum(rgba16):
+        x = torch.from_numpy(rgba16.view(np.float16)[..., :3]
+                             .astype(np.float32)).to(dev)
+        return 0.2627 * x[..., 0] + 0.6780 * x[..., 1] + 0.0593 * x[..., 2]
+
+    want = editor.apply_effects_plain(RawImage(
+        fmt=PixelFormat.MONOCHROME, width=GW, height=GH,
+        planes={"y": lum(unedited)}), chain).planes["y"]
+    got = lum(f16)
+    keep = (want > 1e-3) & (got > 1e-3)
+    med = float(torch.median(torch.abs(torch.log2(got[keep] / want[keep]))))
+    log(f"converter: {len(blob)} -> {len(out)} bytes; median |log2(edited "
+        f"decode / plain-edited unedited decode)| {med:.4f} over "
+        f"{int(keep.sum())} pixels")
+    require(med <= 0.1, "converter: edited luminance off")
+    return c, dict(blob=blob, chain=chain)
+
+
+def stage_times_converter(dev, smi: str, conv: dict):
+    """Warm times of one converter call (4000x3000 JPEG/R in, the 4-step
+    chain, JPEG/R out) and of its three stages, each ending
+    synchronized: decode (the gain map at add_image, the base at first
+    use: B12 twice), effects (B13 on SDR and gain map), encode (API-x:
+    padding, B2, D2H, host Huffman, mux)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import JpegR, UltraHdr, UltraHdrConfig
+
+    blob, chain = conv["blob"], conv["chain"]
+    cfg = UltraHdrConfig("jpeg_r", effects=chain)
+
+    def decode():
+        s = UltraHdr(dev).add_image(blob)
+        s._maybe_decode_jpeg_sdr()
+        torch.cuda.synchronize()
+        return s
+
+    s = decode()
+
+    def effects():
+        edited = s._edited(chain)
+        torch.cuda.synchronize()
+        return edited
+
+    sdr, gmap = effects()
+    for k, v in {
+            "converter call (decode + effects + encode)": host_ms(
+                lambda: UltraHdr(dev).add_image(blob).convert(cfg), 3),
+            "converter decode (B12 base + gain map)": host_ms(decode, 3),
+            "converter effects (B13 x 4)": host_ms(effects, 5),
+            "converter encode (API-x: B2, D2H, host Huffman, mux)": host_ms(
+                lambda: JpegR(dev).encode_apix(sdr, gmap, s.metadata, 95,
+                                               exif=s.exif), 3),
+            }.items():
+        log(f"stage {k}: {v:.3f} ms/frame ({GW}x{GH} -> "
+            f"{CONV_SIZE[0]}x{CONV_SIZE[1]}, batch 1, {smi})")
+
+
 API0_KERNELS = ("B1", "B2", "B3", "B3g", "B4", "B5", "B6")
 # Kernels checked and timed at the general routes' 4000x3000 frame.
-GENERAL_KERNELS = ("B10a", "B10b", "B10c", "B12")
+GENERAL_KERNELS = ("B10a", "B10b", "B10c", "B12", "B13")
 
 
 def counters():
     """Each kernel's launch counter: name -> (wrapper, attribute). B3
     counts its 4:2:0 and gray wrappers apart (B3, B3g); B11 is the
-    table arm of B6's wrapper; B12 counts decode_jpeg's device-route
-    calls (each one B4 and B5 launches)."""
+    table arm of B6's wrapper, B6r its 10-bit planar arm (counted in B6
+    or B11 as well); B12 counts decode_jpeg's device-route calls (each
+    one B4 and B5 launches); B13 counts edit_plane's launches."""
     from libultrahdr_dev_tpu_torch.jpeg import dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
-    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.ops import editor, gainmap as gm
 
     return {"B1": (gm.encode_front, "launches"),
             "B2": (dct.fdct_quant, "launches"),
@@ -1371,13 +1667,15 @@ def counters():
             "B4": (dd.decode_rst_chunks, "launches"),
             "B5": (dct.dequant_idct, "launches"),
             "B6": (gm.apply_gainmap, "launches"),
+            "B6r": (gm.apply_gainmap, "rgb10_launches"),
             "B7": (gm.yuv420_to_rgba8888, "launches"),
             "B9": (gm.encode_front_api1, "launches"),
             "B10a": (gm.tonemap_p010, "launches"),
             "B10b": (gm.generate_gainmap, "launches"),
             "B10c": (gm.convert_yuv_encoding, "launches"),
             "B11": (gm.apply_gainmap, "lut_launches"),
-            "B12": (dd.decode_stream_device, "launches")}
+            "B12": (dd.decode_stream_device, "launches"),
+            "B13": (editor.apply_effects, "launches")}
 
 
 KERNELS = {
@@ -1393,6 +1691,8 @@ KERNELS = {
            "libultrahdr_dev_tpu/jpeg/dct.py:122"),
     "B6": ("apply_gainmap", "libultrahdr_dev_tpu_torch/kernels/csrc/"
            "apply.cu", "libultrahdr_dev_tpu/ops/gainmap.py:296"),
+    "B6r": ("apply_gainmap_rgb10", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+            "apply.cu", "libultrahdr_dev_tpu/ops/gainmap.py:318"),
     "B7": ("yuv420_to_rgba8888", "libultrahdr_dev_tpu_torch/kernels/csrc/"
            "sdr_out.cu", "libultrahdr_dev_tpu/ops/gainmap.py:407"),
     "B9": ("encode_front_api1", "libultrahdr_dev_tpu_torch/kernels/csrc/"
@@ -1408,6 +1708,8 @@ KERNELS = {
     "B12": ("decode_jpeg_device", "libultrahdr_dev_tpu_torch/kernels/csrc/"
             "huff_decode.cu + libultrahdr_dev_tpu_torch/kernels/csrc/dct.cu",
             "libultrahdr_dev_tpu/jpeg/device_decode.py:876"),
+    "B13": ("edit_plane", "libultrahdr_dev_tpu_torch/kernels/csrc/editor.cu",
+            "libultrahdr_dev_tpu/ops/editor.py:71"),
 }
 
 
@@ -1445,6 +1747,7 @@ def main() -> int:
     phases.append(("B4", lambda: b4_phase(dev, results, kept)))
     phases.append(("B10", lambda: b10_phase(dev, results)))
     phases.append(("B12", lambda: b12_phase(dev, results, kept)))
+    phases.append(("B13", lambda: b13_phase(dev, results)))
     for label, fn in phases:
         t = time.perf_counter()
         fn()
@@ -1468,11 +1771,15 @@ def main() -> int:
     t = time.perf_counter()
     launches2, general = main_path_general(dev, smi)
     log(f"phase main path general routes: {time.perf_counter() - t:.1f} s")
-    launches = {k: launches[k] + launches1[k] + launches2[k]
+    t = time.perf_counter()
+    launches3, conv = main_path_converter(dev, smi)
+    log(f"phase main path converter: {time.perf_counter() - t:.1f} s")
+    launches = {k: launches[k] + launches1[k] + launches2[k] + launches3[k]
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
     stage_times(dev, smi, inputs, blobs, handoffs, (inputs1, blobs1))
     stage_times_general(dev, smi, general)
+    stage_times_converter(dev, smi, conv)
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

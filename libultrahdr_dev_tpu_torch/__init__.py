@@ -7,8 +7,10 @@ SDR rendition), API-2 / API-3 (with a given base JPEG), API-4 (mux) and
 API-x (SDR + raw gain map) encode into JPEG/R, with EXIF and at any even
 frame size; a JPEG/R decodes to HDR pixels (F16 linear, HLG or PQ
 RGBA1010102, computed or through the transfer tables) or to SDR
-RGBA8888; plain JPEGs encode and decode (jpeg.codec.encode_jpeg /
-decode_jpeg). Hand-written CUDA kernels (kernels/csrc) run its device
+RGBA8888 or to 10-bit planar linear RGB, with its gain-map plane; plain
+JPEGs encode and decode (jpeg.codec.encode_jpeg / decode_jpeg); the
+UltraHdr converter session edits a JPEG/R, JPEG or raw planes (crop,
+mirror, rotate, resize) into a JPEG/R, a JPEG or raw pixels. Hand-written CUDA kernels (kernels/csrc) run its device
 work on an NVIDIA H100; on a CPU device each runs its plain PyTorch
 version:
 
@@ -25,6 +27,7 @@ version:
   B6   ops.gainmap.apply_gainmap               gain-map apply + output pack
   B11  ops.gainmap.apply_gainmap(use_luts=True) the same with table TFs
   B7   ops.gainmap.yuv420_to_rgba8888          SDR output (fancy upsample)
+  B13  ops.editor.apply_effects                crop / mirror / rotate / resize
 
 16-aligned API-0 / API-1 encodes without EXIF take the device route (B1
 or B9, B2, B3); every other encode takes the general route, as in the
@@ -36,8 +39,12 @@ streams the device decoder does not take. Entry points run on the CUDA
 device unless the caller passes device="cpu". Public surface:
   - api.UhdrEncoder (raw and compressed intents, EXIF) /
     api.UhdrDecoder / is_uhdr_image
-  - jpegr.JpegR — encode_api0 .. encode_api4, encode_apix, decode,
-    get_info
+  - jpegr.JpegR — encode_api0 .. encode_api4, encode_apix, decode
+    (with the decoded gain-map plane), get_info
+  - ultrahdr.UltraHdr / UltraHdrConfig — the converter session (add_image,
+    add_raw, add_gainmap, convert to "jpeg" / "jpeg_r", convert_to_raw),
+    with the effects of ops.editor (CropEffect, MirrorEffect,
+    RotateEffect, ResizeEffect)
   - jpeg.codec — encode_jpeg, decode_jpeg
   - parallel.batched — batched_encode_api0 / batched_encode_api1 /
     batched_decode / batched_decode_from_handoff over a leading batch
@@ -46,8 +53,11 @@ device unless the caller passes device="cpu". Public surface:
 
 from .api import UhdrDecoder, UhdrEncoder, is_uhdr_image  # noqa: F401
 from .jpegr import JpegR  # noqa: F401
+from .ops.editor import (CropEffect, MirrorEffect, ResizeEffect,  # noqa: F401
+                         RotateEffect)
 from .types import (ColorGamut, ColorTransfer, CompressedImage,  # noqa: F401
                     GainMapMetadata, OutputFormat, PixelFormat, RawImage,
                     UhdrError)
+from .ultrahdr import UltraHdr, UltraHdrConfig  # noqa: F401
 
 __version__ = "0.1.0"

@@ -20,6 +20,8 @@ package passes it.
 
 from __future__ import annotations
 
+import numpy as np
+
 from .container import mux
 from .device import resolve_device
 from .jpegr import JpegR
@@ -315,6 +317,14 @@ class UhdrDecoder(_Sailed):
         if self._result is None:
             raise err("UHDR_CODEC_INVALID_OPERATION", "decode() not called")
         return self._result.image
+
+    def get_gain_map_image(self) -> np.ndarray:
+        """uhdr_get_gain_map_image: the decoded uint8 gain-map plane of
+        an HDR decode (JpegRDecodeResult.gainmap; api.py:326-330)."""
+        if self._result is None or self._result.gainmap is None:
+            raise err("UHDR_CODEC_INVALID_OPERATION",
+                      "no gain map image available")
+        return self._result.gainmap
 
 
 def is_uhdr_image(data: bytes) -> bool:

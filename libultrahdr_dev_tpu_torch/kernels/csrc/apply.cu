@@ -6,7 +6,10 @@
 // compiled with kLut: the use_luts=True arms of _apply_kernel
 // (gainmap.py:297,323,326), which read the sRGB inverse OETF and the
 // HLG / PQ OETF from ops/color.py's tables (_lut_lookup) instead of
-// computing them; exp2 stays computed, as in the JAX apply.
+// computing them; exp2 stays computed, as in the JAX apply. The 10-bit
+// planar arm (kRgb10, gainmap.py:318-321) writes linear RGB as three
+// (h, w) planes of clip(c, 0, 1) * 1023 truncated; it has no OETF, so in
+// the kLut variant the tables change only the sRGB inverse.
 //
 // Bound: the output write. A 4080x3072 frame writes 100 MB of RGBA F16
 // or 50 MB of RGBA1010102 and reads about 16 MB of u8 planes, so the
@@ -40,7 +43,7 @@ namespace {
 using uhdr::clamp01;
 using uhdr::Plane;
 
-enum Fmt : int { kF16 = 0, kHlgOut = 1, kPqOut = 2 };
+enum Fmt : int { kF16 = 0, kHlgOut = 1, kPqOut = 2, kRgb10 = 3 };
 
 // Table sizes (ops/color.py SRGB_INV_OETF_NUM_ENTRIES,
 // HLG_OETF_NUM_ENTRIES = PQ_OETF_NUM_ENTRIES).
@@ -134,6 +137,15 @@ __global__ void apply_kernel(Plane yp, Plane up, Plane vp, Plane gp,
     reinterpret_cast<ushort4*>(out)[pix] = v;
     return;
   }
+  if (fmt == kRgb10) {  // (n, 3, h, w) planes, the three at h * w apart
+    uint16_t* o = reinterpret_cast<uint16_t*>(out) +
+                  ((size_t)b * 3 * h + y) * w + x;
+    size_t plane = (size_t)h * w;
+    o[0] = (uint16_t)(clamp01(r) * 1023.0f);
+    o[plane] = (uint16_t)(clamp01(g) * 1023.0f);
+    o[2 * plane] = (uint16_t)(clamp01(bl) * 1023.0f);
+    return;
+  }
   if (kLut) {  // the HLG or PQ OETF table, as fmt says
     r = __ldg(oetf_lut + uhdr::lut_index(r, kOetfLutN));
     g = __ldg(oetf_lut + uhdr::lut_index(g, kOetfLutN));
@@ -174,7 +186,8 @@ extern "C" {
 // y: (n, h, w), u/v: (n, ceil(h/2), ceil(w/2)), g: (n, mh, mw) u8
 // planes, each with its own (batch, row) strides in bytes and unit
 // column stride; scalars: (n, 4) f32 on the device; out: (n, h, w, 4)
-// u16 halves (fmt 0) or (n, h, w) u32 words (fmt 1 HLG, 2 PQ).
+// u16 halves (fmt 0), (n, h, w) u32 words (fmt 1 HLG, 2 PQ) or
+// (n, 3, h, w) u16 10-bit linear RGB planes (fmt 3).
 int uhdr_apply_gainmap(const void* y, const void* u, const void* v,
                        const void* g, long long ysb, long long ysr,
                        long long usb, long long usr, long long vsb,
@@ -188,7 +201,7 @@ int uhdr_apply_gainmap(const void* y, const void* u, const void* v,
 
 // B11: as uhdr_apply_gainmap, with the float32 sRGB inverse OETF table
 // (1,024 entries) and, for fmt 1 / 2, the HLG / PQ OETF table (65,536
-// entries) on the device; oetf_lut is unused for fmt 0.
+// entries) on the device; oetf_lut is unused for fmt 0 and 3.
 int uhdr_apply_gainmap_lut(const void* y, const void* u, const void* v,
                            const void* g, long long ysb, long long ysr,
                            long long usb, long long usr, long long vsb,

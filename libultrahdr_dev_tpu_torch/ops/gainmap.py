@@ -18,6 +18,8 @@ B10a, B10b, B10c, B6, B11 and B7.
   gain map; it replaces libultrahdr_dev_tpu/ops/gainmap.py:_apply_kernel.
   With ``use_luts=True`` it launches B11, the table arms of the same
   program (its transfer functions read from ops/color.py's tables).
+  ``apply_gainmap_metadata`` is JAX's apply_gainmap (gainmap.py:333-373):
+  one frame, the metadata validated, its scalars derived.
 - ``yuv420_to_rgba8888`` (B7) turns a decoded base into SDR RGBA8888
   pixels (gainmap.py:yuv420_to_rgba8888).
 
@@ -30,23 +32,27 @@ versions follow the JAX programs operation by operation, rounding as
 XLA does on the CPU (ops/color.py, ``fma``). Planes travel as torch
 tensors: P010 samples as int16 holding the uint16 bits, u8 planes as
 uint8, RGBA1010102 and RGBA8888 words as int32 holding the uint32 bits,
-F16 pixels as (..., 4) int16 holding the half-float bits. All take a
-leading batch dimension.
+F16 pixels as (..., 4) int16 holding the half-float bits, 10-bit planar
+RGB as int16 holding the 10-bit codes. All take a leading batch
+dimension.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..kernels import build
 from ..types import (GAIN_MAP_VERSION, GainMapMetadata,
-                     MAP_DIMENSION_SCALE_FACTOR)
+                     MAP_DIMENSION_SCALE_FACTOR, err)
 from . import color
 
 SCALE = MAP_DIMENSION_SCALE_FACTOR
 TF_IDS = {"linear": 0, "hlg": 1, "pq": 2}
-OUTPUT_FORMATS = {"hdr_linear": 0, "hdr_hlg": 1, "hdr_pq": 2}
+OUTPUT_FORMATS = {"hdr_linear": 0, "hdr_hlg": 1, "hdr_pq": 2,
+                  "hdr_linear_rgb_10bit": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -520,9 +526,10 @@ def apply_gainmap_plain(y8, u8, v8, gmap, scalars, output_format: str,
     map uint8 planes, with (n, 4) float32 scalars per frame [log2(min
     boost), log2(max boost), boost factor, display boost] -> HDR pixels:
     (n, h, w, 4) int16 F16 bits for "hdr_linear", (n, h, w) int32
-    RGBA1010102 words for "hdr_hlg" / "hdr_pq". With use_luts, the sRGB
-    inverse OETF and the HLG / PQ OETF are table lookups
-    (gainmap.py:297,323,326)."""
+    RGBA1010102 words for "hdr_hlg" / "hdr_pq", (n, 3, h, w) int16
+    10-bit linear RGB codes (clip(c, 0, 1) * 1023 truncated) for
+    "hdr_linear_rgb_10bit". With use_luts, the sRGB inverse OETF and the
+    HLG / PQ OETF are table lookups (gainmap.py:297,323,326)."""
     if output_format not in OUTPUT_FORMATS:
         raise ValueError(f"unsupported output format {output_format}")
     n, h, w = y8.shape
@@ -542,6 +549,9 @@ def apply_gainmap_plain(y8, u8, v8, gmap, scalars, output_format: str,
     rgb = tuple(c * factor for c in rgb)
     if output_format == "hdr_linear":
         return color.pack_rgba_f16(rgb)
+    if output_format == "hdr_linear_rgb_10bit":
+        return torch.stack([(torch.clamp(c, 0.0, 1.0) * 1023.0)
+                            .to(torch.int16) for c in rgb], dim=1)
     if output_format == "hdr_hlg":
         oetf = color.hlg_oetf_lut if use_luts else color.hlg_oetf
     else:
@@ -576,7 +586,8 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
     CUDA kernel on CUDA tensors. Same signature and result as
     apply_gainmap_plain; the kernel reads row-strided planes (crops of
     padded IDCT output) in place. B6 launches count in ``.launches``,
-    B11 launches in ``.lut_launches``."""
+    B11 launches in ``.lut_launches``; launches of the 10-bit planar arm
+    (in either variant) count in ``.rgb10_launches`` as well."""
     if not y8.is_cuda:
         return apply_gainmap_plain(y8, u8, v8, gmap, scalars,
                                    output_format, use_luts)
@@ -593,12 +604,16 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
     fmt = OUTPUT_FORMATS[output_format]
     if fmt == 0:
         out = torch.empty((n, h, w, 4), dtype=torch.int16, device=y8.device)
+    elif fmt == 3:
+        out = torch.empty((n, 3, h, w), dtype=torch.int16, device=y8.device)
     else:
         out = torch.empty((n, h, w), dtype=torch.int32, device=y8.device)
     args = (y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), gmap.data_ptr(),
             *strides, scalars.data_ptr(), out.data_ptr(), n, h, w, mh, mw,
             w // mw, fmt)
     lib = build.get_lib()
+    if fmt == 3:
+        apply_gainmap.rgb10_launches += 1
     if not use_luts:
         apply_gainmap.launches += 1
         build.check(lib.uhdr_apply_gainmap(*args, build.stream_of(y8)),
@@ -606,16 +621,62 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
         return out
     srgb = color.lut_tensor("srgb_inv", y8.device)
     oetf = (color.lut_tensor(_OETF_LUTS[output_format], y8.device)
-            if fmt else None)
+            if output_format in _OETF_LUTS else None)
     apply_gainmap.lut_launches += 1
     build.check(lib.uhdr_apply_gainmap_lut(
-        *args, srgb.data_ptr(), oetf.data_ptr() if fmt else None,
+        *args, srgb.data_ptr(), oetf.data_ptr() if oetf is not None else None,
         build.stream_of(y8)), "uhdr_apply_gainmap_lut")
     return out
 
 
 apply_gainmap.launches = 0
 apply_gainmap.lut_launches = 0
+apply_gainmap.rgb10_launches = 0
+
+
+def apply_scalars(metadata: GainMapMetadata,
+                  max_display_boost: float) -> np.ndarray:
+    """[log2(min boost), log2(max boost), boost factor, display boost]
+    as float32, as JpegR.decode derives them (jpegr.py:587-599)."""
+    display_boost = min(max_display_boost, metadata.max_content_boost)
+    boost_factor = (display_boost / metadata.max_content_boost
+                    if display_boost > 0 else 1.0)
+    return np.asarray([math.log2(metadata.min_content_boost),
+                       math.log2(metadata.max_content_boost),
+                       boost_factor, display_boost], np.float32)
+
+
+def apply_gainmap_metadata(y8, u8, v8, gmap, metadata: GainMapMetadata,
+                           output_format: str, max_display_boost: float,
+                           use_luts: bool = False):
+    """HDR pixels of one frame from 2-D uint8 planes Y (h, w), U/V
+    (ceil(h/2), ceil(w/2)) and a gain map (mh, mw) on one device, as the
+    JAX apply_gainmap computes them (gainmap.py:333-373): the metadata
+    checked as the reference checks it (version, gamma 1, zero offsets,
+    capacity == content boost; UHDR_CODEC_UNSUPPORTED_FEATURE), the map
+    scale an integer, the scalars derived from the metadata, then
+    apply_gainmap (B6, B11 with use_luts) without the batch dimension."""
+    if metadata.version != GAIN_MAP_VERSION:
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                  f"unsupported metadata version {metadata.version}")
+    if metadata.gamma != 1.0:
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                  f"unsupported gamma {metadata.gamma}")
+    if metadata.offset_sdr != 0.0 or metadata.offset_hdr != 0.0:
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE", "nonzero offsets")
+    if (metadata.hdr_capacity_min != metadata.min_content_boost
+            or metadata.hdr_capacity_max != metadata.max_content_boost):
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                  "hdr capacity != content boost")
+    h, w = y8.shape
+    mh, mw = gmap.shape
+    if h % mh or w % mw or (w * mh != h * mw):
+        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                  f"non-integer map scale {w}x{h} vs {mw}x{mh}")
+    scalars = torch.from_numpy(apply_scalars(
+        metadata, max_display_boost)[None]).to(y8.device)
+    return apply_gainmap(y8[None], u8[None], v8[None], gmap[None], scalars,
+                         output_format, use_luts)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,6 @@ device; on a CPU device every kernel runs its plain PyTorch version.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,8 +47,9 @@ from ..container import mux, xmp
 from ..device import resolve_device, upload as _upload
 from ..jpeg import codec, device_decode as dd, device_entropy as de, tables
 from ..jpeg.dct import dequant_idct, fdct_quant
-from ..ops.gainmap import (apply_gainmap, encode_front, encode_front_api1,
-                           gainmap_metadata, yuv420_to_rgba8888)
+from ..ops.gainmap import (apply_gainmap, apply_scalars,  # noqa: F401
+                           encode_front, encode_front_api1, gainmap_metadata,
+                           yuv420_to_rgba8888)
 from ..types import GainMapMetadata, MAP_COMPRESS_QUALITY, err
 
 RST_INTERVAL = 4  # MCUs per restart marker, as the JAX batched encoder
@@ -315,18 +315,6 @@ def check_gainmap_metadata(metadata: GainMapMetadata):
                   "hdr capacity != content boost")
 
 
-def apply_scalars(metadata: GainMapMetadata,
-                  max_display_boost: float) -> np.ndarray:
-    """[log2(min boost), log2(max boost), boost factor, display boost]
-    as float32, as JpegR.decode derives them (jpegr.py:587-599)."""
-    display_boost = min(max_display_boost, metadata.max_content_boost)
-    boost_factor = (display_boost / metadata.max_content_boost
-                    if display_boost > 0 else 1.0)
-    return np.asarray([math.log2(metadata.min_content_boost),
-                       math.log2(metadata.max_content_boost),
-                       boost_factor, display_boost], np.float32)
-
-
 @dataclass
 class HostDecoded:
     """One JPEG/R after the host stage: what its container and headers
@@ -442,13 +430,32 @@ def _planes(grids, qtables: torch.Tensor, geom):
     return planes
 
 
+def gainmap_plane(frame: HostDecoded, device) -> torch.Tensor:
+    """The decoded uint8 gain-map plane (gm_height, gm_width) of an HDR
+    frame's host stage, on `device` (the JAX JpegRDecodeResult.gainmap,
+    jpegr.py:636-662): its gray stream through B4 and B5
+    (device_decode.decode_stream_device) on the device route, its
+    host-decoded grid through B5 on the host route."""
+    gh, gw = frame.gm_height, frame.gm_width
+    if frame.streams is not None:
+        plane = dd.decode_stream_device(frame.streams[1], device)[0]
+    else:
+        gg = frame.grids[3]
+        grid, q = _upload([gg.reshape(1, -1, 64),
+                           np.asarray(frame.qtables[2], np.int32)
+                           .reshape(1, 64)], device)
+        plane = dequant_idct(grid, q, gg.shape[0], gg.shape[1])
+    return plane[0, :gh, :gw]
+
+
 def decode_device_stage(frames: list[HostDecoded], output_format: str,
                         max_display_boost: float, device,
                         use_luts: bool = False) -> torch.Tensor:
     """Device stage of a batched decode of same-size frames: pixels on
     `device`, (n, h, w, 4) int16 F16 bits for "hdr_linear", (n, h, w)
-    int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq", or (n, h, w) int32
-    RGBA8888 words for "sdr". The device route uploads the destuffed
+    int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq", (n, 3, h, w) int16
+    10-bit linear RGB codes for "hdr_linear_rgb_10bit", or (n, h, w)
+    int32 RGBA8888 words for "sdr". The device route uploads the destuffed
     streams, lane starts, decode and quant tables and apply scalars in
     one copy, then runs B4 (base and gain map), B5 and B6 (B11 with
     use_luts); for "sdr", B4 and B5 over the base and B7. The host route

@@ -23,6 +23,8 @@ from libultrahdr_dev_tpu_torch.jpeg import codec, device_decode as tdd
 from libultrahdr_dev_tpu_torch.jpeg import device_entropy as tde, tables
 from libultrahdr_dev_tpu_torch.parallel import batched
 
+import test_torch_jax_native  # noqa: F401  (loads the JAX native codec)
+
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 GOLDEN_NAMES = sorted(n for n in os.listdir(GOLDENS) if n.startswith("enc0"))
 H, W = 112, 144

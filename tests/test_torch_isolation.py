@@ -41,6 +41,10 @@ def test_round_trip_with_jax_unimportable():
         base = P.container.mux.extract_primary_and_gainmap(gen)[0]
         assert codec.decode_jpeg(base, "cpu").planes[1].shape == (32, 32)
         assert device.resolve_device("cpu").type == "cpu"
+        # The converter session (decode, B13 effects, API-x encode).
+        out = P.UltraHdr("cpu").add_image(blob).convert(P.UltraHdrConfig(
+            "jpeg_r", effects=[P.RotateEffect(90)]))
+        assert P.JpegR("cpu").get_info(out).gainmap_height == 16
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("ok")
@@ -107,14 +111,15 @@ def test_entry_points_default_to_cuda():
     import pytest
     import torch
 
-    from libultrahdr_dev_tpu_torch import JpegR, UhdrDecoder, UhdrEncoder
+    from libultrahdr_dev_tpu_torch import (JpegR, UhdrDecoder, UhdrEncoder,
+                                           UltraHdr)
     from libultrahdr_dev_tpu_torch.parallel import batched
 
     y = np.zeros((1, 16, 16), np.uint16)
     uv = np.zeros((1, 8, 16), np.uint16)
     sdr = (np.zeros((1, 16, 16), np.uint8), np.zeros((1, 8, 8), np.uint8),
            np.zeros((1, 8, 8), np.uint8))
-    calls = [JpegR, UhdrEncoder, UhdrDecoder,
+    calls = [JpegR, UhdrEncoder, UhdrDecoder, UltraHdr,
              lambda: batched.batched_encode_api0(y, uv),
              lambda: batched.batched_encode_api1(y, uv, *sdr),
              lambda: batched.batched_decode([b""]),

@@ -19,6 +19,8 @@ from libultrahdr_dev_tpu_torch.container import icc as ticc
 from libultrahdr_dev_tpu_torch.jpeg import codec as tcodec
 from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
 
+import test_torch_jax_native  # noqa: F401  (loads the JAX native codec)
+
 
 def _planes(kind: str, h: int, w: int, seed: int) -> dict:
     """Block-smooth u8 planes of a gray / 4:2:0 / 4:2:2 / 4:4:4 image

@@ -178,8 +178,8 @@ def test_stable_api_quick_start():
 
 def test_unported_routes_raise():
     """A 72-row frame (not 16-aligned) now encodes, on the general route,
-    to the JAX package's bytes; the 10-bit planar decode is still
-    queued and raises."""
+    to the JAX package's bytes; the 10-bit planar decode, once queued,
+    now decodes within 1 code of the JAX package's host route."""
     y, uv = synth_p010(72, 96)
     raw = RawImage(fmt=PixelFormat.P010, width=96, height=72,
                    gamut=ColorGamut.BT2100, planes={"y": y, "uv": uv})
@@ -188,5 +188,9 @@ def test_unported_routes_raise():
     assert JpegR("cpu").encode_api0(raw, ColorTransfer.HLG) == \
         jjpegr.JpegR().encode_api0(jraw, JTransfer.HLG)
     _, blob = encode_both(*CONFIGS[0])
-    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
-        JpegR("cpu").decode(blob, OutputFormat.HDR_LINEAR_RGB_10BIT)
+    fmt = OutputFormat.HDR_LINEAR_RGB_10BIT
+    got = JpegR("cpu").decode(blob, fmt).image.planes["rgba"]
+    want = jax_host_decode(blob, fmt.value)[0]
+    assert got.shape == want.shape == (3, H, W) and got.dtype == want.dtype
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert int(d.max()) <= 1 and float((d == 0).mean()) >= 0.999
