@@ -4,18 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from kernels/csrc with nvcc (one nvcc
-per source, in parallel), checks each of the fifteen (B1-B7, B6's 10-bit
-planar arm, B9, B10a, B10b, B10c, B11, B12, B13) against its plain
-PyTorch version at the shapes of the main path (a 4080x3072 frame, batch
-of 2; the general routes' B10 and B12 and the converter's B13 at one
-4000x3000 frame), drives the API-0 round trip, the API-1 encode, SDR
-decode, table-transfer (use_luts) decode, the general encode routes
-(non-16-aligned and EXIF encodes, API-2/3/4/x) and the UltraHdr
-converter (a JPEG/R edited by an effect chain into a JPEG/R and raw
-pixels) through the entry points a user calls (batched encode/decode,
-the encode -> decode handoff, JpegR, UhdrEncoder / UhdrDecoder,
-UltraHdr, and the decode of the reference goldens in tests/goldens),
-checks what comes out, and times the kernels and the stages.
+per source, in parallel), checks each of the seventeen (B1-B7, B6's
+10-bit planar arm, B9, B10a, B10b, B10c, B11, B12, B12-enc, B13, B19)
+against its plain PyTorch version at the shapes of the main path (a
+4080x3072 frame, batch of 2; the general routes' B10, B12, B12-enc and
+B19 and the converter's B13 at one 4000x3000 frame), drives the API-0
+round trip, the API-1 encode, SDR decode, table-transfer (use_luts)
+decode, the general encode routes (non-16-aligned and EXIF encodes,
+API-2/3/4/x, encode_jpeg with and without restart intervals), the
+UltraHdr converter (a JPEG/R edited by an effect chain into a JPEG/R
+and raw pixels) and dense content (API-0 written restart-less, API-1 on
+the general route) through the entry points a user calls (batched
+encode/decode, the encode -> decode handoff, JpegR, UhdrEncoder /
+UhdrDecoder, UltraHdr, and the decode of the reference goldens in
+tests/goldens), checks what comes out, and times the kernels and the
+stages.
 
 Phases: B1, B2, B5, B6 (with its 10-bit planar arm), B11, B7 kernel vs
 plain; B3 (Huffman encode)
@@ -28,13 +31,18 @@ five variants); B12 (decode_jpeg's device route on gray, 4:2:0, 4:2:2,
 4:4:4 and a restart-marked 4:2:0 stream: kernels = plain = host-Huffman
 route); B13 (each single effect, the converter's 4-step chain and a
 chain longer than one launch on a 4000x3000 YUV420 frame and its
-1000x750 gain map, bitwise equal to the plain version); the main-path
-windows (API-0 round trip, handoff, goldens, API-1 encode + HDR decode,
-SDR decode, use_luts decode, general routes, converter), each with
-every launch counter zeroed just before and read just after (each
-window's kernels launched; no host Huffman call but the general routes'
-and the converter's, which Huffman-code each JPEG they generate on the
-host, as the JAX package does); stage times.
+1000x750 gain map, bitwise equal to the plain version); B19
+(restart-less Huffman encode) on the general route's base and gain
+map, encode_jpeg's 4:2:2 and 4:4:4 planes and a dense 4080x3072 batch:
+kernel = plain, finalized scans = the host coder's; B12-enc
+(encode_jpeg's restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at
+r in {1, 4, 17}: kernel = plain = the host coder with RSTn markers;
+the main-path windows (API-0 round trip, handoff, goldens, API-1 encode
++ HDR decode, SDR decode, use_luts decode, general routes, converter,
+dense content), each with every launch counter zeroed just before and
+read just after (each window's kernels launched; no host Huffman call
+in any window: the general routes and the converter code each JPEG
+they generate with B19); stage times.
 
 It needs one CUDA device and fails (exit code != 0, no result line)
 without one; nothing falls back to the CPU. It imports nothing of JAX.
@@ -64,6 +72,9 @@ GW, GH = 4000, 3000
 # crop to rows CONV_ROWS, rotate 90, mirror, resize to CONV_SIZE (w, h).
 CONV_ROWS = (376, 2624)
 CONV_SIZE = (1080, 1920)
+# The dense-content window: the side of a square of uniform noise in the
+# second frame of its batch.
+DENSE_PATCH = 256
 SEED = 0
 EXIF = b"Exif\x00\x00MM\x00\x2a\x00\x00\x00\x08\x00\x00"
 CONFIGS = (("bt2100", "hlg"), ("bt709", "pq"))
@@ -223,6 +234,45 @@ def graph_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Device milliseconds per call of fn, by CUDA kernel, from a
+    torch.profiler trace of `iters` warm calls: {kernel name: ms}, the
+    names shortened to the function's (empty when the profiler records
+    no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            key = e.key.replace("(anonymous namespace)::", "")
+            name = key.split("(")[0].split("<")[0].split("::")[-1].strip()
+            out[name or key] = out.get(name or key, 0.0) + us / 1e3 / iters
+    return out
+
+
+def log_breakdown(label: str, fn, iters: int, wall_ms: float):
+    """Log fn's device time by kernel and the device's idle share of
+    its wall time per call (`wall_ms`, synchronized)."""
+    by = device_ms_by_kernel(fn, iters)
+    if not by:
+        log(f"{label}: device time by kernel not measured (the profiler "
+            f"recorded none)")
+        return
+    busy = sum(by.values())
+    log(f"{label}: device ms per call by kernel "
+        f"{ {k: round(v, 4) for k, v in by.items()} }, busy {busy:.4f} of "
+        f"{wall_ms:.4f} ms wall (idle share {1 - busy / wall_ms:.2f})")
 
 
 def host_ms(fn, iters: int) -> float:
@@ -692,14 +742,8 @@ def b12_phase(dev, results: dict, kept: dict):
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
 
     y_np, uv_np = synth_p010(1, GH, GW, SEED + 50)
-    y8 = (y_np[0] >> 8).astype(np.uint8)
-    u8, v8 = ((uv_np[0, :, k::2] >> 8).astype(np.uint8) for k in (0, 1))
-    u2, v2 = (np.repeat(c, 2, 0) for c in (u8, v8))
-    u4, v4 = (np.repeat(c, 2, 1) for c in (u2, v2))
-    streams = {name: codec.encode_jpeg(p, 90, device=dev) for name, p in (
-        ("gray", {"y": y8}), ("4:2:0", {"y": y8, "u": u8, "v": v8}),
-        ("4:2:2", {"y": y8, "u": u2, "v": v2}),
-        ("4:4:4", {"y": y8, "u": u4, "v": v4}))}
+    streams = {name: codec.encode_jpeg(p, 90, device=dev) for name, (p, _)
+               in _yuv_variants(y_np[0], uv_np[0]).items()}
     streams["4:2:0 with restarts (4080x3072 JPEG/R primary)"] = \
         mux.extract_primary_and_gainmap(kept[CONFIGS[0]][3][0])[0]
     for name, data in streams.items():
@@ -859,10 +903,10 @@ def reset_counts():
     codec.entropy_encode.calls = codec.entropy_decode.calls = 0
 
 
-def read_counts(label: str, need, host_encodes: int = 0) -> dict:
+def read_counts(label: str, need) -> dict:
     """Read the counters after a path ran: each kernel in `need` must
-    have launched, host Huffman encoding must have run `host_encodes`
-    times (0 on the device routes) and host Huffman decoding never."""
+    have launched, and host Huffman must have coded and decoded
+    nothing."""
     import torch
 
     from libultrahdr_dev_tpu_torch.jpeg import codec
@@ -874,9 +918,7 @@ def read_counts(label: str, need, host_encodes: int = 0) -> dict:
         f"calls {host}")
     require(all(launches[k] > 0 for k in need),
             f"{label}: a kernel of the path never launched: {launches}")
-    require(host == (host_encodes, 0),
-            f"{label}: host Huffman calls {host}, expected "
-            f"({host_encodes}, 0)")
+    require(host == (0, 0), f"{label}: host Huffman calls {host}")
     return launches
 
 
@@ -921,8 +963,15 @@ def main_path(dev, smi: str):
     jr_img = jr.decode(jr_blob, OutputFormat.HDR_HLG).image
     api_blob = UhdrEncoder(dev).set_raw_image(raw, HDR_IMG).encode().data
     api_img = UhdrDecoder(dev).set_image(api_blob).decode()
+    b20, b20_md = batched.batched_encode_device_stage(y, uv, gamut, tf, 95,
+                                                      device=dev)
     counts = [read_counts(f"round trip ({time.perf_counter() - t0:.1f} s)",
                           API0_KERNELS)]
+    require(b20_md == batched.api0_metadata(tf) and all(map(
+        torch.equal, b20, batched.encode_coefs_stage(
+            batched.p010_to_device(y, dev), batched.p010_to_device(uv, dev),
+            gamut, tf, 95))),
+        "batched_encode_device_stage differs from B1 + B2 of the batch")
 
     reset_counts()
     hand = {fmt: batched.batched_decode_from_handoff(
@@ -1143,9 +1192,11 @@ def main_path_general(dev, smi: str):
     BT.709 SDR + PQ with EXIF, a Display-P3 base by encode_jpeg with its
     ICC, API-3 (HLG) from it, API-2 (HLG, the base's raw P3 planes) and
     API-4 through UhdrEncoder, API-x (HLG, BT.709)
-    through JpegR (the stable API has no API-x route), then every
-    output decoded on the card to F16, HLG and SDR. Host Huffman codes
-    each JPEG the route generates (JAX's route), none for API-4, and
+    through JpegR (the stable API has no API-x route), the P3 base again
+    with a restart interval (encode_jpeg's B12-enc), then every output
+    decoded on the card to F16, HLG and SDR. B19 codes each restart-less
+    JPEG the route generates (the JAX package Huffman-codes them on the
+    host, to the same bytes), none for API-4; host Huffman codes and
     decodes nothing."""
     import torch
 
@@ -1157,6 +1208,7 @@ def main_path_general(dev, smi: str):
     from libultrahdr_dev_tpu_torch.container import icc as icc_mod
     from libultrahdr_dev_tpu_torch.container import jfif, mux
     from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
     from libultrahdr_dev_tpu_torch.ops import gainmap as gm
     from libultrahdr_dev_tpu_torch.parallel import batched
 
@@ -1187,10 +1239,13 @@ def main_path_general(dev, smi: str):
     calls: dict = {}
     out: dict = {}
 
+    def b19_launches():
+        return de.encode_ycbcr_stream.launches + de.encode_gray_stream.launches
+
     def encode(label, fn):
-        c0 = codec.entropy_encode.calls
+        c0 = b19_launches()
         blob = fn()
-        calls[label] = codec.entropy_encode.calls - c0
+        calls[label] = b19_launches() - c0
         return blob
 
     reset_counts()
@@ -1205,6 +1260,10 @@ def main_path_general(dev, smi: str):
     base = encode("P3 base", lambda: codec.encode_jpeg(
         {k: sdr_p3.planes[k] for k in ("y", "u", "v")}, 95,
         icc=icc_mod.write_icc_profile("srgb", "p3"), device=dev))
+    rst_base = encode("P3 base, restart interval 4", lambda: codec.encode_jpeg(
+        {k: sdr_p3.planes[k] for k in ("y", "u", "v")}, 95,
+        icc=icc_mod.write_icc_profile("srgb", "p3"), restart_interval=4,
+        device=dev))
     out["API-3"] = encode("API-3", lambda: jr.encode_api3(
         hlg, base, ColorTransfer.HLG))
     out["API-2"] = encode("API-2", lambda: UhdrEncoder(dev)
@@ -1226,19 +1285,27 @@ def main_path_general(dev, smi: str):
                    for fmt in (OutputFormat.HDR_LINEAR, OutputFormat.HDR_HLG,
                                OutputFormat.SDR)}
                for k, b in out.items()}
+    rst_planes = codec.decode_jpeg(rst_base, dev).planes
+    base_planes = codec.decode_jpeg(base, dev).planes
     c = read_counts(f"general routes ({t_enc:.1f} s encode, "
                     f"{time.perf_counter() - t0 - t_enc:.1f} s decode)",
                     ("B10a", "B10b", "B10c", "B2", "B4", "B5", "B6", "B7",
-                     "B12"), host_encodes=sum(calls.values()))
-    log(f"general routes: host Huffman encodes per call {calls}")
-    require(c["B1"] == c["B3"] == c["B9"] == 0,
-            "the general routes launched B1, B3 or B9")
+                     "B12", "B12e", "B19"))
+    log(f"general routes: B19 launches per call {calls}")
+    require(c["B1"] == c["B9"] == 0, "the general routes launched B1 or B9")
+    require(c["B3"] + c["B3g"] == c["B12e"] == 1,
+            "B3 ran other than as encode_jpeg's B12-enc")
     # Two JPEGs (base and gain map) per generated encode; API-2 and API-3
-    # code the gain map alone, the P3 base is one JPEG, API-4 codes none.
+    # code the gain map alone, the P3 base is one JPEG (B12-enc codes it
+    # with restart intervals), API-4 codes none.
     want = {"API-0": 2, "API-0 UhdrEncoder": 2, "API-1": 2, "P3 base": 1,
-            "API-3": 1, "API-2": 1, "API-4": 0, "API-x": 2}
-    require(calls == want, f"host Huffman encodes per call {calls}, "
-            f"expected {want}")
+            "P3 base, restart interval 4": 0, "API-3": 1, "API-2": 1,
+            "API-4": 0, "API-x": 2}
+    require(calls == want, f"B19 launches per call {calls}, expected {want}")
+    require(b"\xff\xdd" in rst_base and b"\xff\xd0" in rst_base and all(
+        map(torch.equal, rst_planes, base_planes)),
+        "encode_jpeg with restart intervals: not the restart-less base's "
+        "planes")
     require(api0_enc == out["API-0"],
             "API-0: UhdrEncoder bytes differ from JpegR's")
 
@@ -1272,6 +1339,93 @@ def main_path_general(dev, smi: str):
             f"luminance)| {med:.4f} over {n} pixels")
         require(med <= 0.1, f"general {k}: luminance round trip off")
     return c, dict(y=y, uv=uv, base=base)
+
+
+def main_path_dense(dev, smi: str):
+    """Dense content through the entry points a user calls, in one window
+    with every launch counter and the host Huffman call counters zeroed
+    just before and read just after: a 4080x3072 batch of 2 at quality
+    100 whose second frame holds a 256x256 patch of uniform noise
+    (DENSE_PATCH; its
+    blocks pass the JAX encoder's 608-bit buffer) through
+    batched_encode_api0, and that frame with its BT.709 SDR rendition
+    through JpegR.encode_api1, each blob decoded to F16. As the JAX
+    package writes them: B3's count pass flags the batch and its write
+    pass never runs, API-0 writes the whole batch restart-less with B19
+    and hands off None, API-1 takes the general route (B10b, B10c, B2,
+    B19)."""
+    from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer, JpegR,
+                                           OutputFormat, PixelFormat,
+                                           RawImage)
+    from libultrahdr_dev_tpu_torch.container import icc as icc_mod
+    from libultrahdr_dev_tpu_torch.container import mux
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.parallel import batched
+    from libultrahdr_dev_tpu_torch.types import MAP_COMPRESS_QUALITY
+
+    y, uv = synth_p010(FRAMES, H, W, SEED + 100)
+    p = DENSE_PATCH
+    r0, c0 = H // 32 * 16, W // 32 * 16
+    ny, nuv = dense_p010(1, p, p, SEED + 101)
+    y[1, r0:r0 + p, c0:c0 + p] = ny[0]
+    uv[1, r0 // 2:(r0 + p) // 2, c0:c0 + p] = nuv[0]
+    sy, su, sv = (p[1] for p in sdr_rendition(y, uv, "bt709", dev))
+    hdr = RawImage(fmt=PixelFormat.P010, width=W, height=H,
+                   gamut=ColorGamut.BT2100, transfer=ColorTransfer.HLG,
+                   planes={"y": y[1], "uv": uv[1]})
+    sdr = RawImage(fmt=PixelFormat.YUV420, width=W, height=H,
+                   gamut=ColorGamut.BT709, planes={"y": sy, "u": su, "v": sv})
+    jr = JpegR(dev)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    blobs, handoff = batched.batched_encode_api0(
+        y, uv, gamut="bt2100", hdr_tf="hlg", quality=100, device=dev,
+        return_handoff=True)
+    api1 = jr.encode_api1(hdr, sdr, ColorTransfer.HLG, 100)
+    f16 = [jr.decode(b, OutputFormat.HDR_LINEAR).image.planes["rgba"]
+           for b in blobs + [api1]]
+    c = read_counts(f"dense content ({time.perf_counter() - t0:.1f} s)",
+                    ("B1", "B2", "B3", "B9", "B10b", "B10c", "B19", "B4",
+                     "B5", "B6"))
+    require(c["B3w"] == c["B3gw"] == 0,
+            "B3's write pass ran on content it flagged")
+    require(c["B19"] + c["B19g"] == 4 and c["B10a"] == 0,
+            f"dense content: B19 {c['B19'] + c['B19g']} launches (want 4: "
+            f"API-0's base and gain map, API-1's general route), B10a "
+            f"{c['B10a']}")
+    require(handoff is None, "dense API-0 gave a handoff")
+    require(not any(bytes([0xFF, 0xD0 + k]) in b for b in blobs + [api1]
+                    for k in range(8)), "a dense blob has restart markers")
+
+    # The host-Huffman route of the same restart-less blobs.
+    coefs = [t.cpu().numpy() for t in batched.encode_coefs_stage(
+        batched.p010_to_device(y, dev), batched.p010_to_device(uv, dev),
+        "bt2100", "hlg", 100)]
+    base_hdr = codec.yuv420_jpeg_headers(
+        W, H, 100, icc=icc_mod.write_icc_profile("srgb", "bt2100"))
+    gm_hdr = codec.gray_jpeg_headers(W // 4, H // 4, MAP_COMPRESS_QUALITY)
+    for f in range(FRAMES):
+        want = mux.append_gainmap(
+            base_hdr + codec.encode_yuv420_scan(*(a[f] for a in coefs[:3]),
+                                                W, H, 0) + b"\xff\xd9",
+            gm_hdr + codec.encode_gray_scan(coefs[3][f], 0) + b"\xff\xd9",
+            batched.api0_metadata("hlg"))
+        require(blobs[f] == want, f"dense API-0 frame {f}: bytes differ "
+                f"from the host-Huffman restart-less blob")
+    for i, (sg, label) in enumerate((("bt2100", "API-0 frame 0"),
+                                     ("bt2100", "API-0 frame 1"),
+                                     ("bt709", "API-1"))):
+        k = min(i, 1)
+        out = f16[i].view(np.float16)
+        require(out.shape == (H, W, 4) and bool(np.isfinite(out).all()),
+                f"dense {label}: bad F16 decode")
+        med, n = _median_log2(out, y[k], uv[k], "bt2100", "hlg", sg)
+        log(f"dense {label} ({len((blobs + [api1])[i])} bytes, no RSTn): "
+            f"median |log2(decoded/input luminance)| {med:.4f} over {n} "
+            f"pixels")
+        require(med <= 0.1, f"dense {label}: luminance round trip off")
+    return c
 
 
 def stage_times(dev, smi: str, inputs, blobs, handoffs, api1):
@@ -1336,6 +1490,34 @@ def stage_times(dev, smi: str, inputs, blobs, handoffs, api1):
             f"{FRAMES}, {'/'.join(k1)}, {smi})")
 
 
+def host_huffman_general(c, exif: bytes) -> bytes:
+    """The general route's JPEG/R from its device stage's blocks by the
+    host Huffman coder (the JAX package's route, codec.py:375-393): each
+    JPEG's blocks to the host in one copy, entropy.cpp, markers, mux.
+    The reference B19's route is held against and timed beside."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.container import icc as icc_mod
+    from libultrahdr_dev_tpu_torch.container import mux
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+
+    def jpeg(j, icc):
+        flat = torch.cat([t.reshape(-1) for t in j.coefs]).cpu().numpy()
+        blocks = np.split(flat.reshape(-1, 64),
+                          np.cumsum([t.shape[1] for t in j.coefs])[:-1])
+        if j.sampling is None:
+            return (codec.gray_jpeg_headers(j.width, j.height, j.quality, icc)
+                    + codec.encode_gray_scan(blocks[0], 0) + b"\xff\xd9")
+        return (codec.ycbcr_jpeg_headers(j.width, j.height, j.quality,
+                                         j.sampling, icc)
+                + codec.encode_ycbcr_scan(*blocks, *_mcus(j), j.sampling, 0)
+                + b"\xff\xd9")
+
+    return mux.append_gainmap(
+        jpeg(c.base, icc_mod.write_icc_profile("srgb", c.gamut)),
+        jpeg(c.gainmap, None), c.metadata, exif=exif)
+
+
 def stage_times_general(dev, smi: str, general: dict):
     """Warm times of the general route's stages (one 4000x3000 frame,
     API-0 BT.2100 HLG with EXIF) and of decode_jpeg's device stage on
@@ -1360,11 +1542,17 @@ def stage_times_general(dev, smi: str, general: dict):
         dd.decode_stream_device(ds, dev)
         torch.cuda.synchronize()
 
+    blob = jpegr.general_host_stage(coefs, EXIF)
+    require(host_huffman_general(coefs, EXIF) == blob,
+            "general route: B19's JPEG/R differs from the host-Huffman one")
     for k, v in {
             "encode general API-0 device (B10a+B10b+B10c+B2)":
                 host_ms(enc_dev, 5),
-            "encode general host (D2H + Huffman + mux)":
-                host_ms(lambda: jpegr.general_host_stage(coefs, EXIF), 3),
+            "encode general host (B19 + D2H of the streams + finalize + "
+            "mux)": host_ms(lambda: jpegr.general_host_stage(coefs, EXIF), 5),
+            "encode general host, host-Huffman reference (D2H of the "
+            "blocks + entropy.cpp + mux)": host_ms(
+                lambda: host_huffman_general(coefs, EXIF), 3),
             "decode_jpeg device 4:2:0 (H2D + B4 + B5)": host_ms(dec_dev, 5),
             }.items():
         log(f"stage {k}: {v:.3f} ms/frame ({GW}x{GH}, batch 1, {smi})")
@@ -1512,6 +1700,201 @@ def b13_phase(dev, results: dict):
         f"plane) = plain")
 
 
+def _b19_check(label: str, kernel, plain, host_scans):
+    """B19 kernel vs plain (stream bytes and bits equal) and each frame's
+    finalized scan vs the host coder's restart-less scan."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
+
+    got, want = kernel(), plain()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"B19 {label}: stream or bits differ from the plain version")
+    data, bits = got[0].cpu().numpy(), got[1].cpu().numpy()
+    span = de.stream_spans(bits)
+    for f, scan in enumerate(host_scans):
+        require(de.finalize_stream(data[span[f]:span[f + 1]], bits[f])
+                == scan, f"B19 {label} frame {f}: the finalized scan "
+                f"differs from the host coder's")
+    log(f"B19 {label}: {got[0].numel()} stream bytes and bits {bits.tolist()}"
+        f" = plain; finalized scans = the host coder's")
+    return got
+
+
+def _yuv_variants(y_np, uv_np):
+    """u8 planes of one P010 frame's top bits: y and the 4:2:0, 4:2:2 and
+    4:4:4 chroma planes."""
+    y8 = (y_np >> 8).astype(np.uint8)
+    u8, v8 = ((uv_np[:, k::2] >> 8).astype(np.uint8) for k in (0, 1))
+    u2, v2 = (np.repeat(c, 2, 0) for c in (u8, v8))
+    u4, v4 = (np.repeat(c, 2, 1) for c in (u2, v2))
+    return {"gray": ({"y": y8}, None),
+            "4:2:0": ({"y": y8, "u": u8, "v": v8}, (2, 2)),
+            "4:2:2": ({"y": y8, "u": u2, "v": v2}, (2, 1)),
+            "4:4:4": ({"y": y8, "u": u4, "v": v4}, (1, 1))}
+
+
+def _host_blocks(c):
+    return [t[0].cpu().numpy() for t in c.coefs]
+
+
+def _mcus(c):
+    hs, vs = c.sampling
+    return -(-c.width // (8 * hs)), -(-c.height // (8 * vs))
+
+
+def dense_p010(n: int, h: int, w: int, seed: int):
+    """Uniform noise in every P010 sample: at quality 100 every block is
+    far past the JAX encoder's 608-bit buffer."""
+    rng = np.random.default_rng(seed)
+    return ((rng.integers(0, 1024, (n, h, w)) << 6).astype(np.uint16),
+            (rng.integers(0, 1024, (n, h // 2, w)) << 6).astype(np.uint16))
+
+
+def b19_phase(dev, results: dict):
+    """B19 (restart-less Huffman encode) against its plain version and
+    the host coder (entropy.cpp, no restart interval): on the general
+    route's 4000x3000 base (4:2:0) and gain map (gray), on encode_jpeg's
+    4:2:2 and 4:4:4 blocks of the same frame, and on a dense 4080x3072
+    batch of 2 (uniform noise P010, quality 100) that B3's count pass
+    flags."""
+    from libultrahdr_dev_tpu_torch import jpegr
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 90)
+    yd, uvd = jpegr.upload_frame(y_np[0], uv_np[0], None, dev)
+    g = jpegr.general_device_stage(yd, uvd, None, "bt2100", "bt2100", "hlg",
+                                   95)
+    yz, uz, vz = g.base.coefs
+    (gz,) = g.gainmap.coefs
+    mx, my = _mcus(g.base)
+    base = _b19_check(
+        f"general base 4:2:0 ({GW}x{GH})",
+        lambda: de.encode_ycbcr_stream(yz, uz, vz, mx, my),
+        lambda: de.encode_ycbcr_stream_plain(yz, uz, vz, mx, my),
+        [codec.encode_ycbcr_scan(*_host_blocks(g.base), mx, my, (2, 2), 0)])
+    gmap = _b19_check(
+        f"general gain map ({GW // 4}x{GH // 4})",
+        lambda: de.encode_gray_stream(gz),
+        lambda: de.encode_gray_stream_plain(gz),
+        [codec.encode_gray_scan(_host_blocks(g.gainmap)[0], 0)])
+    for name, (planes, samp) in _yuv_variants(y_np[0], uv_np[0]).items():
+        if name not in ("4:2:2", "4:4:4"):
+            continue
+        c = codec.jpeg_coefs(planes, 90, device=dev)
+        cx, cy = _mcus(c)
+        _b19_check(f"encode_jpeg {name}",
+                   lambda: de.encode_ycbcr_stream(*c.coefs, cx, cy, samp),
+                   lambda: de.encode_ycbcr_stream_plain(*c.coefs, cx, cy,
+                                                        samp),
+                   [codec.encode_ycbcr_scan(*_host_blocks(c), cx, cy, samp,
+                                            0)])
+
+    def kernel():
+        return (de.encode_ycbcr_stream(yz, uz, vz, mx, my),
+                de.encode_gray_stream(gz))
+
+    def plain():
+        return (de.encode_ycbcr_stream_plain(yz, uz, vz, mx, my),
+                de.encode_gray_stream_plain(gz))
+
+    results["B19"] = dict(
+        err=0, ms=cuda_ms(kernel, 10), plain_ms=cuda_ms(plain, 2),
+        bytes=nbytes(yz, uz, vz, gz, *base, *gmap), library_ms=None)
+
+    yn, uvn = dense_p010(FRAMES, H, W, SEED + 91)
+    coefs = batched.encode_coefs_stage(batched.p010_to_device(yn, dev),
+                                       batched.p010_to_device(uvn, dev),
+                                       "bt2100", "hlg", 100)
+    dy, du, dv, dg = coefs
+    require(de.encode_ycbcr_rst_stream(dy, du, dv, W // 16, H // 16,
+                                       batched.RST_INTERVAL,
+                                       block_cap=de.BLOCK_BIT_CAP) is None,
+            "B3's count pass did not flag the dense batch")
+    host = [c.cpu().numpy() for c in coefs]
+    dense = [_b19_check(
+        f"dense {W}x{H} base, batch {FRAMES}",
+        lambda: de.encode_ycbcr_stream(dy, du, dv, W // 16, H // 16),
+        lambda: de.encode_ycbcr_stream_plain(dy, du, dv, W // 16, H // 16),
+        [codec.encode_yuv420_scan(host[0][f], host[1][f], host[2][f], W, H,
+                                  0) for f in range(FRAMES)]),
+        _b19_check(f"dense {W // 4}x{H // 4} gain map, batch {FRAMES}",
+                   lambda: de.encode_gray_stream(dg),
+                   lambda: de.encode_gray_stream_plain(dg),
+                   [codec.encode_gray_scan(host[3][f], 0)
+                    for f in range(FRAMES)])]
+    r = results["B19"]
+    r["dense_ms"] = cuda_ms(lambda: (
+        de.encode_ycbcr_stream(dy, du, dv, W // 16, H // 16),
+        de.encode_gray_stream(dg)), 5) / FRAMES
+    r["dense_bytes"] = nbytes(*coefs, *dense[0], *dense[1]) / FRAMES
+    log(f"B19 general base + gain map ({GW}x{GH}): kernel {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, {r['bytes'] / 1e6:.2f} MB; dense "
+        f"{W}x{H} q100: kernel {r['dense_ms']:.4f} ms/frame, "
+        f"{r['dense_bytes'] / 1e6:.2f} MB/frame")
+    log_breakdown(f"B19 general base + gain map ({GW}x{GH})", kernel, 10,
+                  r["ms"])
+
+
+def b12e_phase(dev, results: dict):
+    """B12-enc (encode_jpeg with restart intervals: B3 at the image's
+    sampling) on 4000x3000 gray, 4:2:0, 4:2:2 and 4:4:4 blocks at
+    r in {1, 4, 17}: the kernel's stream and chunk bits equal the plain
+    version's, and its finalized scan the host coder's with RSTn
+    markers; encode_jpeg's 4:2:0 bytes are the headers with a DRI, that
+    scan and EOI."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 95)
+    kept = {}
+    for name, (planes, samp) in _yuv_variants(y_np[0], uv_np[0]).items():
+        c = codec.jpeg_coefs(planes, 90, device=dev)
+        hb = _host_blocks(c)
+        for r in (1, 4, 17):
+            got = codec.entropy_stage(c, r)
+            if samp is None:
+                want = de.encode_gray_rst_stream_plain(c.coefs[0], r)
+                host = codec.encode_gray_scan(hb[0], r)
+            else:
+                cx, cy = _mcus(c)
+                want = de.encode_ycbcr_rst_stream_plain(*c.coefs, cx, cy, r,
+                                                        samp)
+                host = codec.encode_ycbcr_scan(*hb, cx, cy, samp, r)
+            require(torch.equal(got[0], want[0]) and
+                    torch.equal(got[1], want[1]),
+                    f"B12-enc {name} r={r}: stream or chunk bits differ "
+                    f"from the plain version")
+            require(de.finalize_rst_stream(got[0].cpu().numpy(),
+                                           got[1][0].cpu().numpy()) == host,
+                    f"B12-enc {name} r={r}: scan differs from the host "
+                    f"coder's")
+            kept[name, r] = host
+        log(f"B12-enc {name}: r = 1, 4, 17 kernel = plain = host coder "
+            f"with RSTn markers ({len(kept[name, 4])} bytes at r=4)")
+    planes, samp = _yuv_variants(y_np[0], uv_np[0])["4:2:0"]
+    blob = codec.encode_jpeg(planes, 90, restart_interval=4, device=dev)
+    require(blob == codec.ycbcr_jpeg_headers(GW, GH, 90, samp,
+                                             restart_interval=4)
+            + kept["4:2:0", 4] + b"\xff\xd9",
+            "encode_jpeg(restart_interval=4) differs from the host route")
+    c = codec.jpeg_coefs(planes, 90, device=dev)
+    cx, cy = _mcus(c)
+    out = codec.entropy_stage(c, 4)
+    results["B12e"] = dict(
+        err=0, ms=cuda_ms(lambda: codec.entropy_stage(c, 4), 10),
+        plain_ms=cuda_ms(lambda: de.encode_ycbcr_rst_stream_plain(
+            *c.coefs, cx, cy, 4, samp), 2),
+        bytes=nbytes(*c.coefs, *out), library_ms=None)
+    log_breakdown(f"B12-enc 4:2:0 r=4 ({GW}x{GH})",
+                  lambda: codec.entropy_stage(c, 4), 10,
+                  results["B12e"]["ms"])
+
+
 def main_path_converter(dev, smi: str):
     """The UltraHdr converter at 4000x3000 through the entry points a user
     calls, in one window with every launch counter and the host Huffman
@@ -1520,8 +1903,8 @@ def main_path_converter(dev, smi: str):
     added to a session and converted to a JPEG/R through the 4-step
     chain, the result decoded by UhdrDecoder to F16 with its gain-map
     image, and the session converted to YUV420, RGBA8888 and 10-bit
-    planar RGB through the same chain. Host Huffman codes the two JPEGs
-    of the one generated JPEG/R and decodes nothing."""
+    planar RGB through the same chain. B19 codes the two JPEGs of the
+    one generated JPEG/R; host Huffman codes and decodes nothing."""
     import torch
 
     from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer, JpegR,
@@ -1554,11 +1937,14 @@ def main_path_converter(dev, smi: str):
     c = read_counts(f"converter ({t_conv:.2f} s convert, "
                     f"{time.perf_counter() - t0 - t_conv:.2f} s decode and "
                     f"raw outputs)",
-                    ("B2", "B4", "B5", "B6", "B6r", "B7", "B12", "B13"),
-                    host_encodes=2)
-    require(all(c[k] == 0 for k in ("B1", "B3", "B9", "B10a", "B10b",
+                    ("B2", "B4", "B5", "B6", "B6r", "B7", "B12", "B13",
+                     "B19"))
+    require(all(c[k] == 0 for k in ("B1", "B3", "B3g", "B9", "B10a", "B10b",
                                      "B10c", "B11")),
             f"the converter launched a kernel off its path: {c}")
+    require(c["B19"] + c["B19g"] == 2,
+            f"the converter's JPEG/R took {c['B19'] + c['B19g']} B19 "
+            f"launches, not 2")
 
     info = jr.get_info(out)
     cw, ch = CONV_SIZE
@@ -1609,7 +1995,7 @@ def stage_times_converter(dev, smi: str, conv: dict):
     chain, JPEG/R out) and of its three stages, each ending
     synchronized: decode (the gain map at add_image, the base at first
     use: B12 twice), effects (B13 on SDR and gain map), encode (API-x:
-    padding, B2, D2H, host Huffman, mux)."""
+    padding, B2, B19, D2H of the streams, finalize, mux)."""
     import torch
 
     from libultrahdr_dev_tpu_torch import JpegR, UltraHdr, UltraHdrConfig
@@ -1636,7 +2022,7 @@ def stage_times_converter(dev, smi: str, conv: dict):
                 lambda: UltraHdr(dev).add_image(blob).convert(cfg), 3),
             "converter decode (B12 base + gain map)": host_ms(decode, 3),
             "converter effects (B13 x 4)": host_ms(effects, 5),
-            "converter encode (API-x: B2, D2H, host Huffman, mux)": host_ms(
+            "converter encode (API-x: B2, B19, D2H, finalize, mux)": host_ms(
                 lambda: JpegR(dev).encode_apix(sdr, gmap, s.metadata, 95,
                                                exif=s.exif), 3),
             }.items():
@@ -1646,16 +2032,19 @@ def stage_times_converter(dev, smi: str, conv: dict):
 
 API0_KERNELS = ("B1", "B2", "B3", "B3g", "B4", "B5", "B6")
 # Kernels checked and timed at the general routes' 4000x3000 frame.
-GENERAL_KERNELS = ("B10a", "B10b", "B10c", "B12", "B13")
+GENERAL_KERNELS = ("B10a", "B10b", "B10c", "B12", "B12e", "B13", "B19")
 
 
 def counters():
     """Each kernel's launch counter: name -> (wrapper, attribute). B3
-    counts its 4:2:0 and gray wrappers apart (B3, B3g); B11 is the
+    counts its YCbCr and gray wrappers apart (B3, B3g), and their write
+    passes (B3w, B3gw); B12e counts encode_jpeg's restart-interval
+    codings (each one B3 launch, counted in B3 or B3g as well); B19
+    counts its YCbCr and gray wrappers apart (B19, B19g); B11 is the
     table arm of B6's wrapper, B6r its 10-bit planar arm (counted in B6
     or B11 as well); B12 counts decode_jpeg's device-route calls (each
     one B4 and B5 launches); B13 counts edit_plane's launches."""
-    from libultrahdr_dev_tpu_torch.jpeg import dct
+    from libultrahdr_dev_tpu_torch.jpeg import codec, dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
     from libultrahdr_dev_tpu_torch.ops import editor, gainmap as gm
@@ -1664,6 +2053,8 @@ def counters():
             "B2": (dct.fdct_quant, "launches"),
             "B3": (de.encode_ycbcr_rst_stream, "launches"),
             "B3g": (de.encode_gray_rst_stream, "launches"),
+            "B3w": (de.encode_ycbcr_rst_stream, "write_launches"),
+            "B3gw": (de.encode_gray_rst_stream, "write_launches"),
             "B4": (dd.decode_rst_chunks, "launches"),
             "B5": (dct.dequant_idct, "launches"),
             "B6": (gm.apply_gainmap, "launches"),
@@ -1675,7 +2066,10 @@ def counters():
             "B10c": (gm.convert_yuv_encoding, "launches"),
             "B11": (gm.apply_gainmap, "lut_launches"),
             "B12": (dd.decode_stream_device, "launches"),
-            "B13": (editor.apply_effects, "launches")}
+            "B12e": (codec.entropy_stage, "rst_launches"),
+            "B13": (editor.apply_effects, "launches"),
+            "B19": (de.encode_ycbcr_stream, "launches"),
+            "B19g": (de.encode_gray_stream, "launches")}
 
 
 KERNELS = {
@@ -1708,8 +2102,13 @@ KERNELS = {
     "B12": ("decode_jpeg_device", "libultrahdr_dev_tpu_torch/kernels/csrc/"
             "huff_decode.cu + libultrahdr_dev_tpu_torch/kernels/csrc/dct.cu",
             "libultrahdr_dev_tpu/jpeg/device_decode.py:876"),
+    "B12e": ("huff_encode_rst_jpeg", "libultrahdr_dev_tpu_torch/kernels/"
+             "csrc/huff_encode.cu", "libultrahdr_dev_tpu/jpeg/codec.py:326"),
     "B13": ("edit_plane", "libultrahdr_dev_tpu_torch/kernels/csrc/editor.cu",
             "libultrahdr_dev_tpu/ops/editor.py:71"),
+    "B19": ("huff_encode_restartless", "libultrahdr_dev_tpu_torch/kernels/"
+            "csrc/huff_encode.cu",
+            "libultrahdr_dev_tpu/jpeg/device_entropy.py:294"),
 }
 
 
@@ -1748,6 +2147,8 @@ def main() -> int:
     phases.append(("B10", lambda: b10_phase(dev, results)))
     phases.append(("B12", lambda: b12_phase(dev, results, kept)))
     phases.append(("B13", lambda: b13_phase(dev, results)))
+    phases.append(("B19", lambda: b19_phase(dev, results)))
+    phases.append(("B12-enc", lambda: b12e_phase(dev, results)))
     for label, fn in phases:
         t = time.perf_counter()
         fn()
@@ -1774,9 +2175,14 @@ def main() -> int:
     t = time.perf_counter()
     launches3, conv = main_path_converter(dev, smi)
     log(f"phase main path converter: {time.perf_counter() - t:.1f} s")
-    launches = {k: launches[k] + launches1[k] + launches2[k] + launches3[k]
+    t = time.perf_counter()
+    launches4 = main_path_dense(dev, smi)
+    log(f"phase main path dense content: {time.perf_counter() - t:.1f} s")
+    launches = {k: sum(c[k] for c in (launches, launches1, launches2,
+                                      launches3, launches4))
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
+    launches["B19"] += launches.pop("B19g")
     stage_times(dev, smi, inputs, blobs, handoffs, (inputs1, blobs1))
     stage_times_general(dev, smi, general)
     stage_times_converter(dev, smi, conv)

@@ -21,6 +21,8 @@ version:
   B10c ops.gainmap.convert_yuv_encoding        BT.601 re-encode (general route)
   B2   jpeg.dct.fdct_quant                     fDCT + quantization + zigzag
   B3   jpeg.device_entropy.encode_*_rst_stream restart-interval Huffman encode
+       (B12-enc: encode_jpeg's restart intervals, any sampling)
+  B19  jpeg.device_entropy.encode_*_stream     restart-less Huffman encode
   B4   jpeg.device_decode.decode_rst_chunks    parallel Huffman decode
   B5   jpeg.dct.dequant_idct                   dequantization + IDCT
   B12  jpeg.device_decode.decode_stream_device plain-JPEG decode (B4 + B5)
@@ -30,13 +32,15 @@ version:
   B13  ops.editor.apply_effects                crop / mirror / rotate / resize
 
 16-aligned API-0 / API-1 encodes without EXIF take the device route (B1
-or B9, B2, B3); every other encode takes the general route, as in the
-JAX package (B10a-c, B2, then host Huffman of restart-less JPEGs). The
-host keeps the marker work: byte stuffing and RSTn markers after B3,
-parse and destuff before B4, and a host Huffman route (the port's
-jpeg/entropy.cpp, built with g++) for the general encodes and for
-streams the device decoder does not take. Entry points run on the CUDA
-device unless the caller passes device="cpu". Public surface:
+or B9, B2, B3; dense content as the JAX package writes it: API-0
+restart-less through B19, API-1 on the general route); every other
+encode takes the general route, as in the JAX package (B10a-c, B2, then
+B19 for restart-less JPEGs). The host keeps the marker work: byte
+stuffing and RSTn markers after B3 and B19, parse and destuff before
+B4, and a host Huffman decoder (the port's jpeg/entropy.cpp, built with
+g++) for streams the device decoder does not take; its encoder is the
+reference the Huffman kernels are held against. Entry points run on the
+CUDA device unless the caller passes device="cpu". Public surface:
   - api.UhdrEncoder (raw and compressed intents, EXIF) /
     api.UhdrDecoder / is_uhdr_image
   - jpegr.JpegR — encode_api0 .. encode_api4, encode_apix, decode
@@ -47,8 +51,9 @@ device unless the caller passes device="cpu". Public surface:
     RotateEffect, ResizeEffect)
   - jpeg.codec — encode_jpeg, decode_jpeg
   - parallel.batched — batched_encode_api0 / batched_encode_api1 /
-    batched_decode / batched_decode_from_handoff over a leading batch
-    dimension on one device
+    batched_encode_device_stage / batched_decode /
+    batched_decode_from_handoff over a leading batch dimension on one
+    device
 """
 
 from .api import UhdrDecoder, UhdrEncoder, is_uhdr_image  # noqa: F401

@@ -3,9 +3,13 @@ stage, and the plain-JPEG encode and decode on the device.
 
 The subset of libultrahdr_dev_tpu/jpeg/codec.py that the port runs.
 ``encode_jpeg`` encodes gray, 4:2:0, 4:2:2 or 4:4:4 planes: the edge
-padding and the fDCT (kernel B2, jpeg/dct.py) run on the device, and the
-restart-less entropy segment is Huffman-coded on the host, the JAX
-package's route as well. ``decode_jpeg`` decodes to planes: streams the
+padding, the fDCT (kernel B2, jpeg/dct.py) and the Huffman coding run
+on the device, B19 for a restart-less scan and B12-enc (B3 at any
+sampling) for one with restart intervals (jpeg/device_entropy.py); the
+host copies the coded scan back, stuffs it and writes the markers.
+The host Huffman coder (``entropy_encode``, jpeg/entropy.cpp) writes
+the same bytes and stays as the reference the kernels are held against.
+``decode_jpeg`` decodes to planes: streams the
 device decoder takes go through B4 then B5 on the device
 (jpeg/device_decode.py:decode_jpeg_device), all others through the host
 Huffman decoder then B5. Progressive, arithmetic-coded and multi-scan
@@ -23,7 +27,7 @@ import torch
 from ..container import jfif
 from ..device import resolve_device, upload
 from ..types import err
-from . import tables
+from . import device_entropy as de, tables
 from .dct import dequant_idct, fdct_quant
 from .device_decode import decode_jpeg_device
 from .native import get_lib
@@ -270,13 +274,12 @@ def encode_gray_scan(gz: np.ndarray, restart_interval: int) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# encode_jpeg: device padding and fDCT, host Huffman (codec.py:365-528).
+# encode_jpeg: padding, fDCT and Huffman coding on the device
+# (codec.py:326-528).
 # ---------------------------------------------------------------------------
 
-_QUEUED_RST = ("restart intervals in encode_jpeg (the B12 encode half) are "
-               "queued in ROADMAP.md Queue A item 11")
 _QUEUED_ARITH = ("arithmetic coding in encode_jpeg is queued in ROADMAP.md "
-                 "Queue A item 13")
+                 "Queue A item 6 (off-path formats)")
 
 
 def _align(x: int, m: int) -> int:
@@ -299,29 +302,6 @@ def _infer_sampling(y_shape, u_shape) -> tuple[int, int]:
                   f"unsupported chroma geometry {cw}x{ch} for luma "
                   f"{w}x{h} (expected 4:2:0, 4:2:2 or 4:4:4)")
     return hs, vs
-
-
-def assemble_gray_jpeg(yz: np.ndarray, w: int, h: int, quality: int,
-                       icc: bytes | None = None) -> bytes:
-    """Markers + host entropy coding of a restart-less grayscale image
-    whose zigzag coefficients (of the 8-padded plane) the device
-    computed."""
-    return (gray_jpeg_headers(w, h, quality, icc)
-            + encode_gray_scan(yz, 0) + b"\xff\xd9")
-
-
-def assemble_ycbcr_jpeg(yz: np.ndarray, uz: np.ndarray, vz: np.ndarray,
-                        w: int, h: int, quality: int,
-                        sampling: tuple[int, int] = (2, 2),
-                        icc: bytes | None = None) -> bytes:
-    """Markers + MCU interleave + host entropy coding of a restart-less
-    YCbCr image: yz covers the MCU-aligned luma plane, uz/vz the chroma
-    planes padded to cover it."""
-    hs, vs = sampling
-    mcus_x, mcus_y = -(-w // (8 * hs)), -(-h // (8 * vs))
-    return (ycbcr_jpeg_headers(w, h, quality, sampling, icc)
-            + encode_ycbcr_scan(yz, uz, vz, mcus_x, mcus_y, sampling, 0)
-            + b"\xff\xd9")
 
 
 def _edge_pad(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -395,19 +375,59 @@ def jpeg_coefs(planes: dict, quality: int,
     return JpegCoefs(w, h, quality, (hs, vs), coefs)
 
 
-def assemble_jpeg(c: JpegCoefs, icc: bytes | None = None) -> bytes:
-    """The host stage of encode_jpeg: the blocks to the host in one
-    copy, then markers, MCU interleave and restart-less Huffman coding
-    (entropy_encode), the JAX package's route for a stream without
-    restart markers (codec.py:375-393)."""
-    flat = torch.cat([t.reshape(-1) for t in c.coefs]).cpu().numpy()
-    blocks = np.split(flat.reshape(-1, 64),
-                      np.cumsum([t.shape[1] for t in c.coefs])[:-1])
+def entropy_stage(c: JpegCoefs, restart_interval: int = 0):
+    """The Huffman coding of encode_jpeg, on the blocks' device: B19
+    for a restart-less scan -> (stream bytes uint8, (1,) int64 bits);
+    with restart intervals B12-enc, B3 at the image's sampling (the JAX
+    _device_rst_entropy, codec.py:326) -> (stream bytes uint8, (1, nc)
+    int32 chunk bits). Counts its B12-enc calls on CUDA tensors in
+    ``.rst_launches``."""
     if c.sampling is None:
-        return assemble_gray_jpeg(blocks[0], c.width, c.height, c.quality,
-                                  icc)
-    return assemble_ycbcr_jpeg(*blocks, c.width, c.height, c.quality,
-                               c.sampling, icc)
+        (gz,) = c.coefs
+        if restart_interval:
+            out = de.encode_gray_rst_stream(gz, restart_interval)
+        else:
+            out = de.encode_gray_stream(gz)
+    else:
+        hs, vs = c.sampling
+        mcus = (-(-c.width // (8 * hs)), -(-c.height // (8 * vs)))
+        if restart_interval:
+            out = de.encode_ycbcr_rst_stream(*c.coefs, *mcus,
+                                             restart_interval, c.sampling)
+        else:
+            out = de.encode_ycbcr_stream(*c.coefs, *mcus, c.sampling)
+    if restart_interval and c.coefs[0].is_cuda:
+        entropy_stage.rst_launches += 1
+    return out
+
+
+entropy_stage.rst_launches = 0
+
+
+def assemble_jpeg(c: JpegCoefs, icc: bytes | None = None,
+                  restart_interval: int = 0) -> bytes:
+    """The entropy and host stages of encode_jpeg: entropy_stage, the
+    coded scan and its bit counts to the host in one copy, then the JAX
+    package's host tail (restart-less: _finalize's trim, 1-pad and
+    stuffing; with restart intervals: finalize_rst_stream's stuffing
+    and RSTn markers) and the markers (a DRI with restart intervals)."""
+    stream, bits = entropy_stage(c, restart_interval)
+    host = torch.cat([stream, bits.reshape(-1).view(torch.uint8)]
+                     ).cpu().numpy()
+    data = host[:stream.numel()]
+    b = host[stream.numel():].copy().view(
+        np.int64 if bits.dtype == torch.int64 else np.int32)
+    if restart_interval:
+        scan = de.finalize_rst_stream(data, b)
+    else:
+        scan = de.finalize_stream(data, b[0])
+    if c.sampling is None:
+        head = gray_jpeg_headers(c.width, c.height, c.quality, icc,
+                                 restart_interval)
+    else:
+        head = ycbcr_jpeg_headers(c.width, c.height, c.quality, c.sampling,
+                                  icc, restart_interval)
+    return head + scan + b"\xff\xd9"
 
 
 def encode_jpeg(planes: dict, quality: int, icc: bytes | None = None,
@@ -418,15 +438,18 @@ def encode_jpeg(planes: dict, quality: int, icc: bytes | None = None,
     arrays or tensors) to baseline JFIF, as the JAX package's
     encode_jpeg does (codec.py:479-528): chroma subsampling inferred
     from the chroma planes' shape (4:2:0, 4:2:2, 4:4:4) unless
-    `sampling` pins it, ICC as one APP2 after APP0. Tensor planes are
-    encoded on their device, numpy planes on `device`: the padding and
-    the fDCT (B2) there (jpeg_coefs), the Huffman coding of the
-    restart-less stream on the host (assemble_jpeg)."""
-    if restart_interval:
-        raise err("UHDR_CODEC_UNSUPPORTED_FEATURE", _QUEUED_RST)
+    `sampling` pins it, ICC as one APP2 after APP0, a restart marker
+    every `restart_interval` MCUs when it is not 0. Tensor planes are
+    encoded on their device, numpy planes on `device`: the padding, the
+    fDCT (B2, jpeg_coefs) and the Huffman coding (B19 or B12-enc,
+    entropy_stage) there, the stuffing and markers on the host
+    (assemble_jpeg). The JAX package Huffman-codes on the host below
+    1 MP or off an accelerator (codec.py:375-393, 429-435), a dispatch
+    rule of the TPU; its bytes are the same either way."""
     if arithmetic:
         raise err("UHDR_CODEC_UNSUPPORTED_FEATURE", _QUEUED_ARITH)
-    return assemble_jpeg(jpeg_coefs(planes, quality, sampling, device), icc)
+    return assemble_jpeg(jpeg_coefs(planes, quality, sampling, device), icc,
+                         restart_interval)
 
 
 # ---------------------------------------------------------------------------

@@ -1,29 +1,46 @@
-"""Restart-interval Huffman encode on the device: kernel B3.
+"""Huffman encode on the device: kernels B3 / B12-enc (restart
+intervals) and B19 (restart-less).
 
-The port of the production (RST) path of
-libultrahdr_dev_tpu/jpeg/device_entropy.py: ``encode_ycbcr_rst_stream``
-(4:2:0 on this path) and ``encode_gray_rst_stream`` with
-``cap_per_block=None``, plus the host tail ``finalize_rst_stream``.
+The port of libultrahdr_dev_tpu/jpeg/device_entropy.py's encoders:
+``encode_ycbcr_rst_stream`` (any luma sampling) and
+``encode_gray_rst_stream`` with ``cap_per_block=None``, plus the host
+tail ``finalize_rst_stream``; and the restart-less ``encode_yuv420_stream``
+/ ``encode_gray_stream`` (``_dc_prev_interleaved``, ``_units_for_blocks``,
+``_assemble_bits``), plus their host tail ``_finalize``
+(``finalize_stream`` here).
 
 What B3 computes, per frame of a batch: the entropy-coded scan cut
-into restart intervals of ``r_mcus`` MCUs (4:2:0: [Y0 Y1 Y2 Y3 U V]
-per MCU, the four luma blocks in 2x2 raster order; gray: one block per
-MCU), DC prediction reset at each interval (T.81 E.2.4), each interval
-packed MSB-first and 1-filled to the next 32-bit boundary, its bit
-count recorded, and the intervals laid back to back by word offset.
-Words are stored in JPEG byte order (big-endian), so the stream is a
+into restart intervals of ``r_mcus`` MCUs (YCbCr: [Y x hs*vs, U, V] per
+MCU, the luma blocks in raster order inside the MCU; gray: one block
+per MCU), DC prediction reset at each interval (T.81 E.2.4), each
+interval packed MSB-first and 1-filled to the next 32-bit boundary, its
+bit count recorded, and the intervals laid back to back by word offset.
+Its count pass also finds the longest block: the JAX encoder's
+per-block buffer holds ``BLOCK_BIT_CAP`` bits, and its batched callers
+write the whole batch restart-less when a block passes it, so a caller
+that passes ``block_cap`` gets None instead of a stream then (the write
+pass is not launched).
+
+What B19 computes, per frame: the whole scan as one MSB-first bit
+stream, DC predicted across the scan with no reset (each block from the
+previous block of its component), the frame's last word 1-filled, each
+frame starting on a word boundary, and the frame's bit count.
+
+Words are stored in JPEG byte order (big-endian), so a stream is a
 plain byte buffer: the host copy needs no byte swap and the decoder
-(B4, handoff mode) reads the chunks in place. The frames of a batch
+(B4, handoff mode) reads B3's chunks in place. The frames of a batch
 follow one another in one buffer.
 
 The MCU interleave (the JAX interleave_blocks_device) is index
-arithmetic inside the kernel: B3 reads the per-plane zigzag grids that
-B2 writes. The JAX path's TPU workarounds (select chains, log-doubling
-scans, the sort compaction and its word-cap / overflow retry ladder)
-have no counterpart: the kernel is exact for any int16 content on its
-one launch. Each wrapper runs its plain PyTorch version for CPU
-tensors and the CUDA kernel (kernels/csrc/huff_encode.cu) for CUDA
-tensors, and counts its launches in ``.launches``.
+arithmetic inside the kernels: they read the per-plane zigzag grids
+that B2 writes. The JAX path's TPU workarounds (select chains,
+log-doubling scans, the sort compaction and its word-cap / overflow
+retry ladder, the serialized scatter) have no counterpart: the kernels
+are exact for any int16 content on their one launch. Each wrapper runs
+its plain PyTorch version for CPU tensors and the CUDA kernel
+(kernels/csrc/huff_encode.cu) for CUDA tensors, and counts its
+launches in ``.launches`` (B3's write passes also in
+``.write_launches``).
 """
 
 from __future__ import annotations
@@ -33,6 +50,11 @@ import torch
 
 from ..kernels import build
 from . import tables
+
+# The JAX encoder's per-block word buffer holds (_BLOCK_WORDS - 1) * 32
+# bits; a longer block raises its overflow flag (device_entropy.py:
+# 361-372) and its batched callers fall back to restart-less JPEGs.
+BLOCK_BIT_CAP = 608
 
 
 def _build_code_table(bits, vals):
@@ -72,7 +94,7 @@ def n_chunks(n_mcus: int, r_mcus: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Plain version.
+# Plain versions.
 # ---------------------------------------------------------------------------
 
 def _bitlen(v: torch.Tensor) -> torch.Tensor:
@@ -142,9 +164,10 @@ def _units(blocks: torch.Tensor, dc_prev: torch.Tensor,
 
 
 def _assemble(vals, lens, lane, n_lanes: int):
-    """Pack units (blocks in stream order, lane = their interval) into
-    one word-aligned chunk per lane, chunks back to back: (JPEG-order
-    bytes, (n_lanes,) int32 chunk bits)."""
+    """Pack units (blocks in stream order, lane = their interval, or
+    their frame for a restart-less scan) into one word-aligned,
+    1-filled chunk per lane, chunks back to back: (JPEG-order bytes,
+    (n_lanes,) int64 chunk bits)."""
     dev = vals.device
     blen = lens.sum(dim=1)
     bits = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
@@ -176,133 +199,300 @@ def _assemble(vals, lens, lane, n_lanes: int):
     out.index_add_(0, word_off + (bits >> 5), fill)
     out = out[:total]
     be = torch.stack([(out >> s) & 0xFF for s in (24, 16, 8, 0)], dim=1)
-    return be.to(torch.uint8).reshape(-1), bits.to(torch.int32)
+    return be.to(torch.uint8).reshape(-1), bits
 
 
 def _code_tables(dev) -> torch.Tensor:
     return torch.from_numpy(CODE_TABLES).to(dev)
 
 
-def encode_ycbcr_rst_stream_plain(yz, uz, vz, mcus_x: int, mcus_y: int,
-                                  r_mcus: int):
-    """(n, 4*n_mcus, 64) luma and (n, n_mcus, 64) chroma int16 zigzag
-    grids of 4:2:0 frames (2*mcus_y x 2*mcus_x and mcus_y x mcus_x
-    blocks) -> (stream bytes uint8, (n, nc) int32 chunk bits); frame
-    f's chunks follow frame f-1's."""
-    n = yz.shape[0]
-    dev = yz.device
-    nm = mcus_x * mcus_y
-    yb = (yz.reshape(n, mcus_y, 2, mcus_x, 2, 64).permute(0, 1, 3, 2, 4, 5)
-          .reshape(n, nm, 4, 64))
-    blocks = torch.cat([yb, uz.reshape(n, nm, 1, 64),
-                        vz.reshape(n, nm, 1, 64)], dim=2).to(torch.int64)
-    dc = blocks[..., 0]                                   # (n, nm, 6)
+def _ycbcr_blocks(yz, uz, vz, mcus_x: int, mcus_y: int, sampling):
+    """MCU-interleaved blocks (n, n_mcus, hs*vs + 2, 64) int64 of
+    (n, hs*vs*n_mcus, 64) luma (mcus_y*vs x mcus_x*hs blocks) and
+    (n, n_mcus, 64) chroma grids."""
+    hs, vs = sampling
+    n, nm = yz.shape[0], mcus_x * mcus_y
+    yb = (yz.reshape(n, mcus_y, vs, mcus_x, hs, 64)
+          .permute(0, 1, 3, 2, 4, 5).reshape(n, nm, hs * vs, 64))
+    return torch.cat([yb, uz.reshape(n, nm, 1, 64),
+                      vz.reshape(n, nm, 1, 64)], dim=2).to(torch.int64)
+
+
+def _ycbcr_dc_prev(dc: torch.Tensor, ypm: int, r_mcus: int | None):
+    """Predicted DC of each block of (n, n_mcus, ypm + 2) DCs: the
+    previous block of its component in scan order, 0 at the first MCU of
+    each restart interval (r_mcus None: of the scan only)."""
     prev = torch.zeros_like(dc)
-    prev[:, :, 1:4] = dc[:, :, 0:3]
-    prev[:, 1:, 0] = dc[:, :-1, 3]
-    prev[:, 1:, 4:] = dc[:, :-1, 4:]
-    first = (torch.arange(nm, device=dev) % r_mcus) == 0
-    prev[:, first, 0] = 0
-    prev[:, first, 4:] = 0
-    nc = n_chunks(nm, r_mcus)
-    lane = ((torch.arange(n, device=dev)[:, None] * nc
-             + torch.arange(nm, device=dev)[None, :] // r_mcus)[..., None]
-            .expand(n, nm, 6).reshape(-1))
-    luma = (torch.arange(6, device=dev) < 4).expand(n, nm, 6).reshape(-1)
-    vals, lens = _units(blocks.reshape(-1, 64), prev.reshape(-1), luma,
-                        _code_tables(dev).to(torch.int64))
-    stream, bits = _assemble(vals, lens, lane, n * nc)
-    return stream, bits.reshape(n, nc)
+    prev[:, :, 1:ypm] = dc[:, :, 0:ypm - 1]
+    prev[:, 1:, 0] = dc[:, :-1, ypm - 1]
+    prev[:, 1:, ypm:] = dc[:, :-1, ypm:]
+    if r_mcus:
+        first = (torch.arange(dc.shape[1], device=dc.device) % r_mcus) == 0
+        prev[:, first, 0] = 0
+        prev[:, first, ypm:] = 0
+    return prev
 
 
-def encode_gray_rst_stream_plain(gz, r_mcus: int):
-    """(n, nblocks, 64) int16 zigzag grid in raster order, one block per
-    MCU -> (stream bytes uint8, (n, nc) int32 chunk bits)."""
+def _gray_dc_prev(blocks: torch.Tensor, r_mcus: int | None):
+    """Predicted DC of each block of (n, nb, 64) gray blocks."""
+    n, nb = blocks.shape[:2]
+    prev = torch.zeros((n, nb), dtype=torch.int64, device=blocks.device)
+    prev[:, 1:] = blocks[:, :-1, 0]
+    if r_mcus:
+        prev[:, (torch.arange(nb, device=blocks.device) % r_mcus) == 0] = 0
+    return prev
+
+
+def _encode(blocks, prev, luma, lane, n_lanes: int, block_cap):
+    """Units of (N, 64) blocks, then their chunks; None when a block is
+    longer than block_cap bits."""
+    vals, lens = _units(blocks.reshape(-1, 64), prev.reshape(-1),
+                        luma.reshape(-1),
+                        _code_tables(blocks.device).to(torch.int64))
+    if block_cap is not None and int(lens.sum(dim=1).max()) > block_cap:
+        return None
+    return _assemble(vals, lens, lane, n_lanes)
+
+
+def _ycbcr_plain(yz, uz, vz, mcus_x, mcus_y, sampling, r_mcus, block_cap):
+    blocks = _ycbcr_blocks(yz, uz, vz, mcus_x, mcus_y, sampling)
+    n, nm, bpm = blocks.shape[:3]
+    dev = blocks.device
+    prev = _ycbcr_dc_prev(blocks[..., 0], bpm - 2, r_mcus)
+    nc = n_chunks(nm, r_mcus) if r_mcus else 1
+    chunk = (torch.arange(nm, device=dev) // r_mcus if r_mcus
+             else torch.zeros(nm, dtype=torch.int64, device=dev))
+    lane = ((torch.arange(n, device=dev)[:, None] * nc + chunk[None, :])
+            [..., None].expand(n, nm, bpm).reshape(-1))
+    luma = (torch.arange(bpm, device=dev) < bpm - 2).expand(n, nm, bpm)
+    out = _encode(blocks, prev, luma, lane, n * nc, block_cap)
+    return None if out is None else (out[0], out[1].reshape(n, nc))
+
+
+def _gray_plain(gz, r_mcus, block_cap):
     n, nb = gz.shape[:2]
     dev = gz.device
     blocks = gz.to(torch.int64)
-    prev = torch.zeros((n, nb), dtype=torch.int64, device=dev)
-    prev[:, 1:] = blocks[:, :-1, 0]
-    prev[:, (torch.arange(nb, device=dev) % r_mcus) == 0] = 0
-    nc = n_chunks(nb, r_mcus)
+    nc = n_chunks(nb, r_mcus) if r_mcus else 1
+    chunk = (torch.arange(nb, device=dev) // r_mcus if r_mcus
+             else torch.zeros(nb, dtype=torch.int64, device=dev))
     lane = (torch.arange(n, device=dev)[:, None] * nc
-            + torch.arange(nb, device=dev)[None, :] // r_mcus).reshape(-1)
+            + chunk[None, :]).reshape(-1)
     luma = torch.ones(n * nb, dtype=torch.bool, device=dev)
-    vals, lens = _units(blocks.reshape(-1, 64), prev.reshape(-1), luma,
-                        _code_tables(dev).to(torch.int64))
-    stream, bits = _assemble(vals, lens, lane, n * nc)
-    return stream, bits.reshape(n, nc)
+    out = _encode(blocks, _gray_dc_prev(blocks, r_mcus), luma, lane, n * nc,
+                  block_cap)
+    return None if out is None else (out[0], out[1].reshape(n, nc))
+
+
+def encode_ycbcr_rst_stream_plain(yz, uz, vz, mcus_x: int, mcus_y: int,
+                                  r_mcus: int, sampling=(2, 2),
+                                  block_cap: int | None = None):
+    """(n, hs*vs*n_mcus, 64) luma and (n, n_mcus, 64) chroma int16
+    zigzag grids of YCbCr frames at luma sampling (hs, vs) ((2, 2)
+    4:2:0, (2, 1) 4:2:2, (1, 1) 4:4:4; mcus_y*vs x mcus_x*hs and
+    mcus_y x mcus_x blocks) -> (stream bytes uint8, (n, nc) int32 chunk
+    bits); frame f's chunks follow frame f-1's. None when block_cap is
+    given and a block of the batch is longer than block_cap bits."""
+    out = _ycbcr_plain(yz, uz, vz, mcus_x, mcus_y, sampling, r_mcus,
+                       block_cap)
+    return None if out is None else (out[0], out[1].to(torch.int32))
+
+
+def encode_gray_rst_stream_plain(gz, r_mcus: int,
+                                 block_cap: int | None = None):
+    """(n, nblocks, 64) int16 zigzag grid in raster order, one block per
+    MCU -> (stream bytes uint8, (n, nc) int32 chunk bits), or None as
+    encode_ycbcr_rst_stream_plain."""
+    out = _gray_plain(gz, r_mcus, block_cap)
+    return None if out is None else (out[0], out[1].to(torch.int32))
+
+
+def encode_ycbcr_stream_plain(yz, uz, vz, mcus_x: int, mcus_y: int,
+                              sampling=(2, 2)):
+    """B19's plain version: the grids of encode_ycbcr_rst_stream_plain
+    -> (stream bytes uint8, (n,) int64 bits), each frame's scan with no
+    restart interval, from a word boundary, its last word 1-filled."""
+    stream, bits = _ycbcr_plain(yz, uz, vz, mcus_x, mcus_y, sampling, None,
+                                None)
+    return stream, bits[:, 0]
+
+
+def encode_gray_stream_plain(gz):
+    """B19's plain version for (n, nblocks, 64) gray grids -> (stream
+    bytes uint8, (n,) int64 bits)."""
+    stream, bits = _gray_plain(gz, None, None)
+    return stream, bits[:, 0]
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def _launch(planes, n: int, nc: int, r_mcus: int, color: bool, mcus_x: int,
-            n_mcus: int):
-    """Count pass + scan, one sync for the total, then the write pass."""
+def _geometry(n: int, sampling, mcus_x: int, n_mcus: int, y, u):
+    """The kernels' geometry arguments: n, color, hs, vs, mcus_x,
+    n_mcus, blocks per frame of the first and of each chroma grid."""
+    hs, vs = sampling or (1, 1)
+    return (n, int(sampling is not None), hs, vs, mcus_x, n_mcus,
+            y.shape[1], u.shape[1])
+
+
+def _launch(wrapper, planes, nc: int, r_mcus: int, geom, block_cap):
+    """B3: count pass + scan, one sync for the total words and the
+    longest block, then the write pass (none, and None returned, when
+    a block passes block_cap)."""
     y, u, v = planes
     dev = y.device
+    n = geom[0]
     tabs = _code_tables(dev)
     bits = torch.empty((n, nc), dtype=torch.int32, device=dev)
     words = torch.empty(n * nc, dtype=torch.int32, device=dev)
-    offs = torch.empty(n * nc + 1, dtype=torch.int64, device=dev)
+    offs = torch.zeros(n * nc + 2, dtype=torch.int64, device=dev)
     lib = build.get_lib()
     stream = build.stream_of(y)
-    geom = (n, nc, r_mcus, int(color), mcus_x, n_mcus, y.shape[1],
-            u.shape[1])
+    args = (geom[0], nc, r_mcus) + geom[1:]
     build.check(lib.uhdr_huff_encode_count(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        bits.data_ptr(), words.data_ptr(), offs.data_ptr(), *geom, stream),
+        bits.data_ptr(), words.data_ptr(), offs.data_ptr(), *args, stream),
         "uhdr_huff_encode_count")
-    total = int(offs[-1])  # the one sync: size the output exactly
+    wrapper.launches += 1
+    total, longest = offs[-2:].tolist()  # the one sync
+    if block_cap is not None and longest > block_cap:
+        return None
     out = torch.empty(max(total, 1) * 4, dtype=torch.uint8, device=dev)
     build.check(lib.uhdr_huff_encode_write(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        offs.data_ptr(), out.data_ptr(), *geom, stream),
+        offs.data_ptr(), out.data_ptr(), *args, stream),
         "uhdr_huff_encode_write")
+    wrapper.write_launches += 1
     return out[:total * 4], bits
 
 
 def encode_ycbcr_rst_stream(yz, uz, vz, mcus_x: int, mcus_y: int,
-                            r_mcus: int):
-    """B3 wrapper for 4:2:0 frames: the plain version on the CPU, the
-    CUDA kernel on CUDA tensors. Same signature and result as
-    encode_ycbcr_rst_stream_plain."""
+                            r_mcus: int, sampling=(2, 2),
+                            block_cap: int | None = None):
+    """B3 (B12-enc for 4:2:2 and 4:4:4) wrapper for YCbCr frames: the
+    plain version on the CPU, the CUDA kernel on CUDA tensors. Same
+    signature and result as encode_ycbcr_rst_stream_plain."""
     if not yz.is_cuda:
         return encode_ycbcr_rst_stream_plain(yz, uz, vz, mcus_x, mcus_y,
-                                             r_mcus)
+                                             r_mcus, sampling, block_cap)
     n, nm = yz.shape[0], mcus_x * mcus_y
-    build.require(yz, "yz", torch.int16, (n, 4 * nm, 64))
+    build.require(yz, "yz", torch.int16, (n, sampling[0] * sampling[1] * nm,
+                                          64))
     build.require(uz, "uz", torch.int16, (n, nm, 64))
     build.require(vz, "vz", torch.int16, (n, nm, 64))
-    encode_ycbcr_rst_stream.launches += 1
-    return _launch((yz, uz, vz), n, n_chunks(nm, r_mcus), r_mcus, True,
-                   mcus_x, nm)
+    return _launch(encode_ycbcr_rst_stream, (yz, uz, vz),
+                   n_chunks(nm, r_mcus), r_mcus,
+                   _geometry(n, tuple(sampling), mcus_x, nm, yz, uz),
+                   block_cap)
 
 
 encode_ycbcr_rst_stream.launches = 0
+encode_ycbcr_rst_stream.write_launches = 0
 
 
-def encode_gray_rst_stream(gz, r_mcus: int):
+def encode_gray_rst_stream(gz, r_mcus: int, block_cap: int | None = None):
     """B3 wrapper for single-component frames: the plain version on
     the CPU, the CUDA kernel on CUDA tensors. Same signature and result
     as encode_gray_rst_stream_plain."""
     if not gz.is_cuda:
-        return encode_gray_rst_stream_plain(gz, r_mcus)
+        return encode_gray_rst_stream_plain(gz, r_mcus, block_cap)
     n, nb = gz.shape[:2]
     build.require(gz, "gz", torch.int16, (n, nb, 64))
-    encode_gray_rst_stream.launches += 1
-    return _launch((gz, gz, gz), n, n_chunks(nb, r_mcus), r_mcus, False,
-                   nb, nb)
+    return _launch(encode_gray_rst_stream, (gz, gz, gz),
+                   n_chunks(nb, r_mcus), r_mcus,
+                   _geometry(n, None, nb, nb, gz, gz), block_cap)
 
 
 encode_gray_rst_stream.launches = 0
+encode_gray_rst_stream.write_launches = 0
+
+
+def _launch_rl(wrapper, planes, geom):
+    """B19: count pass + per-frame scan, one sync for the frames' bits
+    and the total words, then the write pass into a zeroed buffer."""
+    y, u, v = planes
+    dev = y.device
+    n, color, hs, vs, _, n_mcus = geom[:6]
+    nb = n_mcus * (hs * vs + 2 if color else 1)
+    tabs = _code_tables(dev)
+    blen = torch.empty(n * nb, dtype=torch.int32, device=dev)
+    offs = torch.empty(n * nb, dtype=torch.int64, device=dev)
+    meta = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    lib = build.get_lib()
+    stream = build.stream_of(y)
+    build.check(lib.uhdr_huff_encode_rl_count(
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
+        blen.data_ptr(), offs.data_ptr(), meta.data_ptr(), *geom, stream),
+        "uhdr_huff_encode_rl_count")
+    wrapper.launches += 1
+    total = int(meta[n])  # the one sync: size the output exactly
+    out = torch.zeros(max(total, 1) * 4, dtype=torch.uint8, device=dev)
+    build.check(lib.uhdr_huff_encode_rl_write(
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
+        offs.data_ptr(), out.data_ptr(), *geom, stream),
+        "uhdr_huff_encode_rl_write")
+    return out[:total * 4], meta[:n]
+
+
+def encode_ycbcr_stream(yz, uz, vz, mcus_x: int, mcus_y: int,
+                        sampling=(2, 2)):
+    """B19 wrapper for YCbCr frames: the plain version on the CPU, the
+    CUDA kernel on CUDA tensors. Same signature and result as
+    encode_ycbcr_stream_plain."""
+    if not yz.is_cuda:
+        return encode_ycbcr_stream_plain(yz, uz, vz, mcus_x, mcus_y,
+                                         sampling)
+    n, nm = yz.shape[0], mcus_x * mcus_y
+    build.require(yz, "yz", torch.int16, (n, sampling[0] * sampling[1] * nm,
+                                          64))
+    build.require(uz, "uz", torch.int16, (n, nm, 64))
+    build.require(vz, "vz", torch.int16, (n, nm, 64))
+    return _launch_rl(encode_ycbcr_stream, (yz, uz, vz),
+                      _geometry(n, tuple(sampling), mcus_x, nm, yz, uz))
+
+
+encode_ycbcr_stream.launches = 0
+
+
+def encode_gray_stream(gz):
+    """B19 wrapper for single-component frames: the plain version on
+    the CPU, the CUDA kernel on CUDA tensors. Same signature and result
+    as encode_gray_stream_plain."""
+    if not gz.is_cuda:
+        return encode_gray_stream_plain(gz)
+    n, nb = gz.shape[:2]
+    build.require(gz, "gz", torch.int16, (n, nb, 64))
+    return _launch_rl(encode_gray_stream, (gz, gz, gz),
+                      _geometry(n, None, nb, nb, gz, gz))
+
+
+encode_gray_stream.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Host tail.
+# Host tails.
 # ---------------------------------------------------------------------------
+
+def stream_spans(bits: np.ndarray) -> np.ndarray:
+    """Byte offsets of each frame's scan in a B19 stream: (n + 1,)."""
+    nbytes = 4 * ((np.asarray(bits, np.int64) + 31) >> 5)
+    return np.concatenate([[0], np.cumsum(nbytes)])
+
+
+def finalize_stream(stream: np.ndarray, bits: int) -> bytes:
+    """Host tail of one frame's B19 output (the JAX _finalize): trim to
+    whole bytes, 1-pad the last byte, stuff a 0x00 after every 0xFF.
+    stream: the frame's bytes (JPEG order) from its first word on."""
+    bits = int(bits)
+    buf = np.array(np.asarray(stream, np.uint8)[:(bits + 7) // 8])
+    if bits % 8:
+        buf[-1] |= (1 << (8 - bits % 8)) - 1
+    ff = np.flatnonzero(buf == 0xFF)
+    if ff.size:
+        buf = np.insert(buf, ff + 1, 0)
+    return buf.tobytes()
+
 
 def finalize_rst_stream(stream: np.ndarray, chunk_bits: np.ndarray) -> bytes:
     """Host tail of one frame's B3 output: strip each chunk's

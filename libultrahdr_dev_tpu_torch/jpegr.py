@@ -12,12 +12,14 @@ Mirrors libultrahdr_dev_tpu/jpegr.py (reference: lib/src/jpegr.cpp):
   decode / get_info                             jpegr.cpp:624-804
 
 A 16-aligned API-0 or API-1 encode without EXIF takes the device route
-(parallel/batched.py: B1 or B9, B2, B3, restart markers every 4 MCUs);
-every other encode takes the general route, as in the JAX package: B10a
-tonemap (API-0), B10b gain map, B10c BT.601 re-encode of the base, and
-jpeg/codec.py:encode_jpeg (B2, host Huffman, no restart markers) for
-the base and the gain map. A JpegR is bound to one torch device, the
-CUDA device unless the caller names another; its kernels run there
+(parallel/batched.py: B1 or B9, B2, B3, restart markers every 4 MCUs;
+dense content as the JAX package writes it: API-0 restart-less through
+B19, API-1 on the general route); every other encode takes the general
+route, as in the JAX package: B10a tonemap (API-0), B10b gain map, B10c
+BT.601 re-encode of the base, and jpeg/codec.py:encode_jpeg (B2, then
+B19: no restart markers) for the base and the gain map. A JpegR is
+bound to one torch device, the CUDA device unless the caller names
+another; its kernels run there
 (their plain PyTorch versions on a CPU device). Outputs reach the
 caller as numpy arrays: RGBA F16 as (h, w, 4) uint16 halves,
 RGBA1010102 and RGBA8888 as (h, w) uint32 words, 10-bit planar RGB as
@@ -162,10 +164,10 @@ def general_device_stage(yd, uvd, sdr, sdr_gamut: str, hdr_gamut: str,
 
 
 def general_host_stage(c: GeneralCoefs, exif: bytes | None = None) -> bytes:
-    """The host half: the gain-map JPEG and the base JPEG with the sRGB
-    ICC of its gamut (codec.assemble_jpeg: the blocks to the host, host
-    Huffman; the JAX _compress_gainmap / _compress_base, jpegr.py:83-97),
-    then the mux with EXIF."""
+    """The rest: the gain-map JPEG and the base JPEG with the sRGB ICC
+    of its gamut (codec.assemble_jpeg: B19 on the device, the coded
+    scans to the host, stuffing and markers; the JAX _compress_gainmap /
+    _compress_base, jpegr.py:83-97), then the mux with EXIF."""
     gainmap_jpeg = codec.assemble_jpeg(c.gainmap)
     base_jpeg = codec.assemble_jpeg(
         c.base, icc_mod.write_icc_profile("srgb", c.gamut))
@@ -245,8 +247,10 @@ class JpegR:
         rendition (jpegr.cpp:250-383), validated as the JAX package
         validates them (jpegr.py:263-285). The base is the SDR, re-encoded
         to BT.601: on the device route with restart markers every 4
-        MCUs; on the general route (non-16-aligned or EXIF) B10b, B10c
-        and restart-less JPEGs."""
+        MCUs; on the general route (non-16-aligned or EXIF, or dense
+        content, which the device route refuses with OverflowError as
+        the JAX package's does, jpegr.py:283-297) B10b, B10c and
+        restart-less JPEGs."""
         _validate_p010(p010)
         _validate_tf(hdr_tf)
         _validate_quality(quality)
@@ -255,10 +259,14 @@ class JpegR:
         y, uv = (np.asarray(p010.planes[k]) for k in ("y", "uv"))
         sdr = [np.asarray(yuv420.planes[k]) for k in ("y", "u", "v")]
         if _device_route(p010, exif):
-            return batched.batched_encode_api1(
-                y[None], uv[None], *(p[None] for p in sdr),
-                sdr_gamut=sdr_gamut, hdr_gamut=hdr_gamut, hdr_tf=_TF[hdr_tf],
-                quality=quality, device=self.device)[0]
+            try:
+                return batched.batched_encode_api1(
+                    y[None], uv[None], *(p[None] for p in sdr),
+                    sdr_gamut=sdr_gamut, hdr_gamut=hdr_gamut,
+                    hdr_tf=_TF[hdr_tf], quality=quality,
+                    device=self.device)[0]
+            except OverflowError:
+                pass
         return self._encode_general(y, uv, sdr, sdr_gamut, hdr_gamut,
                                     _TF[hdr_tf], quality, exif)
 

@@ -74,12 +74,18 @@ SIGNATURES = {
     # y, u, v, 3 x (batch stride, row stride), out, n, h, w, stream
     "uhdr_yuv420_to_rgba8888": [_P] * 3 + [_L] * 6 + [_P] + [_I] * 3
                                + [_P],
-    # y, u, v, tables, bits, words, offs, n, nc, r, color, mcus_x,
+    # y, u, v, tables, bits, words, offs, n, nc, r, color, hs, vs,
+    # mcus_x, n_mcus, ny, nuv, stream
+    "uhdr_huff_encode_count": [_P] * 7 + [_I] * 10 + [_P],
+    # y, u, v, tables, offs, out, n, nc, r, color, hs, vs, mcus_x,
     # n_mcus, ny, nuv, stream
-    "uhdr_huff_encode_count": [_P] * 7 + [_I] * 8 + [_P],
-    # y, u, v, tables, offs, out, n, nc, r, color, mcus_x, n_mcus, ny,
+    "uhdr_huff_encode_write": [_P] * 6 + [_I] * 10 + [_P],
+    # y, u, v, tables, blen, offs, meta, n, color, hs, vs, mcus_x,
+    # n_mcus, ny, nuv, stream
+    "uhdr_huff_encode_rl_count": [_P] * 7 + [_I] * 8 + [_P],
+    # y, u, v, tables, offs, out, n, color, hs, vs, mcus_x, n_mcus, ny,
     # nuv, stream
-    "uhdr_huff_encode_write": [_P] * 6 + [_I] * 8 + [_P],
+    "uhdr_huff_encode_rl_write": [_P] * 6 + [_I] * 8 + [_P],
     # src, frames, lanes, tables, y, u, v, dcsum, n, n_lanes, gray, hs,
     # vs, mcus_x, mcus_y, stream
     "uhdr_huff_decode": [_P] * 8 + [_I] * 7 + [_P],

@@ -1,33 +1,60 @@
-// B3: restart-interval Huffman encode, for the port's
-// jpeg/device_entropy.py.
+// Huffman encode of baseline JPEG scans, for the port's
+// jpeg/device_entropy.py: B3 / B12-enc (restart intervals) and B19
+// (restart-less). Both code each block with the same encode_block and
+// read B2's per-plane zigzag grids; the MCU interleave is index
+// arithmetic (block_at).
 //
-// Replaces libultrahdr_dev_tpu/jpeg/device_entropy.py:
+// B3 replaces libultrahdr_dev_tpu/jpeg/device_entropy.py:
 // encode_ycbcr_rst_stream / encode_gray_rst_stream (with
 // interleave_blocks_device, _units_for_blocks, _block_word_buffers and
 // _rst_assemble) as parallel/sharding.py:_batched_encode_to_streams_rst
-// runs them, with cap_per_block=None.
+// runs them, with cap_per_block=None, and, as B12-enc, as
+// jpeg/codec.py:_device_rst_entropy runs them (_rst_kernel_ycbcr,
+// _rst_kernel_gray) for encode_jpeg.
 //
-// What it computes: one chunk per restart interval of r MCUs (4:2:0:
-// [Y0 Y1 Y2 Y3 U V] per MCU, luma in 2x2 raster order; gray: one block
-// per MCU), DC prediction reset at each interval, the Huffman code and
-// extra bits of every DC / AC / ZRL / EOB unit packed MSB-first, the
-// chunk 1-filled to the next 32-bit boundary and its bit count
-// recorded; the chunks of all frames follow one another by word offset.
-// Words are stored in JPEG byte order, so the output is a byte stream.
+// What B3 computes: one chunk per restart interval of r MCUs (YCbCr:
+// [Y x hs*vs, U, V] per MCU, luma in raster order inside the MCU; gray:
+// one block per MCU), DC prediction reset at each interval, the Huffman
+// code and extra bits of every DC / AC / ZRL / EOB unit packed
+// MSB-first, the chunk 1-filled to the next 32-bit boundary and its bit
+// count recorded; the chunks of all frames follow one another by word
+// offset. Words are stored in JPEG byte order, so the output is a byte
+// stream. The count pass also records the longest block in bits: the
+// JAX encoder's per-block buffer holds 608 (_BLOCK_BIT_CAP), and its
+// callers leave the restart route for a block longer than that.
 //
-// Design: one thread per interval, in three launches: a counting pass
-// (bits per chunk), an exclusive scan of the chunk word counts (one
-// CTA), and a write pass that re-encodes each chunk into its words. The
-// MCU interleave is index arithmetic on B2's per-plane zigzag grids.
-// There is no per-block cap and no overflow: a chunk's words are
-// written wherever the scan puts them, for any int16 content.
+// B3 design: one thread per interval, in three launches: a counting
+// pass (bits per chunk), an exclusive scan of the chunk word counts (one
+// CTA), and a write pass that re-encodes each chunk into its words.
+// There is no cap and no overflow: a chunk's words are written wherever
+// the scan puts them, for any int16 content.
 //
-// Bound: memory traffic. Per 4080x3072 frame it reads 306,048 blocks x
+// B19 replaces libultrahdr_dev_tpu/jpeg/device_entropy.py:
+// encode_yuv420_stream / encode_gray_stream (_dc_prev_interleaved,
+// _units_for_blocks, _assemble_bits) as parallel/sharding.py:
+// _batched_encode_to_streams runs them. What it computes: each frame's
+// whole scan as one MSB-first bit stream, DC predicted across the scan
+// with no reset (each block from the previous block of its component),
+// the frame's last word 1-filled, each frame starting on a word
+// boundary, and the frame's bit count. B19 design: one thread per block
+// in three launches: a counting pass (each block's bit length; its DC
+// predictor is one load of the previous same-component block), an
+// exclusive scan of the block lengths per frame in int64 (one CTA
+// looping over the frames), and a write pass in which each block writes
+// its units from its bit offset into a zeroed buffer: the words it may
+// share with its neighbours (its first and its last) by atomicOr, the
+// words inside it by plain stores (OR commutes with the byte swap).
+//
+// Bound: memory traffic. B3 per 4080x3072 frame reads 306,048 blocks x
 // 128 B = 39.2 MB of coefficients and writes ~1-2 MB, ~12 us at
-// 3.35 TB/s. A thread-serial coder with ~15k threads per frame is far
-// from that: it is latency-bound on each thread's serial bit loop and
-// reads its blocks with strided, uncoalesced loads. Making it fast
-// (a warp per interval, coalesced block loads) is later work.
+// 3.35 TB/s; B19 per 4000x3000 frame reads 282,000 blocks (36.1 MB),
+// ~11 us. Both are far from that: B3 is latency-bound on each thread's
+// serial bit loop over ~15k threads per frame; B19 runs a thread per
+// block, but each thread reads its block with 64 strided 2-byte loads,
+// and the one-CTA scans are serial per thread. On an H100 (700 W) B19's
+// scan takes half of its device time at 4000x3000 (0.39 of 0.78 ms; its
+// count and write passes 0.19 each). A multi-CTA scan, then
+// warp-cooperative block loads, are later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -39,13 +66,18 @@ constexpr int kScanThreads = 1024;
 
 struct Geometry {
   int n;       // frames
-  int nc;      // chunks (restart intervals) per frame
-  int r;       // MCUs per interval
-  int color;   // 1: 4:2:0 MCUs of six blocks; 0: one block per MCU
+  int nc;      // chunks (restart intervals) per frame (B3)
+  int r;       // MCUs per interval (B3)
+  int color;   // 1: YCbCr MCUs of hs*vs + 2 blocks; 0: one block per MCU
+  int hs, vs;  // luma sampling factors (color)
   int mcus_x;  // MCUs per row (color)
   int n_mcus;  // MCUs per frame
   int ny;      // blocks per frame of the first grid (luma or gray)
   int nuv;     // blocks per frame of each chroma grid
+
+  __device__ __forceinline__ int per_mcu() const {
+    return color ? hs * vs + 2 : 1;
+  }
 };
 
 // JPEG size category of |v|, saturated at 15 like the JAX _bitlen.
@@ -62,9 +94,35 @@ __device__ __forceinline__ uint32_t bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
+// Block `s` of MCU `m` of frame `f`, and its component (0 Y, 1 U, 2 V).
+__device__ __forceinline__ const int16_t* block_at(
+    const int16_t* __restrict__ y, const int16_t* __restrict__ u,
+    const int16_t* __restrict__ v, const Geometry& g, int f, int m, int s,
+    int* comp) {
+  if (!g.color) {
+    *comp = 0;
+    return y + ((size_t)f * g.ny + m) * 64;
+  }
+  int ypm = g.hs * g.vs;
+  if (s >= ypm) {
+    *comp = s - ypm + 1;
+    return (s == ypm ? u : v) + ((size_t)f * g.nuv + m) * 64;
+  }
+  *comp = 0;
+  int my = m / g.mcus_x, mx = m - my * g.mcus_x;
+  int by = my * g.vs + s / g.hs, bx = mx * g.hs + s % g.hs;
+  return y + ((size_t)f * g.ny + (size_t)by * g.mcus_x * g.hs + bx) * 64;
+}
+
 struct CountSink {
   long long bits = 0;
+  long long mark = 0;
+  int max_block = 0;  // longest block so far, in bits
   __device__ __forceinline__ void put(uint32_t, int len) { bits += len; }
+  __device__ __forceinline__ void end_block() {
+    max_block = max(max_block, (int)(bits - mark));
+    mark = bits;
+  }
 };
 
 // MSB-first bit writer into 32-bit words in JPEG byte order.
@@ -83,11 +141,54 @@ struct WriteSink {
     }
   }
 
+  __device__ __forceinline__ void end_block() {}
+
   // 1-fill the last partial word (pad bits before RSTn, T.81 B.1.1.2).
   __device__ __forceinline__ void finish() {
     if (n > 0) {
       uint32_t w = (uint32_t)(acc << (32 - n)) | ((1u << (32 - n)) - 1);
       *out++ = bswap32(w);
+    }
+  }
+};
+
+// B19's writer: starts `bit` bits into a zeroed word buffer; the first
+// and the last word a block touches may hold a neighbour's bits too.
+struct SharedWordSink {
+  uint32_t* out;
+  long long w;                 // word the pending bits go to
+  unsigned long long acc = 0;  // pending bits in the low `n` bits
+  int n;
+  bool first = true;
+
+  __device__ __forceinline__ SharedWordSink(uint32_t* o, long long bit)
+      : out(o), w(bit >> 5), n((int)(bit & 31)) {}
+
+  __device__ __forceinline__ void put(uint32_t v, int len) {
+    if (len == 0) return;
+    acc = (acc << len) | (v & (uint32_t)((1ull << len) - 1));
+    n += len;
+    if (n >= 32) {
+      n -= 32;
+      uint32_t word = bswap32((uint32_t)(acc >> n));
+      if (first) {
+        atomicOr(out + w, word);
+        first = false;
+      } else {
+        out[w] = word;
+      }
+      ++w;
+    }
+  }
+
+  __device__ __forceinline__ void end_block() {}
+
+  // The partial last word; the frame's last block 1-fills it.
+  __device__ __forceinline__ void finish(bool fill) {
+    if (n > 0) {
+      uint32_t word = (uint32_t)(acc << (32 - n));
+      if (fill) word |= (1u << (32 - n)) - 1;
+      atomicOr(out + w, bswap32(word));
     }
   }
 };
@@ -122,6 +223,7 @@ __device__ void encode_block(const int16_t* __restrict__ blk, int pred,
     uint32_t z = ac_t[0];
     sink.put(z >> 5, (int)(z & 31));
   }
+  sink.end_block();
 }
 
 // Encodes chunk c of frame f. tab: [DC luma, AC luma, DC chroma,
@@ -134,35 +236,16 @@ __device__ void encode_chunk(const int16_t* __restrict__ y,
                              int c, Sink& sink) {
   int m0 = c * g.r;
   int m1 = min(m0 + g.r, g.n_mcus);
-  if (!g.color) {
-    const int16_t* base = y + (size_t)f * g.ny * 64;
-    int pred = 0;
-    for (int m = m0; m < m1; ++m) {
-      const int16_t* b = base + (size_t)m * 64;
-      encode_block(b, pred, tab, tab + 256, sink);
-      pred = b[0];
-    }
-    return;
-  }
-  const int16_t* yb = y + (size_t)f * g.ny * 64;
-  const int16_t* ub = u + (size_t)f * g.nuv * 64;
-  const int16_t* vb = v + (size_t)f * g.nuv * 64;
-  int bw = 2 * g.mcus_x;
-  int py = 0, pu = 0, pv = 0;
+  int bpm = g.per_mcu();
+  int pred[3] = {0, 0, 0};
   for (int m = m0; m < m1; ++m) {
-    int my = m / g.mcus_x, mx = m - my * g.mcus_x;
-    for (int slot = 0; slot < 4; ++slot) {
-      int by = 2 * my + (slot >> 1), bx = 2 * mx + (slot & 1);
-      const int16_t* b = yb + ((size_t)by * bw + bx) * 64;
-      encode_block(b, py, tab, tab + 256, sink);
-      py = b[0];
+    for (int s = 0; s < bpm; ++s) {
+      int comp;
+      const int16_t* b = block_at(y, u, v, g, f, m, s, &comp);
+      const uint32_t* t = comp ? tab + 512 : tab;
+      encode_block(b, pred[comp], t, t + 256, sink);
+      pred[comp] = b[0];
     }
-    const int16_t* bu = ub + (size_t)m * 64;
-    encode_block(bu, pu, tab + 512, tab + 768, sink);
-    pu = bu[0];
-    const int16_t* bv = vb + (size_t)m * 64;
-    encode_block(bv, pv, tab + 512, tab + 768, sink);
-    pv = bv[0];
   }
 }
 
@@ -173,12 +256,14 @@ __device__ void load_tables(const int32_t* __restrict__ tables,
   __syncthreads();
 }
 
+// offs[n * nc + 1] (zeroed by the caller) receives the longest block.
 __global__ void count_kernel(const int16_t* __restrict__ y,
                              const int16_t* __restrict__ u,
                              const int16_t* __restrict__ v,
                              const int32_t* __restrict__ tables,
                              int32_t* __restrict__ bits,
-                             int32_t* __restrict__ words, Geometry g) {
+                             int32_t* __restrict__ words,
+                             long long* __restrict__ offs, Geometry g) {
   __shared__ uint32_t tab[4 * 256];
   load_tables(tables, tab);
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -187,6 +272,8 @@ __global__ void count_kernel(const int16_t* __restrict__ y,
   encode_chunk(y, u, v, tab, g, lane / g.nc, lane % g.nc, sink);
   bits[lane] = (int32_t)sink.bits;
   words[lane] = (int32_t)((sink.bits + 31) >> 5);
+  atomicMax((unsigned long long*)(offs + g.n * g.nc + 1),
+            (unsigned long long)sink.max_block);
 }
 
 // Exclusive scan of words[0..n) into offs[0..n], offs[n] = total, in one
@@ -232,13 +319,119 @@ __global__ void write_kernel(const int16_t* __restrict__ y,
   sink.finish();
 }
 
-Geometry make_geometry(int n, int nc, int r, int color, int mcus_x,
-                       int n_mcus, int ny, int nuv) {
+// ---------------------------------------------------------------------------
+// B19: restart-less scans, one thread per block.
+// ---------------------------------------------------------------------------
+
+// Block i (in scan order) of frame f, its component and its DC
+// predictor: the previous block of the same component, 0 for the first.
+__device__ __forceinline__ const int16_t* scan_block(
+    const int16_t* __restrict__ y, const int16_t* __restrict__ u,
+    const int16_t* __restrict__ v, const Geometry& g, int f, int i,
+    int* comp, int* pred) {
+  int bpm = g.per_mcu();
+  int m = i / bpm, s = i - m * bpm;
+  const int16_t* b = block_at(y, u, v, g, f, m, s, comp);
+  int pc;
+  const int16_t* p = nullptr;
+  if (*comp == 0 && s > 0) {
+    p = block_at(y, u, v, g, f, m, s - 1, &pc);
+  } else if (m > 0) {
+    // Luma: the previous MCU's last luma block; chroma: its own.
+    p = block_at(y, u, v, g, f, m - 1, *comp ? s : bpm - (g.color ? 3 : 1),
+                 &pc);
+  }
+  *pred = p ? p[0] : 0;
+  return b;
+}
+
+__global__ void rl_count_kernel(const int16_t* __restrict__ y,
+                                const int16_t* __restrict__ u,
+                                const int16_t* __restrict__ v,
+                                const int32_t* __restrict__ tables,
+                                int32_t* __restrict__ blen, Geometry g) {
+  __shared__ uint32_t tab[4 * 256];
+  load_tables(tables, tab);
+  long long nb = (long long)g.n_mcus * g.per_mcu();
+  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= g.n * nb) return;
+  int comp, pred;
+  const int16_t* b = scan_block(y, u, v, g, (int)(lane / nb),
+                                (int)(lane % nb), &comp, &pred);
+  const uint32_t* t = comp ? tab + 512 : tab;
+  CountSink sink;
+  encode_block(b, pred, t, t + 256, sink);
+  blen[lane] = (int32_t)sink.bits;
+}
+
+// Per frame, the exclusive scan of its nb block lengths into global bit
+// offsets offs[f * nb + i]; each frame starts on a word boundary. meta[f]
+// = frame f's bits, meta[n] = the total words. One CTA, frame by frame.
+__global__ void rl_scan_kernel(const int32_t* __restrict__ blen,
+                               long long* __restrict__ offs,
+                               long long* __restrict__ meta, int n,
+                               int nb) {
+  __shared__ long long part[kScanThreads];
+  int t = threadIdx.x;
+  int per = (nb + kScanThreads - 1) / kScanThreads;
+  int lo = min(t * per, nb), hi = min(lo + per, nb);
+  long long base = 0;
+  for (int f = 0; f < n; ++f) {
+    const int32_t* len = blen + (size_t)f * nb;
+    long long* off = offs + (size_t)f * nb;
+    long long s = 0;
+    for (int i = lo; i < hi; ++i) s += len[i];
+    part[t] = s;
+    __syncthreads();
+    for (int d = 1; d < kScanThreads; d <<= 1) {
+      long long add = t >= d ? part[t - d] : 0;
+      __syncthreads();
+      part[t] += add;
+      __syncthreads();
+    }
+    long long run = base + part[t] - s;
+    for (int i = lo; i < hi; ++i) {
+      off[i] = run;
+      run += len[i];
+    }
+    long long total = part[kScanThreads - 1];
+    if (t == 0) meta[f] = total;
+    base += (total + 31) & ~31ll;
+    __syncthreads();  // part[] is rewritten for the next frame
+  }
+  if (t == 0) meta[n] = base >> 5;
+}
+
+__global__ void rl_write_kernel(const int16_t* __restrict__ y,
+                                const int16_t* __restrict__ u,
+                                const int16_t* __restrict__ v,
+                                const int32_t* __restrict__ tables,
+                                const long long* __restrict__ offs,
+                                uint32_t* __restrict__ out, Geometry g) {
+  __shared__ uint32_t tab[4 * 256];
+  load_tables(tables, tab);
+  long long nb = (long long)g.n_mcus * g.per_mcu();
+  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= g.n * nb) return;
+  int i = (int)(lane % nb);
+  int comp, pred;
+  const int16_t* b = scan_block(y, u, v, g, (int)(lane / nb), i, &comp,
+                                &pred);
+  const uint32_t* t = comp ? tab + 512 : tab;
+  SharedWordSink sink(out, offs[lane]);
+  encode_block(b, pred, t, t + 256, sink);
+  sink.finish(i == nb - 1);
+}
+
+Geometry make_geometry(int n, int nc, int r, int color, int hs, int vs,
+                       int mcus_x, int n_mcus, int ny, int nuv) {
   Geometry g;
   g.n = n;
   g.nc = nc;
   g.r = r;
   g.color = color;
+  g.hs = hs;
+  g.vs = vs;
   g.mcus_x = mcus_x;
   g.n_mcus = n_mcus;
   g.ny = ny;
@@ -253,19 +446,22 @@ extern "C" {
 // y, u, v: int16 zigzag grids (n, ny, 64) / (n, nuv, 64) (gray: pass the
 // one grid three times); tables: int32 [4][256] (code << 5) | size;
 // bits: int32 (n * nc) chunk bit counts; words: int32 (n * nc) scratch;
-// offs: int64 (n * nc + 1) word offsets, the last one the total. Counts
-// and scans; the caller reads offs[n * nc] to size the output.
+// offs: int64 (n * nc + 2), zeroed: word offsets, offs[n * nc] the total
+// words, offs[n * nc + 1] the longest block in bits. Counts and scans;
+// the caller reads the last two to size the output.
 int uhdr_huff_encode_count(const void* y, const void* u, const void* v,
                            const void* tables, void* bits, void* words,
                            void* offs, int n, int nc, int r, int color,
-                           int mcus_x, int n_mcus, int ny, int nuv,
-                           void* stream) {
-  Geometry g = make_geometry(n, nc, r, color, mcus_x, n_mcus, ny, nuv);
+                           int hs, int vs, int mcus_x, int n_mcus, int ny,
+                           int nuv, void* stream) {
+  Geometry g = make_geometry(n, nc, r, color, hs, vs, mcus_x, n_mcus, ny,
+                             nuv);
   cudaStream_t s = (cudaStream_t)stream;
   int lanes = n * nc;
   count_kernel<<<(lanes + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       (const int16_t*)y, (const int16_t*)u, (const int16_t*)v,
-      (const int32_t*)tables, (int32_t*)bits, (int32_t*)words, g);
+      (const int32_t*)tables, (int32_t*)bits, (int32_t*)words,
+      (long long*)offs, g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   scan_kernel<<<1, kScanThreads, 0, s>>>((const int32_t*)words,
@@ -276,12 +472,55 @@ int uhdr_huff_encode_count(const void* y, const void* u, const void* v,
 // out: uint32 words (offs[n * nc] of them), JPEG byte order.
 int uhdr_huff_encode_write(const void* y, const void* u, const void* v,
                            const void* tables, const void* offs, void* out,
-                           int n, int nc, int r, int color, int mcus_x,
-                           int n_mcus, int ny, int nuv, void* stream) {
-  Geometry g = make_geometry(n, nc, r, color, mcus_x, n_mcus, ny, nuv);
+                           int n, int nc, int r, int color, int hs, int vs,
+                           int mcus_x, int n_mcus, int ny, int nuv,
+                           void* stream) {
+  Geometry g = make_geometry(n, nc, r, color, hs, vs, mcus_x, n_mcus, ny,
+                             nuv);
   int lanes = n * nc;
   write_kernel<<<(lanes + kThreads - 1) / kThreads, kThreads, 0,
                  (cudaStream_t)stream>>>(
+      (const int16_t*)y, (const int16_t*)u, (const int16_t*)v,
+      (const int32_t*)tables, (const long long*)offs, (uint32_t*)out, g);
+  return (int)cudaGetLastError();
+}
+
+// B19. y, u, v, tables as above; blen: int32 (n * nb) scratch, nb =
+// n_mcus * blocks per MCU; offs: int64 (n * nb) bit offsets; meta: int64
+// (n + 1), each frame's bits then the total words. Counts and scans; the
+// caller reads meta to size the output.
+int uhdr_huff_encode_rl_count(const void* y, const void* u, const void* v,
+                              const void* tables, void* blen, void* offs,
+                              void* meta, int n, int color, int hs, int vs,
+                              int mcus_x, int n_mcus, int ny, int nuv,
+                              void* stream) {
+  Geometry g = make_geometry(n, 0, 0, color, hs, vs, mcus_x, n_mcus, ny,
+                             nuv);
+  cudaStream_t s = (cudaStream_t)stream;
+  int nb = n_mcus * (color ? hs * vs + 2 : 1);
+  long long lanes = (long long)n * nb;
+  rl_count_kernel<<<(unsigned)((lanes + kThreads - 1) / kThreads), kThreads,
+                    0, s>>>((const int16_t*)y, (const int16_t*)u,
+                            (const int16_t*)v, (const int32_t*)tables,
+                            (int32_t*)blen, g);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rl_scan_kernel<<<1, kScanThreads, 0, s>>>(
+      (const int32_t*)blen, (long long*)offs, (long long*)meta, n, nb);
+  return (int)cudaGetLastError();
+}
+
+// out: uint32 words (meta[n] of them), zeroed, JPEG byte order.
+int uhdr_huff_encode_rl_write(const void* y, const void* u, const void* v,
+                              const void* tables, const void* offs,
+                              void* out, int n, int color, int hs, int vs,
+                              int mcus_x, int n_mcus, int ny, int nuv,
+                              void* stream) {
+  Geometry g = make_geometry(n, 0, 0, color, hs, vs, mcus_x, n_mcus, ny,
+                             nuv);
+  long long lanes = (long long)n * n_mcus * (color ? hs * vs + 2 : 1);
+  rl_write_kernel<<<(unsigned)((lanes + kThreads - 1) / kThreads), kThreads,
+                    0, (cudaStream_t)stream>>>(
       (const int16_t*)y, (const int16_t*)u, (const int16_t*)v,
       (const int32_t*)tables, (const long long*)offs, (uint32_t*)out, g);
   return (int)cudaGetLastError();

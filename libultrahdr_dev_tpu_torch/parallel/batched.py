@@ -13,7 +13,13 @@ chip_smoke.py) can time them apart:
   (jpeg/device_entropy.py, restart-interval Huffman encode) over the
   batch; ``assemble_api0`` copies the streams to the host in one
   transfer, inserts byte stuffing and RSTn markers, and writes headers,
-  ICC and the JPEG/R mux.
+  ICC and the JPEG/R mux. Dense content (a block longer than the JAX
+  encoder's 608-bit buffer, B3's count pass tells) takes the JAX
+  package's fallback: API-0 writes the whole batch restart-less with
+  B19 (``assemble_api0_restartless``) and gives no handoff; API-1
+  raises OverflowError, and JpegR.encode_api1 takes the general route.
+  ``batched_encode_device_stage`` (B20 of the JAX package) is B1 then
+  B2 alone, with the gain map's metadata.
 - decode: ``decode_host_stage`` splits each blob, parses its markers
   and destuffs its entropy segments; ``decode_device_stage`` uploads the
   batch in one transfer and runs B4 (jpeg/device_decode.py, parallel
@@ -121,33 +127,55 @@ class DeviceStreams:
     gm_bits: torch.Tensor
 
 
-def _streams(coefs, w: int, h: int) -> DeviceStreams:
-    """B3 over a batch's coefficients."""
+def _streams(coefs, w: int, h: int) -> DeviceStreams | None:
+    """B3 over a batch's coefficients, the base first; None, with no
+    write pass launched after the flagged count pass, when a block of
+    the batch passes the JAX encoder's buffer (de.BLOCK_BIT_CAP)."""
     yz, uz, vz, gz = coefs
-    base, base_bits = de.encode_ycbcr_rst_stream(yz, uz, vz, w // 16,
-                                                 h // 16, RST_INTERVAL)
-    gm, gm_bits = de.encode_gray_rst_stream(gz, RST_INTERVAL)
-    return DeviceStreams(w, h, base, base_bits, gm, gm_bits)
+    base = de.encode_ycbcr_rst_stream(yz, uz, vz, w // 16, h // 16,
+                                      RST_INTERVAL,
+                                      block_cap=de.BLOCK_BIT_CAP)
+    if base is None:
+        return None
+    gm = de.encode_gray_rst_stream(gz, RST_INTERVAL,
+                                   block_cap=de.BLOCK_BIT_CAP)
+    return None if gm is None else DeviceStreams(w, h, *base, *gm)
 
 
 def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
                         gamut: str, hdr_tf: str,
-                        quality: int) -> DeviceStreams:
+                        quality: int) -> DeviceStreams | None:
     """B1, B2 and B3 over a batch (see encode_coefs_stage for the
     inputs): the restart-interval entropy streams of every base image
-    and gain map, on the device."""
+    and gain map, on the device; None for dense content (_streams)."""
     _, h, w = y_p010.shape
     return _streams(encode_coefs_stage(y_p010, uv_p010, gamut, hdr_tf,
                                        quality), w, h)
+
+
+def batched_encode_device_stage(y_batch: np.ndarray, uv_batch: np.ndarray,
+                                gamut: str = "bt2100", hdr_tf: str = "hlg",
+                                base_quality: int = 95, device="cuda"):
+    """The device stage of API-0 for a batch of same-size P010 frames
+    (the JAX sharding.batched_encode_device_stage, kernel B20 there):
+    uint16 (n, h, w) and (n, h/2, w) planes, uploaded to `device`,
+    through B1 and B2 -> ((y, u, v, gain map) zigzag coefficient
+    blocks, each (n, nblocks, 64) int16 on the device; the gain map's
+    metadata)."""
+    dev = resolve_device(device)
+    return (encode_coefs_stage(p010_to_device(y_batch, dev),
+                               p010_to_device(uv_batch, dev), gamut, hdr_tf,
+                               base_quality), api0_metadata(hdr_tf))
 
 
 def encode_device_stage_api1(y_p010: torch.Tensor, uv_p010: torch.Tensor,
                              sdr_y: torch.Tensor, sdr_u: torch.Tensor,
                              sdr_v: torch.Tensor, sdr_gamut: str,
                              hdr_gamut: str, hdr_tf: str,
-                             quality: int) -> DeviceStreams:
+                             quality: int) -> DeviceStreams | None:
     """B9, B2 and B3 over a batch (see encode_coefs_stage_api1 for the
-    inputs): the entropy streams, on the device."""
+    inputs): the entropy streams, on the device; None for dense
+    content."""
     _, h, w = y_p010.shape
     return _streams(encode_coefs_stage_api1(
         y_p010, uv_p010, sdr_y, sdr_u, sdr_v, sdr_gamut, hdr_gamut, hdr_tf,
@@ -236,6 +264,37 @@ def assemble_api0_host_huffman(coefs, width: int, height: int, gamut: str,
     return out
 
 
+def assemble_api0_restartless(coefs, width: int, height: int, gamut: str,
+                              hdr_tf: str, quality: int) -> list[bytes]:
+    """The dense-content route of API-0 (the JAX scatter fallback,
+    sharding.py:861-898): B19 over the batch's base images and gain
+    maps, the streams and bit counts to the host in one copy, then per
+    frame the restart-less tail (finalize_stream), headers without DRI,
+    ICC and the JPEG/R mux."""
+    yz, uz, vz, gz = coefs
+    base, base_bits = de.encode_ycbcr_stream(yz, uz, vz, width // 16,
+                                             height // 16)
+    gm, gm_bits = de.encode_gray_stream(gz)
+    nb, ng, n = base.numel(), gm.numel(), base_bits.numel()
+    host = torch.cat([base, gm, base_bits.view(torch.uint8),
+                      gm_bits.view(torch.uint8)]).cpu().numpy()
+    bits = host[nb + ng:].copy().view(np.int64)
+    bspan, gspan = de.stream_spans(bits[:n]), de.stream_spans(bits[n:])
+    icc = icc_mod.write_icc_profile("srgb", gamut)
+    base_hdr = codec.yuv420_jpeg_headers(width, height, quality, icc=icc)
+    gm_hdr = codec.gray_jpeg_headers(width // 4, height // 4,
+                                     MAP_COMPRESS_QUALITY)
+    metadata = api0_metadata(hdr_tf)
+    out = []
+    for i in range(n):
+        b = de.finalize_stream(host[bspan[i]:bspan[i + 1]], bits[i])
+        g = de.finalize_stream(host[nb + gspan[i]:nb + gspan[i + 1]],
+                               bits[n + i])
+        out.append(mux.append_gainmap(base_hdr + b + b"\xff\xd9",
+                                      gm_hdr + g + b"\xff\xd9", metadata))
+    return out
+
+
 def batched_encode_api0(y_batch: np.ndarray, uv_batch: np.ndarray,
                         gamut: str = "bt2100", hdr_tf: str = "hlg",
                         quality: int = 95, device="cuda",
@@ -243,12 +302,20 @@ def batched_encode_api0(y_batch: np.ndarray, uv_batch: np.ndarray,
     """API-0 encode of a batch of same-size P010 frames: uint16
     (n, h, w) luma and (n, h/2, w) interleaved CbCr, h and w multiples
     of 16. Returns one JPEG/R blob per frame; with return_handoff, also
-    a DeviceEncodedBatch for batched_decode_from_handoff."""
+    a DeviceEncodedBatch for batched_decode_from_handoff. Dense content
+    writes the whole batch restart-less (assemble_api0_restartless) and
+    hands off None, as the JAX package does."""
     dev = resolve_device(device)
     _check_aligned(y_batch.shape)
-    streams = encode_device_stage(p010_to_device(y_batch, dev),
-                                  p010_to_device(uv_batch, dev), gamut,
-                                  hdr_tf, quality)
+    _, h, w = y_batch.shape
+    coefs = encode_coefs_stage(p010_to_device(y_batch, dev),
+                               p010_to_device(uv_batch, dev), gamut, hdr_tf,
+                               quality)
+    streams = _streams(coefs, w, h)
+    if streams is None:
+        blobs = assemble_api0_restartless(coefs, w, h, gamut, hdr_tf,
+                                          quality)
+        return (blobs, None) if return_handoff else blobs
     return _finish_encode(streams, gamut, hdr_tf, quality, return_handoff)
 
 
@@ -280,7 +347,10 @@ def batched_encode_api1(p010_y_batch: np.ndarray, p010_uv_batch: np.ndarray,
     and the SDR rendition as uint8 YUV420 planes (n, h, w) and
     (n, h/2, w/2) in `sdr_gamut`'s YUV encoding, h and w multiples of
     16. All five planes go to the device in one copy. Returns one JPEG/R
-    blob per frame; with return_handoff, also a DeviceEncodedBatch."""
+    blob per frame; with return_handoff, also a DeviceEncodedBatch.
+    Raises OverflowError for dense content, as the JAX package does
+    (sharding.py:688-694); JpegR.encode_api1 then takes the general
+    route."""
     dev = resolve_device(device)
     _check_aligned(p010_y_batch.shape)
     planes = _upload([np.ascontiguousarray(p010_y_batch, np.uint16)
@@ -292,6 +362,9 @@ def batched_encode_api1(p010_y_batch: np.ndarray, p010_uv_batch: np.ndarray,
                      dev)
     streams = encode_device_stage_api1(*planes, sdr_gamut, hdr_gamut,
                                        hdr_tf, quality)
+    if streams is None:
+        raise OverflowError("dense content: a block passes the JAX "
+                            "encoder's 608-bit buffer")
     return _finish_encode(streams, sdr_gamut, hdr_tf, quality,
                           return_handoff)
 

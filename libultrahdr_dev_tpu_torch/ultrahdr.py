@@ -12,12 +12,15 @@ Planes live on the session's torch device (the CUDA device unless the
 caller passes another): a JPEG or JPEG/R is decoded there
 (jpeg/codec.py:decode_jpeg, B4 + B5), a P010 frame is tone-mapped and
 its gain map generated there (B10a, B10b), effects run there (B13,
-ops/editor.py), and encodes start there (B2, then host Huffman and the
-mux: JpegR.encode_apix, codec.encode_jpeg). Raw outputs are computed
-there (B6 / B11 for HDR, B7 for RGBA8888) and reach the caller as numpy
-arrays. Planes a caller passes as numpy arrays are uploaded on first
-use; API-1 and API-2 without effects take the session's SDR as the JAX
-JpegR takes it, on the host.
+ops/editor.py), and encodes run there (B2 and B19, then the host's
+stuffing, markers and mux: JpegR.encode_apix, codec.encode_jpeg). Raw
+outputs are computed there (B6 / B11 for HDR, B7 for RGBA8888) and
+reach the caller as numpy arrays. What the session derives itself
+(decodes, tone maps, gain maps) stays on the device as tensors; planes
+a caller passes as numpy arrays are read again by each convert and
+convert_to_raw, as the JAX session reads them, and uploaded once per
+call; API-1 and API-2 without effects take the session's SDR as the
+JAX JpegR takes it, on the host.
 
 HEIC / AVIF input and output (the JAX package's HeifR arms) raise
 UHDR_CODEC_UNSUPPORTED_FEATURE: they are queued in ROADMAP.md Queue A
@@ -148,7 +151,10 @@ class UltraHdr:
     # ------------------------------------------------------------------
 
     def _cached(self, key, src, make):
-        """make(src), kept while the session's `key` is still `src`."""
+        """make(src), kept while the session's `key` is still `src`,
+        within one convert or convert_to_raw call: each call starts with
+        an empty cache, so a caller's planes edited in place between
+        calls are read again."""
         hit = self._dev_cache.get(key)
         if hit is None or hit[0] is not src:
             hit = (src, make(src))
@@ -230,6 +236,7 @@ class UltraHdr:
     # ------------------------------------------------------------------
 
     def convert(self, config: UltraHdrConfig) -> bytes:
+        self._dev_cache.clear()
         if config.output_codec == "jpeg":
             return self._convert_to_jpeg(config)
         if config.output_codec == "jpeg_r":
@@ -257,6 +264,7 @@ class UltraHdr:
           RGBA8888/SDR  - SDR rendition + effects, packed (B7)
           F16/1010102/10-bit planar - gain-map reconstruction (B6 / B11)
         """
+        self._dev_cache.clear()
         fmt = config.output_pixel_format
         if fmt == PixelFormat.P010:
             if self.hdr_raw is None:

@@ -235,3 +235,42 @@ def test_b9_wrapper_runs_plain_on_cpu():
     with pytest.raises(ValueError):
         tgm.encode_front_api1(*args[:2], args[2][:, :16], *args[3:], "p3",
                               "bt2100", "pq")
+
+
+def test_dense_api1_takes_the_general_route_as_jax():
+    """Dense content: batched_encode_api1 raises OverflowError in both
+    packages, and JpegR.encode_api1 and UhdrEncoder take the general
+    route, to the JAX package's bytes (ROADMAP Queue C 1)."""
+    rng = np.random.default_rng(3)
+    h, w = 64, 128
+    hdr = dict(fmt="P010", width=w, height=h, gamut="BT2100",
+               transfer="HLG", planes={
+                   "y": (rng.integers(0, 1024, (h, w)) << 6).astype(
+                       np.uint16),
+                   "uv": (rng.integers(0, 1024, (h // 2, w)) << 6).astype(
+                       np.uint16)})
+    sdr = dict(fmt="YUV420", width=w, height=h, gamut="BT709", planes={
+        k: rng.integers(0, 256, s, dtype=np.uint8) for k, s in
+        (("y", (h, w)), ("u", (h // 2, w // 2)), ("v", (h // 2, w // 2)))})
+    planes = [hdr["planes"][k][None] for k in ("y", "uv")] + \
+        [sdr["planes"][k][None] for k in ("y", "u", "v")]
+    kw = dict(sdr_gamut="bt709", hdr_gamut="bt2100", hdr_tf="hlg",
+              quality=100)
+    with pytest.raises(OverflowError):
+        sharding.batched_encode_api1(*planes, sharding.single_device_mesh(),
+                                     **kw)
+    with pytest.raises(OverflowError):
+        batched.batched_encode_api1(*planes, device="cpu", **kw)
+    jb = jjpegr.JpegR().encode_api1(jax_raw(hdr), jax_raw(sdr),
+                                    JTransfer.HLG, 100)
+    tb = JpegR("cpu").encode_api1(port_raw(hdr), port_raw(sdr),
+                                  ColorTransfer.HLG, 100)
+    assert tb == jb
+    assert not any(bytes([0xFF, 0xD0 + k]) in tb for k in range(8))
+    enc = UhdrEncoder("cpu").set_raw_image(port_raw(hdr), HDR_IMG)
+    enc.set_raw_image(port_raw(sdr), SDR_IMG)
+    enc.set_quality(100, BASE_IMG)
+    jenc = japi.UhdrEncoder().set_raw_image(jax_raw(hdr), japi.HDR_IMG)
+    jenc.set_raw_image(jax_raw(sdr), japi.SDR_IMG)
+    jenc.set_quality(100, japi.BASE_IMG)
+    assert enc.encode().data == jenc.encode().data == jb

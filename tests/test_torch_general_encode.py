@@ -136,8 +136,9 @@ def test_api0_general_with_exif_bytes_identical_to_jax(gamut, tf):
     tb = JpegR("cpu").encode_api0(port_raw(hdr), ColorTransfer[tf], 95,
                                   exif=EXIF)
     assert tb == jb
-    # JAX's route: host Huffman for the base and the gain map.
-    assert tcodec.entropy_encode.calls - calls == 2
+    # JAX's route Huffman-codes the base and the gain map on the host;
+    # the port's B19 writes the same bytes, with no host Huffman call.
+    assert tcodec.entropy_encode.calls - calls == 0
 
     def setup(enc, raw, _, intents):
         enc.set_raw_image(raw(hdr), intents[0])
@@ -236,7 +237,7 @@ def test_api4_and_apix_bytes_identical_to_jax():
     jx = jjpegr.JpegR().encode_apix(jax_raw(sdr), gmap, jmd, 92, exif=EXIF)
     tx = JpegR("cpu").encode_apix(port_raw(sdr), gmap, md, 92, exif=EXIF)
     assert tx == jx
-    assert tcodec.entropy_encode.calls - calls == 2
+    assert tcodec.entropy_encode.calls - calls == 0
 
 
 def _code(fn):

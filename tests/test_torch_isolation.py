@@ -122,6 +122,7 @@ def test_entry_points_default_to_cuda():
     calls = [JpegR, UhdrEncoder, UhdrDecoder, UltraHdr,
              lambda: batched.batched_encode_api0(y, uv),
              lambda: batched.batched_encode_api1(y, uv, *sdr),
+             lambda: batched.batched_encode_device_stage(y, uv),
              lambda: batched.batched_decode([b""]),
              lambda: batched.batched_decode([b""], "sdr", use_luts=True)]
     if torch.cuda.is_available():

@@ -194,3 +194,53 @@ def test_unported_routes_raise():
     assert got.shape == want.shape == (3, H, W) and got.dtype == want.dtype
     d = np.abs(got.astype(np.int64) - want.astype(np.int64))
     assert int(d.max()) <= 1 and float((d == 0).mean()) >= 0.999
+
+
+def _dense_p010(h=64, w=128, seed=3):
+    """Uniform noise in every P010 sample: at quality 100 its blocks pass
+    the JAX encoder's 608-bit buffer."""
+    rng = np.random.default_rng(seed)
+    return ((rng.integers(0, 1024, (h, w)) << 6).astype(np.uint16),
+            (rng.integers(0, 1024, (h // 2, w)) << 6).astype(np.uint16))
+
+
+def _n_rst(jpegr: bytes) -> int:
+    return sum(jpegr.count(bytes([0xFF, 0xD0 + k])) for k in range(8))
+
+
+def test_dense_api0_restartless_as_jax():
+    """Dense content: the JAX package writes API-0 restart-less (its B19
+    fallback) with no handoff; so does the port, through B19's plain
+    version (ROADMAP Queue C 1: 22,575 bytes, 0 RSTn)."""
+    from libultrahdr_dev_tpu.parallel import sharding
+
+    y, uv = _dense_p010()
+    h, w = y.shape
+    jb = jjpegr.JpegR().encode_api0(
+        JRawImage(fmt=JPixelFormat.P010, width=w, height=h,
+                  gamut=JGamut.BT2100, planes={"y": y, "uv": uv}),
+        JTransfer.HLG, 100)
+    tb = JpegR("cpu").encode_api0(
+        RawImage(fmt=PixelFormat.P010, width=w, height=h,
+                 gamut=ColorGamut.BT2100, planes={"y": y, "uv": uv}),
+        ColorTransfer.HLG, 100)
+    assert tb == jb and len(tb) == 22575 and _n_rst(tb) == 0
+    blobs, handoff = batched.batched_encode_api0(
+        y[None], uv[None], "bt2100", "hlg", 100, device="cpu",
+        return_handoff=True)
+    assert blobs == [jb] and handoff is None
+    # One dense frame of two: the whole batch is restart-less, as in JAX;
+    # the smooth frame alone keeps its restart markers.
+    sy, suv = synth_p010(h, w, seed=1)
+    ys, uvs = np.stack([sy, y]), np.stack([suv, uv])
+    want = sharding.batched_encode_api0(ys, uvs,
+                                        sharding.single_device_mesh(),
+                                        "bt2100", "hlg", 100)
+    got = batched.batched_encode_api0(ys, uvs, "bt2100", "hlg", 100,
+                                      device="cpu")
+    assert got == want and got[1] == jb
+    assert _n_rst(got[0]) == 0
+    alone = batched.batched_encode_api0(sy[None], suv[None], "bt2100", "hlg",
+                                        100, device="cpu")[0]
+    assert _n_rst(alone) > 0 and alone != got[0]
+    assert JpegR("cpu").decode(tb).image.planes["rgba"].shape == (h, w, 4)

@@ -411,3 +411,28 @@ def test_planes_stay_on_the_session_device():
     img = ts.convert_to_raw(UltraHdrConfig(
         output_pixel_format=PixelFormat.YUV420))
     assert all(isinstance(p, np.ndarray) for p in img.planes.values())
+
+
+def test_caller_planes_read_on_each_convert():
+    """A caller's numpy planes edited in place between two converts: the
+    JAX session reads them again, and so does the port's (ROADMAP
+    Queue C 2: 13,152 bytes, then 13,158)."""
+    rng = np.random.default_rng(0)
+    planes = {"y": rng.integers(0, 256, (H, W), dtype=np.uint8),
+              "u": rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8),
+              "v": rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8)}
+    js, ts = ju.UltraHdr(), UltraHdr("cpu")
+    js.add_raw(JRawImage(fmt=JPixelFormat.YUV420, width=W, height=H,
+                         gamut=JGamut.BT709, planes=planes))
+    ts.add_raw(RawImage(fmt=PixelFormat.YUV420, width=W, height=H,
+                        gamut=ColorGamut.BT709, planes=planes))
+    sizes = []
+    for _ in range(2):
+        want = js.convert(ju.UltraHdrConfig("jpeg"))
+        assert ts.convert(UltraHdrConfig("jpeg")) == want
+        sizes.append(len(want))
+        raw = ts.convert_to_raw(UltraHdrConfig(
+            output_pixel_format=PixelFormat.YUV420))
+        np.testing.assert_array_equal(raw.planes["y"], planes["y"])
+        planes["y"][:] = 255 - planes["y"]
+    assert sizes == [13152, 13158]
