@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from kernels/csrc with nvcc (one nvcc
-per source, in parallel), checks each of the seventeen (B1-B7, B6's
-10-bit planar arm, B9, B10a, B10b, B10c, B11, B12, B12-enc, B13, B19)
-against its plain PyTorch version at the shapes of the main path (a
-4080x3072 frame, batch of 2; the general routes' B10, B12, B12-enc and
-B19 and the converter's B13 at one 4000x3000 frame), drives the API-0
+per source, in parallel), checks each of the twenty-two (B0-B7, B6's
+10-bit planar arm, B9, B10a, B10b, B10c, B11, B12, B12-enc, B13, B14,
+B15, B16, B18, B19) against its plain PyTorch version at the shapes of
+the main path (a 4080x3072 frame, batch of 2; the general routes' B10,
+B12, B12-enc and B19 and the converter's B13 at one 4000x3000 frame;
+the serving loop's B0, B14, B15, B16 and B18 at a batch of 4), drives
+the serving loop (packed upload, encode, planes decode, planar Rice
+readback, host gain-map apply) and the API-0
 round trip, the API-1 encode, SDR decode, table-transfer (use_luts)
 decode, the general encode routes (non-16-aligned and EXIF encodes,
 API-2/3/4/x, encode_jpeg with and without restart intervals), the
@@ -37,9 +40,16 @@ map, encode_jpeg's 4:2:2 and 4:4:4 planes and a dense 4080x3072 batch:
 kernel = plain, finalized scans = the host coder's; B12-enc
 (encode_jpeg's restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at
 r in {1, 4, 17}: kernel = plain = the host coder with RSTn markers;
-the main-path windows (API-0 round trip, handoff, goldens, API-1 encode
-+ HDR decode, SDR decode, use_luts decode, general routes, converter,
-dense content), each with every launch counter zeroed just before and
+B0 and B14 (the P010 upload: dense on uniform noise, segment-packed on
+bench content), B18 (the planes composite of a decoded batch of 4), B15
+and B16 (Rice pass 1 and pack over that composite, vertical and MED,
+two-phase and fused), bitwise; the main-path windows (API-0 round trip,
+handoff, goldens, API-1 encode + HDR decode, SDR decode, use_luts
+decode, general routes, converter, dense content, the serving loop:
+four HLG rounds and one F16 round at batch 4, seg upload, fetched
+composite = the device's, host apply within 1 code / ULP of the device
+apply, no plain-version call), each with every launch counter zeroed
+just before and
 read just after (each window's kernels launched; no host Huffman call
 in any window: the general routes and the converter code each JPEG
 they generate with B19); stage times.
@@ -1745,7 +1755,8 @@ def _mcus(c):
 
 def dense_p010(n: int, h: int, w: int, seed: int):
     """Uniform noise in every P010 sample: at quality 100 every block is
-    far past the JAX encoder's 608-bit buffer."""
+    far past the JAX encoder's 608-bit buffer, and the upload's segment
+    pack cannot shrink it (it goes dense)."""
     rng = np.random.default_rng(seed)
     return ((rng.integers(0, 1024, (n, h, w)) << 6).astype(np.uint16),
             (rng.integers(0, 1024, (n, h // 2, w)) << 6).astype(np.uint16))
@@ -2030,7 +2041,322 @@ def stage_times_converter(dev, smi: str, conv: dict):
             f"{CONV_SIZE[0]}x{CONV_SIZE[1]}, batch 1, {smi})")
 
 
+def _decoded_planes(dev, y_np, uv_np):
+    """The u8 planes a decode of the batch gives (B1, B2, then B5 through
+    batched._planes, row-strided crops as the decode hands them to B6
+    and B18), with the HLG apply scalars of each frame."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    n = y_np.shape[0]
+    coefs = batched.encode_coefs_stage(batched.p010_to_device(y_np, dev),
+                                       batched.p010_to_device(uv_np, dev),
+                                       "bt2100", "hlg", 95)
+    q = np.broadcast_to(np.stack([t.reshape(64) for t in
+                                  batched.quant_tables(95)]),
+                        (n, 3, 64)).astype(np.int32)
+    planes = batched._planes(coefs, torch.from_numpy(q.copy()).to(dev),
+                             (W, H, W // 4, H // 4))
+    sc = np.stack([batched.apply_scalars(batched.api0_metadata("hlg"),
+                                         1000 / 203)] * n)
+    return planes, sc
+
+
+def packio_phase(dev, results: dict, kept: dict):
+    """B0, B14, B18, B15 and B16 against their plain versions at the
+    serving loop's shapes (4080x3072, batch SERVE_FRAMES), bitwise: the
+    upload's B14 on bench content (seg mode) and B0 on uniform noise
+    (dense mode), each also equal to the input; B18 over a decoded
+    batch's planes; B15 (vertical, MED, both) and B16 (two-phase on the
+    host plan, fused on the same paddings and on tight ones) over that
+    composite. Keeps the planes and composite for the stage times."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.device import upload
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import link, packio
+
+    n = SERVE_FRAMES
+
+    def per_frame(ms):
+        return ms / n
+
+    # B14: the segment-packed upload of bench content.
+    y_np, uv_np = synth_p010(n, H, W, SEED + 200)
+    pre = link.pack_p010_batch_host(y_np, uv_np)
+    require(pre[0] == "seg", f"bench content packed {pre[0]}, not seg")
+    _, packed, blob, *_ = pre
+    blob_dev = torch.from_numpy(blob.view(np.int32)).to(dev)
+    got = packio.unpack_plane_device(blob_dev, packed.plan, n, H)
+    ref = packio.unpack_plane_device_plain(blob_dev, packed.plan, n, H)
+    require(all(map(torch.equal, got, ref)), "B14 differs from its plain "
+            "version")
+    require(np.array_equal(got[0].cpu().numpy().view(np.uint16), y_np)
+            and np.array_equal(got[1].cpu().numpy().view(np.uint16), uv_np),
+            "B14 does not rebuild the uploaded planes")
+    plan = packed.plan
+    log(f"B14 p010_seg_unpack: kernel = plain = input ({blob.nbytes / 1e6:.2f}"
+        f" MB blob for {(y_np.nbytes + uv_np.nbytes) / 1e6:.1f} MB of u16, "
+        f"{plan[3]}/{plan[4]}/{plan[5]} rows in the 2/5/10-bit buckets)")
+    results["B14"] = dict(
+        err=0, ms=per_frame(cuda_ms(lambda: packio.unpack_plane_device(
+            blob_dev, plan, n, H), 20)),
+        plain_ms=per_frame(cuda_ms(lambda: packio.unpack_plane_device_plain(
+            blob_dev, plan, n, H), 3)),
+        bytes=(blob.nbytes + nbytes(*got)) / n, library_ms=None)
+
+    # B0: the dense upload of uniform noise.
+    ny, nuv = dense_p010(n, H, W, SEED + 201)
+    pre_d = link.pack_p010_batch_host(ny, nuv)
+    require(pre_d[0] == "dense", f"noise packed {pre_d[0]}, not dense")
+    parts = upload(list(pre_d[1] + pre_d[2]), dev)
+    got = packio.unpack_p010_dense(*parts)
+    ref = packio.unpack_p010_dense_plain(*parts)
+    require(all(map(torch.equal, got, ref)), "B0 differs from its plain "
+            "version")
+    require(np.array_equal(got[0].cpu().numpy().view(np.uint16), ny)
+            and np.array_equal(got[1].cpu().numpy().view(np.uint16), nuv),
+            "B0 does not rebuild the uploaded planes")
+    log("B0 p010_dense_unpack: kernel = plain = input (uniform noise)")
+    results["B0"] = dict(
+        err=0, ms=per_frame(cuda_ms(lambda: packio.unpack_p010_dense(*parts),
+                                    20)),
+        plain_ms=per_frame(cuda_ms(lambda: packio.unpack_p010_dense_plain(
+            *parts), 3)), bytes=nbytes(*parts, *got) / n, library_ms=None)
+    kept["upload"] = (y_np, uv_np)
+
+    # B18 over a decoded batch's planes.
+    planes, sc = _decoded_planes(dev, y_np, uv_np)
+    comp = gm.planes_composite(*planes)
+    require(torch.equal(comp, gm.planes_composite_plain(*planes)),
+            "B18 differs from its plain version")
+    log(f"B18 planes_composite: kernel = plain, {tuple(comp.shape)} u8")
+    results["B18"] = dict(
+        err=0, ms=per_frame(cuda_ms(lambda: gm.planes_composite(*planes), 20)),
+        plain_ms=per_frame(cuda_ms(lambda: gm.planes_composite_plain(
+            *planes), 3)),
+        bytes=(sum(p.shape[0] * p.shape[1] * p.shape[2] for p in planes)
+               + nbytes(comp)) / n, library_ms=None)
+    kept["planes"], kept["scalars"], kept["comp"] = planes, sc, comp
+
+    # B15 on that composite: each scheme and both.
+    for schemes in ((False,), (True,), (False, True)):
+        zg, mg = packio.rice_stats(comp, schemes)
+        zr, mr = packio.rice_stats_plain(comp, schemes)
+        require(all(map(torch.equal, zg, zr)) and torch.equal(mg, mr),
+                f"B15 {schemes} differs from its plain version")
+    nseg = mg.shape[1]
+    log(f"B15 rice_stats: zs and maps = plain for vertical, MED and both "
+        f"({nseg} segments)")
+    row = {}
+    for label, schemes in (("one", (True,)), ("both", (False, True))):
+        row[label] = dict(
+            ms=per_frame(cuda_ms(lambda: packio.rice_stats(comp, schemes),
+                                 20)),
+            plain_ms=per_frame(cuda_ms(lambda: packio.rice_stats_plain(
+                comp, schemes), 3)),
+            bytes=(nbytes(comp) + len(schemes) * nseg * (RICE_L * 2 + 2)) / n)
+        log(f"B15 {label} scheme(s): kernel {row[label]['ms']:.4f} ms/frame, "
+            f"plain {row[label]['plain_ms']:.3f} ms/frame, "
+            f"{row[label]['bytes'] / 1e6:.1f} MB/frame")
+    results["B15"] = dict(row["both"], err=0, library_ms=None)
+
+    # B16, two-phase on each scheme's host plan, fused on the same
+    # paddings (fit) and on tight ones (no fit).
+    maps = mg.cpu().numpy()
+    zss = zg
+    b16 = {}
+    for pick, med in ((0, False), (1, True)):
+        plan = packio._rice_host_plan(maps[2 * pick], maps[2 * pick + 1],
+                                      10**15)
+        _, _, rp, up, offs, _ = plan
+        kuw = mg[2 * pick:2 * pick + 2]
+        got = packio.rice_pack(zss[pick], kuw, offs, rp, up)
+        require(torch.equal(got, packio.rice_pack_plain(zss[pick], kuw, offs,
+                                                        rp, up)),
+                f"B16 two-phase ({'MED' if med else 'vertical'}) differs "
+                f"from its plain version")
+        for pads in ((rp, up), ((32,) * 10, (32,) * 7)):
+            fg = packio.rice_fused(comp, med, *pads)
+            require(torch.equal(fg, packio.rice_fused_plain(comp, med, *pads)),
+                    f"B16 fused ({'MED' if med else 'vertical'}) differs "
+                    f"from its plain version")
+        log(f"B16 rice_pack {'MED' if med else 'vertical'}: two-phase and "
+            f"fused = plain; blob {got.numel() * 4 / 1e6:.2f} MB for "
+            f"{nbytes(comp) / 1e6:.1f} MB raw, fit flag on the tight plan "
+            f"{int(fg[packio._fused_blob_words(*pads)])}")
+        b16[med] = (zss[pick], kuw, offs, rp, up, got)
+    zs, kuw, offs, rp, up, blob16 = b16[True]
+    sidx = torch.empty((2, nseg), dtype=torch.int32, device=dev)
+    offs_dev = torch.from_numpy(np.asarray(offs, np.int32)).to(dev)
+    out = torch.empty_like(blob16)
+    order_ms = cuda_ms(lambda: packio._rice_order(kuw, sidx), 20)
+    emit_ms = cuda_ms(lambda: packio._rice_emit(zs, kuw, sidx, offs_dev, rp,
+                                                up, out), 20)
+    require(torch.equal(out, blob16), "B16's timed launches differ")
+    log(f"B16 MED: order (one CTA) {order_ms:.4f} ms, emit {emit_ms:.4f} ms "
+        f"per batch of {n}")
+    results["B16"] = dict(
+        err=0, ms=per_frame(order_ms + emit_ms),
+        plain_ms=per_frame(cuda_ms(lambda: packio.rice_pack_plain(
+            zs, kuw, offs, rp, up), 3)),
+        bytes=(nbytes(zs, kuw) + nbytes(blob16)) / n, library_ms=None,
+        order_ms=per_frame(order_ms))
+
+    # Device time by kernel against the wall time of each wrapper call
+    # (per batch): what of each time is the kernel, what the host around
+    # it.
+    for label, fn, key in (
+            ("B0", lambda: packio.unpack_p010_dense(*parts), "B0"),
+            ("B14", lambda: packio.unpack_plane_device(
+                blob_dev, packed.plan, n, H), "B14"),
+            ("B18", lambda: gm.planes_composite(*planes), "B18"),
+            ("B15 both schemes", lambda: packio.rice_stats(
+                comp, (False, True)), "B15")):
+        log_breakdown(f"{label} (batch of {n})", fn, 10,
+                      results[key]["ms"] * n)
+
+
+def plain_calls() -> dict:
+    """Calls of the new kernels' plain versions (a CUDA main path makes
+    none)."""
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    return {"B0": packio.unpack_p010_dense_plain,
+            "B14": packio.unpack_plane_device_plain,
+            "B15": packio.rice_stats_plain, "B16": packio.rice_pack_plain,
+            "B18": gm.planes_composite_plain}
+
+
+def main_path_serving(dev, smi: str):
+    """The serving loop (libultrahdr_dev_tpu_torch/serving.py) at the JAX
+    loop's defaults, 4080x3072, batch SERVE_FRAMES, SERVE_ROUNDS rounds,
+    HLG, then one --f16 round, then one round of a batch of 2 frames of
+    uniform noise (the content rules: a dense upload through B0, a raw
+    readback where the Rice pack declines), in one window with every
+    launch counter, the plain versions' call counters and the host
+    Huffman counters zeroed just before and read just after: the upload
+    packs seg (dense for the noise), the fetched composite is bitwise
+    the device composite, and the host apply's pixels are within 1
+    ten-bit code / 1 F16 ULP of the port's device-apply decode of the
+    same blobs."""
+    from libultrahdr_dev_tpu_torch import serving
+    from libultrahdr_dev_tpu_torch.parallel import batched, packio
+
+    reset_counts()
+    for fn in plain_calls().values():
+        fn.calls = 0
+    t0 = time.perf_counter()
+    res = serving.run(SERVE_FRAMES, H, W, SERVE_ROUNDS, device=dev, log=log)
+    stages_hlg = dict(packio.LAST_FETCH_STAGES)
+    pick_hlg = packio.LAST_PICK
+    res16 = serving.run(SERVE_FRAMES, H, W, 1, f16=True, device=dev, log=log)
+    stages_f16 = dict(packio.LAST_FETCH_STAGES)
+    pick_f16 = packio.LAST_PICK
+    resn = serving.run(frames=dense_p010(2, H, W, SEED + 300), rounds=1,
+                       device=dev, log=log)
+    c = read_counts(f"serving loop ({time.perf_counter() - t0:.1f} s)",
+                    SERVE_KERNELS)
+    calls = {k: fn.calls for k, fn in plain_calls().items()}
+    log(f"serving loop: plain-version calls {calls}; HLG rounds: last pick "
+        f"{pick_hlg}, fetch stages {stages_hlg}; F16 round: pick "
+        f"{pick_f16}, fetch stages {stages_f16}")
+    require(not any(calls.values()), f"plain versions ran: {calls}")
+    rounds = ([("HLG", st) for st in res.stats] + [("F16", res16.stats[0]),
+                                                    ("noise", resn.stats[0])])
+    for r, (label, st) in enumerate(rounds):
+        log(f"serving round {r} ({label}): h2d {st['h2d_pack']} "
+            f"{st['h2d_bytes']} B, d2h {st['d2h_pack']} {st['d2h_bytes']} B, "
+            f"host apply {st['host_apply_ms']} ms")
+        want = "dense" if label == "noise" else "seg"
+        require(st["h2d_pack"] == want,
+                f"round {r} ({label}) uploaded {st['h2d_pack']}, not {want}")
+    require(resn.stats[0]["d2h_pack"] == "planes-raw",
+            "the noise composite was Rice-packed")
+    for label, rr in (("HLG", res), ("F16", res16), ("noise", resn)):
+        require(np.array_equal(rr.comp, rr.comp_dev.cpu().numpy()),
+                f"{label}: the fetched composite differs from the device's")
+    d = []
+    for rr in (res, resn):
+        dev_hlg = batched.batched_decode(rr.blobs, "hdr_hlg", serving.BOOST,
+                                         device=dev).cpu().numpy().view(
+                                             np.uint32)
+        d.append(np.stack([np.abs(((rr.pixels >> s) & 1023).astype(np.int32)
+                                  - ((dev_hlg >> s) & 1023).astype(np.int32))
+                           for s in (0, 10, 20)]).reshape(-1))
+    d = np.concatenate(d)
+    dev_f16 = batched.batched_decode(res16.blobs, "hdr_linear", serving.BOOST,
+                                     device=dev).cpu().numpy().view(np.uint16)
+    d16 = np.abs(res16.pixels[..., :3].astype(np.int32)
+                 - dev_f16[..., :3].astype(np.int32))
+    log(f"serving loop: host apply vs device apply of the same blobs: HLG max "
+        f"{int(d.max())} code ({float((d == 0).mean()):.6f} exact), F16 max "
+        f"{int(d16.max())} ULP ({float((d16 == 0).mean()):.6f} exact)")
+    require(int(d.max()) <= 1 and int(d16.max()) <= 1,
+            "host apply off the device apply by more than 1 code / ULP")
+    iv = res.intervals_ms
+    log(f"stage pipelined serving interval: {[round(v, 3) for v in iv]} "
+        f"ms/frame (the last a flush), median of the others "
+        f"{float(np.median(iv[:-1])):.3f} ({W}x{H}, batch {SERVE_FRAMES}, "
+        f"{smi})")
+    return c
+
+
+def stage_times_serving(dev, smi: str, kept: dict):
+    """Warm per-frame times of the serving loop's packed stages beside
+    the plain copies they replace (batch SERVE_FRAMES, 4080x3072), each
+    ending synchronized: the packed upload (host pack, H2D, B14) and
+    p010_to_device; the planes readback (B15, B16, D2H, native unpack;
+    the fused path once warm) and .cpu() of the composite; the host
+    apply and the device's B6 followed by .cpu()."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import batched, link
+
+    n = SERVE_FRAMES
+    y_np, uv_np = kept["upload"]
+    comp, planes, sc = kept["comp"], kept["planes"], kept["scalars"]
+    sc_dev = torch.from_numpy(sc).to(dev)
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    pre = link.pack_p010_batch_host(y_np, uv_np)
+    comp_host = link.fetch_planes(comp)
+    stages = {
+        "packed upload (host pack + H2D + B14)": synced(
+            lambda: link.upload_p010_batch(y_np, uv_np, device=dev)),
+        "  host pack alone": lambda: link.pack_p010_batch_host(y_np, uv_np),
+        "  H2D + B14 of the packed blob": synced(
+            lambda: link.upload_p010_batch(y_np, uv_np, None, pre, dev)),
+        "plain copy (p010_to_device of y and uv)": synced(
+            lambda: (batched.p010_to_device(y_np, dev),
+                     batched.p010_to_device(uv_np, dev))),
+        "planes readback (B15 + B16 + D2H + host unpack)":
+            lambda: link.fetch_planes(comp),
+        "plain copy (.cpu() of the composite)": lambda: comp.cpu(),
+        "host apply (HLG)": lambda: link.apply_planes_host(
+            comp_host, sc, H, W, H // 4, W // 4, "hdr_hlg"),
+        "device B6 (HLG) + .cpu()": lambda: gm.apply_gainmap(
+            *planes, sc_dev, "hdr_hlg").cpu(),
+    }
+    for k, fn in stages.items():
+        log(f"stage {k}: {host_ms(fn, 3) / n:.3f} ms/frame ({W}x{H}, batch "
+            f"{n}, {smi})")
+
+
 API0_KERNELS = ("B1", "B2", "B3", "B3g", "B4", "B5", "B6")
+# The serving loop's kernels (B0 for the noise round's dense upload).
+SERVE_KERNELS = ("B14", "B0", "B1", "B2", "B3", "B3g", "B4", "B5", "B18",
+                 "B15", "B16")
+SERVE_FRAMES, SERVE_ROUNDS = 4, 4
+RICE_L = 256
 # Kernels checked and timed at the general routes' 4000x3000 frame.
 GENERAL_KERNELS = ("B10a", "B10b", "B10c", "B12", "B12e", "B13", "B19")
 
@@ -2048,6 +2374,7 @@ def counters():
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
     from libultrahdr_dev_tpu_torch.ops import editor, gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import packio
 
     return {"B1": (gm.encode_front, "launches"),
             "B2": (dct.fdct_quant, "launches"),
@@ -2069,9 +2396,15 @@ def counters():
             "B12e": (codec.entropy_stage, "rst_launches"),
             "B13": (editor.apply_effects, "launches"),
             "B19": (de.encode_ycbcr_stream, "launches"),
-            "B19g": (de.encode_gray_stream, "launches")}
+            "B19g": (de.encode_gray_stream, "launches"),
+            "B0": (packio.unpack_p010_dense, "launches"),
+            "B14": (packio.unpack_plane_device, "launches"),
+            "B15": (packio.rice_stats, "launches"),
+            "B16": (packio.rice_pack, "launches"),
+            "B18": (gm.planes_composite, "launches")}
 
 
+PACKIO_CU = "libultrahdr_dev_tpu_torch/kernels/csrc/packio.cu"
 KERNELS = {
     "B1": ("encode_front", "libultrahdr_dev_tpu_torch/kernels/csrc/"
            "encode_front.cu", "libultrahdr_dev_tpu/parallel/sharding.py:570"),
@@ -2109,6 +2442,16 @@ KERNELS = {
     "B19": ("huff_encode_restartless", "libultrahdr_dev_tpu_torch/kernels/"
             "csrc/huff_encode.cu",
             "libultrahdr_dev_tpu/jpeg/device_entropy.py:294"),
+    "B0": ("p010_dense_unpack", PACKIO_CU,
+           "libultrahdr_dev_tpu/parallel/sharding.py:61"),
+    "B14": ("p010_seg_unpack", PACKIO_CU,
+            "libultrahdr_dev_tpu/parallel/packio.py:216"),
+    "B15": ("rice_stats", PACKIO_CU,
+            "libultrahdr_dev_tpu/parallel/packio.py:706"),
+    "B16": ("rice_pack", PACKIO_CU,
+            "libultrahdr_dev_tpu/parallel/packio.py:749"),
+    "B18": ("planes_composite", PACKIO_CU,
+            "libultrahdr_dev_tpu/ops/gainmap.py:264"),
 }
 
 
@@ -2149,6 +2492,8 @@ def main() -> int:
     phases.append(("B13", lambda: b13_phase(dev, results)))
     phases.append(("B19", lambda: b19_phase(dev, results)))
     phases.append(("B12-enc", lambda: b12e_phase(dev, results)))
+    phases.append(("B0 B14 B18 B15 B16",
+                   lambda: packio_phase(dev, results, kept)))
     for label, fn in phases:
         t = time.perf_counter()
         fn()
@@ -2178,14 +2523,18 @@ def main() -> int:
     t = time.perf_counter()
     launches4 = main_path_dense(dev, smi)
     log(f"phase main path dense content: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches5 = main_path_serving(dev, smi)
+    log(f"phase main path serving loop: {time.perf_counter() - t:.1f} s")
     launches = {k: sum(c[k] for c in (launches, launches1, launches2,
-                                      launches3, launches4))
+                                      launches3, launches4, launches5))
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
     launches["B19"] += launches.pop("B19g")
     stage_times(dev, smi, inputs, blobs, handoffs, (inputs1, blobs1))
     stage_times_general(dev, smi, general)
     stage_times_converter(dev, smi, conv)
+    stage_times_serving(dev, smi, kept)
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

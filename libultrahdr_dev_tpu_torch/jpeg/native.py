@@ -1,12 +1,22 @@
-"""ctypes loader for the host Huffman entropy codec.
+"""ctypes loaders for the port's host C++ code.
 
-The port carries its own copy of the codec, ``jpeg/entropy.cpp`` (it
-includes only <cstdint>/<cstring>), and compiles it with g++ at first
-use into the package's git-ignored build directory. Nothing outside
-the port's package is read.
+The port carries its own copies of the JAX package's native sources and
+compiles each with g++ at first use into the package's git-ignored
+build directory, keyed by a hash of the source and the flags. Nothing
+outside the port's package is read.
 
-There is no pure-Python fallback: if g++ cannot build the codec, the
-first call raises.
+- ``jpeg/entropy.cpp``: the host Huffman entropy codec (``get_lib``).
+- ``parallel/packio.cpp``: the upload's segment pack and the planes
+  readback's Rice unpack (``get_packio``).
+- ``ops/apply.cpp``: the gain-map apply on the host (``get_apply``).
+
+The last two are built with the JAX package's own flags
+(libultrahdr_dev_tpu/jpeg/native/__init__.py), so their float results
+are bitwise the JAX ones'; ``-march=native`` ties the object to the
+host's instruction set, so its key includes the CPU's feature flags.
+
+There is no pure-Python fallback: if g++ cannot build a source, the
+first call that needs it raises.
 """
 
 from __future__ import annotations
@@ -14,63 +24,129 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
 SRC = os.path.join(_HERE, "entropy.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+PACKIO_SRC = os.path.join(_PKG, "parallel", "packio.cpp")
+APPLY_SRC = os.path.join(_PKG, "ops", "apply.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
 _FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+HOST_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-std=c++17",
+              "-fno-math-errno", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
-def _so_path(src_bytes: bytes) -> str:
-    key = hashlib.sha1(src_bytes + " ".join(_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"entropy-{key[:12]}.so")
+def _cpu_flags() -> str:
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith(("flags", "Features")):
+                return line
+    return ""
 
 
-def _build() -> str:
-    with open(SRC, "rb") as f:
-        so = _so_path(f.read())
+def _so_path(src_bytes: bytes, stem: str = "entropy",
+             flags=_FLAGS) -> str:
+    tag = " ".join(flags)
+    if "-march=native" in flags:
+        tag += platform.machine() + _cpu_flags()
+    key = hashlib.sha1(src_bytes + tag.encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{stem}-{key[:12]}.so")
+
+
+def build_shared(src: str, flags=_FLAGS) -> str:
+    """Compile `src` with g++ into the build directory (if not there
+    yet) and return the shared object's path; raise if g++ fails."""
+    with open(src, "rb") as f:
+        so = _so_path(f.read(), os.path.basename(src)[:-4], flags)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run(["g++", *_FLAGS, SRC, "-o", tmp],
+    proc = subprocess.run(["g++", *flags, src, "-o", tmp],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"building {SRC} failed:\n{proc.stderr}")
+        raise RuntimeError(f"building {src} failed:\n{proc.stderr}")
     os.replace(tmp, so)  # atomic: concurrent builds race harmlessly
     return so
+
+
+def _load(src: str, flags, bind):
+    with _lock:
+        lib = _libs.get(src)
+        if lib is None:
+            lib = ctypes.CDLL(build_shared(src, flags))
+            bind(lib)
+            _libs[src] = lib
+        return lib
+
+
+def _bind_entropy(lib):
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.uhdr_huff_encode.restype = ctypes.c_long
+    lib.uhdr_huff_encode.argtypes = [
+        i16p, ctypes.c_long, u8p, ctypes.c_int, u8p, u8p,
+        u8p, u8p, u8p, u8p, ctypes.c_int, ctypes.c_int,
+        u8p, ctypes.c_long]
+    lib.uhdr_huff_decode.restype = ctypes.c_long
+    lib.uhdr_huff_decode.argtypes = [
+        u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
+        u8p, u8p, u8p, u8p, u8p, u8p, ctypes.c_int, ctypes.c_int,
+        i16p]
+    lib.uhdr_huff_scan_offsets.restype = ctypes.c_long
+    lib.uhdr_huff_scan_offsets.argtypes = [
+        u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
+        u8p, u8p, u8p, u8p, u8p, u8p, ctypes.c_int, u8p,
+        ctypes.POINTER(ctypes.c_long)]
+
+
+def _bind_packio(lib):
+    p = ctypes.c_void_p
+    lng = ctypes.c_long
+    # kmap, uwmap, blob, rem word offsets, unary word offsets, n, h, w,
+    # scratch, out[, nthreads]
+    for name in ("uhdr_rice8_unpack", "uhdr_med8_unpack"):
+        for suffix, extra in (("", []), ("_mt", [lng])):
+            fn = getattr(lib, name + suffix)
+            fn.restype = lng
+            fn.argtypes = [p] * 5 + [ctypes.c_int64] * 3 + [p, p] + extra
+    lib.uhdr_seg_widths.restype = lng
+    lib.uhdr_seg_widths.argtypes = [p, ctypes.c_int64, ctypes.c_int64, p, p]
+    lib.uhdr_seg_fill.restype = lng
+    lib.uhdr_seg_fill.argtypes = [p, ctypes.c_int64, ctypes.c_int64,
+                                  p, p, p, p]
+
+
+def _bind_apply(lib):
+    i64 = ctypes.c_int64
+    f = ctypes.c_float
+    lib.uhdr_apply_gainmap.restype = ctypes.c_long
+    lib.uhdr_apply_gainmap.argtypes = [
+        ctypes.c_void_p] + [i64] * 8 + [f] * 4 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_long]
 
 
 def get_lib():
     """The ctypes library with uhdr_huff_encode, uhdr_huff_decode and
     uhdr_huff_scan_offsets bound. Builds on first call; raises if the
     build fails."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(_build())
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        i16p = ctypes.POINTER(ctypes.c_int16)
-        lib.uhdr_huff_encode.restype = ctypes.c_long
-        lib.uhdr_huff_encode.argtypes = [
-            i16p, ctypes.c_long, u8p, ctypes.c_int, u8p, u8p,
-            u8p, u8p, u8p, u8p, ctypes.c_int, ctypes.c_int,
-            u8p, ctypes.c_long]
-        lib.uhdr_huff_decode.restype = ctypes.c_long
-        lib.uhdr_huff_decode.argtypes = [
-            u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
-            u8p, u8p, u8p, u8p, u8p, u8p, ctypes.c_int, ctypes.c_int,
-            i16p]
-        lib.uhdr_huff_scan_offsets.restype = ctypes.c_long
-        lib.uhdr_huff_scan_offsets.argtypes = [
-            u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
-            u8p, u8p, u8p, u8p, u8p, u8p, ctypes.c_int, u8p,
-            ctypes.POINTER(ctypes.c_long)]
-        _lib = lib
-        return _lib
+    return _load(SRC, _FLAGS, _bind_entropy)
+
+
+def get_packio():
+    """The ctypes library of parallel/packio.cpp with the segment pack
+    (uhdr_seg_widths, uhdr_seg_fill) and the planar-u8 Rice unpacks
+    (uhdr_rice8_unpack, uhdr_med8_unpack and their _mt forms) bound."""
+    return _load(PACKIO_SRC, HOST_FLAGS, _bind_packio)
+
+
+def get_apply():
+    """The ctypes library of ops/apply.cpp with uhdr_apply_gainmap
+    bound."""
+    return _load(APPLY_SRC, HOST_FLAGS, _bind_apply)

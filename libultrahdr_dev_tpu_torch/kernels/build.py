@@ -91,6 +91,22 @@ SIGNATURES = {
     "uhdr_huff_decode": [_P] * 8 + [_I] * 7 + [_P],
     # src, src row stride, dst, oh, ow, steps (host), n, stream
     "uhdr_edit_plane": [_P, _L, _P, _I, _I, _P, _I, _P],
+    # y hi, y lob, uv hi, uv lob, y out, uv out, y quads, uv quads, stream
+    "uhdr_p010_dense_unpack": [_P] * 6 + [_L] * 2 + [_P],
+    # blob, rows, w, nsegw, yrows, n2, n5, n10, y out, uv out, stream
+    "uhdr_p010_seg_unpack": [_P] + [_I] * 7 + [_P] * 3,
+    # comp, rows, w, nsegw, mode, zs0, zs1, maps, stream
+    "uhdr_rice_stats": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
+    # kmap, uwmap, nseg, sidx_rem, sidx_un, offs, head, med, rem pads
+    # (host), unary pads (host), pad bytes, their count, stream
+    "uhdr_rice_order": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                        _P],
+    # zs, kmap, sidx_rem, sidx_un, offs, nseg, start, nw, woff (host),
+    # blob, stream
+    "uhdr_rice_emit": [_P] * 5 + [_I] + [_P] * 5,
+    # y, u, v, g, 4 x (batch stride, row stride), out, n, h, w, ch, cw,
+    # gh, gw, rows, wc, stream
+    "uhdr_planes_composite": [_P] * 4 + [_L] * 8 + [_P] + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

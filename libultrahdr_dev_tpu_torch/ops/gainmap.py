@@ -1,5 +1,5 @@
 """Gain-map generation and application, SDR output: kernels B1, B9,
-B10a, B10b, B10c, B6, B11 and B7.
+B10a, B10b, B10c, B6, B11, B7 and B18.
 
 - ``encode_front`` (B1) is the API-0 encode front end: the P010 -> u8
   tonemap, the gain map, and the BT.601 re-encode of the base. It
@@ -22,10 +22,14 @@ B10a, B10b, B10c, B6, B11 and B7.
   one frame, the metadata validated, its scalars derived.
 - ``yuv420_to_rgba8888`` (B7) turns a decoded base into SDR RGBA8888
   pixels (gainmap.py:yuv420_to_rgba8888).
+- ``planes_composite`` (B18) stacks a decoded base and gain map into the
+  u8 composite that the host-apply decode reads back
+  (gainmap.py:264 planes_composite; parallel/link.py applies the gain
+  map on the host).
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
 its hand-written CUDA kernel (kernels/csrc/encode_front.cu, apply.cu,
-sdr_out.cu) for CUDA tensors, and counts its kernel launches in
+sdr_out.cu, packio.cu) for CUDA tensors, and counts its kernel launches in
 ``.launches`` (B11's in ``apply_gainmap.lut_launches``; B10b's table
 arm counts in ``generate_gainmap.launches``). The plain
 versions follow the JAX programs operation by operation, rounding as
@@ -632,6 +636,68 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
 apply_gainmap.launches = 0
 apply_gainmap.lut_launches = 0
 apply_gainmap.rgb10_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B18: the planes composite of the host-apply decode.
+# ---------------------------------------------------------------------------
+
+def _composite_shape(y8, u8, gmap):
+    n, h, w = y8.shape
+    ch, cw = u8.shape[1:]
+    gh = gmap.shape[1]
+    return n, -(-(h + ch + gh) // 3) * 3, max(w, 2 * cw)
+
+
+def planes_composite_plain(y8, u8, v8, gmap):
+    """(n, h, w) Y, (n, ceil(h/2), ceil(w/2)) U/V and (n, gh, gw) gain
+    map uint8 planes -> the (n, rows, wc) uint8 composite that the
+    planes readback ships (JAX gainmap.py:264 planes_composite): rows
+    [0, h) Y, then U|V side by side, then the gain map, each edge-padded
+    to wc = max(w, 2 * cw) columns; rows padded to a multiple of 3 by
+    repeating the last."""
+    planes_composite_plain.calls += 1
+    n, rows, wc = _composite_shape(y8, u8, gmap)
+
+    def padw(a):
+        return torch.cat([a, a[..., -1:].expand(*a.shape[:-1],
+                                                 wc - a.shape[-1])], dim=-1)
+
+    comp = torch.cat([padw(y8), padw(torch.cat([u8, v8], dim=-1)),
+                      padw(gmap)], dim=1)
+    pad = rows - comp.shape[1]
+    return torch.cat([comp, comp[:, -1:].expand(n, pad, wc)], dim=1)
+
+
+planes_composite_plain.calls = 0
+
+
+def planes_composite(y8, u8, v8, gmap):
+    """B18 wrapper: the plain version on the CPU, the CUDA kernel
+    (kernels/csrc/packio.cu uhdr_planes_composite, row-strided planes
+    read in place) on CUDA tensors. Same arguments and result as
+    planes_composite_plain."""
+    if not y8.is_cuda:
+        return planes_composite_plain(y8, u8, v8, gmap)
+    n, h, w = _check_chroma(y8, u8, v8)
+    gh, gw = gmap.shape[1:]
+    if gmap.shape[0] != n:
+        raise ValueError("planes_composite: gain map batch differs")
+    strides = [s for t, name in ((y8, "y8"), (u8, "u8"), (v8, "v8"),
+                                 (gmap, "gmap"))
+               for s in _plane_strides(t, name)]
+    _, rows, wc = _composite_shape(y8, u8, gmap)
+    out = torch.empty((n, rows, wc), dtype=torch.uint8, device=y8.device)
+    lib = build.get_lib()
+    planes_composite.launches += 1
+    build.check(lib.uhdr_planes_composite(
+        y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), gmap.data_ptr(),
+        *strides, out.data_ptr(), n, h, w, u8.shape[1], u8.shape[2], gh, gw,
+        rows, wc, build.stream_of(y8)), "uhdr_planes_composite")
+    return out
+
+
+planes_composite.launches = 0
 
 
 def apply_scalars(metadata: GainMapMetadata,

@@ -27,8 +27,11 @@ chip_smoke.py) can time them apart:
   (ops/gainmap.py:apply_gainmap; B11, its table arms, with use_luts)
   for HDR output, or B4 and B5 over the base alone and B7
   (ops/gainmap.py:yuv420_to_rgba8888) for SDR output, which reads
-  nothing of the gain map. The route is chosen per batch from the
-  headers alone: streams that the device decoder does not take (no
+  nothing of the gain map. Output "planes" stops before the apply: B18
+  (ops/gainmap.py:planes_composite) stacks the decoded planes into the
+  u8 composite that the host-apply decode reads back
+  (parallel/link.py). The route is chosen per batch from the headers
+  alone: streams that the device decoder does not take (no
   baseline 4:2:0 base or gray gain map, several scans, ...) are
   Huffman-decoded on the host instead (``decode_host_huffman``), which
   raises the reference's errors for what it cannot decode either.
@@ -36,6 +39,9 @@ chip_smoke.py) can time them apart:
   the encoder's device-resident streams (``DeviceEncodedBatch``), which
   ``batched_decode_from_handoff`` decodes with no re-parse and no
   stream upload.
+- the packed upload: ``batched_encode_api0(..., device_input=(y, uv))``
+  encodes P010 batches already on the device (parallel/link.py
+  upload_p010_batch: B14, or B0).
 
 Entry points run on the CUDA device unless the caller passes another
 device; on a CPU device every kernel runs its plain PyTorch version.
@@ -55,7 +61,7 @@ from ..jpeg import codec, device_decode as dd, device_entropy as de, tables
 from ..jpeg.dct import dequant_idct, fdct_quant
 from ..ops.gainmap import (apply_gainmap, apply_scalars,  # noqa: F401
                            encode_front, encode_front_api1, gainmap_metadata,
-                           yuv420_to_rgba8888)
+                           planes_composite, yuv420_to_rgba8888)
 from ..types import GainMapMetadata, MAP_COMPRESS_QUALITY, err
 
 RST_INTERVAL = 4  # MCUs per restart marker, as the JAX batched encoder
@@ -215,18 +221,21 @@ def _headers(width: int, height: int, gamut: str, quality: int):
 
 
 def assemble_api0(streams: DeviceStreams, gamut: str, hdr_tf: str,
-                  quality: int):
+                  quality: int, stats=None):
     """Host stage of the batched encode (the JAX _assemble_rst_outputs):
     ONE device-to-host copy of the streams and chunk bit counts, then
     per frame the stuffing/marker tail (finalize_rst_stream), headers,
     ICC and the JPEG/R mux. `gamut` is the base's (the SDR gamut of an
-    API-1 encode); the metadata is API-0's for both routes. Returns
-    (blobs, base bits, gain-map bits)."""
+    API-1 encode); the metadata is API-0's for both routes. `stats`
+    gains d2h_bytes, the copy's size. Returns (blobs, base bits,
+    gain-map bits)."""
     s = streams
     nb, ng = s.base.numel(), s.gm.numel()
     host = torch.cat([s.base, s.gm,
                       s.base_bits.reshape(-1).view(torch.uint8),
                       s.gm_bits.reshape(-1).view(torch.uint8)]).cpu().numpy()
+    if stats is not None:
+        stats["d2h_bytes"] = stats.get("d2h_bytes", 0) + host.nbytes
     base_bits = host[nb + ng:nb + ng + s.base_bits.numel() * 4].view(
         np.int32).reshape(s.base_bits.shape)
     gm_bits = host[nb + ng + s.base_bits.numel() * 4:].view(
@@ -295,28 +304,45 @@ def assemble_api0_restartless(coefs, width: int, height: int, gamut: str,
     return out
 
 
-def batched_encode_api0(y_batch: np.ndarray, uv_batch: np.ndarray,
-                        gamut: str = "bt2100", hdr_tf: str = "hlg",
-                        quality: int = 95, device="cuda",
-                        return_handoff: bool = False):
+def batched_encode_api0(y_batch: np.ndarray | None,
+                        uv_batch: np.ndarray | None, gamut: str = "bt2100",
+                        hdr_tf: str = "hlg", quality: int = 95, device="cuda",
+                        return_handoff: bool = False, device_input=None,
+                        stats=None):
     """API-0 encode of a batch of same-size P010 frames: uint16
     (n, h, w) luma and (n, h/2, w) interleaved CbCr, h and w multiples
     of 16. Returns one JPEG/R blob per frame; with return_handoff, also
     a DeviceEncodedBatch for batched_decode_from_handoff. Dense content
     writes the whole batch restart-less (assemble_api0_restartless) and
-    hands off None, as the JAX package does."""
-    dev = resolve_device(device)
-    _check_aligned(y_batch.shape)
-    _, h, w = y_batch.shape
-    coefs = encode_coefs_stage(p010_to_device(y_batch, dev),
-                               p010_to_device(uv_batch, dev), gamut, hdr_tf,
-                               quality)
+    hands off None, as the JAX package does.
+
+    device_input: (y, uv) MSB-aligned int16 batches already on a device
+    (parallel/link.py upload_p010_batch, the packed upload; JAX
+    sharding.py:787); the host batches are then not read, and the encode
+    runs on that device. Otherwise the host batches are copied as
+    uint16 (one copy per plane). stats: a dict that gains h2d_bytes and
+    h2d_pack ("u16"; nothing for device_input, whose upload counts its
+    own) and d2h_bytes (the streams' copy to the host)."""
+    if device_input is not None:
+        y_dev, uv_dev = device_input
+    else:
+        dev = resolve_device(device)
+        y_dev = p010_to_device(y_batch, dev)
+        uv_dev = p010_to_device(uv_batch, dev)
+        if stats is not None:
+            stats["h2d_bytes"] = (stats.get("h2d_bytes", 0)
+                                  + y_batch.nbytes + uv_batch.nbytes)
+            stats["h2d_pack"] = "u16"
+    _check_aligned(y_dev.shape)
+    _, h, w = y_dev.shape
+    coefs = encode_coefs_stage(y_dev, uv_dev, gamut, hdr_tf, quality)
     streams = _streams(coefs, w, h)
     if streams is None:
         blobs = assemble_api0_restartless(coefs, w, h, gamut, hdr_tf,
                                           quality)
         return (blobs, None) if return_handoff else blobs
-    return _finish_encode(streams, gamut, hdr_tf, quality, return_handoff)
+    return _finish_encode(streams, gamut, hdr_tf, quality, return_handoff,
+                          stats)
 
 
 def _check_aligned(shape):
@@ -327,9 +353,9 @@ def _check_aligned(shape):
 
 
 def _finish_encode(streams: DeviceStreams, gamut: str, hdr_tf: str,
-                   quality: int, return_handoff: bool):
+                   quality: int, return_handoff: bool, stats=None):
     blobs, base_bits, gm_bits = assemble_api0(streams, gamut, hdr_tf,
-                                              quality)
+                                              quality, stats)
     if not return_handoff:
         return blobs
     return blobs, DeviceEncodedBatch(streams, base_bits, gm_bits,
@@ -523,16 +549,22 @@ def gainmap_plane(frame: HostDecoded, device) -> torch.Tensor:
 
 def decode_device_stage(frames: list[HostDecoded], output_format: str,
                         max_display_boost: float, device,
-                        use_luts: bool = False) -> torch.Tensor:
+                        use_luts: bool = False,
+                        meta_out: dict | None = None) -> torch.Tensor:
     """Device stage of a batched decode of same-size frames: pixels on
     `device`, (n, h, w, 4) int16 F16 bits for "hdr_linear", (n, h, w)
     int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq", (n, 3, h, w) int16
-    10-bit linear RGB codes for "hdr_linear_rgb_10bit", or (n, h, w)
-    int32 RGBA8888 words for "sdr". The device route uploads the destuffed
-    streams, lane starts, decode and quant tables and apply scalars in
-    one copy, then runs B4 (base and gain map), B5 and B6 (B11 with
-    use_luts); for "sdr", B4 and B5 over the base and B7. The host route
-    uploads coefficient grids instead of streams."""
+    10-bit linear RGB codes for "hdr_linear_rgb_10bit", (n, h, w) int32
+    RGBA8888 words for "sdr", or for "planes" the (n, rows, wc) uint8
+    composite of the decoded planes (ops/gainmap.py planes_composite)
+    that the host-apply decode reads back. The device route uploads the
+    destuffed streams, lane starts, decode and quant tables and apply
+    scalars in one copy, then runs B4 (base and gain map), B5 and B6
+    (B11 with use_luts; B18 in its place for "planes"); for "sdr", B4
+    and B5 over the base and B7. The host route uploads coefficient
+    grids instead of streams. `meta_out` (not for "sdr") gains w, h,
+    gw, gh and the (n, 4) float32 apply scalars, as JAX's meta_out
+    (sharding.py:1158)."""
     if output_format == "sdr":
         return _decode_device_sdr(frames, device)
     f0 = frames[0]
@@ -558,8 +590,13 @@ def decode_device_stage(frames: list[HostDecoded], output_format: str,
         *up, qd, sd = _upload([a.reshape(len(frames), -1, 64)
                                for a in arrays] + [q, scalars], device)
         grids = tuple(up)
-    return apply_gainmap(*_planes(grids, qd, geom), sd, output_format,
-                         use_luts)
+    if meta_out is not None:
+        meta_out.update(w=geom[0], h=geom[1], gw=geom[2], gh=geom[3],
+                        scalars=scalars)
+    planes = _planes(grids, qd, geom)
+    if output_format == "planes":
+        return planes_composite(*planes)
+    return apply_gainmap(*planes, sd, output_format, use_luts)
 
 
 def _check_batch(frames, geom):
@@ -654,7 +691,7 @@ def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
     mode), with the encoder's own tables (Annex K, quant tables scaled
     to the encode quality); the only upload is the small descriptor,
     table and scalar arrays. For "sdr" only the base lanes are decoded,
-    then B5 and B7."""
+    then B5 and B7; "planes" ends in B18 instead of B6."""
     s = handoff.streams
     dev = s.base.device
     n = handoff.base_bits.shape[0]
@@ -679,5 +716,7 @@ def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
                                   w // 16, h // 16)
              + dd.decode_rst_chunks(s.gm, gf, gl, gt, True, (1, 1),
                                     -(-gw // 8), -(-gh // 8)))
-    return apply_gainmap(*_planes(grids, qd, (w, h, gw, gh)), sd,
-                         output_format, use_luts)
+    planes = _planes(grids, qd, (w, h, gw, gh))
+    if output_format == "planes":
+        return planes_composite(*planes)
+    return apply_gainmap(*planes, sd, output_format, use_luts)
