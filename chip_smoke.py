@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from kernels/csrc with nvcc (one nvcc
-per source, in parallel), checks each of the twenty-two (B0-B7, B6's
-10-bit planar arm, B9, B10a, B10b, B10c, B11, B12, B12-enc, B13, B14,
-B15, B16, B18, B19) against its plain PyTorch version at the shapes of
-the main path (a 4080x3072 frame, batch of 2; the general routes' B10,
-B12, B12-enc and B19 and the converter's B13 at one 4000x3000 frame;
-the serving loop's B0, B14, B15, B16 and B18 at a batch of 4), drives
-the serving loop (packed upload, encode, planes decode, planar Rice
-readback, host gain-map apply) and the API-0
+per source, in parallel), checks each of the thirty (B0-B7, B6's 10-bit
+planar arm, B9, B10a, B10b, B10c, B11, B12, B12-enc, B13, B14, B15 and
+B16 at 8, 10 and 16 bits, B17's two passes, B18, B19, B21's two passes)
+against its plain PyTorch version at the shapes of the main path (a
+4080x3072 frame, batch of 2; the general routes' B10, B12, B12-enc and
+B19 and the converter's B13 at one 4000x3000 frame; the serving loop's
+B0, B14, B15, B16, B17, B18 and B21 at a batch of 4), drives the
+serving loop (packed upload, encode, planes decode, planar Rice
+readback, host gain-map apply; and with --no-hostapply the device
+apply and the packed pixel readbacks), the command-line tool (encode,
+decode through fetch_pixels_packed) and the API-0
 round trip, the API-1 encode, SDR decode, table-transfer (use_luts)
 decode, the general encode routes (non-16-aligned and EXIF encodes,
 API-2/3/4/x, encode_jpeg with and without restart intervals), the
@@ -23,8 +26,8 @@ UhdrDecoder, UltraHdr, and the decode of the reference goldens in
 tests/goldens), checks what comes out, and times the kernels and the
 stages.
 
-Phases: B1, B2, B5, B6 (with its 10-bit planar arm), B11, B7 kernel vs
-plain; B3 (Huffman encode)
+Phases: B1, B2 (bitwise), B5, B6 (with its 10-bit planar arm), B11, B7
+kernel vs plain; B3 (Huffman encode)
 kernel vs plain and its JPEG/R bytes vs the host-Huffman route; B9
 (API-1 front end) kernel vs plain and its JPEG/R bytes vs the
 host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
@@ -43,16 +46,22 @@ r in {1, 4, 17}: kernel = plain = the host coder with RSTn markers;
 B0 and B14 (the P010 upload: dense on uniform noise, segment-packed on
 bench content), B18 (the planes composite of a decoded batch of 4), B15
 and B16 (Rice pass 1 and pack over that composite, vertical and MED,
-two-phase and fused), bitwise; the main-path windows (API-0 round trip,
+two-phase and fused), bitwise; B15 and B16 at 10 and 16 bits (both
+schemes, two-phase and fused), B17 and B21 on a decoded batch of 4,
+bitwise, each host unpack = the device pixels; the main-path windows
+(API-0 round trip,
 handoff, goldens, API-1 encode + HDR decode, SDR decode, use_luts
 decode, general routes, converter, dense content, the serving loop:
 four HLG rounds and one F16 round at batch 4, seg upload, fetched
 composite = the device's, host apply within 1 code / ULP of the device
-apply, no plain-version call), each with every launch counter zeroed
-just before and
-read just after (each window's kernels launched; no host Huffman call
-in any window: the general routes and the converter code each JPEG
-they generate with B19); stage times.
+apply, no plain-version call; the readback window: --no-hostapply,
+three HLG and two F16 rounds, the fine-width arm and pack_plane_device,
+every fetched batch = the device's; the CLI window: a 4000x3000 encode
+decoded to RGBA1010102 and F16, each file = the unpacked decode),
+each with every launch counter zeroed just before and read just after
+(each window's kernels launched; no host Huffman call in any window:
+the general routes and the converter code each JPEG they generate with
+B19); stage times.
 
 It needs one CUDA device and fails (exit code != 0, no result line)
 without one; nothing falls back to the CPU. It imports nothing of JAX.
@@ -381,7 +390,8 @@ def kernel_phases(dev, results: dict):
         / FRAMES, bytes=nbytes(y, uv, *got) / FRAMES, library_ms=None)
     gmap, yb, ub, vb = got
 
-    # B2: int16 equal except +-1 on <= 1e-5 of coefficients.
+    # B2: int16 bitwise equal (both compute JAX's kron form, the dots'
+    # pairwise float32 tree over exact row sums).
     qs = [torch.from_numpy(q.reshape(64)).to(dev)
           for q in batched.quant_tables(95)]
     planes = ((yb, qs[0]), (ub, qs[1]), (vb, qs[1]), (gmap, qs[2]))
@@ -393,11 +403,11 @@ def kernel_phases(dev, results: dict):
         coefs.append(c)
     log(f"B2 fdct_quant: max |diff| {worst} on {n_off} of {n_all} "
         f"coefficients")
-    require(worst <= 1 and n_off <= 1e-5 * n_all,
-            "B2 coefficients disagree with the plain version")
+    require(n_off == 0, "B2 coefficients disagree with the plain version")
     n_blocks = sum(c.shape[1] for c in coefs)   # per frame
     # Library yardstick, transform only: one (N, 64) x (64, 64) float32
-    # product over the frame's blocks (TF32 off).
+    # product over the frame's blocks (TF32 off); B2's kron form does
+    # three (one per bf16 term), 3 x 64 x 64 multiply-adds per block.
     xs = torch.randn(n_blocks * FRAMES, 64, device=dev)
     kron = torch.randn(64, 64, device=dev)
     lib_ms = cuda_ms(lambda: torch.matmul(xs, kron), 20) / FRAMES
@@ -408,7 +418,7 @@ def kernel_phases(dev, results: dict):
         plain_ms=cuda_ms(lambda: [dct.fdct_quant_plain(p, q)
                                   for p, q in planes], 3) / FRAMES,
         bytes=nbytes(yb, ub, vb, gmap, *coefs) / FRAMES,
-        flops=2048.0 * n_blocks, library_ms=lib_ms)
+        flops=24576.0 * n_blocks, library_ms=lib_ms)
 
     # B5: u8 planes <= 1 apart on <= 1e-4 of pixels.
     idct_args = []
@@ -2218,6 +2228,164 @@ def packio_phase(dev, results: dict, kept: dict):
                       results[key]["ms"] * n)
 
 
+def _decoded_pixels(dev, kept: dict) -> dict:
+    """The decoded batch of packio_phase through B6: HLG RGBA1010102
+    words, linear F16 halves and the 10-bit planar codes, on the
+    device."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+
+    sc = torch.from_numpy(kept["scalars"]).to(dev)
+    return {fmt: gm.apply_gainmap(*kept["planes"], sc, fmt)
+            for fmt in ("hdr_hlg", "hdr_linear", "hdr_linear_rgb_10bit")}
+
+
+def readback_phase(dev, results: dict, kept: dict):
+    """B15 and B16 at 10 and 16 bits, B17 and B21 against their plain
+    versions on a decoded 4080x3072 batch of SERVE_FRAMES, bitwise: B15
+    for vertical, MED and both schemes on the HLG and F16 pixels; B16
+    two-phase on each scheme's host plan and fused on the same paddings
+    (fit) and on tight ones (no fit), the native host unpack of each
+    two-phase blob = the device pixels; B17's widths and pack on the HLG
+    pixels, its host unpack = the pixels; B21's widths and pack on the
+    10-bit planar pixels, unpack_plane_host = the plane."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n = SERVE_FRAMES
+
+    def per_frame(ms):
+        return ms / n
+
+    pix = _decoded_pixels(dev, kept)
+    kept["pixels"] = pix
+    for bits, fmt in ((10, "hdr_hlg"), (16, "hdr_linear")):
+        x = pix[fmt]
+        xh = x.cpu().numpy().view(np.uint32 if bits == 10 else np.uint16)
+        for schemes in ((False,), (True,), (False, True)):
+            zg, mg = packio.rice_stats(x, schemes)
+            zr, mr = packio.rice_stats_plain(x, schemes)
+            require(all(map(torch.equal, zg, zr)) and torch.equal(mg, mr),
+                    f"B15 {bits}-bit {schemes} differs from its plain "
+                    f"version")
+        nseg = mg.shape[1]
+        results[f"B15/{bits}"] = dict(
+            err=0, library_ms=None,
+            ms=per_frame(cuda_ms(lambda: packio.rice_stats(
+                x, (False, True)), 20)),
+            plain_ms=per_frame(cuda_ms(lambda: packio.rice_stats_plain(
+                x, (False, True)), 2)),
+            bytes=(nbytes(x) + 2 * nseg * (RICE_L * 2 + 2)) / n)
+        maps = mg.cpu().numpy()
+        for pick, med in ((0, False), (1, True)):
+            plan = packio._rice_host_plan(maps[2 * pick], maps[2 * pick + 1],
+                                          10**15, bits)
+            _, _, rp, up, offs, _ = plan
+            kuw = mg[2 * pick:2 * pick + 2]
+            blob = packio.rice_pack(zg[pick], kuw, offs, rp, up, bits)
+            require(torch.equal(blob, packio.rice_pack_plain(
+                zg[pick], kuw, offs, rp, up)),
+                f"B16 {bits}-bit two-phase ({'MED' if med else 'vertical'}) "
+                f"differs from its plain version")
+            for pads in ((rp, up), ((32,) * len(rp), (32,) * 7)):
+                fg = packio.rice_fused(x, med, *pads)
+                require(torch.equal(fg, packio.rice_fused_plain(x, med,
+                                                                *pads)),
+                        f"B16 {bits}-bit fused ({'MED' if med else 'vert'}) "
+                        f"differs from its plain version")
+            out = packio._host_unpack_rice(
+                blob.cpu().numpy().view(np.uint32), maps[2 * pick],
+                maps[2 * pick + 1], rp, up, n, H, W, med, bits)
+            require(np.array_equal(out, xh), f"{bits}-bit host unpack "
+                    f"({'MED' if med else 'vertical'}) != device pixels")
+            log(f"B15/B16 {bits}-bit {'MED' if med else 'vertical'}: "
+                f"kernels = plain (two-phase, fused fit and no fit), host "
+                f"unpack = device pixels; blob {blob.numel() * 4 / 1e6:.2f} "
+                f"MB for {nbytes(x) / 1e6:.1f} MB raw ({nseg} segments)")
+        zs, kuw = zg[1], mg[2:4]
+        results[f"B16/{bits}"] = dict(
+            err=0, library_ms=None,
+            ms=per_frame(cuda_ms(lambda: packio.rice_pack(
+                zs, kuw, offs, rp, up, bits), 20)),
+            plain_ms=per_frame(cuda_ms(lambda: packio.rice_pack_plain(
+                zs, kuw, offs, rp, up), 2)),
+            bytes=(nbytes(zs, kuw) + nbytes(blob)) / n)
+        log_breakdown(f"B16 {bits}-bit MED (batch of {n})",
+                      lambda: packio.rice_pack(zs, kuw, offs, rp, up, bits),
+                      10, results[f"B16/{bits}"]["ms"] * n)
+
+    # B17 on the HLG pixels.
+    x = pix["hdr_hlg"]
+    zs, bc = packio.rct_widths(x)
+    zp, bp = packio.rct_widths_plain(x)
+    require(torch.equal(zs, zp) and torch.equal(bc, bp),
+            "B17 widths differ from the plain version")
+    bm = bc.cpu().numpy()
+    counts = np.bincount(packio.FINE_RANK[bm.reshape(-1)], minlength=9)
+    npads = tuple(packio._pow2_pad(max(int(c), 1), floor=32)
+                  for c in counts[1:])
+    offs = np.cumsum(counts[:8]).astype(np.int32)
+    blob = packio.rct_pack(zs, bc, offs, npads)
+    require(torch.equal(blob, packio.rct_pack_plain(zs, bc, offs, npads)),
+            "B17 pack differs from the plain version")
+    out = packio._host_unpack_rct(blob.cpu().numpy().view(np.uint32), bm,
+                                  npads, n, H, W)
+    require(np.array_equal(out, x.cpu().numpy().view(np.uint32)),
+            "B17 host unpack != device pixels")
+    log(f"B17 rct_widths + rct_pack: kernels = plain, host unpack = device "
+        f"pixels; blob {blob.numel() * 4 / 1e6:.2f} MB for "
+        f"{nbytes(x) / 1e6:.1f} MB raw ({bm.size} segments)")
+    results["B17a"] = dict(
+        err=0, library_ms=None,
+        ms=per_frame(cuda_ms(lambda: packio.rct_widths(x), 20)),
+        plain_ms=per_frame(cuda_ms(lambda: packio.rct_widths_plain(x), 2)),
+        bytes=nbytes(x, zs, bc) / n)
+    results["B17b"] = dict(
+        err=0, library_ms=None,
+        ms=per_frame(cuda_ms(lambda: packio.rct_pack(zs, bc, offs, npads),
+                             20)),
+        plain_ms=per_frame(cuda_ms(lambda: packio.rct_pack_plain(
+            zs, bc, offs, npads), 2)),
+        bytes=nbytes(zs, bc, blob) / n)
+    log_breakdown(f"B17 pack (batch of {n})",
+                  lambda: packio.rct_pack(zs, bc, offs, npads), 10,
+                  results["B17b"]["ms"] * n)
+
+    # B21 on the 10-bit planar pixels, one (3 * n * H, W) plane.
+    plane = pix["hdr_linear_rgb_10bit"].reshape(-1, W)
+    zs, bc = packio.plane_widths(plane)
+    zp, bp = packio.plane_widths_plain(plane)
+    require(torch.equal(zs, zp) and torch.equal(bc, bp),
+            "B21 widths differ from the plain version")
+    _, gidx = packio._plane_plan(bc.cpu().numpy().reshape(-1))
+    sizes = tuple(g.size for g in gidx)
+    gd = torch.from_numpy(np.concatenate(gidx)).to(dev)
+    blob = packio.plane_pack(zs, gd, sizes)
+    require(torch.equal(blob, packio.plane_pack_plain(zs, gd, sizes)),
+            "B21 pack differs from the plain version")
+    pk = packio.pack_plane_device(plane)
+    require(np.array_equal(packio.unpack_plane_host(pk),
+                           plane.cpu().numpy().view(np.uint16)),
+            "B21 unpack_plane_host != the device plane")
+    log(f"B21 plane_widths + plane_pack: kernels = plain, unpack = device "
+        f"plane; blob {blob.numel() * 4 / 1e6:.2f} MB for "
+        f"{nbytes(plane) / 1e6:.1f} MB raw (buckets {sizes})")
+    results["B21a"] = dict(
+        err=0, library_ms=None,
+        ms=per_frame(cuda_ms(lambda: packio.plane_widths(plane), 20)),
+        plain_ms=per_frame(cuda_ms(lambda: packio.plane_widths_plain(plane),
+                                   2)),
+        bytes=nbytes(plane, zs, bc) / n)
+    results["B21b"] = dict(
+        err=0, library_ms=None,
+        ms=per_frame(cuda_ms(lambda: packio.plane_pack(zs, gd, sizes), 20)),
+        plain_ms=per_frame(cuda_ms(lambda: packio.plane_pack_plain(
+            zs, gd, sizes), 2)),
+        bytes=(nbytes(gd, blob) + sum(sizes) * RICE_L * 2) / n)
+
+
 def plain_calls() -> dict:
     """Calls of the new kernels' plain versions (a CUDA main path makes
     none)."""
@@ -2227,7 +2395,10 @@ def plain_calls() -> dict:
     return {"B0": packio.unpack_p010_dense_plain,
             "B14": packio.unpack_plane_device_plain,
             "B15": packio.rice_stats_plain, "B16": packio.rice_pack_plain,
-            "B18": gm.planes_composite_plain}
+            "B17a": packio.rct_widths_plain, "B17b": packio.rct_pack_plain,
+            "B18": gm.planes_composite_plain,
+            "B21a": packio.plane_widths_plain,
+            "B21b": packio.plane_pack_plain}
 
 
 def main_path_serving(dev, smi: str):
@@ -2304,6 +2475,160 @@ def main_path_serving(dev, smi: str):
     return c
 
 
+def main_path_readback(dev, smi: str, kept: dict):
+    """The serving loop with --no-hostapply at 4080x3072, batch
+    SERVE_FRAMES: READBACK_ROUNDS HLG rounds (the pixels through
+    fetch_1010102_packed: B15, B16 at 10 bits, two-phase then fused) and
+    two F16 rounds (fetch_f16_packed: B15, B16 at 16 bits); then the
+    last HLG batch through the fine-width arm (fetch_rgba1010102_batch:
+    B17) and its 10-bit planar decode (B6r) through pack_plane_device
+    (B21). One window: every launch counter and the plain versions' call
+    counters zeroed just before and read just after. Every fetched batch
+    is bitwise the device's."""
+    from libultrahdr_dev_tpu_torch import serving
+    from libultrahdr_dev_tpu_torch.parallel import batched, packio
+
+    reset_counts()
+    for fn in plain_calls().values():
+        fn.calls = 0
+    t0 = time.perf_counter()
+    res = serving.run(SERVE_FRAMES, H, W, READBACK_ROUNDS, device=dev,
+                      log=log, hostapply=False)
+    stages_hlg, pick_hlg = dict(packio.LAST_FETCH_STAGES), packio.LAST_PICK
+    res16 = serving.run(SERVE_FRAMES, H, W, 2, f16=True, device=dev, log=log,
+                        hostapply=False)
+    stages_f16, pick_f16 = dict(packio.LAST_FETCH_STAGES), packio.LAST_PICK
+    fine, fine_bytes = packio.fetch_rgba1010102_batch(res.comp_dev)
+    p10 = batched.batched_decode(res.blobs, "hdr_linear_rgb_10bit",
+                                 serving.BOOST, device=dev)
+    pk = packio.pack_plane_device(p10.reshape(-1, W))
+    c = read_counts(f"readback window ({time.perf_counter() - t0:.1f} s)",
+                    READBACK_KERNELS)
+    calls = {k: fn.calls for k, fn in plain_calls().items()}
+    log(f"readback window: plain-version calls {calls}; HLG: last pick "
+        f"{pick_hlg}, LAST_FETCH_STAGES {stages_hlg}; F16: last pick "
+        f"{pick_f16}, LAST_FETCH_STAGES {stages_f16}")
+    require(not any(calls.values()), f"plain versions ran: {calls}")
+    for label, rr, packed in (("HLG", res, "rct-rice-auto"),
+                              ("F16", res16, "rct-rice16-auto")):
+        raw = rr.pixels.nbytes
+        for r, st in enumerate(rr.stats):
+            log(f"readback round {r} ({label}): d2h_pack {st['d2h_pack']}, "
+                f"d2h_bytes {st['d2h_bytes']} of {raw} raw "
+                f"({raw / st['d2h_bytes']:.2f}x), stages "
+                f"{st.get('d2h_stages')}")
+            require(st["d2h_pack"].startswith(packed),
+                    f"{label} round {r} read back {st['d2h_pack']}")
+        require(np.array_equal(rr.pixels, rr.comp_dev.cpu().numpy().view(
+            rr.pixels.dtype)), f"{label}: fetched pixels != the device's")
+    require(fine is not None and np.array_equal(
+        fine, res.comp_dev.cpu().numpy().view(np.uint32)),
+        "fine-width readback != the device pixels")
+    require(np.array_equal(packio.unpack_plane_host(pk), p10.reshape(
+        -1, W).cpu().numpy().view(np.uint16)),
+        "pack_plane_device readback != the device plane")
+    log(f"readback window: fine-width arm {fine_bytes} B for "
+        f"{res.pixels.nbytes} raw; 10-bit planar plane pack "
+        f"{pk.nbytes()} B for {p10.numel() * 2} raw; all = device")
+    kept["readback"] = (res.comp_dev, res16.comp_dev, p10)
+    return c
+
+
+def main_path_cli(dev, smi: str):
+    """The command-line tool (python -m libultrahdr_dev_tpu_torch.cli) on
+    one GW x GH P010 frame: encode (API-0 on the general route), then
+    decode to HLG RGBA1010102 (-o 1 -O 5) and to linear F16 (-o 0 -O 4),
+    whose pixels cross through fetch_pixels_packed, in one window with
+    the counters zeroed before and read after. Each written file equals
+    the bytes of the same decode read back without packing (UhdrDecoder's
+    host pixels)."""
+    import shutil
+    import tempfile
+
+    from libultrahdr_dev_tpu_torch import cli
+    from libultrahdr_dev_tpu_torch.api import UhdrDecoder
+    from libultrahdr_dev_tpu_torch.types import ColorTransfer, PixelFormat
+
+    d = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        y, uv = synth_p010(1, GH, GW, SEED + 400)
+        src, enc = os.path.join(d, "in.p010"), os.path.join(d, "out.jpg")
+        np.concatenate([y[0].ravel(), uv[0].ravel()]).tofile(src)
+        decodes = {"hlg": ("1", "5", PixelFormat.RGBA1010102,
+                           ColorTransfer.HLG),
+                   "f16": ("0", "4", PixelFormat.RGBA_F16,
+                           ColorTransfer.LINEAR)}
+        reset_counts()
+        for fn in plain_calls().values():
+            fn.calls = 0
+        t0 = time.perf_counter()
+        require(cli.main(["-m", "0", "-p", src, "-w", str(GW), "-h", str(GH),
+                          "-C", "2", "-t", "1", "-q", "95", "-z", enc]) == 0,
+                "cli encode failed")
+        for name, (o, fmt, *_) in decodes.items():
+            require(cli.main(["-m", "1", "-j", enc, "-o", o, "-O", fmt, "-z",
+                              os.path.join(d, f"{name}.raw")]) == 0,
+                    f"cli decode {name} failed")
+        c = read_counts(f"CLI window ({time.perf_counter() - t0:.1f} s)",
+                        CLI_KERNELS)
+        calls = {k: fn.calls for k, fn in plain_calls().items()}
+        require(not any(calls.values()), f"plain versions ran: {calls}")
+        with open(enc, "rb") as f:
+            data = f.read()
+        for name, (_, _, fmt, ct) in decodes.items():
+            dec = UhdrDecoder(dev)
+            dec.set_image(data)
+            dec.set_out_img_format(fmt)
+            dec.set_out_color_transfer(ct)
+            want = np.ascontiguousarray(dec.decode().planes["rgba"])
+            with open(os.path.join(d, f"{name}.raw"), "rb") as f:
+                got = f.read()
+            require(got == want.tobytes(), f"cli {name} file != the "
+                    f"unpacked decode's bytes")
+            log(f"CLI decode {name}: {len(got)} B file = the decode read "
+                f"back raw")
+        return c
+    finally:
+        shutil.rmtree(d)
+
+
+def stage_times_readback(dev, smi: str, kept: dict):
+    """Warm per-frame times of the packed pixel readbacks beside the
+    plain copies of the same device pixels, in turns (plain, packed,
+    packed, plain), each ending with the pixels on the host: the HLG
+    and F16 packs (fused once warm), the fine-width arm, the 10-bit
+    plane pack; .cpu() (pageable) and a copy into pinned memory."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import link, packio
+
+    hlg, f16, p10 = kept["readback"]
+    plane = p10.reshape(-1, W)
+    n = SERVE_FRAMES
+
+    def pinned(t):
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return lambda: (buf.copy_(t), torch.cuda.synchronize())
+
+    for label, x, packed in (
+            ("HLG RGBA1010102", hlg, lambda: link.fetch_1010102_packed(hlg)),
+            ("F16", f16, lambda: link.fetch_f16_packed(f16)),
+            ("HLG fine-width", hlg,
+             lambda: packio.fetch_rgba1010102_batch(hlg)),
+            ("10-bit planar plane", plane, lambda: packio.unpack_plane_host(
+                packio.pack_plane_device(plane)))):
+        copy = lambda: x.cpu()  # noqa: E731
+        a = host_ms(copy, 3)
+        b = host_ms(packed, 3)
+        b2 = host_ms(packed, 3)
+        a2 = host_ms(copy, 3)
+        pin = host_ms(pinned(x), 3)
+        log(f"stage readback {label}: packed {b / n:.3f} / {b2 / n:.3f} "
+            f"ms/frame, .cpu() {a / n:.3f} / {a2 / n:.3f} ms/frame, pinned "
+            f"copy {pin / n:.3f} ms/frame, {nbytes(x) / n / 1e6:.1f} MB/frame "
+            f"raw ({W}x{H}, batch {n}, {smi})")
+
+
 def stage_times_serving(dev, smi: str, kept: dict):
     """Warm per-frame times of the serving loop's packed stages beside
     the plain copies they replace (batch SERVE_FRAMES, 4080x3072), each
@@ -2356,6 +2681,14 @@ API0_KERNELS = ("B1", "B2", "B3", "B3g", "B4", "B5", "B6")
 SERVE_KERNELS = ("B14", "B0", "B1", "B2", "B3", "B3g", "B4", "B5", "B18",
                  "B15", "B16")
 SERVE_FRAMES, SERVE_ROUNDS = 4, 4
+# The readback window: its kernels and its HLG rounds.
+READBACK_KERNELS = ("B14", "B1", "B2", "B3", "B4", "B5", "B6", "B6r",
+                    "B15/10", "B15/16", "B16/10", "B16/16", "B17a", "B17b",
+                    "B21a", "B21b")
+READBACK_ROUNDS = 3
+# The CLI window's (an encode on the general route, two decodes).
+CLI_KERNELS = ("B10a", "B10b", "B10c", "B2", "B19", "B4", "B5", "B6",
+               "B15/10", "B15/16", "B16/10", "B16/16")
 RICE_L = 256
 # Kernels checked and timed at the general routes' 4000x3000 frame.
 GENERAL_KERNELS = ("B10a", "B10b", "B10c", "B12", "B12e", "B13", "B19")
@@ -2401,7 +2734,15 @@ def counters():
             "B14": (packio.unpack_plane_device, "launches"),
             "B15": (packio.rice_stats, "launches"),
             "B16": (packio.rice_pack, "launches"),
-            "B18": (gm.planes_composite, "launches")}
+            "B15/10": (packio.rice_stats, "launches10"),
+            "B15/16": (packio.rice_stats, "launches16"),
+            "B16/10": (packio.rice_pack, "launches10"),
+            "B16/16": (packio.rice_pack, "launches16"),
+            "B17a": (packio.rct_widths, "launches"),
+            "B17b": (packio.rct_pack, "launches"),
+            "B18": (gm.planes_composite, "launches"),
+            "B21a": (packio.plane_widths, "launches"),
+            "B21b": (packio.plane_pack, "launches")}
 
 
 PACKIO_CU = "libultrahdr_dev_tpu_torch/kernels/csrc/packio.cu"
@@ -2452,6 +2793,22 @@ KERNELS = {
             "libultrahdr_dev_tpu/parallel/packio.py:749"),
     "B18": ("planes_composite", PACKIO_CU,
             "libultrahdr_dev_tpu/ops/gainmap.py:264"),
+    "B15/10": ("rice_stats_10bit", PACKIO_CU,
+               "libultrahdr_dev_tpu/parallel/packio.py:678"),
+    "B15/16": ("rice_stats_16bit", PACKIO_CU,
+               "libultrahdr_dev_tpu/parallel/packio.py:706"),
+    "B16/10": ("rice_pack_10bit", PACKIO_CU,
+               "libultrahdr_dev_tpu/parallel/packio.py:833"),
+    "B16/16": ("rice_pack_16bit", PACKIO_CU,
+               "libultrahdr_dev_tpu/parallel/packio.py:894"),
+    "B17a": ("rct_widths", PACKIO_CU,
+             "libultrahdr_dev_tpu/parallel/packio.py:509"),
+    "B17b": ("rct_pack", PACKIO_CU,
+             "libultrahdr_dev_tpu/parallel/packio.py:535"),
+    "B21a": ("plane_widths", PACKIO_CU,
+             "libultrahdr_dev_tpu/parallel/packio.py:269"),
+    "B21b": ("plane_pack", PACKIO_CU,
+             "libultrahdr_dev_tpu/parallel/packio.py:299"),
 }
 
 
@@ -2494,6 +2851,8 @@ def main() -> int:
     phases.append(("B12-enc", lambda: b12e_phase(dev, results)))
     phases.append(("B0 B14 B18 B15 B16",
                    lambda: packio_phase(dev, results, kept)))
+    phases.append(("B15 B16 at 10 and 16 bits, B17, B21",
+                   lambda: readback_phase(dev, results, kept)))
     for label, fn in phases:
         t = time.perf_counter()
         fn()
@@ -2526,8 +2885,16 @@ def main() -> int:
     t = time.perf_counter()
     launches5 = main_path_serving(dev, smi)
     log(f"phase main path serving loop: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches6 = main_path_readback(dev, smi, kept)
+    log(f"phase main path readback (--no-hostapply): "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches7 = main_path_cli(dev, smi)
+    log(f"phase main path CLI: {time.perf_counter() - t:.1f} s")
     launches = {k: sum(c[k] for c in (launches, launches1, launches2,
-                                      launches3, launches4, launches5))
+                                      launches3, launches4, launches5,
+                                      launches6, launches7))
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
     launches["B19"] += launches.pop("B19g")
@@ -2535,6 +2902,7 @@ def main() -> int:
     stage_times_general(dev, smi, general)
     stage_times_converter(dev, smi, conv)
     stage_times_serving(dev, smi, kept)
+    stage_times_readback(dev, smi, kept)
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

@@ -197,8 +197,13 @@ class UhdrEncoder(_Sailed):
 
 
 class UhdrDecoder(_Sailed):
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", pixels_on_device: bool = False):
+        """pixels_on_device: decode() leaves planes["rgba"] a tensor on
+        the device (int32 words or int16 F16 halves), for the caller to
+        read back itself (parallel/link.py fetch_pixels_packed), as the
+        JAX decoder leaves a device array."""
         super().__init__(device)
+        self.pixels_on_device = pixels_on_device
         self.reset()
 
     def reset(self):
@@ -307,7 +312,8 @@ class UhdrDecoder(_Sailed):
         self._sailed = True
         try:
             self._result = JpegR(self.device).decode(
-                self._input, self._output_format(), self._boost)
+                self._input, self._output_format(), self._boost,
+                pixels_on_device=self.pixels_on_device)
         except Exception as e:
             self._outcome = e
             raise

@@ -34,23 +34,54 @@ def _dct_matrix() -> np.ndarray:
 _D64 = _dct_matrix()
 # Float32 DCT matrix of the inverse transform (the JAX IDCT's `d`).
 D32 = _D64.astype(np.float32)
-# Forward matrix scaled by 2*sqrt(2): rows 0 and 4 become exactly +-1,
-# so the {0,4} x {0,4} coefficients are exact integer sums (times 1/8).
-DS32 = (_D64 * (2.0 * np.sqrt(2.0))).astype(np.float32)
-DS32[0] = 1.0
-DS32[4] = np.sign(_D64[4])
 ZIG = np.asarray(ZIGZAG, np.int64)
 INV_ZIG = np.argsort(ZIG)
 
+
+def _bf16(m: np.ndarray) -> np.ndarray:
+    """Round float32 values to bfloat16 (nearest, ties to even), kept as
+    float32."""
+    b = m.astype(np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _kron_zig_split() -> np.ndarray:
+    """(3, 64, 64) float32: kron(D, D) acting on a flattened block, its
+    columns in zigzag order, split into three bfloat16 terms (each the
+    bf16 rounding of the remaining float32 residual), as the JAX
+    package's dct.py:_kron_fdct_bf16_split builds them."""
+    rem = np.kron(_D64, _D64).astype(np.float32).T[:, ZIG]
+    terms = []
+    for _ in range(3):
+        t = _bf16(rem)
+        terms.append(t)
+        rem = rem - t
+    return np.ascontiguousarray(np.stack(terms))
+
+
+# The three terms, and the same laid out (3, 8 rows, 8 cols, 64) for the
+# row sums of fdct_quant_plain.
+KRON_ZIG = _kron_zig_split()
+_KRON_ROWS = KRON_ZIG.reshape(3, 8, 8, 64)
+
 # Host copies for the kernels' by-value table argument.
-_DS_C = np.ascontiguousarray(DS32.reshape(64))
 _D_C = np.ascontiguousarray(D32.reshape(64))
 _INV_ZIG_C = np.ascontiguousarray(INV_ZIG.astype(np.int32))
+_KRON_CACHE: dict = {}
+
+
+def _kron_on(device) -> torch.Tensor:
+    """KRON_ZIG on `device`, uploaded once."""
+    t = _KRON_CACHE.get(device)
+    if t is None:
+        t = _KRON_CACHE[device] = torch.from_numpy(KRON_ZIG).to(device)
+    return t
 
 
 def _tables():
     fp = ctypes.POINTER(ctypes.c_float)
-    return (_DS_C.ctypes.data_as(fp), _D_C.ctypes.data_as(fp),
+    return (_D_C.ctypes.data_as(fp),
             _INV_ZIG_C.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
 
 
@@ -63,11 +94,23 @@ def blocks_dims(h: int, w: int) -> tuple[int, int]:
 # B2: forward DCT + quantization + zigzag.
 # ---------------------------------------------------------------------------
 
+def _tree8(r: torch.Tensor) -> torch.Tensor:
+    """((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7)) over dim 0."""
+    return ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+
+
 def fdct_quant_plain(plane_u8: torch.Tensor,
                      q_natural: torch.Tensor) -> torch.Tensor:
     """(n, h, w) uint8 planes -> (n, bh*bw, 64) int16 quantized
     coefficients in zigzag order. The plane is edge-padded to multiples
-    of 8; q_natural is the (64,) int32 quant table in natural order."""
+    of 8; q_natural is the (64,) int32 quant table in natural order.
+
+    The JAX package's value, bit for bit: each of its three bf16 dots
+    sums the 64 products as a pairwise tree in float32. A row of the
+    block (8 products) sums exactly in float32 in any order (an 8-bit
+    sample times a bf16 term has 16 significant bits, and a row's sum
+    stays within 24), so the row sums are exact and only the tree over
+    the 8 rows rounds; then (d0 + d1) + d2, / q, rounded half to even."""
     n, h, w = plane_u8.shape
     bh, bw = blocks_dims(h, w)
     dev = plane_u8.device
@@ -75,10 +118,12 @@ def fdct_quant_plain(plane_u8: torch.Tensor,
     cols = torch.clamp(torch.arange(bw * 8, device=dev), max=w - 1)
     x = plane_u8.index_select(1, rows).index_select(2, cols)
     x = x.to(torch.float32) - 128.0
-    xb = x.reshape(n, bh, 8, bw, 8).permute(0, 1, 3, 2, 4)
-    ds = torch.from_numpy(DS32).to(dev)
-    t = torch.matmul(torch.matmul(ds, xb), ds.T) * 0.125
-    c = t.reshape(n, bh * bw, 64)[..., torch.from_numpy(ZIG).to(dev)]
+    # (8 rows, n * blocks, 8 cols): row j of every block.
+    xb = (x.reshape(n, bh, 8, bw, 8).permute(2, 0, 1, 3, 4)
+          .reshape(8, n * bh * bw, 8))
+    m = _kron_on(dev).reshape(3, 8, 8, 64)
+    d = [_tree8(torch.bmm(xb, m[t])) for t in range(3)]
+    c = ((d[0] + d[1]) + d[2]).reshape(n, bh * bw, 64)
     q = q_natural.to(device=dev, dtype=torch.float32).reshape(64)
     q_zig = q[torch.from_numpy(ZIG).to(dev)]
     return torch.round(c / q_zig).to(torch.int16)
@@ -96,11 +141,13 @@ def fdct_quant(plane_u8: torch.Tensor,
     bh, bw = blocks_dims(h, w)
     out = torch.empty((n, bh * bw, 64), dtype=torch.int16,
                       device=plane_u8.device)
+    kron = _kron_on(plane_u8.device)
     lib = build.get_lib()
     fdct_quant.launches += 1
     build.check(lib.uhdr_fdct_quant(
-        plane_u8.data_ptr(), q_natural.data_ptr(), out.data_ptr(), n, h, w,
-        *_tables(), build.stream_of(plane_u8)), "uhdr_fdct_quant")
+        plane_u8.data_ptr(), q_natural.data_ptr(), kron.data_ptr(),
+        out.data_ptr(), n, h, w, *_tables(), build.stream_of(plane_u8)),
+        "uhdr_fdct_quant")
     return out
 
 

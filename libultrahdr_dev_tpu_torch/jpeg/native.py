@@ -111,11 +111,16 @@ def _bind_packio(lib):
     lng = ctypes.c_long
     # kmap, uwmap, blob, rem word offsets, unary word offsets, n, h, w,
     # scratch, out[, nthreads]
-    for name in ("uhdr_rice8_unpack", "uhdr_med8_unpack"):
+    for name in ("uhdr_rice8_unpack", "uhdr_med8_unpack", "uhdr_rice_unpack",
+                 "uhdr_med_unpack", "uhdr_rice16_unpack",
+                 "uhdr_med16_unpack"):
         for suffix, extra in (("", []), ("_mt", [lng])):
             fn = getattr(lib, name + suffix)
             fn.restype = lng
             fn.argtypes = [p] * 5 + [ctypes.c_int64] * 3 + [p, p] + extra
+    # bmap, blob, bucket word offsets, n, h, w, scratch, out
+    lib.uhdr_rctseg_unpack.restype = lng
+    lib.uhdr_rctseg_unpack.argtypes = [p] * 3 + [ctypes.c_int64] * 3 + [p, p]
     lib.uhdr_seg_widths.restype = lng
     lib.uhdr_seg_widths.argtypes = [p, ctypes.c_int64, ctypes.c_int64, p, p]
     lib.uhdr_seg_fill.restype = lng
@@ -141,8 +146,9 @@ def get_lib():
 
 def get_packio():
     """The ctypes library of parallel/packio.cpp with the segment pack
-    (uhdr_seg_widths, uhdr_seg_fill) and the planar-u8 Rice unpacks
-    (uhdr_rice8_unpack, uhdr_med8_unpack and their _mt forms) bound."""
+    (uhdr_seg_widths, uhdr_seg_fill), the Rice unpacks at 8, 10 and 16
+    bits (uhdr_{rice,med}{8,,16}_unpack and their _mt forms) and the
+    fine-width unpack (uhdr_rctseg_unpack) bound."""
     return _load(PACKIO_SRC, HOST_FLAGS, _bind_packio)
 
 

@@ -380,7 +380,8 @@ class JpegR:
     def decode(self, jpegr_bytes: bytes,
                output_format: OutputFormat = OutputFormat.HDR_LINEAR,
                max_display_boost: float = float("inf"),
-               use_luts: bool = False) -> JpegRDecodeResult:
+               use_luts: bool = False,
+               pixels_on_device: bool = False) -> JpegRDecodeResult:
         """Decode to HDR or SDR pixels (jpegr.cpp:655-804). The device
         route first, as the JAX _decode_device_path: a host parse and
         destuff, one upload, then Huffman decode (B4), dequant + IDCT
@@ -390,7 +391,9 @@ class JpegR:
         decoder does not take are Huffman-decoded on the host, which
         raises the reference's errors for what it cannot decode. An HDR
         result's `gainmap` is the decoded gain-map plane, on first
-        access."""
+        access. The pixels come to the host as numpy, or with
+        pixels_on_device stay a tensor on the device (int32 words, int16
+        F16 halves)."""
         if max_display_boost < 1.0:
             raise err("UHDR_CODEC_INVALID_PARAM",
                       f"bad max_display_boost {max_display_boost}")
@@ -412,5 +415,6 @@ class JpegR:
         result.image = RawImage(
             fmt=fmt, width=frame.width, height=frame.height,
             gamut=result.gamut, transfer=transfer,
-            planes={"rgba": out[0].cpu().numpy().view(dtype)})
+            planes={"rgba": out[0] if pixels_on_device
+                    else out[0].cpu().numpy().view(dtype)})
         return result

@@ -60,10 +60,10 @@ SIGNATURES = {
     "uhdr_generate_gainmap": [_P] * 6 + [_I] * 3 + [_P] * 5,
     # y, u, v, y out, u out, v out, n, h, w, matrix (host), stream
     "uhdr_convert_yuv": [_P] * 6 + [_I] * 3 + [_P] * 2,
-    # plane, q, out, n, h, w, ds, d, inv_zig, stream
-    "uhdr_fdct_quant": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    # coefs, q, out, n, bh, bw, ds, d, inv_zig, stream
-    "uhdr_dequant_idct": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # plane, q, kron terms, out, n, h, w, d, inv_zig, stream
+    "uhdr_fdct_quant": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # coefs, q, out, n, bh, bw, d, inv_zig, stream
+    "uhdr_dequant_idct": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     # y, u, v, g, 4 x (batch stride, row stride), scalars, out, n, h,
     # w, mh, mw, scale, fmt, stream
     "uhdr_apply_gainmap": [_P] * 4 + [_L] * 8 + [_P, _P] + [_I] * 7
@@ -95,15 +95,23 @@ SIGNATURES = {
     "uhdr_p010_dense_unpack": [_P] * 6 + [_L] * 2 + [_P],
     # blob, rows, w, nsegw, yrows, n2, n5, n10, y out, uv out, stream
     "uhdr_p010_seg_unpack": [_P] + [_I] * 7 + [_P] * 3,
-    # comp, rows, w, nsegw, mode, zs0, zs1, maps, stream
-    "uhdr_rice_stats": [_P, _L, _I, _I, _I, _P, _P, _P, _P],
-    # kmap, uwmap, nseg, sidx_rem, sidx_un, offs, head, med, rem pads
+    # src, rows, w, nsegw, mode, bits, nh, zs0, zs1, maps, stream
+    "uhdr_rice_stats": [_P, _L, _I, _I, _I, _I, _L, _P, _P, _P, _P],
+    # kmap, uwmap, nseg, nk, sidx_rem, sidx_un, offs, head, med, rem pads
     # (host), unary pads (host), pad bytes, their count, stream
-    "uhdr_rice_order": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-                        _P],
-    # zs, kmap, sidx_rem, sidx_un, offs, nseg, start, nw, woff (host),
+    "uhdr_rice_order": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _I, _P],
+    # zs, kmap, sidx_rem, sidx_un, offs, nseg, nk, start, nw, woff (host),
     # blob, stream
-    "uhdr_rice_emit": [_P] * 5 + [_I] + [_P] * 5,
+    "uhdr_rice_emit": [_P] * 5 + [_I, _I] + [_P] * 5,
+    # src, nh, w, nsegw, zs, bc, stream
+    "uhdr_rct_widths": [_P, _L, _I, _I, _P, _P, _P],
+    # zs, bc, nseg, sidx, npads (host), offs (host), blob, stream
+    "uhdr_rct_pack": [_P, _P, _I, _P, _P, _P, _P, _P],
+    # arr, h, w, nsegw, zs, bc, stream
+    "uhdr_plane_widths": [_P, _I, _I, _I, _P, _P, _P],
+    # zs, gidx, n2, n5, n10, blob, stream
+    "uhdr_plane_pack": [_P, _P, _I, _I, _I, _P, _P],
     # y, u, v, g, 4 x (batch stride, row stride), out, n, h, w, ch, cw,
     # gh, gw, rows, wc, stream
     "uhdr_planes_composite": [_P] * 4 + [_L] * 8 + [_P] + [_I] * 9 + [_P],

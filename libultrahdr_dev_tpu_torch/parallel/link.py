@@ -1,10 +1,12 @@
-"""The serving loop's host<->device links: the packed P010 upload and
-the host-apply decode.
+"""The serving loop's host<->device links: the packed P010 upload, the
+packed pixel readbacks and the host-apply decode.
 
 The port of libultrahdr_dev_tpu/parallel/sharding.py:47-148
 (pack_p010_host, _unpack_p010_device = kernel B0, _split_p010_stack_fn
-= fused into B14, pack_p010_batch_host, upload_p010_batch) and :312-422
-(hostapply_available, apply_planes_host, decode_batch_hostapply).
+= fused into B14, pack_p010_batch_host, upload_p010_batch), :151-312
+(fetch_1010102_packed, fetch_f16_packed, fetch_pixels_packed) and
+:312-422 (hostapply_available, apply_planes_host,
+decode_batch_hostapply).
 
 - Upload: ``pack_p010_batch_host`` stacks a batch's y and uv planes
   into one tall 10-bit plane and segment-packs it on the host
@@ -14,7 +16,15 @@ The port of libultrahdr_dev_tpu/parallel/sharding.py:47-148
   10-bit layout (noise), or a geometry outside the pack's 32-row groups,
   goes dense instead: high bytes plus 2-bit tails, rebuilt by B0 (the
   content rule of sharding.py:97-104, counted as "h2d_dense").
-- Decode to host pixels: the device decodes to the u8 planes composite
+- Pixels to the host: a decoded RGBA1010102 batch through the RCT +
+  Rice pack (parallel/packio.py fetch_rgba1010102_auto: B15, B16 at 10
+  bits), else the RCT fine-width pack (fetch_rgba1010102_batch: B17),
+  else a raw copy; an F16 batch through the Rice bit-pattern pack (B15,
+  B16 at 16 bits), else a raw copy. A pack that would not save 15%
+  declines and the raw copy is used, as in JAX; a kernel or unpack that
+  fails raises (JAX's ``except Exception`` fallbacks are not ported).
+- Decode to host pixels with the host apply: the device decodes to the
+  u8 planes composite
   (batched.py, output "planes": B4, B5, B18), the planar Rice readback
   (packio.fetch_planes_u8: B15, B16, the native unpack) brings it to
   the host, and ops/apply.cpp applies the gain map there
@@ -38,6 +48,7 @@ import torch
 from ..device import resolve_device, upload as _upload
 from ..jpeg import native
 from ..utils import counters
+from ..utils.log import get_logger
 from . import batched, packio
 
 _HOSTAPPLY_MODES = {"hdr_linear": 0, "hdr_hlg": 1, "hdr_pq": 2}
@@ -115,6 +126,97 @@ def upload_p010_batch(p010_y_batch, p010_uv_batch, stats=None,
         stats["h2d_ms"] = stats.get("h2d_ms", 0.0) + round(
             (time.perf_counter() - t0) * 1e3, 1)
     return ydev, uvdev, nbytes
+
+
+# ---------------------------------------------------------------------------
+# Packed pixel readbacks.
+# ---------------------------------------------------------------------------
+
+def _raw_copy(out_dev: torch.Tensor) -> np.ndarray:
+    a = out_dev.cpu().numpy()
+    return a.view({np.dtype(np.int32): np.uint32,
+                   np.dtype(np.int16): np.uint16}.get(a.dtype, a.dtype))
+
+
+def _account(stats, nbytes: int, pack: str):
+    if stats is not None:
+        stats["d2h_bytes"] = stats.get("d2h_bytes", 0) + int(nbytes)
+        stats["d2h_pack"] = pack
+        if pack != "raw":
+            stats["d2h_stages"] = dict(packio.LAST_FETCH_STAGES)
+
+
+def fetch_1010102_packed(out_dev: torch.Tensor, stats=None) -> np.ndarray:
+    """An (n, h, w) int32 RGBA1010102 batch on the device to host uint32
+    pixels through a lossless pack: RCT + Rice with the scheme
+    auto-picked, else RCT + fine widths, else the raw copy (content that
+    does not compress). `stats` gains d2h_bytes (every byte that crossed,
+    the maps of a declined pack included), d2h_pack and d2h_stages. Alpha
+    comes back as the packers' constant 0xC0000000 (ops/color.py
+    pack_rgba1010102 writes the same)."""
+    out, nbytes = packio.fetch_rgba1010102_auto(out_dev)
+    wasted, mode = 0, f"rct-rice-auto({packio.LAST_PICK})"
+    if out is None:
+        wasted += nbytes
+        get_logger().debug("rice readback declined; fine-width pack")
+        out, nbytes = packio.fetch_rgba1010102_batch(out_dev)
+        mode = "rct-seg"
+    if out is None:
+        wasted += nbytes
+        out = _raw_copy(out_dev)
+        nbytes, mode = out.nbytes, "raw"
+    _account(stats, nbytes + wasted, mode)
+    return out
+
+
+def fetch_f16_packed(out_dev: torch.Tensor, stats=None) -> np.ndarray:
+    """An (n, h, w, 4) int16 RGBA F16 batch (half bits) on the device to
+    host uint16 halves through the RCT + Rice bit-pattern pack, scheme
+    auto-picked, else the raw copy. `stats` as fetch_1010102_packed's.
+    Alpha comes back as the packer's constant 0x3C00 (1.0)."""
+    out, nbytes = packio.fetch_rgba_f16_auto(out_dev)
+    wasted, mode = 0, f"rct-rice16-auto({packio.LAST_PICK})"
+    if out is None:
+        wasted += nbytes
+        out = _raw_copy(out_dev)
+        nbytes, mode = out.nbytes, "raw"
+    _account(stats, nbytes + wasted, mode)
+    return out
+
+
+def fetch_pixels_packed(arr, stats=None, fmt=None):
+    """A decode output to the host, through the packed readback where the
+    caller names a packable format: fmt "rgba1010102" (or
+    PixelFormat.RGBA1010102) with an int32 (h, w) or (n, h, w) tensor ->
+    fetch_1010102_packed; fmt "rgba_f16" / "rgbaf16" with an int16
+    (h, w, 4) or (n, h, w, 4) tensor -> fetch_f16_packed (a single image
+    rides with a unit batch axis). Any other format, or none, is a raw
+    copy: the packers re-attach a format's alpha constant, so routing on
+    dtype alone would corrupt look-alike layouts (SDR RGBA8888 is int32
+    too). A numpy array is already on the host and is returned as it
+    is."""
+    name = getattr(fmt, "value", fmt)
+    if name == "rgbaf16":
+        name = "rgba_f16"
+    if isinstance(arr, np.ndarray):
+        if stats is not None:
+            stats.setdefault("d2h_bytes", 0)
+            stats["d2h_pack"] = "host"
+        return arr
+    shape = tuple(arr.shape)
+    if (name == "rgba1010102" and arr.dtype == torch.int32
+            and len(shape) in (2, 3)):
+        one = len(shape) == 2
+        out = fetch_1010102_packed(arr[None] if one else arr, stats)
+        return out[0] if one else out
+    if (name == "rgba_f16" and arr.dtype == torch.int16
+            and len(shape) in (3, 4) and shape[-1] == 4):
+        one = len(shape) == 3
+        out = fetch_f16_packed(arr[None] if one else arr, stats)
+        return out[0] if one else out
+    out = _raw_copy(arr)
+    _account(stats, out.nbytes, "raw")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,13 @@
 // jpeg/native.py with the JAX package's compiler flags). Changed from
 // the JAX file: the unary position scratch `posb` is sized from
 // kRiceUcls instead of a literal. The port calls uhdr_seg_widths /
-// uhdr_seg_fill (the upload pack, parallel/packio.py pack_plane_host)
-// and the planar-u8 Rice unpacks uhdr_rice8_unpack(_mt) /
-// uhdr_med8_unpack(_mt) (the planes readback, fetch_planes_u8); the
-// RCT (10-bit) and F16 entry points serve the pixel readbacks of a
-// later slice.
+// uhdr_seg_fill (the upload pack, parallel/packio.py pack_plane_host),
+// the planar-u8 Rice unpacks uhdr_rice8_unpack(_mt) /
+// uhdr_med8_unpack(_mt) (the planes readback, fetch_planes_u8), the
+// RCT (10-bit) and F16 Rice unpacks uhdr_{rice,med}{,16}_unpack(_mt)
+// (the pixel readbacks, fetch_rgba1010102_* / fetch_rgba_f16_*) and
+// uhdr_rctseg_unpack (the fine-width readback,
+// fetch_rgba1010102_batch).
 //
 // First family, the RCT + fine-width segment readback: the device packs
 // a decoded RGBA1010102 batch as zigzagged vertical deltas of the

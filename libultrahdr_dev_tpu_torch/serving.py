@@ -10,7 +10,12 @@ bench.py times as its headline):
                  and its handoff decode to the u8 planes composite
                  (B4, B5, B18)
   fetch threads: the planar Rice readback of batch N-1 (B15, B16, the
-                 native unpack) and the gain-map apply on the host
+                 native unpack) and the gain-map apply on the host; or,
+                 with --no-hostapply, the device applies the gain map
+                 (B6) in the main thread and the fetch threads read the
+                 pixels back packed (parallel/link.py
+                 fetch_1010102_packed: B15, B16 at 10 bits, else B17;
+                 fetch_f16_packed: B15, B16 at 16 bits)
 
 Run on one CUDA GPU with synthetic 4080x3072 frames, batch 4, four
 rounds, HLG output:
@@ -21,9 +26,9 @@ or on the CPU (the kernels' plain versions) with small frames:
 
     python -m libultrahdr_dev_tpu_torch.serving --cpu --height 64 --width 96
 
---f16 decodes to linear RGBA F16 instead of HLG RGBA1010102. JAX's
---no-hostapply (device apply, then a packed pixel readback) is not here
-yet: its pixel readbacks are a later slice of the port.
+--f16 decodes to linear RGBA F16 instead of HLG RGBA1010102;
+--no-hostapply applies the gain map on the device and reads the pixels
+back packed.
 """
 
 from __future__ import annotations
@@ -57,9 +62,11 @@ def synth_p010(n: int, h: int, w: int, seed: int = 0):
 class ServeResult:
     """What a run leaves: the last round's pixels (uint32 RGBA1010102 or
     uint16 F16 halves, host), its fetched composite and the device
-    composite it came from, its blobs and apply scalars; every round's
-    upload and fetch stats; the intervals between pixel completions in
-    ms per frame (the last one a flush that overlaps no device work)."""
+    composite it came from (with --no-hostapply: the fetched pixels
+    again and the device pixels), its blobs and apply scalars (None with
+    --no-hostapply); every round's upload and fetch stats; the intervals
+    between pixel completions in ms per frame (the last one a flush that
+    overlaps no device work)."""
 
     pixels: np.ndarray
     comp: np.ndarray
@@ -72,9 +79,10 @@ class ServeResult:
 
 def run(batch: int = 4, height: int = 3072, width: int = 4080,
         rounds: int = 4, f16: bool = False, device="cuda", frames=None,
-        log=print) -> ServeResult:
+        log=print, hostapply: bool = True) -> ServeResult:
     """Serve `rounds` rounds of one batch (`frames` = (y, uv) uint16
-    P010 batches, else synth_p010's) on `device`."""
+    P010 batches, else synth_p010's) on `device`; hostapply=False is
+    --no-hostapply."""
     dev = resolve_device(device)
     ys, uvs = frames if frames is not None else synth_p010(batch, height,
                                                            width)
@@ -89,9 +97,15 @@ def run(batch: int = 4, height: int = 3072, width: int = 4080,
         return y, uv, st
 
     def fetch(comp_dev, scalars, st):
+        if not hostapply:
+            pixels = (link.fetch_f16_packed if f16
+                      else link.fetch_1010102_packed)(comp_dev, st)
+            return pixels, pixels
         comp = link.fetch_planes(comp_dev, st)
         return link.apply_planes_host(comp, scalars, h, w, gh, gw, out_fmt,
                                       st), comp
+
+    dec_fmt = "planes" if hostapply else out_fmt
 
     t_pix, stats = [], []
     last = None
@@ -109,17 +123,20 @@ def run(batch: int = 4, height: int = 3072, width: int = 4080,
             blobs, handoff = batched.batched_encode_api0(
                 None, None, device_input=(ydev, uvdev),
                 return_handoff=True, stats=st)
+            scalars = None
             if handoff is not None:
                 comp_dev = batched.batched_decode_from_handoff(
-                    handoff, "planes", BOOST)
-                scalars = np.broadcast_to(
-                    batched.handoff_apply_scalars(handoff, BOOST), (n, 4))
+                    handoff, dec_fmt, BOOST)
+                if hostapply:
+                    scalars = np.broadcast_to(batched.handoff_apply_scalars(
+                        handoff, BOOST), (n, 4))
             else:   # dense content: restart-less blobs, decoded as blobs
                 meta = {}
                 comp_dev = batched.decode_device_stage(
-                    batched.decode_host_stage(blobs, "planes"), "planes",
+                    batched.decode_host_stage(blobs, dec_fmt), dec_fmt,
                     BOOST, dev, meta_out=meta)
-                scalars = meta["scalars"]
+                if hostapply:
+                    scalars = meta["scalars"]
             if fetch_fut is not None:
                 pixels, _ = fetch_fut.result()
                 t_pix.append(time.perf_counter())
@@ -153,9 +170,13 @@ def main(argv=None) -> int:
                     help="decode to linear RGBA F16 (the reference's "
                          "default decode output) instead of HLG "
                          "RGBA1010102")
+    ap.add_argument("--no-hostapply", action="store_true",
+                    help="apply the gain map on the device and read the "
+                         "pixels back packed, instead of reading the "
+                         "decoded planes back and applying on the host")
     args = ap.parse_args(argv)
     run(args.batch, args.height, args.width, args.rounds, args.f16,
-        "cpu" if args.cpu else "cuda")
+        "cpu" if args.cpu else "cuda", hostapply=not args.no_hostapply)
     return 0
 
 

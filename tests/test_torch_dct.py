@@ -3,9 +3,10 @@
 tensors (the plain PyTorch versions), against the JAX package's
 jpeg/dct.py on the same numpy inputs.
 
-Tolerance: int16 coefficients and u8 pixels equal, except +-1 where a
-float64 recomputation puts the value within 1e-3 of a rounding tie
-(x.5): there float32 summation order decides, in either framework."""
+Tolerance: B2's coefficients are bitwise equal to JAX's (the
+``*_bitwise_*`` and near-tie tests hold that on over 10^6 blocks); the
+older tests and B5's u8 pixels allow +-1 where a float64 recomputation
+puts the value within 1e-3 of a rounding tie (x.5)."""
 
 import jax
 import numpy as np
@@ -103,3 +104,96 @@ def test_wrappers_run_plain_on_cpu():
     px = tdct.dequant_idct(c, qt.expand(2, 64), 2, 3)
     assert px.dtype == torch.uint8 and px.shape == (2, 16, 24)
     assert (tdct.fdct_quant.launches, tdct.dequant_idct.launches) == before
+
+
+def _blocks_plane(kind, seed):
+    """A 4096x512 plane (32,768 blocks) of one kind of content:
+    uniform noise, smooth blocks (a level, a gradient and a little
+    noise), or blocks of four flat quadrants with noise (sharp edges:
+    the kron dots' middle term then rounds in its pairwise tree)."""
+    rng = np.random.default_rng(seed)
+    h, w = 4096, 512
+    if kind == "noise":
+        return rng.integers(0, 256, (h, w), dtype=np.uint8)
+    if kind == "smooth":
+        yy, xx = np.mgrid[0:h, 0:w] % 8
+        lvl = np.kron(rng.uniform(0, 255, (h // 8, w // 8)), np.ones((8, 8)))
+        gy, gx = (np.kron(rng.normal(0, 4, (h // 8, w // 8)), np.ones((8, 8)))
+                  for _ in range(2))
+        p = lvl + gy * yy + gx * xx + rng.normal(0, 2, (h, w))
+    else:
+        p = np.kron(rng.integers(0, 256, (h // 4, w // 4)), np.ones((4, 4)))
+        p = p + rng.normal(0, 6, (h, w))
+    return np.clip(np.round(p), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("rep", range(6))
+@pytest.mark.parametrize("kind", ["noise", "smooth", "quadrants"])
+@pytest.mark.parametrize("table", ["ones", "q95"])
+def test_fdct_quant_bitwise_as_jax(table, kind, rep):
+    """B2 computes the JAX kron form bit for bit, near-ties included:
+    6 x 3 x 2 x 32,768 = 1,179,648 blocks in all, none off by one."""
+    q = (np.ones(64, np.int32) if table == "ones" else
+         tables.scale_quant_table(tables.STD_CHROMINANCE_QUANT, 95))
+    plane = _blocks_plane(kind, seed=rep)
+    want = np.asarray(jdct.fdct_quant(plane, q))
+    got = tdct.fdct_quant(torch.from_numpy(plane)[None],
+                          torch.from_numpy(q.reshape(64)))[0].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_kron_terms_are_jax_split():
+    """The port's own copy of the three bf16 terms of kron(D, D)[:, ZIG]
+    equals the JAX package's."""
+    for mine, theirs in zip(tdct.KRON_ZIG, jdct._KRON_ZIG_SPLIT):
+        np.testing.assert_array_equal(mine, np.asarray(theirs, np.float32))
+
+
+def test_fdct_dense_v_plane_near_tie_as_jax():
+    """The dense HLG noise frame at quality 100: its V block 20 has the
+    coefficient 155.4999963 at zigzag 62 (a near-tie) that JAX rounds
+    to 156. The port's B2 gives JAX's coefficients on the whole plane."""
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    rng = np.random.default_rng(3)
+    y = (rng.integers(0, 1024, (64, 128)) << 6).astype(np.uint16)
+    uv = (rng.integers(0, 1024, (32, 128)) << 6).astype(np.uint16)
+    front = batched.encode_front(
+        batched.p010_to_device(y[None], "cpu"),
+        batched.p010_to_device(uv[None], "cpu"), "bt2100", "hlg")
+    v = front[3][0].numpy()
+    qc = batched.quant_tables(100)[1]
+    want = np.asarray(jdct.fdct_quant(v, qc))
+    got = tdct.fdct_quant(torch.from_numpy(v)[None],
+                          torch.from_numpy(qc.reshape(64)))[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.reshape(-1)[1342] == want.reshape(-1)[1342] == 156
+
+
+def test_jax_dots_sum_as_a_pairwise_tree():
+    """What B2 follows: XLA's CPU dot of JAX's fdct_zigzag (bf16 samples
+    times each bf16 term, float32 result) equals exact row sums of 8
+    products added as a pairwise float32 tree over the 8 rows, on every
+    dot of 65,536 sharp-edged blocks; rounding each dot's exact sum once
+    does not (it disagrees on some middle-term dots)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    q = np.repeat(np.repeat(rng.integers(0, 256, (1 << 16, 2, 1, 2, 1)), 4,
+                            2), 4, 4).reshape(-1, 64)
+    xb = np.clip(q + rng.normal(0, 6, q.shape), 0, 255).round() - 128
+    x16 = jnp.asarray(xb.astype(np.float32)).astype(jnp.bfloat16)
+    tree_all, exact_all = True, True
+    for m in tdct.KRON_ZIG:
+        want = np.asarray(jnp.dot(x16, jnp.asarray(m).astype(jnp.bfloat16),
+                                  preferred_element_type=jnp.float32))
+        got = tdct._tree8(torch.bmm(
+            torch.from_numpy(xb.astype(np.float32).reshape(-1, 8, 8)
+                             .transpose(1, 0, 2).copy()),
+            torch.from_numpy(m.reshape(8, 8, 64)))).numpy()
+        tree_all &= bool(np.array_equal(got.view(np.uint32),
+                                        want.view(np.uint32)))
+        exact = (xb @ m.astype(np.float64)).astype(np.float32)
+        exact_all &= bool(np.array_equal(exact.view(np.uint32),
+                                         want.view(np.uint32)))
+    assert tree_all and not exact_all

@@ -2,7 +2,10 @@
 its encode from device input, on the CPU: batched_encode_api0 from a
 packed upload gives the bytes of the host-input encode; two rounds of
 the loop give the JAX package's host-apply pixels of the same frames;
-the command line runs; a copy of the port's package alone (no JAX
+with --no-hostapply the packed pixel readback gives the device's pixels
+bitwise and the JAX package's --no-hostapply pixels (HLG bitwise, F16
+within B6's 1 ULP); the command line runs; a copy of the port's package
+alone (no JAX
 importable, no JAX file beside it) builds its own packio.cpp and
 apply.cpp and serves; the new entry points default to CUDA."""
 
@@ -87,6 +90,37 @@ def test_two_rounds_give_jax_hostapply_pixels(f16):
         "round 0", "round 1", "steady-state cadence"]
 
 
+@pytest.mark.parametrize("f16", [False, True])
+def test_no_hostapply_rounds_give_jax_device_pixels(f16):
+    """serving.py --cpu --no-hostapply --height 128 --width 256 (--f16),
+    two rounds: the device applies the gain map and the pixels come back
+    through the packed readback, bitwise the device's. Against JAX's
+    --no-hostapply loop (examples/serving_loop.py:55-90: the handoff
+    decode to pixels, then sharding.fetch_*_packed): HLG bitwise, F16
+    within 1 ULP (the B6 bound of tests/test_torch_jpegr.py)."""
+    res = serving.run(height=128, width=256, rounds=2, f16=f16,
+                      device="cpu", log=lambda s: None, hostapply=False)
+    dtype = np.uint16 if f16 else np.uint32
+    assert res.pixels.dtype == dtype
+    assert np.array_equal(res.pixels, res.comp_dev.numpy().view(dtype))
+    assert res.scalars is None and res.comp is res.pixels
+    packed = "rct-rice16-auto" if f16 else "rct-rice-auto"
+    assert all(s["d2h_pack"].startswith(packed) for s in res.stats)
+    assert all(s["d2h_bytes"] < res.pixels.nbytes for s in res.stats)
+    ys, uvs = serving.synth_p010(4, 128, 256)
+    mesh = sharding.single_device_mesh()
+    jblobs, jhand = sharding.batched_encode_api0(ys, uvs, mesh,
+                                                 return_handoff=True)
+    fmt = "hdr_linear" if f16 else "hdr_hlg"
+    out = sharding.batched_decode_from_handoff(jhand, fmt, serving.BOOST,
+                                               mesh)
+    want = (sharding.fetch_f16_packed if f16
+            else sharding.fetch_1010102_packed)(out)
+    assert res.blobs == jblobs and want.dtype == dtype
+    d = np.abs(res.pixels.astype(np.int64) - want.astype(np.int64))
+    assert int(d.max()) == 0 or (f16 and int(d.max()) <= 1)
+
+
 def test_cli_runs_on_the_cpu(capsys):
     assert serving.main(["--cpu", "--height", "64", "--width", "96",
                          "--rounds", "3", "--batch", "2"]) == 0
@@ -122,6 +156,15 @@ def test_lone_copy_of_the_package_serves_without_jax(tmp_path):
     assert out.stdout.strip() == "ok"
     build = tmp_path / "libultrahdr_dev_tpu_torch" / "_build"
     assert list(build.glob("packio-*.so")) and list(build.glob("apply-*.so"))
+
+
+def test_cli_no_hostapply_runs_on_the_cpu(capsys):
+    assert serving.main(["--cpu", "--height", "64", "--width", "96",
+                         "--rounds", "2", "--batch", "2",
+                         "--no-hostapply"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("round 0: (2, 64, 96) pixels ready, ")
+    assert out[-1].startswith("steady-state cadence:")
 
 
 def test_new_entry_points_default_to_cuda():
