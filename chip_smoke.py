@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from kernels/csrc with nvcc (one nvcc
-per source, in parallel), checks each of the thirty (B0-B7, B6's 10-bit
-planar arm, B9, B10a, B10b, B10c, B11, B12, B12-enc, B13, B14, B15 and
-B16 at 8, 10 and 16 bits, B17's two passes, B18, B19, B21's two passes)
+per source, in parallel), checks each of the thirty-one (B0-B7, B6's
+10-bit planar arm, B9, B10a, B10b, B10c, B11, B12, B12-enc, B13, B14,
+B15 and B16 at 8, 10 and 16 bits, B17's two passes, B18, B19, B21's two
+passes, B22)
 against its plain PyTorch version at the shapes of the main path (a
 4080x3072 frame, batch of 2; the general routes' B10, B12, B12-enc and
 B19 and the converter's B13 at one 4000x3000 frame; the serving loop's
@@ -27,41 +28,47 @@ tests/goldens), checks what comes out, and times the kernels and the
 stages.
 
 Phases: B1, B2 (bitwise), B5, B6 (with its 10-bit planar arm), B11, B7
-kernel vs plain; B3 (Huffman encode)
-kernel vs plain and its JPEG/R bytes vs the host-Huffman route; B9
-(API-1 front end) kernel vs plain and its JPEG/R bytes vs the
-host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
-decoder on the port's streams, on the restart-less goldens (DC carry)
-and on garbage; B10 (B10a tonemap and B10c re-encode bit-exact, B10b in
-five variants); B12 (decode_jpeg's device route on gray, 4:2:0, 4:2:2,
-4:4:4 and a restart-marked 4:2:0 stream: kernels = plain = host-Huffman
+kernel vs plain; B3 (Huffman encode) kernel vs plain and its JPEG/R
+bytes vs the host-Huffman route; B9 (API-1 front end) kernel vs plain
+and its JPEG/R bytes vs the host-Huffman route; B4 (Huffman decode)
+kernel vs plain vs the host decoder on the port's streams, on the
+restart-less goldens (DC carry) and on garbage; B22 (the decode's log
+emission) on B4's inputs and the handoff: B22 kernel = B22 plain = B4
+kernel; B10 (B10a tonemap and B10c re-encode bit-exact, B10b in five
+variants); B12 (decode_jpeg's device route on gray, 4:2:0, 4:2:2, 4:4:4
+and a restart-marked 4:2:0 stream: kernels = plain = host-Huffman
 route); B13 (each single effect, the converter's 4-step chain and a
 chain longer than one launch on a 4000x3000 YUV420 frame and its
 1000x750 gain map, bitwise equal to the plain version); B19
-(restart-less Huffman encode) on the general route's base and gain
-map, encode_jpeg's 4:2:2 and 4:4:4 planes and a dense 4080x3072 batch:
-kernel = plain, finalized scans = the host coder's; B12-enc
-(encode_jpeg's restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at
-r in {1, 4, 17}: kernel = plain = the host coder with RSTn markers;
-B0 and B14 (the P010 upload: dense on uniform noise, segment-packed on
-bench content), B18 (the planes composite of a decoded batch of 4), B15
-and B16 (Rice pass 1 and pack over that composite, vertical and MED,
-two-phase and fused), bitwise; B15 and B16 at 10 and 16 bits (both
-schemes, two-phase and fused), B17 and B21 on a decoded batch of 4,
-bitwise, each host unpack = the device pixels; the main-path windows
-(API-0 round trip,
-handoff, goldens, API-1 encode + HDR decode, SDR decode, use_luts
-decode, general routes, converter, dense content, the serving loop:
-four HLG rounds and one F16 round at batch 4, seg upload, fetched
-composite = the device's, host apply within 1 code / ULP of the device
-apply, no plain-version call; the readback window: --no-hostapply,
-three HLG and two F16 rounds, the fine-width arm and pack_plane_device,
-every fetched batch = the device's; the CLI window: a 4000x3000 encode
-decoded to RGBA1010102 and F16, each file = the unpacked decode),
-each with every launch counter zeroed just before and read just after
-(each window's kernels launched; no host Huffman call in any window:
-the general routes and the converter code each JPEG they generate with
-B19); stage times.
+(restart-less Huffman encode) on the general route's base and gain map,
+encode_jpeg's 4:2:2 and 4:4:4 planes and a dense 4080x3072 batch: kernel
+= plain, finalized scans = the host coder's; B12-enc (encode_jpeg's
+restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at r in {1, 4, 17}:
+kernel = plain = the host coder with RSTn markers; B0 and B14 (the P010
+upload: dense on uniform noise, segment-packed on bench content), B18
+(the planes composite of a decoded batch of 4), B15 and B16 (Rice pass 1
+and pack over that composite, vertical and MED, two-phase and fused),
+bitwise; B15 and B16 at 10 and 16 bits (both schemes, two-phase and
+fused), B17 and B21 on a decoded batch of 4, bitwise, each host unpack =
+the device pixels; the main-path windows (API-0 round trip, handoff,
+goldens, the log-emission window: the API-0 blob decodes, the handoff
+decode and decode_jpeg at 4000x3000 with the emission default set to
+"log", each output = the dense route's, B22 launched and B4 not; API-1
+encode + HDR decode, SDR decode, use_luts decode, general routes,
+converter, dense content, the serving loop: four HLG rounds and one F16
+round at batch 4, seg upload, fetched composite = the device's, host
+apply within 1 code / ULP of the device apply, no plain-version call;
+the readback window: --no-hostapply, three HLG and two F16 rounds, the
+fine-width arm and pack_plane_device, every fetched batch = the
+device's; the CLI window: a 4000x3000 encode decoded to RGBA1010102 and
+F16, each file = the unpacked decode), each with every launch counter
+zeroed just before and read just after (each window's kernels launched;
+no host Huffman call in any window: the general routes and the converter
+code each JPEG they generate with B19); stage times (the decode stages
+under both emissions among them).
+
+Under UHDR_DECODE_EMIT=log every decode runs B22, and each window's
+need of B4 is read as a need of B22.
 
 It needs one CUDA device and fails (exit code != 0, no result line)
 without one; nothing falls back to the CPU. It imports nothing of JAX.
@@ -742,7 +749,7 @@ def _b12(inputs, plain=False):
     b4 = dd.decode_rst_chunks_plain if plain else dd.decode_rst_chunks
     b5 = dct.dequant_idct_plain if plain else dct.dequant_idct
     grids = b4(src, frames, lanes, tabs, ds.gray, ds.sampling, ds.mcus_x,
-               ds.mcus_y)
+               ds.mcus_y, emit_mode="dense")
     return [b5(g, qd[k:k + 1], bh, bw) for k, (g, (bh, bw)) in enumerate(
         zip(grids, dd.plane_shapes(ds.gray, ds.sampling, ds.mcus_x,
                                    ds.mcus_y)))]
@@ -811,12 +818,13 @@ def _b4_inputs(frames, dev):
     return out
 
 
-def _b4(inputs, plain=False):
+def _b4(inputs, plain=False, mode="dense"):
+    """B4 (B22 with mode "log") on packed inputs, or its plain version."""
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
 
     fn = dd.decode_rst_chunks_plain if plain else dd.decode_rst_chunks
-    return [fn(*arrays, ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y)
-            for ln, arrays in inputs]
+    return [fn(*arrays, ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y,
+               emit_mode=mode) for ln, arrays in inputs]
 
 
 def _host_coefs(blob):
@@ -851,7 +859,6 @@ def b4_phase(dev, results: dict, kept: dict):
     goldens (host-scanned lanes, DC carry), and on garbage windows."""
     import torch
 
-    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.parallel import batched
 
     coefs, _, _, blobs = kept[CONFIGS[0]]
@@ -884,6 +891,20 @@ def b4_phase(dev, results: dict, kept: dict):
         f"{len(GOLDEN_F16) + len(GOLDEN_OTHER)} restart-less JPEG/Rs "
         f"(DC carry)")
 
+    garbage = _garbage_b4_inputs(dev)
+    g, = _b4(garbage)
+    require(all(map(torch.equal, g, _b4(garbage, plain=True)[0])),
+            "B4 garbage windows: kernel differs from the plain version")
+    log(f"B4 garbage: kernel = plain on 256 random windows "
+        f"({sum(int((a != 0).sum()) for a in g)} nonzero coefficients)")
+
+
+def _garbage_b4_inputs(dev):
+    """B4's garbage windows (b4_phase): 256 lanes of random bytes, 2
+    MCUs each, random start bits."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
     rng = np.random.default_rng(SEED + 3)
     nl, win, mx, my = 256, 384, 64, 8   # 512 MCUs, 2 per lane
     src = rng.integers(0, 256, nl * win, dtype=np.uint8)
@@ -891,14 +912,98 @@ def b4_phase(dev, results: dict, kept: dict):
                       np.int32)
     lanes = np.stack([np.arange(nl) * win, rng.integers(0, 8, nl)],
                      1).astype(np.int32)
-    arrays = batched._upload([src, rows, lanes, dd.decode_tables(
-        dd.ANNEX_K_COLOR)[None]], dev)
-    g = dd.decode_rst_chunks(*arrays, False, (2, 2), mx, my)
-    p = dd.decode_rst_chunks_plain(*arrays, False, (2, 2), mx, my)
-    require(all(torch.equal(a, b) for a, b in zip(g, p)),
-            "B4 garbage windows: kernel differs from the plain version")
-    log(f"B4 garbage: kernel = plain on {nl} random windows "
-        f"({sum(int((a != 0).sum()) for a in g)} nonzero coefficients)")
+    ln = dd.Lanes(src, rows, lanes, dd.decode_tables(dd.ANNEX_K_COLOR)[None],
+                  False, (2, 2), mx, my)
+    return [(ln, batched._upload([ln.src, ln.frames, ln.lanes, ln.tables],
+                                 dev))]
+
+
+def _handoff_b4_inputs(kept, dev):
+    """B4h's inputs: lanes over B3's chunk buffers of the first
+    configuration (base and gain map), read in place."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    _, base, gmap, _ = kept[CONFIGS[0]]
+    out = []
+    for (chunks, bits), specs, gray, (mx, my) in (
+            (base, dd.ANNEX_K_COLOR, False, (W // 16, H // 16)),
+            (gmap, dd.ANNEX_K_GRAY, True,
+             (-(-(W // 4) // 8), -(-(H // 4) // 8)))):
+        rows, lanes, tabs = batched._handoff_lanes(bits.cpu().numpy(), specs)
+        ln = dd.Lanes(None, rows, lanes, tabs, gray,
+                      (1, 1) if gray else (2, 2), mx, my)
+        out.append((ln, [chunks] + batched._upload([rows, lanes, tabs], dev)))
+    return out
+
+
+def _check_b22(inputs, what: str, want=None):
+    """B22 kernel = B22 plain = B4 kernel (and = `want`, when given),
+    bitwise; returns B22's grids."""
+    import torch
+
+    got = _b4(inputs, mode="log")
+    for name, other in (("its plain version", _b4(inputs, True, "log")),
+                        ("B4", _b4(inputs)), ("the expected grids", want)):
+        if other is None:
+            continue
+        for g_img, o_img in zip(got, other):
+            require(all(map(torch.equal, g_img, o_img)),
+                    f"B22 {what}: kernel differs from {name}")
+    return got
+
+
+def b22_phase(dev, results: dict, kept: dict):
+    """B22 (the decode's log emission) on B4's phase's inputs: the
+    streams B3 wrote (4080x3072, batch 2), the handoff (B3's chunk
+    buffers read in place), the restart-less goldens (DC carry) and the
+    garbage windows: B22 kernel = B22 plain = B4 kernel, bitwise. Times
+    B22 beside B4 on the own streams, in turns (B4, B22, B22, B4), and
+    counts the coefficients B22's log holds."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    coefs, _, _, blobs = kept[CONFIGS[0]]
+    inputs = _b4_inputs(batched.decode_host_stage(blobs), dev)
+    got = _check_b22(inputs, "own streams")
+    log(f"B22 own streams: kernel = plain = B4 ({W}x{H}, batch {FRAMES})")
+    _check_b22(_handoff_b4_inputs(kept, dev), "handoff",
+               [coefs[:3], coefs[3:]])
+    log("B22 handoff: kernel = plain = B4 = B2's coefficients")
+    for name in [g[0] for g in GOLDEN_F16] + GOLDEN_OTHER:
+        blob = open(os.path.join(GOLDENS, name), "rb").read()
+        _check_b22(_b4_inputs(batched.decode_host_stage([blob]), dev), name)
+    log(f"B22 goldens: kernel = plain = B4 on "
+        f"{len(GOLDEN_F16) + len(GOLDEN_OTHER)} restart-less JPEG/Rs "
+        f"(DC carry)")
+    g = _check_b22(_garbage_b4_inputs(dev), "garbage windows")
+    log(f"B22 garbage: kernel = plain = B4 on 256 random windows "
+        f"({sum(int((a != 0).sum()) for a in g[0])} nonzero coefficients)")
+
+    emitted = sum(int(dd._decode_rst_chunks_log(
+        *arrays, ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y)[1].sum())
+        for ln, arrays in inputs)
+    nonzero = sum(int((p != 0).sum()) for img in got for p in img)
+    b4_ms = [cuda_ms(lambda: _b4(inputs), 5) / FRAMES]
+    b22_ms = [cuda_ms(lambda: _b4(inputs, mode="log"), 5) / FRAMES
+              for _ in range(2)]
+    b4_ms.append(cuda_ms(lambda: _b4(inputs), 5) / FRAMES)
+    src_bytes = sum(nbytes(*a) for _, a in inputs)
+    out_bytes = sum(nbytes(*img) for img in got)
+    log(f"B22 vs B4 ({W}x{H}, batch {FRAMES}, in turns): B4 "
+        f"{b4_ms[0]:.4f}, B22 {b22_ms[0]:.4f}, B22 {b22_ms[1]:.4f}, B4 "
+        f"{b4_ms[1]:.4f} ms/frame; {emitted / FRAMES:.0f} coefficients "
+        f"emitted a frame ({nonzero / FRAMES:.0f} nonzero), log "
+        f"{6 * emitted / FRAMES / 1e6:.1f} MB a frame")
+    log_breakdown(f"B4 ({W}x{H}, batch {FRAMES})", lambda: _b4(inputs), 5,
+                  b4_ms[1] * FRAMES)
+    log_breakdown(f"B22 ({W}x{H}, batch {FRAMES})",
+                  lambda: _b4(inputs, mode="log"), 5, min(b22_ms) * FRAMES)
+    results["B22"] = dict(
+        err=0, ms=min(b22_ms),
+        plain_ms=cuda_ms(lambda: _b4(inputs, True, "log"), 1) / FRAMES,
+        bytes=(src_bytes + out_bytes) / FRAMES,
+        library_ms=None)
 
 
 def psnr_f16(ours, ref_gz) -> float:
@@ -923,14 +1028,24 @@ def reset_counts():
     codec.entropy_encode.calls = codec.entropy_decode.calls = 0
 
 
+def decode_key() -> str:
+    """The Huffman-decode kernel the device decodes run: B22 when the
+    decode's emission default is "log" (UHDR_DECODE_EMIT=log, or the
+    log-emission window), else B4."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+
+    return "B22" if dd._DEFAULT_EMIT == "log" else "B4"
+
+
 def read_counts(label: str, need) -> dict:
     """Read the counters after a path ran: each kernel in `need` must
-    have launched, and host Huffman must have coded and decoded
-    nothing."""
+    have launched (B4 read as decode_key()), and host Huffman must have
+    coded and decoded nothing."""
     import torch
 
     from libultrahdr_dev_tpu_torch.jpeg import codec
 
+    need = [decode_key() if k == "B4" else k for k in need]
     torch.cuda.synchronize()
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
     host = (codec.entropy_encode.calls, codec.entropy_decode.calls)
@@ -1119,7 +1234,7 @@ def main_path_api1(dev, smi: str):
     # Four decodes of the base alone: one B4 call and three B5 calls
     # each, and no gain-map apply.
     require(c["B6"] == c["B11"] == 0, "SDR decode ran the gain-map apply")
-    require(c["B4"] == 4 and c["B5"] == 12,
+    require(c[decode_key()] == 4 and c["B5"] == 12,
             f"SDR decode decoded more than the base: {c}")
     counts.append(c)
     require(torch.equal(sdr_b, sdr_h), "SDR: handoff differs from batched")
@@ -1445,6 +1560,114 @@ def main_path_dense(dev, smi: str):
             f"median |log2(decoded/input luminance)| {med:.4f} over {n} "
             f"pixels")
         require(med <= 0.1, f"dense {label}: luminance round trip off")
+    return c
+
+
+def _log_window_jpegs(dev) -> dict:
+    """decode_jpeg's inputs of the log-emission window: 4000x3000 JPEGs
+    that encode_jpeg wrote (gray, 4:2:0, 4:2:2, 4:4:4, restart-less)."""
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 60)
+    return {name: codec.encode_jpeg(p, 90, device=dev) for name, (p, _)
+            in _yuv_variants(y_np[0], uv_np[0]).items()}
+
+
+def _decode_calls(dev, blobs, handoff, jpegs) -> dict:
+    """The log-emission window's decodes, through the entry points a
+    user calls; every output on the host."""
+    from libultrahdr_dev_tpu_torch import JpegR, OutputFormat
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    out = {f"batched {fmt}": batched.batched_decode(blobs, fmt, device=dev)
+           .cpu() for fmt in ("hdr_hlg", "hdr_linear", "sdr")}
+    out["JpegR HLG"] = JpegR(dev).decode(blobs[0], OutputFormat.HDR_HLG) \
+        .image.planes["rgba"]
+    for fmt in ("hdr_hlg", "sdr"):
+        out[f"handoff {fmt}"] = batched.batched_decode_from_handoff(
+            handoff, fmt).cpu()
+    for name, data in jpegs.items():
+        for k, p in enumerate(codec.decode_jpeg(data, dev).planes):
+            out[f"decode_jpeg {name} plane {k}"] = p.cpu()
+    return out
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return torch.equal(a, b)
+
+
+def main_path_log(dev, smi: str, blobs, handoffs):
+    """The log-emission window: the emission default set to "log" for its
+    length (as UHDR_DECODE_EMIT=log sets it at import) and restored
+    after. The API-0 blob decodes (batched HLG, F16 and SDR, JpegR HLG),
+    the handoff decode (HLG, SDR) and decode_jpeg at 4000x3000 (gray,
+    4:2:0, 4:2:2, 4:4:4) with every launch counter zeroed just before
+    and read just after: B22 launched, B4 not; then the same calls with
+    dense emission, each output bitwise equal. Then the decode stages'
+    times under both emissions, in turns."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    key = CONFIGS[0]
+    jpegs = _log_window_jpegs(dev)
+    saved = dd._DEFAULT_EMIT
+    try:
+        dd._DEFAULT_EMIT = "log"
+        reset_counts()
+        t0 = time.perf_counter()
+        got = _decode_calls(dev, blobs[key], handoffs[key], jpegs)
+        c = read_counts(f"log-emission window "
+                        f"({time.perf_counter() - t0:.1f} s)",
+                        ("B22", "B5", "B6", "B7", "B12"))
+        require(c["B4"] == 0, f"log-emission window launched B4: {c}")
+        dd._DEFAULT_EMIT = "dense"
+        want = _decode_calls(dev, blobs[key], handoffs[key], jpegs)
+        for name, a in got.items():
+            require(_same(a, want[name]), f"log-emission window: {name} "
+                    f"differs from the dense route")
+        log(f"log-emission window: {len(got)} outputs bitwise equal to the "
+            f"dense route's ({', '.join(got)})")
+
+        frames = batched.decode_host_stage(blobs[key])
+        ds = dd.parse_device_stream(jpegs["4:2:0"])
+
+        def stages():
+            def dec_dev():
+                batched.decode_device_stage(frames, "hdr_hlg", math.inf, dev)
+                torch.cuda.synchronize()
+
+            def hand():
+                batched.batched_decode_from_handoff(handoffs[key], "hdr_hlg")
+                torch.cuda.synchronize()
+
+            def dec_jpeg():
+                dd.decode_stream_device(ds, dev)
+                torch.cuda.synchronize()
+
+            return (host_ms(dec_dev, 5) / FRAMES, host_ms(hand, 5) / FRAMES,
+                    host_ms(dec_jpeg, 5))
+
+        times = {}
+        for mode in ("dense", "log", "log", "dense"):
+            dd._DEFAULT_EMIT = mode
+            times.setdefault(mode, []).append(stages())
+    finally:
+        dd._DEFAULT_EMIT = saved
+    for i, name in enumerate((
+            f"decode device HLG (H2D + B4|B22 + B5 + B6; {W}x{H}, batch "
+            f"{FRAMES})", f"handoff decode HLG (B4|B22 + B5 + B6; {W}x{H}, "
+            f"batch {FRAMES})", f"decode_jpeg device 4:2:0 (H2D + B4|B22 + "
+            f"B5; {GW}x{GH}, batch 1)")):
+        log(f"stage {name}: dense {times['dense'][0][i]:.3f}, "
+            f"{times['dense'][1][i]:.3f}; log {times['log'][0][i]:.3f}, "
+            f"{times['log'][1][i]:.3f} ms/frame ({smi})")
     return c
 
 
@@ -2702,7 +2925,8 @@ def counters():
     counts its YCbCr and gray wrappers apart (B19, B19g); B11 is the
     table arm of B6's wrapper, B6r its 10-bit planar arm (counted in B6
     or B11 as well); B12 counts decode_jpeg's device-route calls (each
-    one B4 and B5 launches); B13 counts edit_plane's launches."""
+    one B4 (or B22) and B5 launches); B13 counts edit_plane's launches;
+    B22 is the log-emission arm of B4's wrapper."""
     from libultrahdr_dev_tpu_torch.jpeg import codec, dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
@@ -2716,6 +2940,7 @@ def counters():
             "B3w": (de.encode_ycbcr_rst_stream, "write_launches"),
             "B3gw": (de.encode_gray_rst_stream, "write_launches"),
             "B4": (dd.decode_rst_chunks, "launches"),
+            "B22": (dd.decode_rst_chunks, "log_launches"),
             "B5": (dct.dequant_idct, "launches"),
             "B6": (gm.apply_gainmap, "launches"),
             "B6r": (gm.apply_gainmap, "rgb10_launches"),
@@ -2809,6 +3034,8 @@ KERNELS = {
              "libultrahdr_dev_tpu/parallel/packio.py:269"),
     "B21b": ("plane_pack", PACKIO_CU,
              "libultrahdr_dev_tpu/parallel/packio.py:299"),
+    "B22": ("huff_decode_log", "libultrahdr_dev_tpu_torch/kernels/csrc/"
+            "huff_decode.cu", "libultrahdr_dev_tpu/jpeg/device_decode.py:554"),
 }
 
 
@@ -2844,6 +3071,7 @@ def main() -> int:
     phases.append(("B3", lambda: kept.update(b3_phase(dev, results))))
     phases.append(("B9", lambda: b9_phase(dev, results)))
     phases.append(("B4", lambda: b4_phase(dev, results, kept)))
+    phases.append(("B22", lambda: b22_phase(dev, results, kept)))
     phases.append(("B10", lambda: b10_phase(dev, results)))
     phases.append(("B12", lambda: b12_phase(dev, results, kept)))
     phases.append(("B13", lambda: b13_phase(dev, results)))
@@ -2870,6 +3098,9 @@ def main() -> int:
     launches, inputs, blobs, handoffs = main_path(dev, smi)
     log(f"phase main path API-0: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    launches8 = main_path_log(dev, smi, blobs, handoffs)
+    log(f"phase main path log emission: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     launches1, inputs1, blobs1, _ = main_path_api1(dev, smi)
     log(f"phase main path API-1 / SDR / use_luts: "
         f"{time.perf_counter() - t:.1f} s")
@@ -2894,7 +3125,7 @@ def main() -> int:
     log(f"phase main path CLI: {time.perf_counter() - t:.1f} s")
     launches = {k: sum(c[k] for c in (launches, launches1, launches2,
                                       launches3, launches4, launches5,
-                                      launches6, launches7))
+                                      launches6, launches7, launches8))
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
     launches["B19"] += launches.pop("B19g")

@@ -24,6 +24,8 @@ version:
        (B12-enc: encode_jpeg's restart intervals, any sampling)
   B19  jpeg.device_entropy.encode_*_stream     restart-less Huffman encode
   B4   jpeg.device_decode.decode_rst_chunks    parallel Huffman decode
+  B22  the same with emit_mode="log"           (position, value) log + rebuild
+       (or UHDR_DECODE_EMIT=log at import: every device decode)
   B5   jpeg.dct.dequant_idct                   dequantization + IDCT
   B12  jpeg.device_decode.decode_stream_device plain-JPEG decode (B4 + B5)
   B6   ops.gainmap.apply_gainmap               gain-map apply + output pack

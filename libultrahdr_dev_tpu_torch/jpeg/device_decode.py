@@ -1,4 +1,5 @@
-"""Parallel restart-interval Huffman decode on the device: kernel B4.
+"""Parallel restart-interval Huffman decode on the device: kernels B4
+and B22.
 
 The port of libultrahdr_dev_tpu/jpeg/device_decode.py. Streams this
 codec writes carry a restart marker every few MCUs, so each interval
@@ -11,10 +12,20 @@ Host side: ``parse_device_stream`` reads the markers, destuffs the
 entropy segment and finds the lane starts; ``pack_streams`` lays one or
 more parsed streams out as the kernel's inputs (one byte buffer plus
 small int32 descriptor arrays), so a batch goes to the device in one
-copy. Device side: ``decode_rst_chunks`` (B4) decodes every lane of
-the batch in one launch and writes the coefficients straight into the
+copy. Device side: ``decode_rst_chunks`` decodes every lane of the
+batch in one call and writes the coefficients straight into the
 per-plane zigzag grids that B5 reads; the MCU de-interleave (the JAX
 deinterleave_yuv420_device) is index arithmetic inside it.
+
+Emission, as JAX's ``emit_mode``: "dense" (B4, the default) keeps each
+lane's current block and writes it out whole; "log" (B22, JAX's
+body_log) appends only the coefficients a lane emits to a compact
+(position, value) log and rebuilds the dense grids from it in a second,
+parallel pass. The two give the same grids bit for bit on any input.
+The default is read from ``UHDR_DECODE_EMIT`` at import; any value but
+"log" means dense. JAX's ``UHDR_DECODE_UNITS`` (units decoded per loop
+step) has no counterpart: the port decodes one unit a step, and the
+result does not depend on it.
 
 Huffman tables are data: each frame's decode tables are built from its
 own DHT definitions (``decode_tables``), so frames that differ in
@@ -23,21 +34,22 @@ chain's sorted (boundary, symbol << 5 | length) entries; the kernel
 finds the last entry whose boundary is <= the next 16 stream bits by
 binary search, which equals the chain for any DHT, canonical or not.
 The JAX path's TPU workarounds (select-chain reads, the nibble window
-table, units per step, log emission) have no counterpart here.
+table, units per step) have no counterpart here.
 
 The wrapper runs its plain PyTorch version for CPU tensors and the CUDA
-kernel (kernels/csrc/huff_decode.cu) for CUDA tensors, and counts its
-launches in ``.launches``. The kernel's handoff mode is the same launch
-over the encoder's own chunk buffer (B3 writes JPEG byte order, so its
-word-aligned chunks are read in place; parallel/batched.py).
-``decode_jpeg_device`` decodes a plain JPEG (gray, 4:2:0, 4:2:2 or
-4:4:4, with restarts or without) to planes as B4 then B5: the device
-route of jpeg/codec.py:decode_jpeg.
+kernels (kernels/csrc/huff_decode.cu) for CUDA tensors, and counts B4's
+launches in ``.launches`` and B22's in ``.log_launches``. The kernels'
+handoff mode is the same launch over the encoder's own chunk buffer (B3
+writes JPEG byte order, so its word-aligned chunks are read in place;
+parallel/batched.py). ``decode_jpeg_device`` decodes a plain JPEG
+(gray, 4:2:0, 4:2:2 or 4:4:4, with restarts or without) to planes as
+B4 (or B22) then B5: the device route of jpeg/codec.py:decode_jpeg.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,6 +62,10 @@ from ..types import UhdrError
 from . import tables
 from .device_entropy import _build_code_table
 from .native import get_lib
+
+# Emission of the decode (default; an explicit emit_mode wins): "log"
+# runs B22, anything else B4. Read once, at import, as in JAX.
+_DEFAULT_EMIT = os.environ.get("UHDR_DECODE_EMIT", "dense")
 
 # ---------------------------------------------------------------------------
 # Decode tables.
@@ -481,14 +497,35 @@ def _lut(tabs: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _log_caps(cb, maxu):
+    """B22's per-lane unit cap and log width, as JAX sizes them with one
+    unit a step: a lane reaches its target within cb*65 units on any
+    input (a DC unit, then AC units that each raise k or end the block),
+    so the step cap is min(bit cap, cb*65 + 2), and the log holds the
+    step cap + 1 units, rounded up to a power of two (at least 32).
+    Neither cap binds before the lane's own termination."""
+    cap = torch.minimum(maxu, cb * 65 + 3)
+    width = 1 << max(5, (int(cap.max()) - 1).bit_length())
+    return cap, width
+
+
 def decode_rst_chunks_plain(src, frames, lanes, tabs, gray: bool,
-                            sampling, mcus_x: int, mcus_y: int):
+                            sampling, mcus_x: int, mcus_y: int,
+                            emit_mode: str | None = None):
     """Decode every lane of a packed batch (see Lanes) -> the per-plane
     int16 zigzag grids, each (n, bh*bw, 64): (y, u, v), or (g,) for
     gray. Per lane, one unit (a codeword and its extra bits) at a time,
     as the JAX decode_rst_chunks: a unit is decoded and emitted, then
     the lane is done once its block count reaches its target or its bit
-    position passes its window. Coefficients never emitted are 0."""
+    position passes its window. Coefficients never emitted are 0.
+
+    emit_mode "log" (None: the module's _DEFAULT_EMIT) is B22's plain
+    version in JAX's formulation: each unit appends the key dest*2 + 1
+    to its lane's int32 key row when it emits and repeats the lane's
+    last key when it does not, beside an int16 value row; the grid is
+    then rebuilt per output column by a lower bound of c*2 + 1 in the
+    lane's monotone key row. Any other value is B4's dense emission."""
+    log_emit = (emit_mode or _DEFAULT_EMIT) == "log"
     dev = src.device
     n = frames.shape[0]
     nl = lanes.shape[0]
@@ -522,8 +559,16 @@ def decode_rst_chunks_plain(src, frames, lanes, tabs, gray: bool,
     dcp = torch.zeros((nl, 3), dtype=torch.int64, device=dev)
     done = torch.zeros(nl, dtype=torch.bool, device=dev)
     cbmax = int(cb.max())
-    out = torch.zeros((nl, cbmax * 64), dtype=torch.int64, device=dev)
     rows = torch.arange(nl, device=dev)
+    if log_emit:
+        max_units, log_cap = _log_caps(cb, f[:, F_MAXU])
+        keys = torch.full((nl, log_cap), 2**31 - 1, dtype=torch.int32,
+                          device=dev)
+        vals = torch.zeros((nl, log_cap), dtype=torch.int16, device=dev)
+        lastk = torch.zeros(nl, dtype=torch.int32, device=dev)
+    else:
+        max_units = f[:, F_MAXU]
+        out = torch.zeros((nl, cbmax * 64), dtype=torch.int64, device=dev)
     while not bool(done.all()):
         live = ~done
         byte = bit >> 3
@@ -558,7 +603,12 @@ def decode_rst_chunks_plain(src, frames, lanes, tabs, gray: bool,
         emit = live & (is_dc | ~(is_eob | is_zrl))
         dest = blk * 64 + torch.where(is_dc, 0, kk)
         value = _wrap16(torch.where(is_dc, new_dc, val))
-        out[rows[emit], dest[emit]] = value[emit]
+        if log_emit:
+            lastk = torch.where(emit, (dest * 2 + 1).to(torch.int32), lastk)
+            keys[rows[live], units[live]] = lastk[live]
+            vals[rows[emit], units[emit]] = value[emit].to(torch.int16)
+        else:
+            out[rows[emit], dest[emit]] = value[emit]
         ends = is_eob | (kk >= 63)
         blk_n = torch.where(is_dc, blk, torch.where(ends, blk + 1, blk))
         k_n = torch.where(is_dc, 1, torch.where(
@@ -570,8 +620,16 @@ def decode_rst_chunks_plain(src, frames, lanes, tabs, gray: bool,
         k = torch.where(live, k_n, k)
         units = units + live.to(torch.int64)
         done = done | (blk >= target) | (bit > max_bits) | (
-            units >= f[:, F_MAXU])
+            units >= max_units)
 
+    if log_emit:
+        # Dense rebuild: the first key >= c*2 + 1 in the lane's row is
+        # c's emission when it equals it; otherwise c was never emitted.
+        targ = (torch.arange(cbmax * 64, dtype=torch.int32, device=dev)
+                * 2 + 1).expand(nl, cbmax * 64).contiguous()
+        pos = torch.searchsorted(keys, targ).clamp_(max=log_cap - 1)
+        out = torch.where(torch.gather(keys, 1, pos) == targ,
+                          torch.gather(vals, 1, pos).to(torch.int64), 0)
     out = out.reshape(nl, cbmax, 64)
     # DC carry for restart-less streams: each lane's DC sums (its
     # final predictors) summed over the frame's earlier lanes.
@@ -615,14 +673,37 @@ def decode_rst_chunks_plain(src, frames, lanes, tabs, gray: bool,
 # ---------------------------------------------------------------------------
 
 def decode_rst_chunks(src, frames, lanes, tabs, gray: bool, sampling,
-                      mcus_x: int, mcus_y: int):
-    """B4 wrapper: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors. Same signature and result as
+                      mcus_x: int, mcus_y: int,
+                      emit_mode: str | None = None):
+    """B4 / B22 wrapper: the plain version for CPU tensors, the CUDA
+    kernels for CUDA tensors. Same signature and result as
     decode_rst_chunks_plain: src uint8, frames (n, FRAME_FIELDS), lanes
-    (nl, 2) and tabs (n, 4, TABLE_WORDS) int32, all on one device."""
+    (nl, 2) and tabs (n, 4, TABLE_WORDS) int32, all on one device.
+    emit_mode "log" (None: the module's _DEFAULT_EMIT) launches B22 and
+    counts it in ``.log_launches``; any other value launches B4 and
+    counts it in ``.launches``."""
     if not src.is_cuda:
         return decode_rst_chunks_plain(src, frames, lanes, tabs, gray,
-                                       sampling, mcus_x, mcus_y)
+                                       sampling, mcus_x, mcus_y, emit_mode)
+    if (emit_mode or _DEFAULT_EMIT) == "log":
+        return _decode_rst_chunks_log(src, frames, lanes, tabs, gray,
+                                     sampling, mcus_x, mcus_y)[0]
+    grids, y, u, v, dcsum, args = _launch_args(src, frames, lanes, tabs,
+                                               gray, sampling, mcus_x,
+                                               mcus_y)
+    lib = build.get_lib()
+    decode_rst_chunks.launches += 1
+    build.check(lib.uhdr_huff_decode(
+        src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
+        tabs.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
+        dcsum.data_ptr(), *args, build.stream_of(src)), "uhdr_huff_decode")
+    return tuple(grids)
+
+
+def _launch_args(src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y):
+    """Checked inputs and fresh outputs of a B4 or B22 launch: the
+    grids, the y, u, v pointers' tensors (gray: the one grid three
+    times), the (nl, 3) DC-sum scratch and the integer arguments."""
     n, nl = frames.shape[0], lanes.shape[0]
     build.require(src, "src", torch.uint8)
     build.require(frames, "frames", torch.int32, (n, FRAME_FIELDS))
@@ -634,17 +715,38 @@ def decode_rst_chunks(src, frames, lanes, tabs, gray: bool, sampling,
              for bh, bw in plane_shapes(gray, sampling, mcus_x, mcus_y)]
     y, u, v = grids if not gray else grids * 3
     dcsum = torch.empty((nl, 3), dtype=torch.int32, device=dev)
+    return (grids, y, u, v, dcsum,
+            (n, nl, int(gray), hs, vs, mcus_x, mcus_y))
+
+
+def _decode_rst_chunks_log(src, frames, lanes, tabs, gray: bool, sampling,
+                          mcus_x: int, mcus_y: int):
+    """B22 on CUDA tensors: (the grids, the (nl,) int32 count of
+    coefficients each lane emitted). Pass 1 decodes each lane into its
+    segment of a (position, value) log sized for every coefficient of
+    the batch (n * blocks * 64 entries: int32 positions, int16 values);
+    pass 2 rebuilds the grids from it. Counts ``decode_rst_chunks.
+    log_launches``; raises on a build or launch failure."""
+    grids, y, u, v, dcsum, args = _launch_args(src, frames, lanes, tabs,
+                                               gray, sampling, mcus_x,
+                                               mcus_y)
+    entries = sum(g.numel() for g in grids)
+    dev = src.device
+    pos = torch.empty(entries, dtype=torch.int32, device=dev)
+    val = torch.empty(entries, dtype=torch.int16, device=dev)
+    cnt = torch.empty(lanes.shape[0], dtype=torch.int32, device=dev)
     lib = build.get_lib()
-    decode_rst_chunks.launches += 1
-    build.check(lib.uhdr_huff_decode(
+    decode_rst_chunks.log_launches += 1
+    build.check(lib.uhdr_huff_decode_log(
         src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
-        tabs.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
-        dcsum.data_ptr(), n, nl, int(gray), hs, vs, mcus_x, mcus_y,
-        build.stream_of(src)), "uhdr_huff_decode")
-    return tuple(grids)
+        tabs.data_ptr(), pos.data_ptr(), val.data_ptr(), cnt.data_ptr(),
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), dcsum.data_ptr(), *args,
+        build.stream_of(src)), "uhdr_huff_decode_log")
+    return tuple(grids), cnt
 
 
 decode_rst_chunks.launches = 0
+decode_rst_chunks.log_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -654,11 +756,12 @@ decode_rst_chunks.launches = 0
 def decode_stream_device(ds: DeviceStream, device) -> list:
     """Decode a parsed stream on `device`: one upload of its destuffed
     bytes, lane and decode tables and its per-component quant tables,
-    then B4 (decode_rst_chunks) and B5 (dct.dequant_idct) per plane.
-    Returns uint8 planes (1, bh*8, bw*8), uncropped: the gray plane, or
-    Y, U, V. The port of libultrahdr_dev_tpu/jpeg/device_decode.py:
-    _decode_to_planes_kernel (dense emission); counts its calls on a
-    CUDA device, each one B4 and B5 launches, in ``.launches``."""
+    then B4 or B22 (decode_rst_chunks) and B5 (dct.dequant_idct) per
+    plane. Returns uint8 planes (1, bh*8, bw*8), uncropped: the gray
+    plane, or Y, U, V. The port of libultrahdr_dev_tpu/jpeg/device_decode.py:
+    _decode_to_planes_kernel, in the module's emission mode; counts its
+    calls on a CUDA device, each one B4 (or B22) and B5 launches, in
+    ``.launches``."""
     from .dct import dequant_idct
 
     ln = pack_streams([ds])

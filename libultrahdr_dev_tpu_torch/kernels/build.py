@@ -89,6 +89,9 @@ SIGNATURES = {
     # src, frames, lanes, tables, y, u, v, dcsum, n, n_lanes, gray, hs,
     # vs, mcus_x, mcus_y, stream
     "uhdr_huff_decode": [_P] * 8 + [_I] * 7 + [_P],
+    # src, frames, lanes, tables, log positions, log values, counts, y,
+    # u, v, dcsum, n, n_lanes, gray, hs, vs, mcus_x, mcus_y, stream
+    "uhdr_huff_decode_log": [_P] * 11 + [_I] * 7 + [_P],
     # src, src row stride, dst, oh, ow, steps (host), n, stream
     "uhdr_edit_plane": [_P, _L, _P, _I, _I, _P, _I, _P],
     # y hi, y lob, uv hi, uv lob, y out, uv out, y quads, uv quads, stream
