@@ -28,11 +28,16 @@ tests/goldens), checks what comes out, and times the kernels and the
 stages.
 
 Phases: B1, B2 (bitwise), B5, B6 (with its 10-bit planar arm), B11, B7
-kernel vs plain; B3 (Huffman encode) kernel vs plain and its JPEG/R
-bytes vs the host-Huffman route; B9 (API-1 front end) kernel vs plain
-and its JPEG/R bytes vs the host-Huffman route; B4 (Huffman decode)
-kernel vs plain vs the host decoder on the port's streams, on the
-restart-less goldens (DC carry) and on garbage; B22 (the decode's log
+kernel vs plain (B2 and B5 timed by CUDA-graph replay); B2's
+tensor-core premise (every row sum of its bf16 mma exact on two
+adversarial rows of each of the 1,536 (term, row, output column)
+triples and on sharp-edged blocks, then B2 = plain bitwise on those
+blocks, on the 1,179,648 blocks of tests/test_torch_dct.py's bitwise
+cases and on its dense HLG V plane; HMMA in B2's SASS); B3 (Huffman
+encode) kernel vs plain and its JPEG/R bytes vs the host-Huffman route;
+B9 (API-1 front end) kernel vs plain and its JPEG/R bytes vs the
+host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
+decoder on the port's streams, on the restart-less goldens (DC carry) and on garbage; B22 (the decode's log
 emission) on B4's inputs and the handoff: B22 kernel = B22 plain = B4
 kernel; B10 (B10a tonemap and B10c re-encode bit-exact, B10b in five
 variants); B12 (decode_jpeg's device route on gray, 4:2:0, 4:2:2, 4:4:4
@@ -117,6 +122,7 @@ GOLDEN_OTHER = ["enc0_hlg.jpegr", "enc0_pq.jpegr"]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # outside the tensor cores
 FP64_FLOPS = 34e12          # H100 SXM data sheet, outside the tensor cores
+BF16_TC_FLOPS = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 
 # Operations per sample, counted from the kernels' sources (the branch a
 # sample usually takes): float32 operations (a fused multiply-add 2;
@@ -337,13 +343,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(byte_count: float, flops: float = 0.0,
-          dflops: float = 0.0) -> tuple[float, str]:
+def bound(byte_count: float, flops: float = 0.0, dflops: float = 0.0,
+          tc_flops: float = 0.0) -> tuple[float, str]:
     """Least time (ms) the card could take: the largest of the bytes
-    over the memory rate, the float32 operations over their peak rate
-    and the float64 operations over theirs."""
+    over the memory rate, the float32 operations over their peak rate,
+    the float64 operations over theirs and the bf16 tensor-core
+    operations over theirs."""
     t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / FP32_FLOPS, dflops / FP64_FLOPS) * 1e3
+    t_ops = max(flops / FP32_FLOPS, dflops / FP64_FLOPS,
+                tc_flops / BF16_TC_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -359,6 +367,20 @@ def int_diff(a, b):
 
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
     return int(d.max()) if d.numel() else 0, int((d > 0).sum())
+
+
+def _timed(label: str, run) -> dict:
+    """ms per frame of `run` (one launch per plane of a FRAMES batch) by
+    CUDA-graph replay, beside the CUDA-event time (which, for launches
+    shorter than the wrappers' host work, measures the enqueue) and the
+    profiler's device time by kernel."""
+    ms = graph_ms(run, 20) / FRAMES
+    enqueue_ms = cuda_ms(run, 20) / FRAMES
+    by = {k: round(v / FRAMES, 4)
+          for k, v in device_ms_by_kernel(run, 10).items()}
+    log(f"{label}: {ms:.4f} ms/frame by CUDA graph, {enqueue_ms:.4f} by CUDA "
+        f"events, device ms/frame by kernel {by or 'not measured'}")
+    return dict(ms=ms, enqueue_ms=enqueue_ms)
 
 
 def kernel_phases(dev, results: dict):
@@ -418,14 +440,17 @@ def kernel_phases(dev, results: dict):
     xs = torch.randn(n_blocks * FRAMES, 64, device=dev)
     kron = torch.randn(64, 64, device=dev)
     lib_ms = cuda_ms(lambda: torch.matmul(xs, kron), 20) / FRAMES
+    # The tensor cores do the three bf16 products (3 x 64 x 64
+    # multiply-adds a block); the CUDA cores the float32 epilogue, 24
+    # operations a coefficient (21 tree adds, 2 term adds, the divide).
     results["B2"] = dict(
-        err=worst,
-        ms=cuda_ms(lambda: [dct.fdct_quant(p, q) for p, q in planes], 20) /
-        FRAMES,
+        err=worst, **_timed("B2", lambda: [dct.fdct_quant(p, q)
+                                           for p, q in planes]),
         plain_ms=cuda_ms(lambda: [dct.fdct_quant_plain(p, q)
                                   for p, q in planes], 3) / FRAMES,
         bytes=nbytes(yb, ub, vb, gmap, *coefs) / FRAMES,
-        flops=24576.0 * n_blocks, library_ms=lib_ms)
+        tc_flops=24576.0 * n_blocks, flops=24.0 * 64 * n_blocks,
+        library_ms=lib_ms)
 
     # B5: u8 planes <= 1 apart on <= 1e-4 of pixels.
     idct_args = []
@@ -442,9 +467,8 @@ def kernel_phases(dev, results: dict):
     require(worst <= 1 and n_off <= 1e-4 * n_all,
             "B5 pixels disagree with the plain version")
     results["B5"] = dict(
-        err=worst,
-        ms=cuda_ms(lambda: [dct.dequant_idct(*a) for a in idct_args], 20) /
-        FRAMES,
+        err=worst, **_timed("B5", lambda: [dct.dequant_idct(*a)
+                                           for a in idct_args]),
         plain_ms=cuda_ms(lambda: [dct.dequant_idct_plain(*a)
                                   for a in idct_args], 3) / FRAMES,
         bytes=nbytes(*coefs, *decoded) / FRAMES, flops=2048.0 * n_blocks,
@@ -516,6 +540,111 @@ def kernel_phases(dev, results: dict):
                          3) / FRAMES,
         bytes=(in_bytes - FRAMES * (H // 4) * (W // 4) + nbytes(out)) /
         FRAMES, library_ms=None, **ops("B7", H * W))
+
+
+def _kind_plane(kind: str, seed: int):
+    """A 4096x512 plane (32,768 blocks) of one kind of content, as
+    tests/test_torch_dct.py::_blocks_plane makes it: uniform noise,
+    smooth blocks, or blocks of four flat quadrants with noise."""
+    rng = np.random.default_rng(seed)
+    h, w = 4096, 512
+    if kind == "noise":
+        return rng.integers(0, 256, (h, w), dtype=np.uint8)
+    if kind == "smooth":
+        yy, xx = np.mgrid[0:h, 0:w] % 8
+        lvl = np.kron(rng.uniform(0, 255, (h // 8, w // 8)), np.ones((8, 8)))
+        gy, gx = (np.kron(rng.normal(0, 4, (h // 8, w // 8)), np.ones((8, 8)))
+                  for _ in range(2))
+        p = lvl + gy * yy + gx * xx + rng.normal(0, 2, (h, w))
+    else:
+        p = np.kron(rng.integers(0, 256, (h // 4, w // 4)), np.ones((4, 4)))
+        p = p + rng.normal(0, 6, (h, w))
+    return np.clip(np.round(p), 0, 255).astype(np.uint8)
+
+
+def b2_premise_phase(dev):
+    """B2's premise on the card: each row sum of its bf16 tensor-core
+    mma (a k = 8 product with a zero accumulator) is the exact sum,
+    bitwise, on two adversarial rows (dct.kron_adversarial_rows) of
+    every (term, row, output column) triple, the block's other rows
+    drawn from the seed, and on a plane of sharp-edged blocks; then B2
+    = plain bitwise on those blocks, on the 1,179,648 blocks of
+    tests/test_torch_dct.py::test_fdct_quant_bitwise_as_jax (regenerated
+    from its seeds) and on the dense HLG V plane of
+    test_fdct_dense_v_plane_near_tie_as_jax (coefficient 1342 is 156)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import dct, tables
+    from libultrahdr_dev_tpu_torch.kernels import build
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    # The compiled B2 runs on the tensor cores: HMMA in its SASS.
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+         build.build()], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    hmma, fn = 0, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line
+        elif "fdct_quant_kernel" in fn and "HMMA" in line:
+            hmma += 1
+    log(f"B2 fdct_quant_kernel: {hmma} HMMA instructions in its SASS")
+    require(hmma > 0, "B2 does not run on the tensor cores")
+
+    rng = np.random.default_rng(SEED + 70)
+    adv = dct.kron_adversarial_rows()            # (3, 8, 64, 2, 8)
+    blocks = rng.integers(0, 256, adv.shape[:4] + (8, 8)).astype(np.uint8)
+    for r in range(8):
+        blocks[:, r, :, :, r] = adv[:, r] + 128
+    blocks = blocks.reshape(-1, 8, 8)            # 3,072 blocks
+    sharp = _kind_plane("quadrants", SEED + 71)[:512]
+    sharp_blocks = sharp.reshape(64, 8, 64, 8).transpose(0, 2, 1, 3) \
+        .reshape(-1, 8, 8)
+    n_sums, n_off = 0, 0
+    for b in (blocks, sharp_blocks):
+        bt = torch.from_numpy(np.ascontiguousarray(b)).to(dev)
+        got = dct.mma_row_sums(bt)
+        want = dct.kron_row_sums_plain(bt)
+        n_sums += got.numel()
+        n_off += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    log(f"B2 premise: {n_off} of {n_sums} tensor-core row sums differ from "
+        f"the exact sums ({len(blocks)} adversarial blocks, "
+        f"{len(sharp_blocks)} sharp-edged)")
+    require(n_off == 0, "B2: a tensor-core row sum is not exact")
+
+    q95 = tables.scale_quant_table(tables.STD_CHROMINANCE_QUANT, 95)
+    qts = [torch.ones(64, dtype=torch.int32, device=dev),
+           torch.from_numpy(q95.reshape(64).astype(np.int32)).to(dev)]
+    adv_plane = blocks.reshape(48, 64, 8, 8).transpose(0, 2, 1, 3) \
+        .reshape(1, 384, 512)
+    planes = [adv_plane, sharp[None]]
+    planes += [_kind_plane(k, rep)[None] for rep in range(6)
+               for k in ("noise", "smooth", "quadrants")]
+    n_blocks, n_off = 0, 0
+    for p in planes:
+        pt = torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+        for q in qts:
+            c = dct.fdct_quant(pt, q)
+            n_off += int((c != dct.fdct_quant_plain(pt, q)).sum())
+            n_blocks += c.shape[1]
+    # The dense HLG noise frame at quality 100: V block 20's zigzag 62
+    # is a near-tie (155.4999963) that JAX rounds to 156.
+    rng = np.random.default_rng(3)
+    y = (rng.integers(0, 1024, (64, 128)) << 6).astype(np.uint16)
+    uv = (rng.integers(0, 1024, (32, 128)) << 6).astype(np.uint16)
+    v = batched.encode_front(batched.p010_to_device(y[None], "cpu"),
+                             batched.p010_to_device(uv[None], "cpu"),
+                             "bt2100", "hlg")[3].to(dev)
+    qc = torch.from_numpy(batched.quant_tables(100)[1].reshape(64)).to(dev)
+    c = dct.fdct_quant(v, qc)
+    n_off += int((c != dct.fdct_quant_plain(v, qc)).sum())
+    n_blocks += c.shape[1]
+    log(f"B2 premise: kernel = plain on {n_blocks} blocks ({n_off} "
+        f"coefficients off), the dense V plane's coefficient 1342 "
+        f"{int(c.reshape(-1)[1342])}")
+    require(n_off == 0, "B2 differs from the plain version")
+    require(int(c.reshape(-1)[1342]) == 156, "B2 misses the V near-tie")
 
 
 def b3_phase(dev, results: dict):
@@ -3068,6 +3197,7 @@ def main() -> int:
     phases = [("kernels B1 B2 B5 B6 B11 B7",
                lambda: kernel_phases(dev, results))]
     kept = {}
+    phases.append(("B2 tensor-core premise", lambda: b2_premise_phase(dev)))
     phases.append(("B3", lambda: kept.update(b3_phase(dev, results))))
     phases.append(("B9", lambda: b9_phase(dev, results)))
     phases.append(("B4", lambda: b4_phase(dev, results, kept)))
@@ -3088,7 +3218,8 @@ def main() -> int:
     for k in KERNELS:
         r = results[k]
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r.get("flops", 0.0),
-                                             r.get("dflops", 0.0))
+                                             r.get("dflops", 0.0),
+                                             r.get("tc_flops", 0.0))
         log(f"{k} {KERNELS[k][0]}: kernel {r['ms']:.4f} ms/frame, plain "
             f"{r['plain_ms']:.3f} ms/frame, bound {r['bound_ms']:.4f} "
             f"ms/frame ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), "

@@ -6,8 +6,21 @@ multiples of 8 included); ``dequant_idct`` (B5) replaces
 dct.py:_idct_kernel / dequant_idct. Each wrapper runs its plain PyTorch
 version for a tensor on the CPU and the hand-written CUDA kernel
 (kernels/csrc/dct.cu) for a CUDA tensor, and counts its kernel launches
-in ``.launches``. The source note in dct.cu says what bounds the kernels
-and how their numerics meet the JAX version's.
+in ``.launches``.
+
+B2 computes JAX's kron form bit for bit: the three bf16 terms of
+kron(D, D) (columns in zigzag order, ``KRON_ZIG``) times the bf16
+samples, each dot the pairwise float32 tree over the block's 8 exact
+row sums, then (d0 + d1) + d2, / q, rounded half to even. On the card
+each row sum is one bf16 ``mma.sync`` on the tensor cores with a zero
+accumulator (``kron_mma_fragments`` lays the terms out as its B
+operands); it is exact because no row sum of any input spans 24 bits
+(tests/test_torch_dct.py::test_kron_row_sums_fit_float32). The tree,
+the division and the rounding run on the CUDA cores. B5 keeps the
+first kernel's arithmetic, so its pixels: dequantise, contract the
+vertical frequency u first, then v, each sum in order with separately
+rounded products. The source note in dct.cu says what bounds the
+kernels and how they are laid out on the card.
 """
 
 from __future__ import annotations
@@ -60,22 +73,57 @@ def _kron_zig_split() -> np.ndarray:
     return np.ascontiguousarray(np.stack(terms))
 
 
-# The three terms, and the same laid out (3, 8 rows, 8 cols, 64) for the
-# row sums of fdct_quant_plain.
 KRON_ZIG = _kron_zig_split()
-_KRON_ROWS = KRON_ZIG.reshape(3, 8, 8, 64)
+
+
+def kron_mma_fragments() -> np.ndarray:
+    """KRON_ZIG as the B operands of B2's m16n8k8 bf16 ``mma.sync``:
+    (3 terms, 8 column groups j, 2 row halves, 32 lanes, 4 rows) uint32.
+    Row r = 4 * half + i of the block; lane 4 g + t holds the bf16 bits
+    (the terms' high halves: their low halves are zero) of
+    KRON_ZIG[term, 8 r + 2 t, 8 j + g] in its low 16 bits and of
+    KRON_ZIG[term, 8 r + 2 t + 1, 8 j + g] in its high 16 bits, so a
+    lane reads its four rows' fragments as one 16-byte word."""
+    hi = KRON_ZIG.view(np.uint32) >> 16
+    # (term, half, i, t, k, j, g): row 4 half + i, sample 2 t + k,
+    # column 8 j + g.
+    h = hi.reshape(3, 2, 4, 4, 2, 8, 8)
+    word = h[:, :, :, :, 0] | (h[:, :, :, :, 1] << 16)
+    return np.ascontiguousarray(
+        word.transpose(0, 4, 1, 5, 3, 2).reshape(3, 8, 2, 32, 4))
+
+
+def kron_adversarial_rows() -> np.ndarray:
+    """(3 terms, 8 rows, 64 output columns, 2, 8) int64: for each row of
+    each term of KRON_ZIG and each output column, two rows of
+    level-shifted samples in [-128, 127] whose row sums span the most
+    bits: the largest |row sum| (every sample at an end of the range,
+    against its weight's sign) and the widest cancellation (127 times
+    each weight's sign, the largest weight's sign flipped)."""
+    w = KRON_ZIG.reshape(3, 8, 8, 64).transpose(0, 1, 3, 2).astype(np.float64)
+    s = np.sign(w).astype(np.int64)
+    neg = np.where(s > 0, -128, 127) * (s != 0)
+    pos = np.where(s < 0, -128, 127) * (s != 0)
+    big = np.where((np.abs((neg * w).sum(-1)) >= np.abs((pos * w).sum(-1)))
+                   [..., None], neg, pos)
+    flip = 127 * s
+    top = np.abs(w).argmax(-1)[..., None]
+    np.put_along_axis(flip, top, -np.take_along_axis(flip, top, -1), -1)
+    return np.stack([big, flip], axis=3)
+
 
 # Host copies for the kernels' by-value table argument.
 _D_C = np.ascontiguousarray(D32.reshape(64))
 _INV_ZIG_C = np.ascontiguousarray(INV_ZIG.astype(np.int32))
-_KRON_CACHE: dict = {}
+_FRAGS_C = kron_mma_fragments().view(np.int32)
+_ON_DEVICE: dict = {}
 
 
-def _kron_on(device) -> torch.Tensor:
-    """KRON_ZIG on `device`, uploaded once."""
-    t = _KRON_CACHE.get(device)
+def _on(device, name: str, host: np.ndarray) -> torch.Tensor:
+    """A constant table on `device`, uploaded once."""
+    t = _ON_DEVICE.get((device, name))
     if t is None:
-        t = _KRON_CACHE[device] = torch.from_numpy(KRON_ZIG).to(device)
+        t = _ON_DEVICE[(device, name)] = torch.from_numpy(host).to(device)
     return t
 
 
@@ -121,7 +169,7 @@ def fdct_quant_plain(plane_u8: torch.Tensor,
     # (8 rows, n * blocks, 8 cols): row j of every block.
     xb = (x.reshape(n, bh, 8, bw, 8).permute(2, 0, 1, 3, 4)
           .reshape(8, n * bh * bw, 8))
-    m = _kron_on(dev).reshape(3, 8, 8, 64)
+    m = _on(dev, "kron", KRON_ZIG).reshape(3, 8, 8, 64)
     d = [_tree8(torch.bmm(xb, m[t])) for t in range(3)]
     c = ((d[0] + d[1]) + d[2]).reshape(n, bh * bw, 64)
     q = q_natural.to(device=dev, dtype=torch.float32).reshape(64)
@@ -141,17 +189,51 @@ def fdct_quant(plane_u8: torch.Tensor,
     bh, bw = blocks_dims(h, w)
     out = torch.empty((n, bh * bw, 64), dtype=torch.int16,
                       device=plane_u8.device)
-    kron = _kron_on(plane_u8.device)
+    frags = _on(plane_u8.device, "frags", _FRAGS_C)
     lib = build.get_lib()
     fdct_quant.launches += 1
     build.check(lib.uhdr_fdct_quant(
-        plane_u8.data_ptr(), q_natural.data_ptr(), kron.data_ptr(),
+        plane_u8.data_ptr(), q_natural.data_ptr(), frags.data_ptr(),
         out.data_ptr(), n, h, w, *_tables(), build.stream_of(plane_u8)),
         "uhdr_fdct_quant")
     return out
 
 
 fdct_quant.launches = 0
+
+
+def kron_row_sums_plain(blocks: torch.Tensor) -> torch.Tensor:
+    """(N, 8, 8) uint8 blocks -> (N, 3, 8, 64) float32: for each term of
+    KRON_ZIG, block row and output column, the exact sum of the row's 8
+    products (in float64, then float32: no row sum spans 24 bits)."""
+    x = blocks.to(torch.float64) - 128.0
+    m = torch.from_numpy(KRON_ZIG).to(x.device, torch.float64)
+    return torch.einsum("nrc,trco->ntro", x,
+                        m.reshape(3, 8, 8, 64)).to(torch.float32)
+
+
+def mma_row_sums(blocks: torch.Tensor) -> torch.Tensor:
+    """The row sums of kron_row_sums_plain as B2's tensor-core ``mma``
+    gives them on a CUDA tensor (uhdr_mma_row_sums, the premise B2's
+    exactness rests on, which only the card can show); the plain version
+    on the CPU. N must be a multiple of 16. Not on any path: a check."""
+    if not blocks.is_cuda:
+        return kron_row_sums_plain(blocks)
+    n = blocks.shape[0]
+    build.require(blocks, "blocks", torch.uint8, (n, 8, 8))
+    if n % 16:
+        raise ValueError("blocks: expected a multiple of 16")
+    t = n // 16
+    tiles = blocks.reshape(t, 16, 8, 8).permute(0, 2, 1, 3).contiguous()
+    out = torch.empty((t, 3, 8, 8, 32, 4), dtype=torch.float32,
+                      device=blocks.device)
+    build.check(build.get_lib().uhdr_mma_row_sums(
+        tiles.data_ptr(), _on(blocks.device, "frags", _FRAGS_C).data_ptr(),
+        out.data_ptr(), t, build.stream_of(blocks)), "uhdr_mma_row_sums")
+    # (tile, term, j, row, g, tq, half, k) -> block 8 half + g, column
+    # 8 j + 2 tq + k.
+    return (out.reshape(t, 3, 8, 8, 8, 4, 2, 2)
+            .permute(0, 6, 4, 1, 3, 2, 5, 7).reshape(n, 3, 8, 64))
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +266,8 @@ def dequant_idct(coefs: torch.Tensor, q_natural: torch.Tensor, bh: int,
     n = coefs.shape[0]
     build.require(coefs, "coefs", torch.int16, (n, bh * bw, 64))
     build.require(q_natural, "q_natural", torch.int32, (n, 64))
+    if coefs.data_ptr() % 16:
+        raise ValueError("coefs: expected a 16-byte aligned tensor")
     out = torch.empty((n, bh * 8, bw * 8), dtype=torch.uint8,
                       device=coefs.device)
     lib = build.get_lib()

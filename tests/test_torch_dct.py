@@ -197,3 +197,76 @@ def test_jax_dots_sum_as_a_pairwise_tree():
         exact_all &= bool(np.array_equal(exact.view(np.uint32),
                                          want.view(np.uint32)))
     assert tree_all and not exact_all
+
+
+def _ulp_bf16(w):
+    """The last bit of each (nonzero) bf16 value."""
+    return 2.0 ** (np.floor(np.log2(np.abs(w))) - 7)
+
+
+@pytest.mark.parametrize("term", range(3))
+def test_kron_row_sums_fit_float32(term):
+    """B2's premise for its tensor-core row sums: for every block row and
+    output column of a term of KRON_ZIG, the largest |row sum| any
+    samples in [-128, 127] can give is under 2^24 times the smallest
+    weight's last bit (19.5, 23.6 and 23.4 bits), so every row sum is a
+    float32; and the float64 row sums of the adversarial rows
+    (kron_adversarial_rows, which chip_smoke.py holds the card's mma
+    to) round-trip through float32 exactly."""
+    w = tdct.KRON_ZIG[term].astype(np.float64).reshape(8, 8, 64) \
+        .transpose(0, 2, 1)                       # (row, column, sample)
+    worst = 0.0
+    for r in range(8):
+        for o in range(64):
+            nz = w[r, o][w[r, o] != 0]
+            if nz.size == 0:
+                continue
+            worst = max(worst, float(np.log2(
+                128 * np.abs(w[r, o]).sum() / _ulp_bf16(nz).min())))
+    assert worst < 24, worst
+    rows = tdct.kron_adversarial_rows()[term]     # (row, column, 2, 8)
+    assert rows.min() >= -128 and rows.max() <= 127
+    sums = (rows * w[:, :, None, :]).sum(-1)
+    np.testing.assert_array_equal(sums.astype(np.float32).astype(np.float64),
+                                  sums)
+
+
+def test_kron_mma_fragments_rebuild_terms():
+    """The B-fragment table B2 uploads holds only bf16 bits (the terms'
+    low halves are zero) and rebuilds KRON_ZIG bit for bit, read the way
+    an m16n8k8 mma reads its B operand: lane 4 g + t holds rows 2 t and
+    2 t + 1 of column g."""
+    assert not (tdct.KRON_ZIG.view(np.uint32) & 0xFFFF).any()
+    frags = tdct.kron_mma_fragments()
+    assert frags.shape == (3, 8, 2, 32, 4) and frags.dtype == np.uint32
+    bits = np.zeros((3, 64, 64), np.uint32)
+    for term in range(3):
+        for j in range(8):
+            for half in range(2):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for i in range(4):
+                        word = int(frags[term, j, half, lane, i])
+                        r = 4 * half + i
+                        bits[term, 8 * r + 2 * t, 8 * j + g] = \
+                            (word & 0xFFFF) << 16
+                        bits[term, 8 * r + 2 * t + 1, 8 * j + g] = \
+                            (word >> 16) << 16
+    np.testing.assert_array_equal(bits.view(np.float32), tdct.KRON_ZIG)
+
+
+def test_idct_table_symmetry():
+    """What B5's product reuse rests on: in the float32 DCT table,
+    D[u][x] is +-D[u][x'] bit for bit wherever cos((2x + 1) u pi / 16)
+    and cos((2x' + 1) u pi / 16) have equal magnitudes, with the cosine's
+    sign; so row u has at most four magnitudes, 22 in all."""
+    d = tdct.D32
+    mags = set()
+    for u in range(8):
+        for x in range(8):
+            k = (2 * x + 1) * u % 32
+            fold = min(k % 16, 16 - k % 16)
+            assert (d[u, x] < 0) == (8 < k < 24)
+            mags.add((u, fold, abs(float(d[u, x]))))
+    assert len(mags) == 22
+    assert len({(u, f) for u, f, _ in mags}) == 22
