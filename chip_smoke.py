@@ -37,18 +37,23 @@ cases and on its dense HLG V plane; HMMA in B2's SASS); B3 (Huffman
 encode) kernel vs plain and its JPEG/R bytes vs the host-Huffman route;
 B9 (API-1 front end) kernel vs plain and its JPEG/R bytes vs the
 host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
-decoder on the port's streams, on the restart-less goldens (DC carry) and on garbage; B22 (the decode's log
-emission) on B4's inputs and the handoff: B22 kernel = B22 plain = B4
-kernel; B10 (B10a tonemap and B10c re-encode bit-exact, B10b in five
-variants); B12 (decode_jpeg's device route on gray, 4:2:0, 4:2:2, 4:4:4
-and a restart-marked 4:2:0 stream: kernels = plain = host-Huffman
-route); B13 (each single effect, the converter's 4-step chain and a
-chain longer than one launch on a 4000x3000 YUV420 frame and its
+decoder on the port's streams, on the restart-less goldens (DC carry),
+on garbage (also lanes at every start byte mod 4 and start bit, windows
+ending mid-word and at the stream's end), on DHTs with 1- and 16-bit
+codes and on two frames with different DHTs in one launch; B22 (the
+decode's log emission) on the same inputs and the handoff: B22 kernel =
+B22 plain = B4 kernel; B10 (B10a tonemap and B10c re-encode bit-exact,
+B10b in five variants); B12 (decode_jpeg's device route on gray,
+4:2:0, 4:2:2, 4:4:4 and a restart-marked 4:2:0 stream: kernels = plain
+= host-Huffman route, B22 then B5 = B4 then B5); B13 (each single
+effect, the converter's 4-step chain and a chain longer than one
+launch on a 4000x3000 YUV420 frame and its
 1000x750 gain map, bitwise equal to the plain version); B19
 (restart-less Huffman encode) on the general route's base and gain map,
-encode_jpeg's 4:2:2 and 4:4:4 planes and a dense 4080x3072 batch: kernel
-= plain, finalized scans = the host coder's; B12-enc (encode_jpeg's
-restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at r in {1, 4, 17}:
+encode_jpeg's 4:2:2 and 4:4:4 planes, edge-case blocks (edge_blocks)
+over three frames of several 256-block tiles and a dense 4080x3072
+batch: kernel = plain, finalized scans = the host coder's; B12-enc
+(encode_jpeg's restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at r in {1, 4, 17}:
 kernel = plain = the host coder with RSTn markers; B0 and B14 (the P010
 upload: dense on uniform noise, segment-packed on bench content), B18
 (the planes composite of a decoded batch of 4), B15 and B16 (Rice pass 1
@@ -369,14 +374,14 @@ def int_diff(a, b):
     return int(d.max()) if d.numel() else 0, int((d > 0).sum())
 
 
-def _timed(label: str, run) -> dict:
-    """ms per frame of `run` (one launch per plane of a FRAMES batch) by
-    CUDA-graph replay, beside the CUDA-event time (which, for launches
-    shorter than the wrappers' host work, measures the enqueue) and the
-    profiler's device time by kernel."""
-    ms = graph_ms(run, 20) / FRAMES
-    enqueue_ms = cuda_ms(run, 20) / FRAMES
-    by = {k: round(v / FRAMES, 4)
+def _timed(label: str, run, per: int = FRAMES, iters: int = 20) -> dict:
+    """ms per frame of `run` (`per` frames a call) by CUDA-graph replay,
+    beside the CUDA-event time (which, for launches shorter than the
+    wrappers' host work, measures the enqueue) and the profiler's device
+    time by kernel."""
+    ms = graph_ms(run, iters) / per
+    enqueue_ms = cuda_ms(run, iters) / per
+    by = {k: round(v / per, 4)
           for k, v in device_ms_by_kernel(run, 10).items()}
     log(f"{label}: {ms:.4f} ms/frame by CUDA graph, {enqueue_ms:.4f} by CUDA "
         f"events, device ms/frame by kernel {by or 'not measured'}")
@@ -868,9 +873,9 @@ def _b12_inputs(ds, dev):
                                dev)
 
 
-def _b12(inputs, plain=False):
-    """B4 then B5 per plane (their plain versions with plain): the
-    uncropped planes."""
+def _b12(inputs, plain=False, mode="dense"):
+    """B4 (B22 with mode "log") then B5 per plane (their plain versions
+    with plain): the uncropped planes."""
     from libultrahdr_dev_tpu_torch.jpeg import dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
 
@@ -878,7 +883,7 @@ def _b12(inputs, plain=False):
     b4 = dd.decode_rst_chunks_plain if plain else dd.decode_rst_chunks
     b5 = dct.dequant_idct_plain if plain else dct.dequant_idct
     grids = b4(src, frames, lanes, tabs, ds.gray, ds.sampling, ds.mcus_x,
-               ds.mcus_y, emit_mode="dense")
+               ds.mcus_y, emit_mode=mode)
     return [b5(g, qd[k:k + 1], bh, bw) for k, (g, (bh, bw)) in enumerate(
         zip(grids, dd.plane_shapes(ds.gray, ds.sampling, ds.mcus_x,
                                    ds.mcus_y)))]
@@ -910,6 +915,8 @@ def b12_phase(dev, results: dict, kept: dict):
         got = _b12(inputs)
         require(all(map(torch.equal, got, _b12(inputs, plain=True))),
                 f"B12 {name}: kernels differ from the plain versions")
+        require(all(map(torch.equal, got, _b12(inputs, mode="log"))),
+                f"B12 {name}: B22 then B5 differ from B4 then B5")
         dec = codec.decode_jpeg(data, dev)
         host = codec.decode_jpeg_coefs(data)
         for plane, g, (grid, q, ch, cw, _) in zip(dec.planes, got,
@@ -922,12 +929,13 @@ def b12_phase(dev, results: dict, kept: dict):
                 plane, g[0, :ch, :cw]), f"B12 {name}: decode_jpeg differs "
                 f"from the host-Huffman route")
         log(f"B12 {name}: {len(data)} bytes, {ds.n_lanes} lanes; kernels = "
-            f"plain = host-Huffman + B5 route, planes "
+            f"plain = host-Huffman + B5 route (B4 and B22), planes "
             f"{[tuple(p.shape) for p in dec.planes]}")
     inputs = _b12_inputs(dd.parse_device_stream(streams["4:2:0"]), dev)
     out = _b12(inputs)
     results["B12"] = dict(
-        err=0, ms=cuda_ms(lambda: _b12(inputs), 10),
+        err=0, **_timed("B12-dec 4:2:0 restart-less (B4 + carry + B5)",
+                        lambda: _b12(inputs), per=1, iters=10),
         plain_ms=cuda_ms(lambda: _b12(inputs, plain=True), 1),
         bytes=nbytes(*inputs[1], *out), library_ms=None)
 
@@ -988,6 +996,8 @@ def b4_phase(dev, results: dict, kept: dict):
     goldens (host-scanned lanes, DC carry), and on garbage windows."""
     import torch
 
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.parallel import batched
 
     coefs, _, _, blobs = kept[CONFIGS[0]]
@@ -1005,7 +1015,8 @@ def b4_phase(dev, results: dict, kept: dict):
     src_bytes = sum(nbytes(*a) for _, a in inputs)
     out_bytes = sum(nbytes(*g) for g in got)
     results["B4"] = dict(
-        err=0, ms=cuda_ms(lambda: _b4(inputs), 5) / FRAMES,
+        err=0, **_timed(f"B4 ({W}x{H}, batch {FRAMES})",
+                        lambda: _b4(inputs), iters=10),
         plain_ms=cuda_ms(lambda: _b4(inputs, plain=True), 1) / FRAMES,
         bytes=(src_bytes + out_bytes) / FRAMES, library_ms=None)
 
@@ -1027,6 +1038,42 @@ def b4_phase(dev, results: dict, kept: dict):
     log(f"B4 garbage: kernel = plain on 256 random windows "
         f"({sum(int((a != 0).sum()) for a in g)} nonzero coefficients)")
 
+    # The redesign's edges: lanes at every start byte mod 4 and start
+    # bit, windows that end mid-word and at the stream's end; DHTs with
+    # 1- and 16-bit codes (the fast, second-level and search lookups);
+    # two frames with different DHTs in one launch.
+    for gray in (False, True):
+        n, nz = _check_b4_b22(_edge_garbage_b4_inputs(dev, gray),
+                              f"edge windows ({'gray' if gray else 'color'})")
+        log(f"B4 = plain, B22 = plain = B4 on 256 garbage lanes at every "
+            f"start byte mod 4 and start bit, windows ending mid-word "
+            f"and at the stream's end ({'gray' if gray else 'color'}, "
+            f"{n} coefficients, {nz} nonzero)")
+    long_jpeg, annex_jpeg = _long_code_jpegs()
+    for what, jpegs in (("1- and 16-bit codes", [long_jpeg]),
+                        ("two frames, two DHT sets, one launch",
+                         [long_jpeg, annex_jpeg])):
+        streams = [dd.parse_device_stream(j) for j in jpegs]
+        require(all(s is not None for s in streams),
+                f"B4 {what}: not on the device route")
+        ln = dd.pack_streams(streams)
+        fast = dd.fast_lookup_table(ln.tables)
+        inputs = [(ln, batched._upload([ln.src, ln.frames, ln.lanes,
+                                        ln.tables], dev))]
+        n, _ = _check_b4_b22(inputs, what)
+        got, = _b4(inputs)
+        for f, j in enumerate(jpegs):
+            host = [c[0].reshape(-1, 64)
+                    for c in codec.decode_jpeg_coefs(j).comps]
+            require(all(np.array_equal(p[f].cpu().numpy(), h_)
+                        for p, h_ in zip(got, host)),
+                    f"B4 {what}: frame {f} differs from the host decode")
+        log(f"B4 {what}: B4 = plain = host decode, B22 = plain = B4 "
+            f"({ln.lanes.shape[0]} lanes, {n} coefficients; 9-bit "
+            f"prefixes that straddle entries, a frame: "
+            f"{(fast == dd.FAST_SEARCH).reshape(len(jpegs), -1).sum(1)} "
+            f"of {fast.size // len(jpegs)})")
+
 
 def _garbage_b4_inputs(dev):
     """B4's garbage windows (b4_phase): 256 lanes of random bytes, 2
@@ -1045,6 +1092,94 @@ def _garbage_b4_inputs(dev):
                   False, (2, 2), mx, my)
     return [(ln, batched._upload([ln.src, ln.frames, ln.lanes, ln.tables],
                                  dev))]
+
+
+def _edge_garbage_b4_inputs(dev, gray: bool):
+    """256 lanes of random bytes, 2 MCUs each: lane i starts at byte
+    i * 388 + i % 4 and bit (i // 4) % 8, its window of 385 bytes ends
+    mid-word, and the stream ends 5 bytes before the buffer, inside the
+    last lanes' windows."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    rng = np.random.default_rng(SEED + 4)
+    nl, stride, win = 256, 388, 385
+    src = rng.integers(0, 256, nl * stride + 3, dtype=np.uint8)
+    i = np.arange(nl)
+    lanes = np.stack([i * stride + i % 4, (i // 4) % 8], 1).astype(np.int32)
+    rows = np.asarray([dd.frame_row(0, src.size - 5, win, 2, 0, nl, False,
+                                    2)], np.int32)
+    specs = dd.ANNEX_K_GRAY if gray else dd.ANNEX_K_COLOR
+    ln = dd.Lanes(src, rows, lanes, dd.decode_tables(specs)[None], gray,
+                  (1, 1) if gray else (2, 2), 64 if gray else 32,
+                  8 if gray else 16)
+    return [(ln, batched._upload([ln.src, ln.frames, ln.lanes, ln.tables],
+                                 dev))]
+
+
+# DHTs with 1-bit and 16-bit codes: symbol 0 (DC size 0, AC EOB) at 1
+# bit; the rest of the DC sizes at 16 bits; 100 AC symbols at 10 bits
+# and 61 at 16. The fast table serves the 1-bit codes; the 51 9-bit
+# prefixes of an AC table that hold several codes each straddle
+# entries, so a frame's first 32 such prefixes get second-level tables
+# and the rest go to the binary search.
+LONG_DC = ([1] + [0] * 14 + [11], list(range(12)))
+
+
+def _long_code_jpegs():
+    """A 1024x768 4:2:0 JPEG with restart interval 4 Huffman-coded by the
+    host coder with the LONG_DC / long AC tables, and the same blocks
+    with the Annex K tables."""
+    from libultrahdr_dev_tpu_torch.jpeg import codec, tables
+
+    long_ac = ([1] + [0] * 8 + [100] + [0] * 5 + [61],
+               [0] + [s for s in tables.AC_LUMA_VALS if s != 0])
+    w, h = 1024, 768
+    nm = (w // 16) * (h // 16)
+    rng = np.random.default_rng(SEED + 5)
+    blocks = np.zeros((nm * 6, 64), np.int16)
+    blocks[:, 0] = rng.integers(-300, 300, len(blocks))
+    nz = rng.random((len(blocks), 63)) < 0.12
+    blocks[:, 1:] = np.where(nz, rng.integers(-60, 61, nz.shape), 0)
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2], np.uint8), nm)
+    annex = ((tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
+             (tables.AC_LUMA_BITS, tables.AC_LUMA_VALS),
+             (tables.DC_CHROMA_BITS, tables.DC_CHROMA_VALS),
+             (tables.AC_CHROMA_BITS, tables.AC_CHROMA_VALS))
+    ql = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, 90)
+    qc = tables.scale_quant_table(tables.STD_CHROMINANCE_QUANT, 90)
+    m = codec._marker
+    out = []
+    for dc_l, ac_l, dc_c, ac_c in ((LONG_DC, long_ac, LONG_DC, long_ac),
+                                   annex):
+        scan = codec.entropy_encode(blocks, comp, [0, 1, 1], [0, 1, 1],
+                                    [dc_l, dc_c], [ac_l, ac_c], 4, 6)
+        out.append(
+            b"\xff\xd8" + codec._jfif_app0()
+            + m(0xDB, codec._dqt(0, ql)) + m(0xDB, codec._dqt(1, qc))
+            + m(0xC0, codec._sof0(w, h, [(1, 2, 2, 0), (2, 1, 1, 1),
+                                         (3, 1, 1, 1)]))
+            + b"".join(m(0xC4, codec._dht(c, t, *spec)) for c, t, spec in
+                       ((0, 0, dc_l), (1, 0, ac_l), (0, 1, dc_c),
+                        (1, 1, ac_c)))
+            + m(0xDD, (4).to_bytes(2, "big"))
+            + m(0xDA, codec._sos([(1, 0, 0), (2, 1, 1), (3, 1, 1)]))
+            + scan + b"\xff\xd9")
+    return out
+
+
+def _check_b4_b22(inputs, what: str) -> tuple[int, int]:
+    """B4 kernel = B4 plain, and B22 kernel = B22 plain = B4, bitwise;
+    returns the counts of coefficients compared and of nonzero ones."""
+    import torch
+
+    got, want = _b4(inputs), _b4(inputs, plain=True)
+    for g_img, w_img in zip(got, want):
+        require(all(map(torch.equal, g_img, w_img)),
+                f"B4 {what}: kernel differs from the plain version")
+    _check_b22(inputs, what, got)
+    return (sum(g.numel() for img in got for g in img),
+            sum(int((g != 0).sum()) for img in got for g in img))
 
 
 def _handoff_b4_inputs(kept, dev):
@@ -1113,21 +1248,21 @@ def b22_phase(dev, results: dict, kept: dict):
         *arrays, ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y)[1].sum())
         for ln, arrays in inputs)
     nonzero = sum(int((p != 0).sum()) for img in got for p in img)
-    b4_ms = [cuda_ms(lambda: _b4(inputs), 5) / FRAMES]
-    b22_ms = [cuda_ms(lambda: _b4(inputs, mode="log"), 5) / FRAMES
+    b4_ms = [graph_ms(lambda: _b4(inputs), 10) / FRAMES]
+    b22_ms = [graph_ms(lambda: _b4(inputs, mode="log"), 10) / FRAMES
               for _ in range(2)]
-    b4_ms.append(cuda_ms(lambda: _b4(inputs), 5) / FRAMES)
+    b4_ms.append(graph_ms(lambda: _b4(inputs), 10) / FRAMES)
+    b22_events = cuda_ms(lambda: _b4(inputs, mode="log"), 10) / FRAMES
     src_bytes = sum(nbytes(*a) for _, a in inputs)
     out_bytes = sum(nbytes(*img) for img in got)
-    log(f"B22 vs B4 ({W}x{H}, batch {FRAMES}, in turns): B4 "
+    log(f"B22 vs B4 ({W}x{H}, batch {FRAMES}, in turns, CUDA graph): B4 "
         f"{b4_ms[0]:.4f}, B22 {b22_ms[0]:.4f}, B22 {b22_ms[1]:.4f}, B4 "
-        f"{b4_ms[1]:.4f} ms/frame; {emitted / FRAMES:.0f} coefficients "
+        f"{b4_ms[1]:.4f} ms/frame (B22 by CUDA events {b22_events:.4f}); "
+        f"{emitted / FRAMES:.0f} coefficients "
         f"emitted a frame ({nonzero / FRAMES:.0f} nonzero), log "
         f"{6 * emitted / FRAMES / 1e6:.1f} MB a frame")
-    log_breakdown(f"B4 ({W}x{H}, batch {FRAMES})", lambda: _b4(inputs), 5,
-                  b4_ms[1] * FRAMES)
     log_breakdown(f"B22 ({W}x{H}, batch {FRAMES})",
-                  lambda: _b4(inputs, mode="log"), 5, min(b22_ms) * FRAMES)
+                  lambda: _b4(inputs, mode="log"), 5, b22_events * FRAMES)
     results["B22"] = dict(
         err=0, ms=min(b22_ms),
         plain_ms=cuda_ms(lambda: _b4(inputs, True, "log"), 1) / FRAMES,
@@ -2115,6 +2250,43 @@ def _mcus(c):
     return -(-c.width // (8 * hs)), -(-c.height // (8 * vs))
 
 
+EDGE_RUNS = (15, 16, 17, 31, 32, 47, 48)
+
+
+def edge_blocks(nb: int, seed: int) -> np.ndarray:
+    """(nb, 64) int16 zigzag blocks that walk the Huffman unit sequence's
+    edges: zero runs of each EDGE_RUNS length before a nonzero (from the
+    DC or from another nonzero), a nonzero at 63 (no EOB), all-zero
+    blocks, full blocks, and DCs that swing by ~4000 between
+    neighbours; values within +-2000 (tests/test_torch_restartless.py
+    holds the same kind against JAX)."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros((nb, 64), np.int16)
+
+    def nz(n):
+        return (rng.integers(1, 2001, n) * rng.choice([-1, 1], n)).astype(
+            np.int16)
+
+    for i in range(nb):
+        kind = i % 8
+        if kind == 0:
+            continue                       # all zero, DC included
+        b[i, 0] = (2000 if i % 2 else -2000) - int(rng.integers(0, 8))
+        if kind == 1:
+            b[i, 1:] = nz(63)              # full: 63 AC units, no EOB
+        elif kind == 2:
+            b[i, 63] = nz(1)[0]            # a run of 62, then 63
+        elif kind == 3:
+            b[i, [1, 63]] = nz(2)          # 61 zeros between, no EOB
+        else:
+            run = EDGE_RUNS[(i // 8 + kind) % len(EDGE_RUNS)]
+            first = 1 + run if kind == 4 else int(rng.integers(1, 63 - run))
+            b[i, first] = nz(1)[0]
+            if kind != 4 and first + run + 1 <= 63:
+                b[i, first + run + 1] = nz(1)[0]
+    return b
+
+
 def dense_p010(n: int, h: int, w: int, seed: int):
     """Uniform noise in every P010 sample: at quality 100 every block is
     far past the JAX encoder's 608-bit buffer, and the upload's segment
@@ -2131,6 +2303,8 @@ def b19_phase(dev, results: dict):
     4:2:2 and 4:4:4 blocks of the same frame, and on a dense 4080x3072
     batch of 2 (uniform noise P010, quality 100) that B3's count pass
     flags."""
+    import torch
+
     from libultrahdr_dev_tpu_torch import jpegr
     from libultrahdr_dev_tpu_torch.jpeg import codec
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
@@ -2164,6 +2338,27 @@ def b19_phase(dev, results: dict):
                                                         samp),
                    [codec.encode_ycbcr_scan(*_host_blocks(c), cx, cy, samp,
                                             0)])
+
+    # The unit sequence's edges at a size that spans several 256-block
+    # tiles: 3 frames of 858 (4:2:0) and 701 (gray) blocks, not
+    # multiples of 256, the frames of different bit lengths.
+    ex, ey, enb = 13, 11, 701
+    e = [np.stack([edge_blocks(k, SEED + 10 * c + f) for f in range(3)])
+         for c, k in enumerate((4 * ex * ey, ex * ey, ex * ey, enb))]
+    e[0][1] //= 3
+    e[3][2] //= 7
+    et = [torch.from_numpy(a).to(dev) for a in e]
+    _b19_check("edge blocks 4:2:0, 3 frames",
+               lambda: de.encode_ycbcr_stream(*et[:3], ex, ey),
+               lambda: de.encode_ycbcr_stream_plain(*et[:3], ex, ey),
+               [codec.encode_ycbcr_scan(e[0][f], e[1][f], e[2][f], ex, ey,
+                                        (2, 2), 0) for f in range(3)])
+    _b19_check("edge blocks gray, 3 frames",
+               lambda: de.encode_gray_stream(et[3]),
+               lambda: de.encode_gray_stream_plain(et[3]),
+               [codec.encode_gray_scan(e[3][f], 0) for f in range(3)])
+    log(f"B19 edge blocks: {3 * (6 * ex * ey + enb)} blocks in "
+        f"{3 * (-(-6 * ex * ey // 256) + -(-enb // 256))} tiles checked")
 
     def kernel():
         return (de.encode_ycbcr_stream(yz, uz, vz, mx, my),

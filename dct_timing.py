@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""B2 (fdct_quant) and B5 (dequant_idct) of this tree beside the same
-kernels of another checkout, in one process on one NVIDIA GPU.
+"""Kernels of this tree beside the same kernels of another checkout, in
+one process on one NVIDIA GPU: B2 (fdct_quant), B5 (dequant_idct), B4
+and B22 (the Huffman decode, dense and log emission), B12-dec (B4 then
+B5) and B19 (the restart-less Huffman encode).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
@@ -8,15 +10,22 @@ kernels of another checkout, in one process on one NVIDIA GPU.
 Both trees' kernels are built from their own sources (each into its own
 git-ignored _build directory) and called through their own wrappers on
 chip_smoke.py's inputs: B1's planes and gain map of the 4080x3072 batch
-of 2 at quality 95 (B2), their coefficients (B5), and a 4000x3000 4:2:0
-JPEG from encode_jpeg decoded by B4 then B5 (B12-dec). Checks: B2 of
-both trees bitwise equal to the plain version; B5 of both trees bitwise
-equal to each other, with their off-count against the plain version.
-Times, ms per frame, in turns (other, this, this, other): B2 and B5 by
-CUDA-graph replay and by CUDA events, B20 (B1 + B2) by CUDA graph, and
-B12-dec (B4 + B5) by CUDA events, as chip_smoke.py times B12. Prints
-the card's name and power limit and, last, one JSON object of the
-times.
+of 2 at quality 95 (B2), their coefficients (B5), the API-0 JPEG/Rs of
+that batch (B4, B22: base and gain map), a 4000x3000 4:2:0 JPEG from
+encode_jpeg, restart-less, decoded by B4 then B5 (B12-dec), and the
+general route's 4000x3000 base and 1000x750 gain map (B19).
+
+Checks: B2 of both trees bitwise equal to the plain version; B5 of both
+trees bitwise equal to each other, with their off-count against the
+plain version; B4, B22 and B12-dec of both trees bitwise equal to each
+other; B19's streams and bits of both trees bitwise equal.
+
+Times, ms per frame, in turns (other, this, this, other): B2, B5, B4,
+B22 and B12-dec by CUDA-graph replay and by CUDA events, B20 (B1 + B2)
+by CUDA graph, and B19 by CUDA events with its syncs (as chip_smoke.py
+times it); then each tree's device ms by kernel (torch.profiler) of B4,
+B22, B12-dec and B19. Prints the card's name and power limit and, last,
+one JSON object of the times.
 """
 
 from __future__ import annotations
@@ -39,7 +48,13 @@ def load_other(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["uhdr_other"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("uhdr_other.jpeg.dct")
+    return mod
+
+
+def modules(prefix: str) -> dict:
+    """The timed modules of one tree's package."""
+    return {k: importlib.import_module(f"{prefix}.jpeg.{k}")
+            for k in ("dct", "device_decode", "device_entropy")}
 
 
 def main(argv) -> int:
@@ -49,6 +64,7 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from libultrahdr_dev_tpu_torch import jpegr
     from libultrahdr_dev_tpu_torch.jpeg import codec, dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.ops import gainmap as gm
@@ -59,7 +75,8 @@ def main(argv) -> int:
     smi = cs.nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}\n{smi}", flush=True)
-    trees = {"other": load_other(argv[1]), "this": dct}
+    load_other(argv[1])
+    trees = {"other": modules("uhdr_other"), "this": modules(PKG)}
 
     frames = cs.FRAMES
     y_np, uv_np = cs.synth_p010(frames, cs.H, cs.W, cs.SEED)
@@ -78,9 +95,9 @@ def main(argv) -> int:
     pix_plain = [dct.dequant_idct_plain(*a) for a in idct_args]
     pix = {}
     for name, m in trees.items():
-        got = [m.fdct_quant(p, q) for p, q in planes]
+        got = [m["dct"].fdct_quant(p, q) for p, q in planes]
         off = sum(int((g != w).sum()) for g, w in zip(got, plain))
-        pix[name] = [m.dequant_idct(*a) for a in idct_args]
+        pix[name] = [m["dct"].dequant_idct(*a) for a in idct_args]
         n_off = sum(int((g != w).sum()) for g, w in zip(pix[name], pix_plain))
         worst = max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
                     for g, w in zip(pix[name], pix_plain))
@@ -92,6 +109,19 @@ def main(argv) -> int:
     print(f"B5 of both trees bitwise equal: {same}", flush=True)
     cs.require(same, "B5 differs between the trees")
 
+    # B4 / B22: the API-0 JPEG/Rs of the batch (base and gain map lanes).
+    blobs = batched.batched_encode_api0(y_np, uv_np, gamut, tf, 95,
+                                        device=dev)
+    b4_in = cs._b4_inputs(batched.decode_host_stage(blobs), dev)
+
+    def b4(m, mode="dense"):
+        return [g for ln, a in b4_in
+                for g in m["device_decode"].decode_rst_chunks(
+                    *a, ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y,
+                    emit_mode=mode)]
+
+    # B12-dec: one restart-less 4000x3000 4:2:0 JPEG (lanes host-scanned,
+    # DC carried across them).
     gy, guv = cs.synth_p010(1, cs.GH, cs.GW, cs.SEED + 50)
     jpeg = codec.encode_jpeg(cs._yuv_variants(gy[0], guv[0])["4:2:0"][0], 90,
                              device=dev)
@@ -100,33 +130,75 @@ def main(argv) -> int:
     shapes = dd.plane_shapes(ds.gray, ds.sampling, ds.mcus_x, ds.mcus_y)
 
     def b12(m):
-        grids = dd.decode_rst_chunks(src, fr, lanes, tabs, ds.gray,
-                                     ds.sampling, ds.mcus_x, ds.mcus_y,
-                                     emit_mode="dense")
-        return [m.dequant_idct(g, qd[k:k + 1], bh, bw)
+        grids = m["device_decode"].decode_rst_chunks(
+            src, fr, lanes, tabs, ds.gray, ds.sampling, ds.mcus_x,
+            ds.mcus_y, emit_mode="dense")
+        return [m["dct"].dequant_idct(g, qd[k:k + 1], bh, bw)
                 for k, (g, (bh, bw)) in enumerate(zip(grids, shapes))]
+
+    # B19: the general route's base (4:2:0) and gain map at 4000x3000.
+    ry, ruv = cs.synth_p010(1, cs.GH, cs.GW, cs.SEED + 90)
+    yd, uvd = jpegr.upload_frame(ry[0], ruv[0], None, dev)
+    gen = jpegr.general_device_stage(yd, uvd, None, "bt2100", "bt2100",
+                                     "hlg", 95)
+    yz, uz, vz = gen.base.coefs
+    (gz,) = gen.gainmap.coefs
+    mx, my = cs._mcus(gen.base)
+
+    def b19(m):
+        de = m["device_entropy"]
+        return (de.encode_ycbcr_stream(yz, uz, vz, mx, my)
+                + de.encode_gray_stream(gz))
+
+    for what, fn in (("B4", b4), ("B22", lambda m: b4(m, "log")),
+                     ("B12-dec", b12), ("B19", b19)):
+        a, b = fn(trees["other"]), fn(trees["this"])
+        same = len(a) == len(b) and all(map(torch.equal, a, b))
+        print(f"{what} of both trees bitwise equal: {same}", flush=True)
+        cs.require(same, f"{what} differs between the trees")
 
     def b20(m):
         g, yb, ub, vb = gm.encode_front(y, uv, gamut, tf)
-        return [m.fdct_quant(p, q) for p, q in
+        return [m["dct"].fdct_quant(p, q) for p, q in
                 ((yb, qs[0]), (ub, qs[1]), (vb, qs[1]), (g, qs[2]))]
 
     times = {}
     for turn, name in enumerate(("other", "this", "this", "other")):
         m = trees[name]
-        b2 = lambda: [m.fdct_quant(p, q) for p, q in planes]  # noqa: E731
-        b5 = lambda: [m.dequant_idct(*a) for a in idct_args]  # noqa: E731
+        b2 = lambda: [m["dct"].fdct_quant(p, q)  # noqa: E731
+                      for p, q in planes]
+        b5 = lambda: [m["dct"].dequant_idct(*a)  # noqa: E731
+                      for a in idct_args]
         t = dict(B2_graph=cs.graph_ms(b2, 20) / frames,
                  B2_events=cs.cuda_ms(b2, 20) / frames,
                  B5_graph=cs.graph_ms(b5, 20) / frames,
                  B5_events=cs.cuda_ms(b5, 20) / frames,
                  B20_graph=cs.graph_ms(lambda: b20(m), 10) / frames,
-                 B12dec_events=cs.cuda_ms(lambda: b12(m), 10))
+                 B4_graph=cs.graph_ms(lambda: b4(m), 10) / frames,
+                 B4_events=cs.cuda_ms(lambda: b4(m), 10) / frames,
+                 B22_graph=cs.graph_ms(lambda: b4(m, "log"), 10) / frames,
+                 B22_events=cs.cuda_ms(lambda: b4(m, "log"), 10) / frames,
+                 B12dec_graph=cs.graph_ms(lambda: b12(m), 10),
+                 B12dec_events=cs.cuda_ms(lambda: b12(m), 10),
+                 B19_events=cs.cuda_ms(lambda: b19(m), 10))
         print(f"turn {turn} {name}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in t.items()) + f" ms/frame ({smi})",
             flush=True)
         times.setdefault(name, []).append(t)
-    print(json.dumps({"device": smi, "times": times}))
+    by_kernel = {}
+    for name, m in trees.items():
+        for what, fn, per in (("B4", lambda: b4(m), frames),
+                              ("B22", lambda: b4(m, "log"), frames),
+                              ("B12-dec", lambda: b12(m), 1),
+                              ("B19", lambda: b19(m), 1)):
+            by = {k: v / per
+                  for k, v in cs.device_ms_by_kernel(fn, 10).items()}
+            by_kernel.setdefault(name, {})[what] = by
+            print(f"{name} {what}: device ms/frame by kernel "
+                  f"{ {k: round(v, 4) for k, v in by.items()} } ({smi})",
+                  flush=True)
+    print(json.dumps({"device": smi, "times": times,
+                      "by_kernel": by_kernel}))
     return 0
 
 

@@ -30,15 +30,24 @@ result does not depend on it.
 Huffman tables are data: each frame's decode tables are built from its
 own DHT definitions (``decode_tables``), so frames that differ in
 Huffman or quant tables share one launch. A table is the JAX select
-chain's sorted (boundary, symbol << 5 | length) entries; the kernel
-finds the last entry whose boundary is <= the next 16 stream bits by
-binary search, which equals the chain for any DHT, canonical or not.
-The JAX path's TPU workarounds (select-chain reads, the nibble window
-table, units per step) have no counterpart here.
+chain's sorted (boundary, symbol << 5 | length) entries; a unit decodes
+to the last entry whose boundary is <= the next 16 stream bits, which
+equals the chain for any DHT, canonical or not. The kernels stage a
+frame's tables in shared memory with a 9-bit fast table
+(``fast_lookup_table`` is its plain model): a prefix whose lowest and
+highest peeks find one entry maps to it, any other goes to the binary
+search, so the two agree on every peek. Each lane reads its window
+through a register bit buffer refilled by aligned 4-byte loads, bytes
+outside the window read as zero; ``pack_streams`` pads the buffer so no
+such load leaves it. The JAX path's TPU workarounds (select-chain
+reads, the nibble window table, units per step) have no counterpart
+here.
 
 The wrapper runs its plain PyTorch version for CPU tensors and the CUDA
-kernels (kernels/csrc/huff_decode.cu) for CUDA tensors, and counts B4's
-launches in ``.launches`` and B22's in ``.log_launches``. The kernels'
+kernels (kernels/csrc/huff_decode.cu: a CTA per 64 lanes of one frame;
+the DC carry as a per-frame scan of the lanes' DC sums and an add pass
+of a thread per block) for CUDA tensors, and counts B4's launches in
+``.launches`` and B22's in ``.log_launches``. The kernels'
 handoff mode is the same launch over the encoder's own chunk buffer (B3
 writes JPEG byte order, so its word-aligned chunks are read in place;
 parallel/batched.py). ``decode_jpeg_device`` decodes a plain JPEG
@@ -99,6 +108,44 @@ def decode_tables(specs) -> np.ndarray:
         out[i, 0] = len(bnd)
         out[i, 1:1 + len(bnd)] = bnd
         out[i, 257:257 + len(pck)] = pck
+    return out
+
+
+FAST_BITS = 9                # the kernels' fast lookup: top 9 peek bits
+FAST_SEARCH = 0xFFFF         # its marker: binary-search this peek
+
+
+def _search(tab: np.ndarray, peeks: np.ndarray) -> np.ndarray:
+    """The kernels' binary search: per peek, the index of the last
+    entry whose boundary <= it (entries 1.. searched, 0 when none is)."""
+    cnt = int(tab[0])
+    idx = np.zeros(peeks.shape, np.int64)
+    for step in (128, 64, 32, 16, 8, 4, 2, 1):
+        j = idx + step
+        ok = j < cnt
+        bnd = tab[1 + np.minimum(j, 255)].astype(np.int64) & 0xFFFFFFFF
+        idx = np.where(ok & (bnd <= peeks), j, idx)
+    return idx
+
+
+def fast_lookup_table(tabs) -> np.ndarray:
+    """Plain model of the fast table each decode CTA builds in shared
+    memory (kernels/csrc/huff_decode.cu stage_tables): for (T,
+    TABLE_WORDS) decode tables, (T, 512) uint16, entry p the packed
+    (symbol << 5 | length) that every peek with top 9 bits p decodes to
+    when the search lands on one entry for the prefix's lowest and
+    highest peeks (the search's index never falls as the peek rises, so
+    then every peek of the prefix lands there), else FAST_SEARCH; also
+    FAST_SEARCH for a packed entry of 16 bits or more (none from a
+    DHT)."""
+    tabs = np.asarray(tabs).reshape(-1, TABLE_WORDS)
+    low = np.arange(1 << FAST_BITS, dtype=np.int64) << (16 - FAST_BITS)
+    out = np.empty((tabs.shape[0], 1 << FAST_BITS), np.uint16)
+    for t, tab in enumerate(tabs):
+        a = _search(tab, low)
+        b = _search(tab, low | ((1 << (16 - FAST_BITS)) - 1))
+        pk = tab[257 + a].astype(np.int64) & 0xFFFFFFFF
+        out[t] = np.where((a == b) & (pk < FAST_SEARCH), pk, FAST_SEARCH)
     return out
 
 
@@ -440,7 +487,10 @@ def frame_row(off: int, length: int, win: int, r: int, lane0: int,
 
 
 def pack_streams(streams: list[DeviceStream]) -> Lanes:
-    """Lay parsed streams of one geometry out for one B4 launch."""
+    """Lay parsed streams of one geometry out for one B4 launch. `src`
+    ends in zero bytes up to a multiple of 16 and 16 more, so that no
+    aligned load of the kernels' bit reader leaves it (the descriptors'
+    stream lengths, not the padding, bound what a lane reads)."""
     s0 = streams[0]
     geom = (s0.gray, s0.sampling, s0.mcus_x, s0.mcus_y)
     rows, lanes, tabs, srcs = [], [], [], []
@@ -459,6 +509,7 @@ def pack_streams(streams: list[DeviceStream]) -> Lanes:
         srcs.append(s.dest)
         off += s.dest.size
         lane0 += s.n_lanes
+    srcs.append(np.zeros(-off % 16 + 16, np.uint8))
     return Lanes(np.concatenate(srcs), np.asarray(rows, np.int32),
                  np.concatenate(lanes).astype(np.int32), np.stack(tabs),
                  *geom)
@@ -688,22 +739,24 @@ def decode_rst_chunks(src, frames, lanes, tabs, gray: bool, sampling,
     if (emit_mode or _DEFAULT_EMIT) == "log":
         return _decode_rst_chunks_log(src, frames, lanes, tabs, gray,
                                      sampling, mcus_x, mcus_y)[0]
-    grids, y, u, v, dcsum, args = _launch_args(src, frames, lanes, tabs,
-                                               gray, sampling, mcus_x,
-                                               mcus_y)
     lib = build.get_lib()
+    grids, lookups, y, u, v, dcsum, args = _launch_args(
+        lib, src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y)
     decode_rst_chunks.launches += 1
     build.check(lib.uhdr_huff_decode(
         src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
-        tabs.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
-        dcsum.data_ptr(), *args, build.stream_of(src)), "uhdr_huff_decode")
+        tabs.data_ptr(), lookups.data_ptr(), y.data_ptr(), u.data_ptr(),
+        v.data_ptr(), dcsum.data_ptr(), *args, build.stream_of(src)),
+        "uhdr_huff_decode")
     return tuple(grids)
 
 
-def _launch_args(src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y):
+def _launch_args(lib, src, frames, lanes, tabs, gray, sampling, mcus_x,
+                 mcus_y):
     """Checked inputs and fresh outputs of a B4 or B22 launch: the
-    grids, the y, u, v pointers' tensors (gray: the one grid three
-    times), the (nl, 3) DC-sum scratch and the integer arguments."""
+    grids, the per-frame lookup-table scratch, the y, u, v pointers'
+    tensors (gray: the one grid three times), the (nl, 3) DC-sum scratch
+    and the integer arguments."""
     n, nl = frames.shape[0], lanes.shape[0]
     build.require(src, "src", torch.uint8)
     build.require(frames, "frames", torch.int32, (n, FRAME_FIELDS))
@@ -715,7 +768,9 @@ def _launch_args(src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y):
              for bh, bw in plane_shapes(gray, sampling, mcus_x, mcus_y)]
     y, u, v = grids if not gray else grids * 3
     dcsum = torch.empty((nl, 3), dtype=torch.int32, device=dev)
-    return (grids, y, u, v, dcsum,
+    lookups = torch.empty(n * lib.uhdr_huff_lookup_bytes(), dtype=torch.uint8,
+                          device=dev)
+    return (grids, lookups, y, u, v, dcsum,
             (n, nl, int(gray), hs, vs, mcus_x, mcus_y))
 
 
@@ -727,21 +782,21 @@ def _decode_rst_chunks_log(src, frames, lanes, tabs, gray: bool, sampling,
     the batch (n * blocks * 64 entries: int32 positions, int16 values);
     pass 2 rebuilds the grids from it. Counts ``decode_rst_chunks.
     log_launches``; raises on a build or launch failure."""
-    grids, y, u, v, dcsum, args = _launch_args(src, frames, lanes, tabs,
-                                               gray, sampling, mcus_x,
-                                               mcus_y)
+    lib = build.get_lib()
+    grids, lookups, y, u, v, dcsum, args = _launch_args(
+        lib, src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y)
     entries = sum(g.numel() for g in grids)
     dev = src.device
     pos = torch.empty(entries, dtype=torch.int32, device=dev)
     val = torch.empty(entries, dtype=torch.int16, device=dev)
     cnt = torch.empty(lanes.shape[0], dtype=torch.int32, device=dev)
-    lib = build.get_lib()
     decode_rst_chunks.log_launches += 1
     build.check(lib.uhdr_huff_decode_log(
         src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
-        tabs.data_ptr(), pos.data_ptr(), val.data_ptr(), cnt.data_ptr(),
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), dcsum.data_ptr(), *args,
-        build.stream_of(src)), "uhdr_huff_decode_log")
+        tabs.data_ptr(), lookups.data_ptr(), pos.data_ptr(), val.data_ptr(),
+        cnt.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
+        dcsum.data_ptr(), *args, build.stream_of(src)),
+        "uhdr_huff_decode_log")
     return tuple(grids), cnt
 
 

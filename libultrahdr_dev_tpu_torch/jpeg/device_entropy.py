@@ -24,7 +24,11 @@ pass is not launched).
 What B19 computes, per frame: the whole scan as one MSB-first bit
 stream, DC predicted across the scan with no reset (each block from the
 previous block of its component), the frame's last word 1-filled, each
-frame starting on a word boundary, and the frame's bit count.
+frame starting on a word boundary, and the frame's bit count. Its
+kernels work in tiles of ``RL_TILE`` blocks of one frame, read with
+16-byte loads into shared memory; a block is coded by walking its
+nonzero mask, and a per-frame scan of the tiles' bits (not of every
+block) places the tiles.
 
 Words are stored in JPEG byte order (big-endian), so a stream is a
 plain byte buffer: the host copy needs no byte swap and the decoder
@@ -55,6 +59,9 @@ from . import tables
 # bits; a longer block raises its overflow flag (device_entropy.py:
 # 361-372) and its batched callers fall back to restart-less JPEGs.
 BLOCK_BIT_CAP = 608
+
+# Blocks a B19 tile (a CTA of kernels/csrc/huff_encode.cu's rl_* passes).
+RL_TILE = 256
 
 
 def _build_code_table(bits, vals):
@@ -409,28 +416,32 @@ encode_gray_rst_stream.write_launches = 0
 
 
 def _launch_rl(wrapper, planes, geom):
-    """B19: count pass + per-frame scan, one sync for the frames' bits
-    and the total words, then the write pass into a zeroed buffer."""
+    """B19: count pass (a CTA per 256-block tile: each block's bits and
+    the tile's) + per-frame scan of the tile bits, one sync for the
+    frames' bits and the total words, then the write pass into a zeroed
+    buffer."""
     y, u, v = planes
     dev = y.device
     n, color, hs, vs, _, n_mcus = geom[:6]
     nb = n_mcus * (hs * vs + 2 if color else 1)
+    ntiles = -(-nb // RL_TILE)
     tabs = _code_tables(dev)
     blen = torch.empty(n * nb, dtype=torch.int32, device=dev)
-    offs = torch.empty(n * nb, dtype=torch.int64, device=dev)
+    tsum = torch.empty(n * ntiles, dtype=torch.int32, device=dev)
+    toff = torch.empty(n * ntiles, dtype=torch.int64, device=dev)
     meta = torch.empty(n + 1, dtype=torch.int64, device=dev)
     lib = build.get_lib()
     stream = build.stream_of(y)
     build.check(lib.uhdr_huff_encode_rl_count(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        blen.data_ptr(), offs.data_ptr(), meta.data_ptr(), *geom, stream),
-        "uhdr_huff_encode_rl_count")
+        blen.data_ptr(), tsum.data_ptr(), toff.data_ptr(), meta.data_ptr(),
+        *geom, stream), "uhdr_huff_encode_rl_count")
     wrapper.launches += 1
     total = int(meta[n])  # the one sync: size the output exactly
     out = torch.zeros(max(total, 1) * 4, dtype=torch.uint8, device=dev)
     build.check(lib.uhdr_huff_encode_rl_write(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        offs.data_ptr(), out.data_ptr(), *geom, stream),
+        blen.data_ptr(), toff.data_ptr(), out.data_ptr(), *geom, stream),
         "uhdr_huff_encode_rl_write")
     return out[:total * 4], meta[:n]
 

@@ -82,18 +82,21 @@ SIGNATURES = {
     # y, u, v, tables, offs, out, n, nc, r, color, hs, vs, mcus_x,
     # n_mcus, ny, nuv, stream
     "uhdr_huff_encode_write": [_P] * 6 + [_I] * 10 + [_P],
-    # y, u, v, tables, blen, offs, meta, n, color, hs, vs, mcus_x,
+    # y, u, v, tables, blen, tsum, toff, meta, n, color, hs, vs, mcus_x,
     # n_mcus, ny, nuv, stream
-    "uhdr_huff_encode_rl_count": [_P] * 7 + [_I] * 8 + [_P],
-    # y, u, v, tables, offs, out, n, color, hs, vs, mcus_x, n_mcus, ny,
-    # nuv, stream
-    "uhdr_huff_encode_rl_write": [_P] * 6 + [_I] * 8 + [_P],
-    # src, frames, lanes, tables, y, u, v, dcsum, n, n_lanes, gray, hs,
-    # vs, mcus_x, mcus_y, stream
-    "uhdr_huff_decode": [_P] * 8 + [_I] * 7 + [_P],
-    # src, frames, lanes, tables, log positions, log values, counts, y,
-    # u, v, dcsum, n, n_lanes, gray, hs, vs, mcus_x, mcus_y, stream
-    "uhdr_huff_decode_log": [_P] * 11 + [_I] * 7 + [_P],
+    "uhdr_huff_encode_rl_count": [_P] * 8 + [_I] * 8 + [_P],
+    # y, u, v, tables, blen, toff, out, n, color, hs, vs, mcus_x, n_mcus,
+    # ny, nuv, stream
+    "uhdr_huff_encode_rl_write": [_P] * 7 + [_I] * 8 + [_P],
+    # src, frames, lanes, tables, lookups, y, u, v, dcsum, n, n_lanes,
+    # gray, hs, vs, mcus_x, mcus_y, stream
+    "uhdr_huff_decode": [_P] * 9 + [_I] * 7 + [_P],
+    # src, frames, lanes, tables, lookups, log positions, log values,
+    # counts, y, u, v, dcsum, n, n_lanes, gray, hs, vs, mcus_x, mcus_y,
+    # stream
+    "uhdr_huff_decode_log": [_P] * 12 + [_I] * 7 + [_P],
+    # bytes of one frame's lookup scratch
+    "uhdr_huff_lookup_bytes": [],
     # src, src row stride, dst, oh, ow, steps (host), n, stream
     "uhdr_edit_plane": [_P, _L, _P, _I, _I, _P, _I, _P],
     # y hi, y lob, uv hi, uv lob, y out, uv out, y quads, uv quads, stream

@@ -36,28 +36,41 @@
 // whole scan as one MSB-first bit stream, DC predicted across the scan
 // with no reset (each block from the previous block of its component),
 // the frame's last word 1-filled, each frame starting on a word
-// boundary, and the frame's bit count. B19 design: one thread per block
-// in three launches: a counting pass (each block's bit length; its DC
-// predictor is one load of the previous same-component block), an
-// exclusive scan of the block lengths per frame in int64 (one CTA
-// looping over the frames), and a write pass in which each block writes
-// its units from its bit offset into a zeroed buffer: the words it may
-// share with its neighbours (its first and its last) by atomicOr, the
-// words inside it by plain stores (OR commutes with the byte swap).
+// boundary, and the frame's bit count.
+//
+// B19 design, in three launches over tiles of 256 consecutive blocks
+// (scan order) of one frame; a tile never straddles frames and a
+// frame's last tile may be partial. A tile's CTA reads its blocks into
+// a 32 KB shared tile, 8 threads a block with 16-byte loads (each
+// block's 128 bytes coalesced); then a thread codes its block from
+// there. Its DC predictor (the previous block of its component) comes
+// from the tile when that block is in it, else one load. The coding
+// (encode_block_mask) builds the block's 64-bit nonzero AC mask and
+// walks its set bits: the DC unit, a ZRL per full 16 zeros before a
+// nonzero and the nonzero's AC unit, an EOB when the last nonzero is
+// before 63, the same unit sequence as encode_block (which B3 keeps),
+// with no branch per zero. (1) Count: each block's bits and the tile's
+// sum. (2) Scan, a CTA per frame (scan.cuh): the exclusive scan of the
+// frame's tile sums in int64, from the frame's word-aligned base (the
+// frames before it, each rounded up to whole words); each frame's bits
+// and the total words go to `meta`, which the wrapper reads (its one
+// sync) to size the output. (3) Write: each block from its tile's
+// offset plus the CTA's exclusive scan of its blocks' bits, into the
+// zeroed buffer: the words it may share with its neighbours (its first
+// and its last) by atomicOr, the words inside it by plain stores (OR
+// commutes with the byte swap).
 //
 // Bound: memory traffic. B3 per 4080x3072 frame reads 306,048 blocks x
 // 128 B = 39.2 MB of coefficients and writes ~1-2 MB, ~12 us at
 // 3.35 TB/s; B19 per 4000x3000 frame reads 282,000 blocks (36.1 MB),
-// ~11 us. Both are far from that: B3 is latency-bound on each thread's
-// serial bit loop over ~15k threads per frame; B19 runs a thread per
-// block, but each thread reads its block with 64 strided 2-byte loads,
-// and the one-CTA scans are serial per thread. On an H100 (700 W) B19's
-// scan takes half of its device time at 4000x3000 (0.39 of 0.78 ms; its
-// count and write passes 0.19 each). A multi-CTA scan, then
-// warp-cooperative block loads, are later work.
+// ~11 us, twice (count and write). B3 is latency-bound on each
+// thread's serial bit loop over ~15k threads per frame, and its one-CTA
+// scan is serial per thread; scan.cuh's helpers are there for it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "scan.cuh"
 
 namespace {
 
@@ -75,7 +88,7 @@ struct Geometry {
   int ny;      // blocks per frame of the first grid (luma or gray)
   int nuv;     // blocks per frame of each chroma grid
 
-  __device__ __forceinline__ int per_mcu() const {
+  __host__ __device__ __forceinline__ int per_mcu() const {
     return color ? hs * vs + 2 : 1;
   }
 };
@@ -320,106 +333,198 @@ __global__ void write_kernel(const int16_t* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// B19: restart-less scans, one thread per block.
+// B19: restart-less scans, a CTA per tile of kTile blocks of one frame.
 // ---------------------------------------------------------------------------
 
-// Block i (in scan order) of frame f, its component and its DC
-// predictor: the previous block of the same component, 0 for the first.
-__device__ __forceinline__ const int16_t* scan_block(
-    const int16_t* __restrict__ y, const int16_t* __restrict__ u,
-    const int16_t* __restrict__ v, const Geometry& g, int f, int i,
-    int* comp, int* pred) {
+constexpr int kTile = 256;        // blocks (and threads) a B19 CTA
+constexpr int kSlot = 72;         // int16s a block's slot in the tile
+constexpr int kRlScanThreads = 1024;
+
+// Component of block i (in scan order) and the scan index of its DC
+// predictor: the previous block of the same component (luma: the
+// previous luma block, across MCUs; chroma: its slot in the previous
+// MCU), -1 for the first block of its component.
+__device__ __forceinline__ int scan_pred(const Geometry& g, int i,
+                                         int* comp) {
   int bpm = g.per_mcu();
   int m = i / bpm, s = i - m * bpm;
-  const int16_t* b = block_at(y, u, v, g, f, m, s, comp);
-  int pc;
-  const int16_t* p = nullptr;
-  if (*comp == 0 && s > 0) {
-    p = block_at(y, u, v, g, f, m, s - 1, &pc);
-  } else if (m > 0) {
-    // Luma: the previous MCU's last luma block; chroma: its own.
-    p = block_at(y, u, v, g, f, m - 1, *comp ? s : bpm - (g.color ? 3 : 1),
-                 &pc);
+  int ypm = g.color ? g.hs * g.vs : 1;
+  *comp = g.color && s >= ypm ? s - ypm + 1 : 0;
+  if (*comp == 0 && s > 0) return i - 1;
+  if (m == 0) return -1;
+  return (m - 1) * bpm + (*comp ? s : ypm - 1);
+}
+
+// The tile of frame f from block tile0: kTile blocks (fewer at the
+// frame's end) into 144-byte slots of `tile`, each block's 128 bytes
+// read by 8 threads with 16-byte loads. Ends synchronized.
+__device__ __forceinline__ void load_tile(const int16_t* __restrict__ y,
+                                          const int16_t* __restrict__ u,
+                                          const int16_t* __restrict__ v,
+                                          const Geometry& g, int f,
+                                          int tile0, int nb,
+                                          int16_t* tile) {
+  int bpm = g.per_mcu();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    int q = r * kTile + threadIdx.x;
+    int b = q >> 3, part = q & 7;
+    int i = tile0 + b;
+    if (i < nb) {
+      int m = i / bpm, comp;
+      const int16_t* src = block_at(y, u, v, g, f, m, i - m * bpm, &comp);
+      reinterpret_cast<uint4*>(tile + b * kSlot)[part] =
+          __ldg(reinterpret_cast<const uint4*>(src) + part);
+    }
   }
-  *pred = p ? p[0] : 0;
-  return b;
+  __syncthreads();
 }
 
-__global__ void rl_count_kernel(const int16_t* __restrict__ y,
-                                const int16_t* __restrict__ u,
-                                const int16_t* __restrict__ v,
-                                const int32_t* __restrict__ tables,
-                                int32_t* __restrict__ blen, Geometry g) {
+// Block i's DC predictor: from the tile when its block is there, else
+// one load.
+__device__ __forceinline__ int tile_pred(const int16_t* __restrict__ y,
+                                         const int16_t* __restrict__ u,
+                                         const int16_t* __restrict__ v,
+                                         const Geometry& g, int f, int pi,
+                                         int tile0, const int16_t* tile) {
+  if (pi < 0) return 0;
+  if (pi >= tile0) return tile[(pi - tile0) * kSlot];
+  int bpm = g.per_mcu(), m = pi / bpm, comp;
+  return block_at(y, u, v, g, f, m, pi - m * bpm, &comp)[0];
+}
+
+// The units of encode_block, from a block in shared memory by its
+// nonzero AC mask: the DC unit, then for each nonzero (in zigzag order)
+// a ZRL per full 16 zeros before it and its AC unit, then an EOB when
+// the last nonzero is before 63. The same unit sequence as encode_block
+// (which B3 keeps).
+template <class Sink>
+__device__ __forceinline__ void encode_block_mask(const int16_t* blk,
+                                                  int pred,
+                                                  const uint32_t* dc_t,
+                                                  const uint32_t* ac_t,
+                                                  Sink& sink) {
+  unsigned long long mask = 0;
+  const uint4* b4 = reinterpret_cast<const uint4*>(blk);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint4 q = b4[j];
+    unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      unsigned long long two = ((w[h] & 0xFFFFu) ? 1ull : 0ull) |
+                               ((w[h] >> 16) ? 2ull : 0ull);
+      mask |= two << (8 * j + 2 * h);
+    }
+  }
+  mask &= ~1ull;  // AC only
+  int diff = (int)blk[0] - pred;
+  int s = bitlen15(diff);
+  uint32_t e = dc_t[s];
+  sink.put(((e >> 5) << s) | magnitude_bits(diff, s), (int)(e & 31) + s);
+  int last = 0;
+  while (mask) {
+    int k = __ffsll((long long)mask) - 1;
+    mask &= mask - 1;
+    for (int run = k - last - 1; run >= 16; run -= 16) {  // ZRL
+      uint32_t z = ac_t[0xF0];
+      sink.put(z >> 5, (int)(z & 31));
+    }
+    int val = blk[k];
+    int sa = bitlen15(val);
+    uint32_t a = ac_t[(((k - last - 1) & 15) << 4) | sa];
+    sink.put(((a >> 5) << sa) | magnitude_bits(val, sa), (int)(a & 31) + sa);
+    last = k;
+  }
+  if (last < 63) {  // EOB
+    uint32_t z = ac_t[0];
+    sink.put(z >> 5, (int)(z & 31));
+  }
+  sink.end_block();
+}
+
+// Count pass: blen[f * nb + i] = block i's bits; tsum[f * ntiles + t] =
+// tile t's. Grid (tiles, frames).
+__global__ void __launch_bounds__(kTile)
+rl_count_kernel(const int16_t* __restrict__ y, const int16_t* __restrict__ u,
+                const int16_t* __restrict__ v,
+                const int32_t* __restrict__ tables,
+                int32_t* __restrict__ blen, int32_t* __restrict__ tsum,
+                Geometry g) {
   __shared__ uint32_t tab[4 * 256];
+  __shared__ __align__(16) int16_t tile[kTile * kSlot];
+  __shared__ int warp_sums[32];
   load_tables(tables, tab);
-  long long nb = (long long)g.n_mcus * g.per_mcu();
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= g.n * nb) return;
-  int comp, pred;
-  const int16_t* b = scan_block(y, u, v, g, (int)(lane / nb),
-                                (int)(lane % nb), &comp, &pred);
-  const uint32_t* t = comp ? tab + 512 : tab;
-  CountSink sink;
-  encode_block(b, pred, t, t + 256, sink);
-  blen[lane] = (int32_t)sink.bits;
+  int f = blockIdx.y, nb = g.n_mcus * g.per_mcu();
+  int tile0 = blockIdx.x * kTile, i = tile0 + threadIdx.x;
+  load_tile(y, u, v, g, f, tile0, nb, tile);
+  int bits = 0;
+  if (i < nb) {
+    int comp, pi = scan_pred(g, i, &comp);
+    int pred = tile_pred(y, u, v, g, f, pi, tile0, tile);
+    const uint32_t* t = comp ? tab + 512 : tab;
+    CountSink sink;
+    encode_block_mask(tile + threadIdx.x * kSlot, pred, t, t + 256, sink);
+    bits = (int)sink.bits;
+    blen[(size_t)f * nb + i] = bits;
+  }
+  int total;
+  uhdr_scan::block_exclusive_scan(bits, 0, warp_sums, total);
+  if (threadIdx.x == 0) tsum[(size_t)f * gridDim.x + blockIdx.x] = total;
 }
 
-// Per frame, the exclusive scan of its nb block lengths into global bit
-// offsets offs[f * nb + i]; each frame starts on a word boundary. meta[f]
-// = frame f's bits, meta[n] = the total words. One CTA, frame by frame.
-__global__ void rl_scan_kernel(const int32_t* __restrict__ blen,
-                               long long* __restrict__ offs,
+// Scan pass, a CTA per frame: toff[f * ntiles + t] = the global bit
+// offset of frame f's tile t (frame f from a word boundary: the frames
+// before it each rounded up to whole words), meta[f] = frame f's bits,
+// meta[n] = the total words.
+__global__ void rl_scan_kernel(const int32_t* __restrict__ tsum,
+                               long long* __restrict__ toff,
                                long long* __restrict__ meta, int n,
-                               int nb) {
-  __shared__ long long part[kScanThreads];
-  int t = threadIdx.x;
-  int per = (nb + kScanThreads - 1) / kScanThreads;
-  int lo = min(t * per, nb), hi = min(lo + per, nb);
+                               int ntiles) {
+  __shared__ long long warp_sums[32];
+  int f = blockIdx.x;
+  auto sums = [&](int h) {
+    return [=](int t) { return (long long)tsum[(size_t)h * ntiles + t]; };
+  };
   long long base = 0;
-  for (int f = 0; f < n; ++f) {
-    const int32_t* len = blen + (size_t)f * nb;
-    long long* off = offs + (size_t)f * nb;
-    long long s = 0;
-    for (int i = lo; i < hi; ++i) s += len[i];
-    part[t] = s;
-    __syncthreads();
-    for (int d = 1; d < kScanThreads; d <<= 1) {
-      long long add = t >= d ? part[t - d] : 0;
-      __syncthreads();
-      part[t] += add;
-      __syncthreads();
-    }
-    long long run = base + part[t] - s;
-    for (int i = lo; i < hi; ++i) {
-      off[i] = run;
-      run += len[i];
-    }
-    long long total = part[kScanThreads - 1];
-    if (t == 0) meta[f] = total;
-    base += (total + 31) & ~31ll;
-    __syncthreads();  // part[] is rewritten for the next frame
+  for (int h = 0; h < f; ++h)
+    base += (uhdr_scan::block_scan_array<long long>(
+                 ntiles, 0LL, 0LL, warp_sums, sums(h),
+                 [](int, long long) {}) + 31) & ~31ll;
+  long long end = uhdr_scan::block_scan_array<long long>(
+      ntiles, base, 0LL, warp_sums, sums(f),
+      [&](int t, long long off) { toff[(size_t)f * ntiles + t] = off; });
+  if (threadIdx.x == 0) {
+    meta[f] = end - base;
+    if (f == n - 1) meta[n] = ((end + 31) & ~31ll) >> 5;
   }
-  if (t == 0) meta[n] = base >> 5;
 }
 
-__global__ void rl_write_kernel(const int16_t* __restrict__ y,
-                                const int16_t* __restrict__ u,
-                                const int16_t* __restrict__ v,
-                                const int32_t* __restrict__ tables,
-                                const long long* __restrict__ offs,
-                                uint32_t* __restrict__ out, Geometry g) {
+// Write pass: each block from its tile's offset plus the exclusive scan
+// of the tile's block lengths, into the zeroed word buffer.
+__global__ void __launch_bounds__(kTile)
+rl_write_kernel(const int16_t* __restrict__ y, const int16_t* __restrict__ u,
+                const int16_t* __restrict__ v,
+                const int32_t* __restrict__ tables,
+                const int32_t* __restrict__ blen,
+                const long long* __restrict__ toff,
+                uint32_t* __restrict__ out, Geometry g) {
   __shared__ uint32_t tab[4 * 256];
+  __shared__ __align__(16) int16_t tile[kTile * kSlot];
+  __shared__ int warp_sums[32];
   load_tables(tables, tab);
-  long long nb = (long long)g.n_mcus * g.per_mcu();
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= g.n * nb) return;
-  int i = (int)(lane % nb);
-  int comp, pred;
-  const int16_t* b = scan_block(y, u, v, g, (int)(lane / nb), i, &comp,
-                                &pred);
+  int f = blockIdx.y, nb = g.n_mcus * g.per_mcu();
+  int tile0 = blockIdx.x * kTile, i = tile0 + threadIdx.x;
+  load_tile(y, u, v, g, f, tile0, nb, tile);
+  int len = i < nb ? blen[(size_t)f * nb + i] : 0;
+  int total;
+  int pre = uhdr_scan::block_exclusive_scan(len, 0, warp_sums, total);
+  if (i >= nb) return;
+  int comp, pi = scan_pred(g, i, &comp);
+  int pred = tile_pred(y, u, v, g, f, pi, tile0, tile);
   const uint32_t* t = comp ? tab + 512 : tab;
-  SharedWordSink sink(out, offs[lane]);
-  encode_block(b, pred, t, t + 256, sink);
+  SharedWordSink sink(out, toff[(size_t)f * gridDim.x + blockIdx.x] + pre);
+  encode_block_mask(tile + threadIdx.x * kSlot, pred, t, t + 256, sink);
   sink.finish(i == nb - 1);
 }
 
@@ -485,44 +590,44 @@ int uhdr_huff_encode_write(const void* y, const void* u, const void* v,
   return (int)cudaGetLastError();
 }
 
-// B19. y, u, v, tables as above; blen: int32 (n * nb) scratch, nb =
-// n_mcus * blocks per MCU; offs: int64 (n * nb) bit offsets; meta: int64
-// (n + 1), each frame's bits then the total words. Counts and scans; the
-// caller reads meta to size the output.
+// B19. y, u, v, tables as above; blen: int32 (n * nb) block bits, nb =
+// n_mcus * blocks per MCU; tsum: int32 (n * ntiles) tile bits and toff:
+// int64 (n * ntiles) tile bit offsets, ntiles = ceil(nb / 256); meta:
+// int64 (n + 1), each frame's bits then the total words. Counts and
+// scans; the caller reads meta to size the output.
 int uhdr_huff_encode_rl_count(const void* y, const void* u, const void* v,
-                              const void* tables, void* blen, void* offs,
-                              void* meta, int n, int color, int hs, int vs,
-                              int mcus_x, int n_mcus, int ny, int nuv,
-                              void* stream) {
+                              const void* tables, void* blen, void* tsum,
+                              void* toff, void* meta, int n, int color,
+                              int hs, int vs, int mcus_x, int n_mcus,
+                              int ny, int nuv, void* stream) {
   Geometry g = make_geometry(n, 0, 0, color, hs, vs, mcus_x, n_mcus, ny,
                              nuv);
   cudaStream_t s = (cudaStream_t)stream;
-  int nb = n_mcus * (color ? hs * vs + 2 : 1);
-  long long lanes = (long long)n * nb;
-  rl_count_kernel<<<(unsigned)((lanes + kThreads - 1) / kThreads), kThreads,
-                    0, s>>>((const int16_t*)y, (const int16_t*)u,
-                            (const int16_t*)v, (const int32_t*)tables,
-                            (int32_t*)blen, g);
+  int ntiles = (n_mcus * g.per_mcu() + kTile - 1) / kTile;
+  rl_count_kernel<<<dim3(ntiles, n), kTile, 0, s>>>(
+      (const int16_t*)y, (const int16_t*)u, (const int16_t*)v,
+      (const int32_t*)tables, (int32_t*)blen, (int32_t*)tsum, g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  rl_scan_kernel<<<1, kScanThreads, 0, s>>>(
-      (const int32_t*)blen, (long long*)offs, (long long*)meta, n, nb);
+  rl_scan_kernel<<<n, kRlScanThreads, 0, s>>>(
+      (const int32_t*)tsum, (long long*)toff, (long long*)meta, n, ntiles);
   return (int)cudaGetLastError();
 }
 
-// out: uint32 words (meta[n] of them), zeroed, JPEG byte order.
+// out: uint32 words (meta[n] of them), zeroed, JPEG byte order; blen and
+// toff from uhdr_huff_encode_rl_count.
 int uhdr_huff_encode_rl_write(const void* y, const void* u, const void* v,
-                              const void* tables, const void* offs,
-                              void* out, int n, int color, int hs, int vs,
-                              int mcus_x, int n_mcus, int ny, int nuv,
-                              void* stream) {
+                              const void* tables, const void* blen,
+                              const void* toff, void* out, int n, int color,
+                              int hs, int vs, int mcus_x, int n_mcus, int ny,
+                              int nuv, void* stream) {
   Geometry g = make_geometry(n, 0, 0, color, hs, vs, mcus_x, n_mcus, ny,
                              nuv);
-  long long lanes = (long long)n * n_mcus * (color ? hs * vs + 2 : 1);
-  rl_write_kernel<<<(unsigned)((lanes + kThreads - 1) / kThreads), kThreads,
-                    0, (cudaStream_t)stream>>>(
+  int ntiles = (n_mcus * g.per_mcu() + kTile - 1) / kTile;
+  rl_write_kernel<<<dim3(ntiles, n), kTile, 0, (cudaStream_t)stream>>>(
       (const int16_t*)y, (const int16_t*)u, (const int16_t*)v,
-      (const int32_t*)tables, (const long long*)offs, (uint32_t*)out, g);
+      (const int32_t*)tables, (const int32_t*)blen, (const long long*)toff,
+      (uint32_t*)out, g);
   return (int)cudaGetLastError();
 }
 

@@ -143,7 +143,7 @@ def _account(stats, nbytes: int, pack: str):
         stats["d2h_bytes"] = stats.get("d2h_bytes", 0) + int(nbytes)
         stats["d2h_pack"] = pack
         if pack != "raw":
-            stats["d2h_stages"] = dict(packio.LAST_FETCH_STAGES)
+            stats["d2h_stages"] = dict(packio.last_fetch()[0])
 
 
 def fetch_1010102_packed(out_dev: torch.Tensor, stats=None) -> np.ndarray:
@@ -155,7 +155,7 @@ def fetch_1010102_packed(out_dev: torch.Tensor, stats=None) -> np.ndarray:
     comes back as the packers' constant 0xC0000000 (ops/color.py
     pack_rgba1010102 writes the same)."""
     out, nbytes = packio.fetch_rgba1010102_auto(out_dev)
-    wasted, mode = 0, f"rct-rice-auto({packio.LAST_PICK})"
+    wasted, mode = 0, f"rct-rice-auto({packio.last_fetch()[1]})"
     if out is None:
         wasted += nbytes
         get_logger().debug("rice readback declined; fine-width pack")
@@ -175,7 +175,7 @@ def fetch_f16_packed(out_dev: torch.Tensor, stats=None) -> np.ndarray:
     auto-picked, else the raw copy. `stats` as fetch_1010102_packed's.
     Alpha comes back as the packer's constant 0x3C00 (1.0)."""
     out, nbytes = packio.fetch_rgba_f16_auto(out_dev)
-    wasted, mode = 0, f"rct-rice16-auto({packio.LAST_PICK})"
+    wasted, mode = 0, f"rct-rice16-auto({packio.last_fetch()[1]})"
     if out is None:
         wasted += nbytes
         out = _raw_copy(out_dev)
@@ -278,7 +278,7 @@ def fetch_planes(comp_dev: torch.Tensor, stats=None) -> np.ndarray:
     that crossed, the map of a declined pack included), d2h_pack and
     fetch_stages."""
     comp, nbytes = packio.fetch_planes_u8(comp_dev)
-    pack = f"planes-rice-auto({packio.LAST_PICK})"
+    pack = f"planes-rice-auto({packio.last_fetch()[1]})"
     if comp is None:
         comp = comp_dev.cpu().numpy()
         nbytes += comp.nbytes
@@ -286,7 +286,7 @@ def fetch_planes(comp_dev: torch.Tensor, stats=None) -> np.ndarray:
     if stats is not None:
         stats["d2h_bytes"] = stats.get("d2h_bytes", 0) + int(nbytes)
         stats["d2h_pack"] = pack
-        stats["fetch_stages"] = dict(packio.LAST_FETCH_STAGES)
+        stats["fetch_stages"] = dict(packio.last_fetch()[0])
     return comp
 
 

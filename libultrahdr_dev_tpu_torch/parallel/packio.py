@@ -66,13 +66,19 @@ unpack that fails raises.
 Environment, as JAX reads it: UHDR_READBACK_SCHEME=med|vert forces the
 scheme; UHDR_FUSED_FETCH=0 disables the fused readback;
 UHDR_FETCH_SYNC_STAGES=1 synchronizes the device to split the stage
-times in LAST_FETCH_STAGES; UHDR_UNPACK_THREADS sets the native
-unpack's (and the host apply's) threads.
+times of each fetch (``last_fetch``); UHDR_UNPACK_THREADS sets the
+native unpack's (and the host apply's) threads.
+
+Threads: the serving loop fetches from two threads at once. Each
+fetch's stage times and scheme pick belong to that call
+(``last_fetch`` returns the calling thread's), and one lock guards the
+process-wide plan cache and speed samples.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -846,7 +852,7 @@ def rice_fused(x, med: bool, rem_npads, un_npads):
 #: plan = {"rem_npads", "un_npads", "est"}; None marks a scheme planned
 #: and found incompressible. The auto two-phase fetch seeds both schemes,
 #: so the fused fetch can re-pick the scheme per batch. Process-wide, as
-#: in JAX.
+#: in JAX; read and written under _LOCK.
 _PLAN_CACHE: dict = {}
 
 #: Re-run the exact two-phase plan every N fused fetches, so a slow
@@ -855,17 +861,40 @@ _PLAN_REFRESH = 64
 
 #: Observed throughputs (bytes/s) for the cost-aware scheme pick:
 #: "d2h_link" from the blob copies, and per native unpack function in
-#: raw output bytes/s. Process-wide.
+#: raw output bytes/s. Process-wide; read and written under _LOCK.
 _BPS: dict = {}
 
-#: Last scheme pick ("med" | "vert").
+#: Guards _PLAN_CACHE (its entries too) and _BPS: every get, pop and
+#: read-modify-write of either. Never held across a device call, a D2H
+#: or the native unpack.
+_LOCK = threading.Lock()
+
+#: Per thread: the stages dict and scheme pick of its latest fetch.
+_CALL = threading.local()
+
+#: Last scheme pick ("med" | "vert") of any thread (as JAX's).
 LAST_PICK = None
 
-#: Stage times (ms) of the most recent fetch: pass1_dispatch, map_fetch,
-#: plan, pass2_blob (pass2_sync + blob_fetch with
-#: UHDR_FETCH_SYNC_STAGES=1), unpack, total, roundtrips, blob_MBps,
-#: mode, scheme.
+#: Stage times (ms) of the most recent fetch of any thread (as JAX's):
+#: pass1_dispatch, map_fetch, plan, pass2_blob (pass2_sync + blob_fetch
+#: with UHDR_FETCH_SYNC_STAGES=1), unpack, total, roundtrips,
+#: blob_MBps, mode, scheme. A caller that may share the process with
+#: another fetching thread reads ``last_fetch()`` instead.
 LAST_FETCH_STAGES: dict = {}
+
+
+def last_fetch():
+    """(stages, pick) of the calling thread's latest Rice fetch: its
+    stage-times dict (LAST_FETCH_STAGES's fields) and its scheme pick
+    ("med" | "vert", None before any pick)."""
+    return getattr(_CALL, "stages", {}), getattr(_CALL, "pick", None)
+
+
+def _set_pick(med: bool) -> str:
+    global LAST_PICK
+    LAST_PICK = _CALL.pick = "med" if med else "vert"
+    return LAST_PICK
+
 
 # Native unpack entry points per sample bits (parallel/packio.cpp).
 _MED_FN = {8: "uhdr_med8_unpack", 10: "uhdr_med_unpack",
@@ -878,8 +907,9 @@ def _bps_update(key, nbytes, secs, alpha=0.3):
     if secs <= 0 or nbytes <= 0:
         return
     bps = nbytes / secs
-    old = _BPS.get(key)
-    _BPS[key] = bps if old is None else old + alpha * (bps - old)
+    with _LOCK:
+        old = _BPS.get(key)
+        _BPS[key] = bps if old is None else old + alpha * (bps - old)
 
 
 def _rice_host_plan(kmap, uwmap, raw_bytes, bits: int = 8):
@@ -917,12 +947,13 @@ def _auto_pick_scheme(plan_v, plan_m, raw_bytes, bits: int = 8) -> bool:
         return False
     if plan_v is None:
         return True
-    uv, um = _BPS.get(_VERT_FN[bits]), _BPS.get(_MED_FN[bits])
+    with _LOCK:
+        uv, um = _BPS.get(_VERT_FN[bits]), _BPS.get(_MED_FN[bits])
+        link = _BPS.get("d2h_link")
     if um is None and uv is not None:
         return True
     if uv is None and um is not None:
         return False
-    link = _BPS.get("d2h_link")
     if link and uv and um:
         return (plan_m[-1] / link + raw_bytes / um
                 <= plan_v[-1] / link + raw_bytes / uv)
@@ -1128,11 +1159,12 @@ def _try_fused_fetch(x, *, bits, n, h, w, ent, sel, stages, raw_bytes):
     (None, wasted_bytes) for content that turned incompressible, or
     "two_phase" when the caller should run the exact two-phase path (the
     periodic plan refresh)."""
-    ent["uses"] += 1
-    if ent["uses"] % _PLAN_REFRESH == 0:
-        return "two_phase"
+    with _LOCK:
+        ent["uses"] += 1
+        if ent["uses"] % _PLAN_REFRESH == 0:
+            return "two_phase"
+        pl = ent["plans"][sel]
     med = sel
-    pl = ent["plans"][sel]
     rem_npads, un_npads = pl["rem_npads"], pl["un_npads"]
     nk = len(rem_npads)
     hl = _head_len(nk)
@@ -1160,13 +1192,12 @@ def _try_fused_fetch(x, *, bits, n, h, w, ent, sel, stages, raw_bytes):
     head = combined[blob_words:blob_words + hl]
     kuw_bytes = combined[blob_words + hl:].view(np.uint8)
     kmap, uwmap = kuw_bytes[:nseg], kuw_bytes[nseg:2 * nseg]
-    global LAST_PICK
     if head[0]:
         tu = time.perf_counter()
         out = _host_unpack_rice(combined[:blob_words], kmap, uwmap,
                                 rem_npads, un_npads, n, h, w, med, bits)
         stages["unpack"] = round((time.perf_counter() - tu) * 1e3, 1)
-        stages["scheme"] = LAST_PICK = "med" if med else "vert"
+        stages["scheme"] = _set_pick(med)
         return out, combined.nbytes
 
     # The content outgrew the cached paddings: re-plan from the map just
@@ -1174,9 +1205,10 @@ def _try_fused_fetch(x, *, bits, n, h, w, ent, sel, stages, raw_bytes):
     counters.bump("fused_fetch_replan")
     plan = _rice_host_plan(kmap, uwmap, raw_bytes, bits)
     if plan is None:        # turned incompressible: the raw copy wins
-        ent["plans"][sel] = None
-        if all(v is None for v in ent["plans"].values()):
-            _PLAN_CACHE.pop(key, None)
+        with _LOCK:
+            ent["plans"][sel] = None
+            if all(v is None for v in ent["plans"].values()):
+                _PLAN_CACHE.pop(key, None)
         return None, combined.nbytes
     _, _, rem_npads2, un_npads2, offs, est2 = plan
     (zs,), kuw_dev = rice_stats(x, (med,))
@@ -1188,20 +1220,23 @@ def _try_fused_fetch(x, *, bits, n, h, w, ent, sel, stages, raw_bytes):
                             w, med, bits)
     new_rem = tuple(max(a, b) for a, b in zip(rem_npads, rem_npads2))
     new_un = tuple(max(a, b) for a, b in zip(un_npads, un_npads2))
-    if _fused_blob_words(new_rem, new_un) * 4 + 2 * nseg <= 0.85 * raw_bytes:
-        ent["plans"][sel] = {"rem_npads": new_rem, "un_npads": new_un,
-                             "est": est2}
-    else:
-        ent["plans"][sel] = None
-        if all(v is None for v in ent["plans"].values()):
-            _PLAN_CACHE.pop(key, None)
-    LAST_PICK = "med" if med else "vert"
+    fits = (_fused_blob_words(new_rem, new_un) * 4 + 2 * nseg
+            <= 0.85 * raw_bytes)
+    with _LOCK:
+        if fits:
+            ent["plans"][sel] = {"rem_npads": new_rem, "un_npads": new_un,
+                                 "est": est2}
+        else:
+            ent["plans"][sel] = None
+            if all(v is None for v in ent["plans"].values()):
+                _PLAN_CACHE.pop(key, None)
+    _set_pick(med)
     return out, combined.nbytes + blob.nbytes
 
 
 def _fused_selection(ent, med, raw_bytes, bits: int):
     """Which cached scheme plan the fused fetch uses, or None for the
-    two-phase path (JAX packio.py:1213-1244)."""
+    two-phase path (JAX packio.py:1213-1244). Called under _LOCK."""
     plans = ent["plans"]
     if med != "auto":
         return med if plans.get(med) is not None else None
@@ -1231,9 +1266,9 @@ def _fetch_rice_core(x, med):
     model). Returns (host array, d2h_bytes) or (None, wasted_bytes) when
     the pack would not save 15% or the batch has 2^22 segments or
     more."""
-    global LAST_FETCH_STAGES, LAST_PICK
+    global LAST_FETCH_STAGES
     stages = {"roundtrips": 0}
-    LAST_FETCH_STAGES = stages
+    LAST_FETCH_STAGES = _CALL.stages = stages
     t_start = time.perf_counter()
     bits, n, h, w, _, _, nseg = _geometry(x)
     raw_bytes = _raw_bytes(bits, n, h, w)
@@ -1244,9 +1279,10 @@ def _fetch_rice_core(x, med):
             "med", "vert"):
         med = os.environ["UHDR_READBACK_SCHEME"] == "med"
     if os.environ.get("UHDR_FUSED_FETCH", "1") != "0":
-        ent = _PLAN_CACHE.get(key)
-        sel = None if ent is None else _fused_selection(ent, med, raw_bytes,
-                                                        bits)
+        with _LOCK:
+            ent = _PLAN_CACHE.get(key)
+            sel = None if ent is None else _fused_selection(
+                ent, med, raw_bytes, bits)
         if sel is not None:
             res = _try_fused_fetch(x, bits=bits, n=n, h=h, w=w, ent=ent,
                                    sel=sel, stages=stages,
@@ -1283,7 +1319,7 @@ def _fetch_rice_core(x, med):
             counters.bump("rice_readback_declined")
             return None, maps.nbytes
         seed_plans = {med: plan}
-    LAST_PICK = "med" if med else "vert"
+    _set_pick(med)
     kmap, uwmap = maps[2 * pick], maps[2 * pick + 1]
     _, _, rem_npads, un_npads, offs, _ = plan
 
@@ -1310,15 +1346,17 @@ def _fetch_rice_core(x, med):
     tend = time.perf_counter()
     stages["unpack"] = round((tend - tu) * 1e3, 1)
     stages["total"] = round((tend - t_start) * 1e3, 1)
-    stages["scheme"] = LAST_PICK
+    stages["scheme"] = _CALL.pick
     # Seed the fused path's plans for the next batch of this shape,
     # keeping the use counter's cadence.
-    old = _PLAN_CACHE.get(key)
-    plans = old["plans"] if old else {}
-    for sch, p in seed_plans.items():
-        plans[sch] = None if p is None else {
-            "rem_npads": p[2], "un_npads": p[3], "est": p[5]}
-    _PLAN_CACHE[key] = {"plans": plans, "uses": old["uses"] if old else 0}
+    with _LOCK:
+        old = _PLAN_CACHE.get(key)
+        plans = old["plans"] if old else {}
+        for sch, p in seed_plans.items():
+            plans[sch] = None if p is None else {
+                "rem_npads": p[2], "un_npads": p[3], "est": p[5]}
+        _PLAN_CACHE[key] = {"plans": plans,
+                            "uses": old["uses"] if old else 0}
     return out, blob.nbytes + maps.nbytes
 
 

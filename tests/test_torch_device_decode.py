@@ -261,6 +261,81 @@ def test_b4_wrapper_runs_plain_on_cpu():
     assert tdd.decode_rst_chunks.launches == before
 
 
+@pytest.mark.parametrize("which", ["color", "gray"])
+def test_padded_src_decodes_the_same(which):
+    """pack_streams ends src in zeros up to a multiple of 16 and 16 more
+    (the kernels' aligned loads stay inside it); the descriptors still
+    bound each lane, so the plain decode equals JAX's grids."""
+    ds = tdd.parse_device_stream(_own_streams()[which])
+    ln = tdd.pack_streams([ds])
+    assert ln.src.size % 16 == 0 and ln.src.size - ds.dest.size >= 16
+    np.testing.assert_array_equal(ln.src[:ds.dest.size], ds.dest)
+    assert not ln.src[ds.dest.size:].any()
+    assert int(ln.frames[0, tdd.F_LEN]) == ds.dest.size
+    _assert_grids(_port_grids([ds]), _jax_grids(
+        _windows(ds), 4, ds.mcus_x, ds.mcus_y, ds.gray))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' fast lookup (huff_decode.cu stage_tables).
+# ---------------------------------------------------------------------------
+
+def _random_dht(rng, symbols, incomplete: bool):
+    """(bits, vals) of a random DHT over `symbols` whose longest code is
+    16 bits: lengths drawn within the Kraft budget (leaving the all-ones
+    code unused), the last symbol at 16 bits; an incomplete one stops
+    with code space left."""
+    room = (1 << 16) - 1
+    if incomplete:
+        room -= 1 << 12
+    lengths = []
+    for i, _ in enumerate(symbols):
+        if i == len(symbols) - 1:
+            lengths.append(16)
+            break
+        length = int(rng.integers(1 if i == 0 else 2, 17))
+        while (1 << (16 - length)) > room - (len(symbols) - i - 1):
+            length += 1
+        lengths.append(length)
+        room -= 1 << (16 - length)
+    order = np.argsort(lengths, kind="stable")
+    bits = [int(np.sum(np.asarray(lengths) == k)) for k in range(1, 17)]
+    return bits, [int(symbols[i]) for i in order]
+
+
+def _table_sets():
+    sets = {"annex_k_color": tdd.ANNEX_K_COLOR,
+            "annex_k_gray": tdd.ANNEX_K_GRAY,
+            "one_bit": (ONE_BIT_DC, ONE_BIT_AC, ONE_BIT_DC, ONE_BIT_AC)}
+    ac_syms = np.asarray(tables.AC_LUMA_VALS)
+    for seed in range(4):
+        rng = np.random.default_rng(100 + seed)
+        sets[f"random_{seed}"] = tuple(
+            _random_dht(rng, rng.permutation(syms)[:n], seed % 2 == 1)
+            for syms, n in ((np.arange(12), 12), (ac_syms, 162),
+                            (np.arange(12), 6), (ac_syms, 40)))
+    return sets
+
+
+@pytest.mark.parametrize("name", list(_table_sets()))
+def test_fast_lookup_equals_search(name):
+    """For every one of the 65,536 peeks of each table, the fast entry
+    (or the binary search where it is marked) is the entry the select
+    chain gives (_lut): the construction is exact for any DHT."""
+    tabs = tdd.decode_tables(_table_sets()[name])
+    fast = tdd.fast_lookup_table(tabs)
+    lut = tdd._lut(torch.from_numpy(tabs)).numpy()
+    peeks = np.arange(65536, dtype=np.int64)
+    marked = 0
+    for t in range(4):
+        f = fast[t][peeks >> (16 - tdd.FAST_BITS)].astype(np.int64)
+        slow = tabs[t, 257 + tdd._search(tabs[t], peeks)]
+        got = np.where(f == tdd.FAST_SEARCH, slow, f)
+        np.testing.assert_array_equal(got, lut[t])
+        marked += int((fast[t] == tdd.FAST_SEARCH).sum())
+    assert 0 < marked < 4 * 512 or name == "one_bit"
+
+
 # ---------------------------------------------------------------------------
 # Decode routes.
 # ---------------------------------------------------------------------------

@@ -281,3 +281,91 @@ def test_native_unpack_rejects_corrupt_maps(fault):
     with pytest.raises(ValueError):
         packio._host_unpack_rice(blob, kmap, uwmap, plan[2], plan[3], n, h,
                                  w, False)
+
+
+def test_concurrent_fetches_report_their_own_stages(monkeypatch):
+    """Two threads fetch composites of two sizes through
+    link.fetch_planes, as the serving loop's two fetch threads do. A's
+    unpack waits until B has finished, so A starts first and finishes
+    last: each call's fetch_stages and pick are its own (A's unpack
+    covers its wait, B's does not), and both shapes keep their cached
+    plans."""
+    import threading
+    import time
+
+    comp_a = composite(2, 64, 1024, seed=15, amp=2)
+    comp_b = composite(1, 64, 1024, seed=16, amp=2)
+    a_waiting, release = threading.Event(), threading.Event()
+    real_unpack = packio._host_unpack_rice
+
+    def unpack(blob, kmap, uwmap, rem_npads, un_npads, n, h, w, med,
+               bits=8):
+        if (n, h, w) == (2, 64, 1024):
+            a_waiting.set()
+            assert release.wait(30)
+        return real_unpack(blob, kmap, uwmap, rem_npads, un_npads, n, h, w,
+                           med, bits)
+
+    packio.native.get_packio()    # built before either unpack is timed
+    monkeypatch.setattr(packio, "_host_unpack_rice", unpack)
+    stats_a, stats_b, got = {}, {}, {}
+
+    def fetch(name, comp, stats):
+        got[name] = link.fetch_planes(torch.from_numpy(comp), stats)
+
+    thread_a = threading.Thread(target=fetch, args=("a", comp_a, stats_a))
+    thread_a.start()
+    assert a_waiting.wait(30)
+    fetch("b", comp_b, stats_b)
+    wait_ms = 300
+    time.sleep(wait_ms / 1e3)
+    release.set()
+    thread_a.join(30)
+    assert np.array_equal(got["a"], comp_a)
+    assert np.array_equal(got["b"], comp_b)
+    sa, sb = stats_a["fetch_stages"], stats_b["fetch_stages"]
+    assert sa["unpack"] >= wait_ms and sb["unpack"] < wait_ms
+    assert sa["total"] >= sa["unpack"]
+    assert stats_a["d2h_pack"] == f"planes-rice-auto({sa['scheme']})"
+    assert stats_b["d2h_pack"] == f"planes-rice-auto({sb['scheme']})"
+    assert set(packio._PLAN_CACHE) == {((2, 64, 1024), 8),
+                                       ((1, 64, 1024), 8)}
+
+
+def test_fused_fetch_use_count_under_thread_stress():
+    """More fetching threads than cores, with a short switch interval:
+    the plan cache's use counter (a read-modify-write under the driver's
+    lock) counts every fused fetch, and each fetch returns its own
+    composite."""
+    import os
+    import sys
+    import threading
+
+    comp = composite(2, 64, 1024, seed=10, amp=2)
+    out, _ = packio.fetch_planes_u8_vert(torch.from_numpy(comp))
+    assert np.array_equal(out, comp)
+    n_threads, per_thread = (os.cpu_count() or 4) + 2, 2
+    errors = []
+
+    def work():
+        try:
+            for _ in range(per_thread):
+                got, _ = packio.fetch_planes_u8_vert(torch.from_numpy(comp))
+                assert np.array_equal(got, comp)
+                assert packio.last_fetch()[0].get("mode") == "fused"
+        except AssertionError as e:
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert packio._PLAN_CACHE[((2, 64, 1024), 8)]["uses"] == (
+        n_threads * per_thread)

@@ -20,6 +20,40 @@ from libultrahdr_dev_tpu_torch.jpeg import codec, device_entropy as tde
 from test_torch_entropy import GBH, GBW, KINDS, MX, MY, NM, _planes
 
 NOISE = "noise"   # q=100 noise: every block far past 608 bits
+EDGES = "edges"   # the unit sequence's edge cases, within NOISE's +-2000
+EDGE_RUNS = (15, 16, 17, 31, 32, 47, 48)
+
+
+def edge_blocks(nb: int, seed: int) -> np.ndarray:
+    """(nb, 64) int16 zigzag blocks that walk the unit sequence's edges:
+    zero runs of each EDGE_RUNS length before a nonzero (from the DC or
+    from another nonzero), a nonzero at 63 (no EOB), all-zero blocks,
+    full blocks, and DCs that swing by ~4000 between neighbours."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros((nb, 64), np.int16)
+
+    def nz(n):
+        return (rng.integers(1, 2001, n) * rng.choice([-1, 1], n)).astype(
+            np.int16)
+
+    for i in range(nb):
+        kind = i % 8
+        if kind == 0:
+            continue                       # all zero, DC included
+        b[i, 0] = (2000 if i % 2 else -2000) - int(rng.integers(0, 8))
+        if kind == 1:
+            b[i, 1:] = nz(63)              # full: 63 AC units, no EOB
+        elif kind == 2:
+            b[i, 63] = nz(1)[0]            # a run of 62, then 63
+        elif kind == 3:
+            b[i, [1, 63]] = nz(2)          # 61 zeros between, no EOB
+        else:
+            run = EDGE_RUNS[(i // 8 + kind) % len(EDGE_RUNS)]
+            first = 1 + run if kind == 4 else int(rng.integers(1, 63 - run))
+            b[i, first] = nz(1)[0]
+            if kind != 4 and first + run + 1 <= 63:
+                b[i, first + run + 1] = nz(1)[0]
+    return b
 
 
 def _content(kind: str):
@@ -27,6 +61,9 @@ def _content(kind: str):
         rng = np.random.default_rng(9)
         return tuple(rng.integers(-2000, 2001, (nb, 64)).astype(np.int16)
                      for nb in (4 * NM, NM, NM, GBH * GBW))
+    if kind == EDGES:
+        return tuple(edge_blocks(nb, s) for s, nb in enumerate(
+            (4 * NM, NM, NM, GBH * GBW)))
     return _planes(kind)
 
 
@@ -40,7 +77,7 @@ def _jax_filled(words, total) -> bytes:
     return np.packbits(bits).tobytes()
 
 
-@pytest.mark.parametrize("kind", KINDS + [NOISE])
+@pytest.mark.parametrize("kind", KINDS + [NOISE, EDGES])
 def test_plain_b19_color_matches_jax_and_host(kind):
     yz, uz, vz, _ = _content(kind)
     stream, bits = tde.encode_ycbcr_stream(
@@ -55,7 +92,7 @@ def test_plain_b19_color_matches_jax_and_host(kind):
     assert scan == codec.encode_yuv420_scan(yz, uz, vz, 16 * MX, 16 * MY, 0)
 
 
-@pytest.mark.parametrize("kind", KINDS + [NOISE])
+@pytest.mark.parametrize("kind", KINDS + [NOISE, EDGES])
 def test_plain_b19_gray_matches_jax_and_host(kind):
     gz = _content(kind)[3]
     stream, bits = tde.encode_gray_stream(torch.from_numpy(gz)[None])
