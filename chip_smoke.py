@@ -28,13 +28,18 @@ tests/goldens), checks what comes out, and times the kernels and the
 stages.
 
 Phases: B1, B2 (bitwise), B5, B6 (with its 10-bit planar arm), B11, B7
-kernel vs plain (B2 and B5 timed by CUDA-graph replay); B2's
+kernel vs plain (B2 and B5 timed by CUDA-graph replay; B6 and B11 also
+at odd widths and heights); B6's exactly rounded pow (pow_exact =
+pow_rn bitwise over every float32 its call sites can receive, the share
+that took its double path, both pows' float64 instructions in the SASS
+and their times); B2's
 tensor-core premise (every row sum of its bf16 mma exact on two
 adversarial rows of each of the 1,536 (term, row, output column)
 triples and on sharp-edged blocks, then B2 = plain bitwise on those
 blocks, on the 1,179,648 blocks of tests/test_torch_dct.py's bitwise
 cases and on its dense HLG V plane; HMMA in B2's SASS); B3 (Huffman
-encode) kernel vs plain and its JPEG/R bytes vs the host-Huffman route;
+encode) kernel vs plain (also at intervals of 43 and 300 MCUs) and its
+JPEG/R bytes vs the host-Huffman route;
 B9 (API-1 front end) kernel vs plain and its JPEG/R bytes vs the
 host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
 decoder on the port's streams, on the restart-less goldens (DC carry),
@@ -53,8 +58,9 @@ launch on a 4000x3000 YUV420 frame and its
 encode_jpeg's 4:2:2 and 4:4:4 planes, edge-case blocks (edge_blocks)
 over three frames of several 256-block tiles and a dense 4080x3072
 batch: kernel = plain, finalized scans = the host coder's; B12-enc
-(encode_jpeg's restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at r in {1, 4, 17}:
-kernel = plain = the host coder with RSTn markers; B0 and B14 (the P010
+(encode_jpeg's restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at r in
+{1, 4, 17, 86, 300} (the last two longer than a B3 tile): kernel = plain
+= the host coder with RSTn markers; B0 and B14 (the P010
 upload: dense on uniform noise, segment-packed on bench content), B18
 (the planes composite of a decoded batch of 4), B15 and B16 (Rice pass 1
 and pack over that composite, vertical and MED, two-phase and fused),
@@ -132,25 +138,32 @@ BF16_TC_FLOPS = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 # Operations per sample, counted from the kernels' sources (the branch a
 # sample usually takes): float32 operations (a fused multiply-add 2;
 # add, multiply, min, max, compare, convert, sqrt, log, exp2 and divide
-# 1 each), and the double pow()s of the exactly rounded power laws at
-# POW_F64_OPS float64 operations each (a double log and exp of about 25
-# operations each; an estimate, not a count of the compiled code).
-POW_F64_OPS = 50
+# 1 each), and the exactly rounded power laws at POW_F64_OPS float64
+# operations each: apply.cu's pow_exact fast path (color.cuh: 14
+# fused multiply-adds, 4 multiplies, 3 adds and the convert to float),
+# counted the same way. Each row counts the least work known for its
+# function, whatever the kernel that ran it: for B6 one pow a pixel
+# (green; red and blue are reads of B6's sRGB tables, built once per
+# device), also for a kernel that pays three double pow()s. The double
+# pow() of encode_front.cu (B1, B9, B10b) costs more (pow_phase counts
+# both in the SASS).
+POW_F64_OPS = 36
 OPS = {
-    # apply.cu per output pixel: 8 load/normalize, 14 YUV -> RGB,
-    # 15 + 3 pow sRGB inverse OETF, 52 IDW weights and blend, 10 gain
-    # factor and scale, then 3 F16 converts, or 21 HLG OETF (+ 0 pow) /
-    # 21 PQ OETF (+ 6 pow) and 12 for the 10-bit pack.
-    "B6 hdr_linear": (102, 3), "B6 hdr_hlg": (132, 3),
-    "B6 hdr_pq": (132, 9),
+    # apply.cu per output pixel: 4 load/normalize, 14 YUV -> RGB, 3 +
+    # 1 pow sRGB inverse OETF (red and blue: table reads), 17 gain-map
+    # samples and blend (the Shepard weights are a per-launch table), 10
+    # gain factor and scale, then 3 F16 converts, or 21 HLG OETF (+ 0
+    # pow) / 21 PQ OETF (+ 6 pow) and 12 for the 10-bit pack.
+    "B6 hdr_linear": (51, 1), "B6 hdr_hlg": (81, 1),
+    "B6 hdr_pq": (81, 7),
     # B11: the table reads replace the transfer functions: 9 for the
     # sRGB index, 9 for the OETF index, no pow.
-    "B11 hdr_linear": (96, 0), "B11 hdr_hlg": (114, 0),
-    "B11 hdr_pq": (114, 0),
+    "B11 hdr_linear": (61, 0), "B11 hdr_hlg": (79, 0),
+    "B11 hdr_pq": (79, 0),
     # The 10-bit planar arm: F16's count less its 3 converts, plus a
     # clamp (2), multiply and convert per channel.
-    "B6 hdr_linear_rgb_10bit": (111, 3),
-    "B11 hdr_linear_rgb_10bit": (105, 0),
+    "B6 hdr_linear_rgb_10bit": (60, 1),
+    "B11 hdr_linear_rgb_10bit": (70, 0),
     # sdr_out.cu per output pixel: 5 converts, 8 colour matrix, 12
     # round/clip/convert (the integer upsample is not counted).
     "B7": (25, 0),
@@ -506,7 +519,7 @@ def kernel_phases(dev, results: dict):
                     f"{name} {fmt} disagrees with the plain version")
             worst = max(worst, int(dd.max()))
             # The tables cross the memory bus once, like an input.
-            tables = 0
+            tables = nbytes(gm.srgb_rb_tables(dev))
             if luts:
                 tables = nbytes(color.lut_tensor("srgb_inv", dev))
                 if fmt in ("hdr_hlg", "hdr_pq"):
@@ -531,6 +544,32 @@ def kernel_phases(dev, results: dict):
         if not luts:
             results["B6r"] = dict(rows["hdr_linear_rgb_10bit"],
                                   library_ms=None)
+
+    # B6 and B11 at odd widths and heights (map scale 3: the weight
+    # table; scale 9: the weights computed per pixel), on crops of the
+    # decoded planes (rows of the padded IDCT output, unaligned): the
+    # same bounds as above.
+    for w_, h_, scale in ((1023, 765, 3), (1017, 765, 9)):
+        ch_, cw_ = (h_ + 1) // 2, (w_ + 1) // 2
+        crop = (y8[:, :h_, :w_], u8[:, :ch_, :cw_], v8[:, :ch_, :cw_],
+                decoded[3][:, :h_ // scale, :w_ // scale])
+        for name, luts in (("B6", False), ("B11", True)):
+            for fmt, (g_, t_) in (("hdr_linear", CONFIGS[0]),
+                                  ("hdr_hlg", CONFIGS[0]),
+                                  ("hdr_pq", CONFIGS[1]),
+                                  ("hdr_linear_rgb_10bit", CONFIGS[0])):
+                sc = torch.from_numpy(np.stack([batched.apply_scalars(
+                    batched.api0_metadata(t_), math.inf)] * FRAMES)).to(dev)
+                args = (*crop, sc, fmt, luts)
+                dd = code_diff(gm.apply_gainmap(*args),
+                               gm.apply_gainmap_plain(*args), fmt)
+                exact = float((dd == 0).double().mean())
+                log(f"{name} apply_gainmap {fmt} at {w_}x{h_}, scale "
+                    f"{scale}: max |diff| {int(dd.max())} ({exact:.6f} "
+                    f"exact)")
+                require(int(dd.max()) <= (0 if luts else 1) and
+                        exact >= 0.999, f"{name} {fmt} at {w_}x{h_} "
+                        f"disagrees with the plain version")
 
     # B7: bit-exact.
     out = gm.yuv420_to_rgba8888(y8, u8, v8)
@@ -652,6 +691,101 @@ def b2_premise_phase(dev):
     require(int(c.reshape(-1)[1342]) == 156, "B2 misses the V near-tie")
 
 
+def _f32_bits(x: float) -> int:
+    return int(np.array([x], np.float32).view(np.uint32)[0])
+
+
+def _f64_op(op: str) -> bool:
+    """Whether a SASS opcode runs on the float64 pipe: the adds,
+    multiplies, fused multiply-adds, compares and min/max, the converts
+    from or to float64 and the float64 special-function seeds."""
+    base = op.split(".")[0]
+    return (base in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+            or (base in ("F2F", "I2F", "F2I") and "64" in op and "F" in
+                op[4:])
+            or (base == "MUFU" and "64H" in op))
+
+
+def pow_phase(dev):
+    """B6's pow_exact against pow_rn (the double pow() it replaces),
+    bitwise, over every float32 its call sites can receive: [0.09, 1]
+    for the sRGB inverse OETF's base ((0.04045 + 0.055) / 1.055 =
+    0.0905...), every positive finite float32 for the PQ OETF's
+    exponents m1 and m2 (with the share of the PQ ratio's own range,
+    [c1, c2 / c3], apart); the share that took the double path; each
+    pow's float64 instructions in the built SASS (pow_probe_kernel) and
+    its time on 2^24 inputs; B6's sRGB red / blue tables against the
+    plain version, entry by entry."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.kernels import build
+    from libultrahdr_dev_tpu_torch.ops import color, gainmap as gm
+
+    m1, m2 = 2610.0 / 16384.0, 2523.0 / 4096.0 * 128.0
+    c1, c2, c3 = 3424.0 / 4096.0, 2413.0 / 4096.0 * 32.0, 2392.0 / 4096.0 * 32.0
+    inf_bits = _f32_bits(math.inf)
+    domains = (("sRGB base x^2.4 on [0.09, 1]", 2.4, _f32_bits(0.09),
+                _f32_bits(1.0) + 1),
+               ("PQ x^m1 on every positive finite float32", m1, 1, inf_bits),
+               ("PQ x^m2 on every positive finite float32", m2, 1, inf_bits),
+               ("PQ x^m2 on the PQ ratio's range [c1, c2 / c3]", m2,
+                _f32_bits(c1), _f32_bits(np.float32(c2) / np.float32(c3)) + 1))
+    for label, p, lo, hi in domains:
+        bad, slow = gm.pow_exact_check(p, lo, hi, dev)
+        log(f"pow_exact, {label}: {bad} of {hi - lo} results differ from "
+            f"pow_rn; {slow} ({slow / (hi - lo):.6%}) took the double path")
+        require(bad == 0, f"pow_exact differs from pow_rn ({label})")
+
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+         build.build()], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = ("pow_exact" if "pow_probe_kernelILb1E" in line else
+                  "pow_rn" if "pow_probe_kernelILb0E" in line else None)
+        elif fn and "*/" in line:
+            toks = [t for t in line.split("*/", 1)[1].split(";")[0].split()
+                    if not t.startswith("@")]
+            if toks and _f64_op(toks[0]):
+                counts[fn] = counts.get(fn, 0) + 1
+    log(f"SASS float64-pipe instructions: pow_rn (the double pow) "
+        f"{counts.get('pow_rn', 0)}, pow_exact {counts.get('pow_exact', 0)} "
+        f"(its fast path and its pow_rn fallback); POW_F64_OPS = "
+        f"{POW_F64_OPS} operations (the fast path, from the source)")
+    require(counts.get("pow_rn", 0) > 0 and counts.get("pow_exact", 0) > 0,
+            "no float64 instruction found in the pow probes' SASS")
+
+    # B6's sRGB red / blue tables against the plain version's
+    # linearization (ops/color.py on the card) of every (luma, chroma).
+    i = torch.arange(65536, device=dev)
+    y = (i >> 8).to(torch.float32) * color.recip(255.0)
+    c = ((i & 255).to(torch.float32) - 128.0) * color.recip(255.0)
+    zero = torch.zeros_like(c)
+    red = color.p3_yuv_to_rgb((y, zero, c))[0]
+    blue = color.p3_yuv_to_rgb((y, c, zero))[2]
+    want = torch.stack([color.srgb_inv_oetf(red), color.srgb_inv_oetf(blue)])
+    n_off = int((gm.srgb_rb_tables(dev) != want).sum())
+    log(f"B6 sRGB tables: {n_off} of {want.numel()} entries differ from the "
+        f"plain version's linearization")
+    require(n_off == 0, "B6's sRGB tables differ from the plain version")
+
+    x = torch.rand(1 << 24, generator=torch.Generator().manual_seed(SEED),
+                   dtype=torch.float32).to(dev) * 0.91 + 0.09
+    a, b = gm.pow_probe(x, 2.4), gm.pow_probe(x, 2.4, exact=False)
+    require(torch.equal(a, b), "pow_probe's pow_exact differs from its "
+            "pow_rn")
+    log(f"pow_probe = color.pow_rn (torch's float64 pow on the card): "
+        f"{torch.equal(a, color.pow_rn(x, 2.4))}")
+    ms = {k: graph_ms(lambda e=e: gm.pow_probe(x, 2.4, exact=e), 10)
+          for k, e in (("pow_exact", True), ("pow_rn", False))}
+    log(f"pow on 2^24 floats in [0.09, 1] (x^2.4): pow_exact "
+        f"{ms['pow_exact']:.4f} ms, pow_rn {ms['pow_rn']:.4f} ms by CUDA "
+        f"graph ({ms['pow_exact'] * 1e6 / (1 << 24):.4f} vs "
+        f"{ms['pow_rn'] * 1e6 / (1 << 24):.4f} ns a pow)")
+
+
 def b3_phase(dev, results: dict):
     """B3 (restart-interval Huffman encode) against its plain version on
     B2's coefficients of both configurations, and the finalized JPEG/R
@@ -694,6 +828,24 @@ def b3_phase(dev, results: dict):
 
     coefs, base, gmap, _ = kept[CONFIGS[0]]
     yz, uz, vz, gz = coefs
+    # Intervals of 43 and 300 MCUs on the same batch: chunks longer than
+    # a tile (parts of 256 blocks, chunks crossing tiles), short last
+    # chunks, frames of a block count no tile count divides.
+    for rr in (43, 300):
+        for name, got, want in (
+                ("base", de.encode_ycbcr_rst_stream(yz, uz, vz, W // 16,
+                                                    H // 16, rr),
+                 de.encode_ycbcr_rst_stream_plain(yz, uz, vz, W // 16,
+                                                  H // 16, rr)),
+                ("gain map", de.encode_gray_rst_stream(gz, rr),
+                 de.encode_gray_rst_stream_plain(gz, rr))):
+            require(torch.equal(got[0], want[0]) and
+                    torch.equal(got[1], want[1]),
+                    f"B3 r={rr} {name}: stream or chunk bits differ from "
+                    f"the plain version")
+        log(f"B3 r={rr}: base and gain map streams and chunk bits equal the "
+            f"plain version (tiling {de.rst_tiling(W * H // 256, rr, 6)} "
+            f"and {de.rst_tiling(W * H // 1024, rr, 1)})")
 
     def kernel():
         return (de.encode_ycbcr_rst_stream(yz, uz, vz, W // 16, H // 16, r),
@@ -708,6 +860,8 @@ def b3_phase(dev, results: dict):
         err=0, ms=cuda_ms(kernel, 5) / FRAMES,
         plain_ms=cuda_ms(plain, 1) / FRAMES,
         bytes=nbytes(*coefs, *base, *gmap) / FRAMES, library_ms=None)
+    log_breakdown(f"B3 base + gain map ({W}x{H}, batch {FRAMES}, r={r})",
+                  kernel, 5, results["B3"]["ms"] * FRAMES)
     return kept
 
 
@@ -2406,10 +2560,16 @@ def b19_phase(dev, results: dict):
                   r["ms"])
 
 
+# B12-enc's restart intervals (MCUs): tiles of whole intervals (1, 4,
+# 17) and intervals longer than a tile at every sampling (86, 300).
+B12E_INTERVALS = (1, 4, 17, 86, 300)
+
+
 def b12e_phase(dev, results: dict):
     """B12-enc (encode_jpeg with restart intervals: B3 at the image's
     sampling) on 4000x3000 gray, 4:2:0, 4:2:2 and 4:4:4 blocks at
-    r in {1, 4, 17}: the kernel's stream and chunk bits equal the plain
+    the intervals B12E_INTERVALS: the kernel's stream and chunk bits
+    equal the plain
     version's, and its finalized scan the host coder's with RSTn
     markers; encode_jpeg's 4:2:0 bytes are the headers with a DRI, that
     scan and EOI."""
@@ -2423,7 +2583,7 @@ def b12e_phase(dev, results: dict):
     for name, (planes, samp) in _yuv_variants(y_np[0], uv_np[0]).items():
         c = codec.jpeg_coefs(planes, 90, device=dev)
         hb = _host_blocks(c)
-        for r in (1, 4, 17):
+        for r in B12E_INTERVALS:
             got = codec.entropy_stage(c, r)
             if samp is None:
                 want = de.encode_gray_rst_stream_plain(c.coefs[0], r)
@@ -2442,8 +2602,8 @@ def b12e_phase(dev, results: dict):
                     f"B12-enc {name} r={r}: scan differs from the host "
                     f"coder's")
             kept[name, r] = host
-        log(f"B12-enc {name}: r = 1, 4, 17 kernel = plain = host coder "
-            f"with RSTn markers ({len(kept[name, 4])} bytes at r=4)")
+        log(f"B12-enc {name}: r = {B12E_INTERVALS} kernel = plain = host "
+            f"coder with RSTn markers ({len(kept[name, 4])} bytes at r=4)")
     planes, samp = _yuv_variants(y_np[0], uv_np[0])["4:2:0"]
     blob = codec.encode_jpeg(planes, 90, restart_interval=4, device=dev)
     require(blob == codec.ycbcr_jpeg_headers(GW, GH, 90, samp,
@@ -3393,6 +3553,7 @@ def main() -> int:
                lambda: kernel_phases(dev, results))]
     kept = {}
     phases.append(("B2 tensor-core premise", lambda: b2_premise_phase(dev)))
+    phases.append(("B6 pow_exact", lambda: pow_phase(dev)))
     phases.append(("B3", lambda: kept.update(b3_phase(dev, results))))
     phases.append(("B9", lambda: b9_phase(dev, results)))
     phases.append(("B4", lambda: b4_phase(dev, results, kept)))

@@ -2,7 +2,8 @@
 """Kernels of this tree beside the same kernels of another checkout, in
 one process on one NVIDIA GPU: B2 (fdct_quant), B5 (dequant_idct), B4
 and B22 (the Huffman decode, dense and log emission), B12-dec (B4 then
-B5) and B19 (the restart-less Huffman encode).
+B5), B19 (the restart-less Huffman encode), B3 and B12-enc (the
+restart-interval Huffman encode) and B6 / B11 (the gain-map apply).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
@@ -12,19 +13,26 @@ git-ignored _build directory) and called through their own wrappers on
 chip_smoke.py's inputs: B1's planes and gain map of the 4080x3072 batch
 of 2 at quality 95 (B2), their coefficients (B5), the API-0 JPEG/Rs of
 that batch (B4, B22: base and gain map), a 4000x3000 4:2:0 JPEG from
-encode_jpeg, restart-less, decoded by B4 then B5 (B12-dec), and the
-general route's 4000x3000 base and 1000x750 gain map (B19).
+encode_jpeg, restart-less, decoded by B4 then B5 (B12-dec), the
+general route's 4000x3000 base and 1000x750 gain map (B19), B2's
+coefficients of the batch (B3: base and gain map at the device routes'
+interval of 4 MCUs), encode_jpeg's coefficients of a 4000x3000 4:2:0
+frame at r = 4 (B12-enc), and B5's pixels of the batch (B6 in its four
+output formats, B11 to HLG).
 
 Checks: B2 of both trees bitwise equal to the plain version; B5 of both
 trees bitwise equal to each other, with their off-count against the
 plain version; B4, B22 and B12-dec of both trees bitwise equal to each
-other; B19's streams and bits of both trees bitwise equal.
+other; B19's, B3's and B12-enc's streams and bits of both trees bitwise
+equal; B6 (F16, HLG, PQ, 10-bit planar) and B11 (HLG) of both trees
+bitwise equal.
 
 Times, ms per frame, in turns (other, this, this, other): B2, B5, B4,
 B22 and B12-dec by CUDA-graph replay and by CUDA events, B20 (B1 + B2)
-by CUDA graph, and B19 by CUDA events with its syncs (as chip_smoke.py
-times it); then each tree's device ms by kernel (torch.profiler) of B4,
-B22, B12-dec and B19. Prints the card's name and power limit and, last,
+by CUDA graph, B19, B3 and B12-enc by CUDA events with their syncs (as
+chip_smoke.py times them), B6 and B11 by CUDA graph; then each tree's
+device ms by kernel (torch.profiler) of B4, B22, B12-dec, B19, B3,
+B12-enc, B6 (F16, PQ) and B11. Prints the card's name and power limit and, last,
 one JSON object of the times.
 """
 
@@ -33,8 +41,11 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import json
+import math
 import os
 import sys
+
+import numpy as np
 
 PKG = "libultrahdr_dev_tpu_torch"
 
@@ -53,8 +64,10 @@ def load_other(root: str):
 
 def modules(prefix: str) -> dict:
     """The timed modules of one tree's package."""
-    return {k: importlib.import_module(f"{prefix}.jpeg.{k}")
+    mods = {k: importlib.import_module(f"{prefix}.jpeg.{k}")
             for k in ("dct", "device_decode", "device_entropy")}
+    mods["gainmap"] = importlib.import_module(f"{prefix}.ops.gainmap")
+    return mods
 
 
 def main(argv) -> int:
@@ -150,8 +163,50 @@ def main(argv) -> int:
         return (de.encode_ycbcr_stream(yz, uz, vz, mx, my)
                 + de.encode_gray_stream(gz))
 
+    # B3: B2's coefficients of the batch, base and gain map, r = 4.
+    r = batched.RST_INTERVAL
+    coefs = batched.encode_coefs_stage(y, uv, gamut, tf, 95)
+
+    def b3(m):
+        de = m["device_entropy"]
+        return (de.encode_ycbcr_rst_stream(*coefs[:3], cs.W // 16,
+                                           cs.H // 16, r)
+                + de.encode_gray_rst_stream(coefs[3], r))
+
+    # B12-enc: encode_jpeg's 4:2:0 coefficients at 4000x3000, r = 4.
+    ey, euv = cs.synth_p010(1, cs.GH, cs.GW, cs.SEED + 95)
+    ec = codec.jpeg_coefs(cs._yuv_variants(ey[0], euv[0])["4:2:0"][0], 90,
+                          device=dev)
+    ex, ey_ = cs._mcus(ec)
+
+    def b12e(m):
+        return m["device_entropy"].encode_ycbcr_rst_stream(
+            *ec.coefs, ex, ey_, 4, (2, 2))
+
+    # B6 / B11: B5's pixels of the batch and its gain map.
+    y8, u8, v8 = pix["this"][:3]
+    g8 = pix["this"][3][:, :cs.H // 4, :cs.W // 4]
+    apply_args = {}
+    for fmt, (g_, t_) in (("hdr_linear", cs.CONFIGS[0]),
+                          ("hdr_hlg", cs.CONFIGS[0]),
+                          ("hdr_pq", cs.CONFIGS[1]),
+                          ("hdr_linear_rgb_10bit", cs.CONFIGS[0])):
+        sc = torch.from_numpy(np.stack([batched.apply_scalars(
+            batched.api0_metadata(t_), math.inf)] * frames)).to(dev)
+        apply_args[fmt] = (y8, u8, v8, g8, sc, fmt)
+
+    def b6(m, fmt, luts=False):
+        return [m["gainmap"].apply_gainmap(*apply_args[fmt], luts)]
+
+    applies = {"B6 F16": lambda m: b6(m, "hdr_linear"),
+               "B6 HLG": lambda m: b6(m, "hdr_hlg"),
+               "B6 PQ": lambda m: b6(m, "hdr_pq"),
+               "B6r": lambda m: b6(m, "hdr_linear_rgb_10bit"),
+               "B11 HLG": lambda m: b6(m, "hdr_hlg", True)}
+
     for what, fn in (("B4", b4), ("B22", lambda m: b4(m, "log")),
-                     ("B12-dec", b12), ("B19", b19)):
+                     ("B12-dec", b12), ("B19", b19), ("B3", b3),
+                     ("B12-enc", b12e), *applies.items()):
         a, b = fn(trees["other"]), fn(trees["this"])
         same = len(a) == len(b) and all(map(torch.equal, a, b))
         print(f"{what} of both trees bitwise equal: {same}", flush=True)
@@ -180,7 +235,12 @@ def main(argv) -> int:
                  B22_events=cs.cuda_ms(lambda: b4(m, "log"), 10) / frames,
                  B12dec_graph=cs.graph_ms(lambda: b12(m), 10),
                  B12dec_events=cs.cuda_ms(lambda: b12(m), 10),
-                 B19_events=cs.cuda_ms(lambda: b19(m), 10))
+                 B19_events=cs.cuda_ms(lambda: b19(m), 10),
+                 B3_events=cs.cuda_ms(lambda: b3(m), 10) / frames,
+                 B12enc_events=cs.cuda_ms(lambda: b12e(m), 10))
+        for what, fn in applies.items():
+            t[what.replace(" ", "_") + "_graph"] = cs.graph_ms(
+                lambda fn=fn: fn(m), 10) / frames
         print(f"turn {turn} {name}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in t.items()) + f" ms/frame ({smi})",
             flush=True)
@@ -190,7 +250,13 @@ def main(argv) -> int:
         for what, fn, per in (("B4", lambda: b4(m), frames),
                               ("B22", lambda: b4(m, "log"), frames),
                               ("B12-dec", lambda: b12(m), 1),
-                              ("B19", lambda: b19(m), 1)):
+                              ("B19", lambda: b19(m), 1),
+                              ("B3", lambda: b3(m), frames),
+                              ("B12-enc", lambda: b12e(m), 1),
+                              ("B6 F16", lambda: b6(m, "hdr_linear"), frames),
+                              ("B6 PQ", lambda: b6(m, "hdr_pq"), frames),
+                              ("B11 HLG", lambda: b6(m, "hdr_hlg", True),
+                               frames)):
             by = {k: v / per
                   for k, v in cs.device_ms_by_kernel(fn, 10).items()}
             by_kernel.setdefault(name, {})[what] = by

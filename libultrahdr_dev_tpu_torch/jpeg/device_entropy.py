@@ -19,7 +19,9 @@ Its count pass also finds the longest block: the JAX encoder's
 per-block buffer holds ``BLOCK_BIT_CAP`` bits, and its batched callers
 write the whole batch restart-less when a block passes it, so a caller
 that passes ``block_cap`` gets None instead of a stream then (the write
-pass is not launched).
+pass is not launched). Its kernels work in B19's tiles cut at the
+intervals (``rst_tiling``): whole intervals a tile, or parts of one
+long interval.
 
 What B19 computes, per frame: the whole scan as one MSB-first bit
 stream, DC predicted across the scan with no reset (each block from the
@@ -53,14 +55,15 @@ import numpy as np
 import torch
 
 from ..kernels import build
-from . import tables
+from . import dct, tables
 
 # The JAX encoder's per-block word buffer holds (_BLOCK_WORDS - 1) * 32
 # bits; a longer block raises its overflow flag (device_entropy.py:
 # 361-372) and its batched callers fall back to restart-less JPEGs.
 BLOCK_BIT_CAP = 608
 
-# Blocks a B19 tile (a CTA of kernels/csrc/huff_encode.cu's rl_* passes).
+# Blocks a B19 tile (a CTA of kernels/csrc/huff_encode.cu's rl_* passes),
+# and the most a B3 tile holds.
 RL_TILE = 256
 
 
@@ -210,7 +213,9 @@ def _assemble(vals, lens, lane, n_lanes: int):
 
 
 def _code_tables(dev) -> torch.Tensor:
-    return torch.from_numpy(CODE_TABLES).to(dev)
+    """CODE_TABLES on `dev`, uploaded once per device: a pageable upload
+    on every call would wait for the stream's earlier work."""
+    return dct._on(dev, "huffman code tables", CODE_TABLES)
 
 
 def _ycbcr_blocks(yz, uz, vz, mcus_x: int, mcus_y: int, sampling):
@@ -343,33 +348,52 @@ def _geometry(n: int, sampling, mcus_x: int, n_mcus: int, y, u):
             y.shape[1], u.shape[1])
 
 
+def rst_tiling(n_mcus: int, r_mcus: int, per_mcu: int):
+    """B3's tiles of a frame: (K, P, T). A chunk is r_mcus * per_mcu
+    blocks; K whole chunks a tile of at most RL_TILE blocks (P = 1), or
+    for longer chunks P parts of RL_TILE blocks a chunk (K = 1); T
+    tiles a frame."""
+    cb = r_mcus * per_mcu
+    nc = n_chunks(n_mcus, r_mcus)
+    if cb <= RL_TILE:
+        k = RL_TILE // cb
+        return k, 1, -(-nc // k)
+    p = -(-cb // RL_TILE)
+    return 1, p, nc * p
+
+
 def _launch(wrapper, planes, nc: int, r_mcus: int, geom, block_cap):
-    """B3: count pass + scan, one sync for the total words and the
-    longest block, then the write pass (none, and None returned, when
-    a block passes block_cap)."""
+    """B3: count pass + scan, one sync for the total words, the longest
+    block and the write pass's shared words, then the write pass (none,
+    and None returned, when a block passes block_cap)."""
     y, u, v = planes
     dev = y.device
-    n = geom[0]
+    n, color, hs, vs, _, n_mcus = geom[:6]
+    per_mcu = hs * vs + 2 if color else 1
+    k, p, t = rst_tiling(n_mcus, r_mcus, per_mcu)
     tabs = _code_tables(dev)
     bits = torch.empty((n, nc), dtype=torch.int32, device=dev)
-    words = torch.empty(n * nc, dtype=torch.int32, device=dev)
-    offs = torch.zeros(n * nc + 2, dtype=torch.int64, device=dev)
+    blen = torch.empty(n * n_mcus * per_mcu, dtype=torch.int32, device=dev)
+    tval = torch.empty(n * t, dtype=torch.int32, device=dev)
+    tbit = torch.empty(n * t, dtype=torch.int64, device=dev)
+    meta = torch.empty(3, dtype=torch.int64, device=dev)
     lib = build.get_lib()
     stream = build.stream_of(y)
-    args = (geom[0], nc, r_mcus) + geom[1:]
+    args = (n, nc, r_mcus) + geom[1:] + (k, p, t)
     build.check(lib.uhdr_huff_encode_count(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        bits.data_ptr(), words.data_ptr(), offs.data_ptr(), *args, stream),
-        "uhdr_huff_encode_count")
+        bits.data_ptr(), blen.data_ptr(), tval.data_ptr(), tbit.data_ptr(),
+        meta.data_ptr(), *args, stream), "uhdr_huff_encode_count")
     wrapper.launches += 1
-    total, longest = offs[-2:].tolist()  # the one sync
+    total, longest, max_words = meta.tolist()  # the one sync
     if block_cap is not None and longest > block_cap:
         return None
-    out = torch.empty(max(total, 1) * 4, dtype=torch.uint8, device=dev)
+    alloc = torch.zeros if p > 1 else torch.empty
+    out = alloc(max(total, 1) * 4, dtype=torch.uint8, device=dev)
     build.check(lib.uhdr_huff_encode_write(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        offs.data_ptr(), out.data_ptr(), *args, stream),
-        "uhdr_huff_encode_write")
+        bits.data_ptr(), blen.data_ptr(), tbit.data_ptr(), out.data_ptr(),
+        *args, max_words, stream), "uhdr_huff_encode_write")
     wrapper.write_launches += 1
     return out[:total * 4], bits
 

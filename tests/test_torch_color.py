@@ -105,3 +105,35 @@ def test_packs_bit_equal():
     got = tc.pack_rgba_f16(tuple(torch.from_numpy(c) for c in big))
     np.testing.assert_array_equal(got.numpy().view(np.uint16), want)
     assert jnp.dtype(want.dtype) == jnp.uint16
+
+
+def test_import_makes_the_first_vector_math_call():
+    """The cause of a flaky hlg_oetf case: MKL's vector math (torch's
+    CPU sqrt, log, exp, log2) sets itself up on its first call, and when
+    that call is a parallel region a worker thread can return ~12-bit
+    results (torch.sqrt of this file's 20,006 inputs up to 3,930 ULP
+    off). Importing the port makes that first call on one thread: a
+    fresh interpreter's VML mode word carries the bits a torch VML call
+    sets (0x140000) right after the import."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import ctypes, os, torch\n"
+        "lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__),"
+        " 'lib', 'libtorch_cpu.so'))\n"
+        "if not hasattr(lib, 'vmlGetMode'):\n"
+        "    print('none'); raise SystemExit\n"
+        "before = lib.vmlGetMode()\n"
+        "import libultrahdr_dev_tpu_torch.ops.color\n"
+        "print(before, lib.vmlGetMode())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120,
+                         cwd=root).stdout.split()
+    if out == ["none"]:
+        pytest.skip("this torch has no MKL vector math")
+    before, after = map(int, out)
+    assert before & 0x140000 == 0
+    assert after & 0x140000 == 0x140000
