@@ -2780,6 +2780,133 @@ def _decoded_planes(dev, y_np, uv_np):
     return planes, sc
 
 
+def _rice_edge_batch(bits: int, n: int, h: int, w: int, kind: str,
+                     rng) -> np.ndarray:
+    """A readback source at the edges B15 and B16 branch on: an (n, 3h,
+    w) u8 composite (bits 8), (n, h, w) RGBA1010102 words with alpha 3
+    (bits 10) or (n, h, w, 4) F16 halves with alpha 1.0 (bits 16), of
+    `kind` "smooth" (a random walk along rows), "zero", "noise" (full
+    range: the unary cap and the largest k) or "k15" (bits 16: G - R and
+    G - B flipping by 2^15 from row to row, whose best k is 15)."""
+    top = 1 << bits
+    shape = (n, 3 * h, w) if bits == 8 else (n, h, w, 3)
+    if kind == "zero":
+        ch = np.zeros(shape, np.int64)
+    elif kind == "noise":
+        ch = rng.integers(0, top, shape)
+    elif kind == "k15":
+        g = rng.integers(0, top, shape[:3])
+        flip = (np.arange(h) % 2 * 0x8000)[None, :, None]
+        ch = np.stack([g ^ flip, g, g ^ flip ^ 0x8000], axis=-1)
+    else:
+        ch = np.clip(np.cumsum(rng.integers(-3, 4, shape), axis=2)
+                     + top // 2, 0, top - 1)
+    if bits == 8:
+        return ch.astype(np.uint8)
+    if bits == 10:
+        return (ch[..., 0] | (ch[..., 1] << 10) | (ch[..., 2] << 20)
+                | (3 << 30)).astype(np.uint32).view(np.int32)
+    alpha = np.full(shape[:3] + (1,), 0x3C00, np.int64)
+    return np.concatenate([ch, alpha], axis=-1).astype(np.uint16) \
+        .view(np.int16)
+
+
+#: (label, n, h, w, kind) of the B15/B16 edge inputs: one partial
+#: segment a row, w = 257, nh = 40 (the three planes reset at different
+#: rows), an all-zero batch (every segment in the zero rank, an empty
+#: remainder family) and full-range noise.
+RICE_EDGES = (("w 100", 2, 24, 100, "smooth"), ("w 257", 1, 33, 257, "smooth"),
+              ("nh 40", 1, 40, 300, "smooth"), ("all zero", 1, 40, 300, "zero"),
+              ("noise", 2, 40, 300, "noise"))
+#: B16's order tile (kernels/csrc/packio.cu kOrderTile).
+RICE_ORDER_TILE = 2048
+
+
+def rice_edge_checks(dev, bits: int, seed: int):
+    """B15 (vertical, MED, both) and B16 (two-phase on the host plan,
+    fused on the plan's paddings (fit) and on one row a bucket (no fit))
+    against their plain versions, bitwise, at `bits` on RICE_EDGES (and,
+    at 16 bits, samples whose best k is 15), the native host unpack of
+    each two-phase blob = the source; then B16's order and emit on
+    synthetic maps of nseg one below, at and one above the order's tile
+    and over several tiles, with ties in every rank of both families."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.kernels import build
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    rng = np.random.default_rng(seed)
+    edges = RICE_EDGES + ((("k15", 1, 40, 300, "k15"),) if bits == 16
+                         else ())
+    nk = len(packio._kset(bits))
+    for label, n, h, w, kind in edges:
+        xh = _rice_edge_batch(bits, n, h, w, kind, rng)
+        x = torch.from_numpy(xh).to(dev)
+        for schemes in ((False,), (True,), (False, True)):
+            zg, mg = packio.rice_stats(x, schemes)
+            zr, mr = packio.rice_stats_plain(x, schemes)
+            require(all(map(torch.equal, zg, zr)) and torch.equal(mg, mr),
+                    f"B15 {bits}-bit {label} {schemes} differs from its "
+                    f"plain version")
+        maps = mg.cpu().numpy()
+        fits, ks = [], []
+        for pick, med in ((0, False), (1, True)):
+            _, _, rp, up, offs, _ = packio._rice_host_plan(
+                maps[2 * pick], maps[2 * pick + 1], 10**15, bits)
+            kuw = mg[2 * pick:2 * pick + 2]
+            blob = packio.rice_pack(zg[pick], kuw, offs, rp, up, bits)
+            require(torch.equal(blob, packio.rice_pack_plain(
+                zg[pick], kuw, offs, rp, up)),
+                f"B16 {bits}-bit {label} two-phase differs from its plain "
+                f"version")
+            for pads in ((rp, up), ((1,) * nk, (1,) * 7)):
+                fg = packio.rice_fused(x, med, *pads)
+                require(torch.equal(fg, packio.rice_fused_plain(x, med,
+                                                                *pads)),
+                        f"B16 {bits}-bit {label} fused differs from its "
+                        f"plain version")
+                fits.append(int(fg[packio._fused_blob_words(*pads)]))
+            out = packio._host_unpack_rice(
+                blob.cpu().numpy().view(np.uint32), maps[2 * pick],
+                maps[2 * pick + 1], rp, up, n, h, w, med, bits)
+            require(np.array_equal(out.view(xh.dtype), xh),
+                    f"{bits}-bit {label} host unpack != the source")
+            ks.append(sorted(set(maps[2 * pick].tolist())))
+        log(f"B15/B16 {bits}-bit edge {label} ({n}x{h}x{w}, {mg.shape[1]} "
+            f"segments): kernels = plain for every scheme, two-phase and "
+            f"fused (fit flags {fits}), host unpack = source; k codes "
+            f"vertical {ks[0]}, MED {ks[1]}")
+    zc = packio._zero_code(nk)
+    t = RICE_ORDER_TILE
+    scratch = build.get_lib().uhdr_rice_order_scratch
+    require(scratch(t) < scratch(t + 1), f"{t} is not B16's order tile")
+    for nseg in (t - 1, t, t + 1, 3 * t + 517):
+        kc = rng.integers(0, nk + 1, nseg)
+        kc[kc == nk] = zc
+        uw = np.where(kc == zc, 0, rng.integers(8, 25, nseg))
+        kuw_h = np.stack([kc, uw]).astype(np.uint8)
+        zs_h = rng.integers(0, 1 << 12, (nseg, RICE_L)).astype(np.int16)
+        _, _, rp, up, offs, _ = packio._rice_host_plan(kuw_h[0], kuw_h[1],
+                                                       10**15, bits)
+        kuw = torch.from_numpy(kuw_h).to(dev)
+        zs = torch.from_numpy(zs_h).to(dev)
+        require(torch.equal(packio.rice_pack(zs, kuw, offs, rp, up, bits),
+                            packio.rice_pack_plain(zs, kuw, offs, rp, up)),
+                f"B16 {bits}-bit order/emit at nseg {nseg} differs from "
+                f"its plain version")
+        sidx = torch.empty((2, nseg), dtype=torch.int32, device=dev)
+        packio._rice_order(kuw, sidx, nk=nk)
+        k32 = kuw.to(torch.int32)
+        want = (packio._stable_order(torch.where(k32[0] == zc, nk, k32[0]),
+                                     0),
+                packio._stable_order(packio._urank(k32[0], k32[1], zc), 0))
+        require(all(torch.equal(sidx[f].long(), want[f]) for f in (0, 1)),
+                f"B16 {bits}-bit order at nseg {nseg} differs from the "
+                f"stable sort")
+    log(f"B16 {bits}-bit order and emit = plain at nseg {t - 1}, {t}, "
+        f"{t + 1} and {3 * t + 517} (tile {t}; ties in every rank)")
+
+
 def packio_phase(dev, results: dict, kept: dict):
     """B0, B14, B18, B15 and B16 against their plain versions at the
     serving loop's shapes (4080x3072, batch SERVE_FRAMES), bitwise: the
@@ -2787,7 +2914,9 @@ def packio_phase(dev, results: dict, kept: dict):
     (dense mode), each also equal to the input; B18 over a decoded
     batch's planes; B15 (vertical, MED, both) and B16 (two-phase on the
     host plan, fused on the same paddings and on tight ones) over that
-    composite. Keeps the planes and composite for the stage times."""
+    composite, then at the edges (rice_edge_checks); B16's order and emit
+    timed apart, B15's load and residuals apart from its reduction
+    (rice_parts). Keeps the planes and composite for the stage times."""
     import torch
 
     from libultrahdr_dev_tpu_torch.device import upload
@@ -2866,6 +2995,8 @@ def packio_phase(dev, results: dict, kept: dict):
     nseg = mg.shape[1]
     log(f"B15 rice_stats: zs and maps = plain for vertical, MED and both "
         f"({nseg} segments)")
+    require(all(map(torch.equal, packio._rice_residuals(comp, (False, True)),
+                    zg)), "B15's residuals-only launch differs")
     row = {}
     for label, schemes in (("one", (True,)), ("both", (False, True))):
         row[label] = dict(
@@ -2912,8 +3043,9 @@ def packio_phase(dev, results: dict, kept: dict):
     emit_ms = cuda_ms(lambda: packio._rice_emit(zs, kuw, sidx, offs_dev, rp,
                                                 up, out), 20)
     require(torch.equal(out, blob16), "B16's timed launches differ")
-    log(f"B16 MED: order (one CTA) {order_ms:.4f} ms, emit {emit_ms:.4f} ms "
-        f"per batch of {n}")
+    log(f"B16 MED: order (count, scan, place) {order_ms:.4f} ms, emit "
+        f"{emit_ms:.4f} ms per batch of {n}")
+    rice_edge_checks(dev, 8, SEED + 210)
     results["B16"] = dict(
         err=0, ms=per_frame(order_ms + emit_ms),
         plain_ms=per_frame(cuda_ms(lambda: packio.rice_pack_plain(
@@ -2933,6 +3065,23 @@ def packio_phase(dev, results: dict, kept: dict):
                 comp, (False, True)), "B15")):
         log_breakdown(f"{label} (batch of {n})", fn, 10,
                       results[key]["ms"] * n)
+    rice_parts(comp, "B15", results["B15"]["ms"] * n, n)
+
+
+def rice_parts(x, label: str, full_ms: float, n: int):
+    """B15's two parts on x (both schemes): the load and residuals (the
+    kernel without its per-segment reduction and maps) and, by
+    difference from the whole kernel's full_ms, the reduction and pick of
+    k; with the residuals-only launch's device time."""
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    run = lambda: packio._rice_residuals(x, (False, True))  # noqa: E731
+    res_ms = cuda_ms(run, 20)
+    log(f"{label} parts (batch of {n}): load + residuals "
+        f"{res_ms / n:.4f} ms/frame, reduction + pick of k "
+        f"{(full_ms - res_ms) / n:.4f} ms/frame (of {full_ms / n:.4f})")
+    log_breakdown(f"{label} load + residuals only (batch of {n})", run, 10,
+                  res_ms)
 
 
 def _decoded_pixels(dev, kept: dict) -> dict:
@@ -2956,7 +3105,9 @@ def readback_phase(dev, results: dict, kept: dict):
     (fit) and on tight ones (no fit), the native host unpack of each
     two-phase blob = the device pixels; B17's widths and pack on the HLG
     pixels, its host unpack = the pixels; B21's widths and pack on the
-    10-bit planar pixels, unpack_plane_host = the plane."""
+    10-bit planar pixels, unpack_plane_host = the plane. B15 and B16 at
+    each width also at the edges (rice_edge_checks), with B16's order
+    and emit timed apart and B15's two parts (rice_parts)."""
     import torch
 
     from libultrahdr_dev_tpu_torch.parallel import packio
@@ -2978,6 +3129,9 @@ def readback_phase(dev, results: dict, kept: dict):
                     f"B15 {bits}-bit {schemes} differs from its plain "
                     f"version")
         nseg = mg.shape[1]
+        require(all(map(torch.equal, packio._rice_residuals(
+            x, (False, True)), zg)), f"B15 {bits}-bit residuals-only launch "
+            f"differs")
         results[f"B15/{bits}"] = dict(
             err=0, library_ms=None,
             ms=per_frame(cuda_ms(lambda: packio.rice_stats(
@@ -3022,6 +3176,22 @@ def readback_phase(dev, results: dict, kept: dict):
         log_breakdown(f"B16 {bits}-bit MED (batch of {n})",
                       lambda: packio.rice_pack(zs, kuw, offs, rp, up, bits),
                       10, results[f"B16/{bits}"]["ms"] * n)
+        sidx = torch.empty((2, nseg), dtype=torch.int32, device=dev)
+        offs_dev = torch.from_numpy(np.asarray(offs, np.int32)).to(dev)
+        out = torch.empty_like(blob)
+        order_ms = cuda_ms(lambda: packio._rice_order(kuw, sidx, nk=len(rp)),
+                           20)
+        emit_ms = cuda_ms(lambda: packio._rice_emit(zs, kuw, sidx, offs_dev,
+                                                    rp, up, out), 20)
+        require(torch.equal(out, blob), f"B16 {bits}-bit timed launches "
+                f"differ")
+        log(f"B16 {bits}-bit MED: order (count, scan, place) "
+            f"{order_ms:.4f} ms, emit {emit_ms:.4f} ms per batch of {n}")
+        log_breakdown(f"B15 {bits}-bit both schemes (batch of {n})",
+                      lambda: packio.rice_stats(x, (False, True)), 10,
+                      results[f"B15/{bits}"]["ms"] * n)
+        rice_parts(x, f"B15 {bits}-bit", results[f"B15/{bits}"]["ms"] * n, n)
+        rice_edge_checks(dev, bits, SEED + 211 + bits)
 
     # B17 on the HLG pixels.
     x = pix["hdr_hlg"]

@@ -3,7 +3,8 @@
 one process on one NVIDIA GPU: B2 (fdct_quant), B5 (dequant_idct), B4
 and B22 (the Huffman decode, dense and log emission), B12-dec (B4 then
 B5), B19 (the restart-less Huffman encode), B3 and B12-enc (the
-restart-interval Huffman encode) and B6 / B11 (the gain-map apply).
+restart-interval Huffman encode), B6 / B11 (the gain-map apply) and
+B15 / B16 (Rice pass 1 and the Rice pack of the packed readbacks).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
@@ -17,23 +18,33 @@ encode_jpeg, restart-less, decoded by B4 then B5 (B12-dec), the
 general route's 4000x3000 base and 1000x750 gain map (B19), B2's
 coefficients of the batch (B3: base and gain map at the device routes'
 interval of 4 MCUs), encode_jpeg's coefficients of a 4000x3000 4:2:0
-frame at r = 4 (B12-enc), and B5's pixels of the batch (B6 in its four
-output formats, B11 to HLG).
+frame at r = 4 (B12-enc), B5's pixels of the batch (B6 in its four
+output formats, B11 to HLG), and chip_smoke.py's readback inputs (a
+4080x3072 batch of 4 decoded to the u8 planes composite, to HLG
+RGBA1010102 and to F16: B15 and B16 at 8, 10 and 16 bits).
 
 Checks: B2 of both trees bitwise equal to the plain version; B5 of both
 trees bitwise equal to each other, with their off-count against the
 plain version; B4, B22 and B12-dec of both trees bitwise equal to each
 other; B19's, B3's and B12-enc's streams and bits of both trees bitwise
 equal; B6 (F16, HLG, PQ, 10-bit planar) and B11 (HLG) of both trees
-bitwise equal.
+bitwise equal; B15's residuals and maps (both schemes), B16's orders,
+two-phase blobs (each scheme on its host plan) and fused buffers (fit
+and no fit) of both trees bitwise equal, and equal to the plain
+versions; B17's widths and pack of both trees bitwise equal; each
+tree's packed fetch of the composite, the HLG and the F16 pixels = the
+source.
 
 Times, ms per frame, in turns (other, this, this, other): B2, B5, B4,
 B22 and B12-dec by CUDA-graph replay and by CUDA events, B20 (B1 + B2)
 by CUDA graph, B19, B3 and B12-enc by CUDA events with their syncs (as
 chip_smoke.py times them), B6 and B11 by CUDA graph; then each tree's
 device ms by kernel (torch.profiler) of B4, B22, B12-dec, B19, B3,
-B12-enc, B6 (F16, PQ) and B11. Prints the card's name and power limit and, last,
-one JSON object of the times.
+B12-enc, B6 (F16, PQ) and B11; B15 (both schemes) and B16 (the MED
+two-phase pack: order and emit) at 8, 10 and 16 bits by CUDA events
+with each tree's device ms by kernel, and the three packed fetches
+(B15 + B16 + D2H + native unpack) by the host clock, synchronized. Prints the card's name and power
+limit and, last, one JSON object of the times.
 """
 
 from __future__ import annotations
@@ -67,7 +78,123 @@ def modules(prefix: str) -> dict:
     mods = {k: importlib.import_module(f"{prefix}.jpeg.{k}")
             for k in ("dct", "device_decode", "device_entropy")}
     mods["gainmap"] = importlib.import_module(f"{prefix}.ops.gainmap")
+    mods["packio"] = importlib.import_module(f"{prefix}.parallel.packio")
     return mods
+
+
+def rice_timing(cs, trees: dict, dev, smi: str):
+    """B15 and B16 of both trees on chip_smoke.py's readback inputs:
+    bitwise checks, then times in turns and device ms by kernel. ->
+    (times, by_kernel)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n = cs.SERVE_FRAMES
+    y_np, uv_np = cs.synth_p010(n, cs.H, cs.W, cs.SEED + 200)
+    planes, sc = cs._decoded_planes(dev, y_np, uv_np)
+    pix = cs._decoded_pixels(dev, {"planes": planes, "scalars": sc})
+    arms = {8: gm.planes_composite(*planes), 10: pix["hdr_hlg"],
+            16: pix["hdr_linear"]}
+    both = (False, True)
+    packs = {}
+    for bits, x in arms.items():
+        outs = {name: m["packio"].rice_stats(x, both)
+                for name, m in trees.items()}
+        zr, mr = packio.rice_stats_plain(x, both)
+        for name, (zg, mg) in outs.items():
+            cs.require(all(map(torch.equal, zg, zr)) and torch.equal(mg, mr),
+                       f"{name}: B15 {bits}-bit differs from the plain "
+                       f"version")
+        zg, mg = outs["this"]
+        maps = mg.cpu().numpy()
+        for pick, med in ((0, False), (1, True)):
+            _, _, rp, up, offs, _ = packio._rice_host_plan(
+                maps[2 * pick], maps[2 * pick + 1], 10**15, bits)
+            kuw = mg[2 * pick:2 * pick + 2]
+            ref = packio.rice_pack_plain(zg[pick], kuw, offs, rp, up)
+            for name, m in trees.items():
+                pk = m["packio"]
+                sidx = torch.empty((2, kuw.shape[1]), dtype=torch.int32,
+                                   device=dev)
+                pk._rice_order(kuw, sidx, nk=len(rp))
+                blob = pk.rice_pack(zg[pick], kuw, offs, rp, up, bits)
+                cs.require(torch.equal(blob, ref), f"{name}: B16 {bits}-bit "
+                           f"two-phase differs from the plain version")
+                packs.setdefault((bits, med), []).append(sidx)
+                for pads in ((rp, up), ((32,) * len(rp), (32,) * 7)):
+                    fused = (pk.rice_fused(x, med, *pads),
+                             packio.rice_fused_plain(x, med, *pads))
+                    cs.require(torch.equal(*fused), f"{name}: B16 {bits}-"
+                               f"bit fused differs from the plain version")
+            a, b = packs[(bits, med)]
+            cs.require(torch.equal(a, b), f"B16 {bits}-bit orders differ "
+                       f"between the trees")
+            if med:
+                packs[bits] = (zg[1], kuw, offs, rp, up)
+        print(f"B15/B16 {bits}-bit of both trees bitwise equal (and = "
+              f"plain): residuals, maps, orders, two-phase and fused "
+              f"blobs ({mg.shape[1]} segments)", flush=True)
+
+    # B17 shares the order helpers B16 left: both trees' must agree.
+    x = arms[10]
+    rct = []
+    for name, m in trees.items():
+        zs, bc = m["packio"].rct_widths(x)
+        counts = np.bincount(packio.FINE_RANK[bc.cpu().numpy().reshape(-1)],
+                             minlength=9)
+        npads = tuple(packio._pow2_pad(max(int(c), 1), floor=32)
+                      for c in counts[1:])
+        offs = np.cumsum(counts[:8]).astype(np.int32)
+        rct.append((zs, bc, m["packio"].rct_pack(zs, bc, offs, npads)))
+    cs.require(all(map(torch.equal, *rct)), "B17 differs between the trees")
+    print("B17 widths and pack of both trees bitwise equal", flush=True)
+
+    def b15(m, bits):
+        return m["packio"].rice_stats(arms[bits], both)
+
+    def b16(m, bits):
+        zs, kuw, offs, rp, up = packs[bits]
+        return m["packio"].rice_pack(zs, kuw, offs, rp, up, bits)
+
+    # The packed readbacks end to end (B15 + B16 + D2H + native unpack),
+    # synchronized: each tree's fetch gives the source back.
+    fetches = {"planes": ("fetch_planes_u8", 8),
+               "HLG": ("fetch_rgba1010102_auto", 10),
+               "F16": ("fetch_rgba_f16_auto", 16)}
+    for label, (fn, bits) in fetches.items():
+        want = arms[bits].cpu().numpy().view(np.uint8).ravel()
+        for name, m in trees.items():
+            got = getattr(m["packio"], fn)(arms[bits])[0]
+            cs.require(got is not None and np.array_equal(
+                np.ascontiguousarray(got).view(np.uint8).ravel(), want),
+                f"{name}: the {label} fetch differs from the source")
+    times = {}
+    for turn, name in enumerate(("other", "this", "this", "other")):
+        m = trees[name]
+        t = {}
+        for bits in arms:
+            t[f"B15_{bits}_events"] = cs.cuda_ms(lambda: b15(m, bits), 20) / n
+            t[f"B16_{bits}_events"] = cs.cuda_ms(lambda: b16(m, bits), 20) / n
+        for label, (fn, bits) in fetches.items():
+            t[f"fetch_{label}_host"] = cs.host_ms(
+                lambda: getattr(m["packio"], fn)(arms[bits]), 3) / n
+        print(f"turn {turn} {name}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f" ms/frame ({smi})",
+            flush=True)
+        times.setdefault(name, []).append(t)
+    by_kernel = {}
+    for name, m in trees.items():
+        for bits in arms:
+            for what, fn in (("B15", b15), ("B16", b16)):
+                by = {k: v / n for k, v in cs.device_ms_by_kernel(
+                    lambda: fn(m, bits), 10).items()}
+                by_kernel.setdefault(name, {})[f"{what}/{bits}"] = by
+                print(f"{name} {what} {bits}-bit: device ms/frame by kernel "
+                      f"{ {k: round(v, 4) for k, v in by.items()} } ({smi})",
+                      flush=True)
+    return times, by_kernel
 
 
 def main(argv) -> int:
@@ -263,6 +390,12 @@ def main(argv) -> int:
             print(f"{name} {what}: device ms/frame by kernel "
                   f"{ {k: round(v, 4) for k, v in by.items()} } ({smi})",
                   flush=True)
+    rice_times, rice_by = rice_timing(cs, trees, dev, smi)
+    for name, ts in rice_times.items():
+        for t, r in zip(times[name], ts):
+            t.update(r)
+    for name, by in rice_by.items():
+        by_kernel[name].update(by)
     print(json.dumps({"device": smi, "times": times,
                       "by_kernel": by_kernel}))
     return 0

@@ -112,9 +112,11 @@ SIGNATURES = {
     # src, rows, w, nsegw, mode, bits, nh, zs0, zs1, maps, stream
     "uhdr_rice_stats": [_P, _L, _I, _I, _I, _I, _L, _P, _P, _P, _P],
     # kmap, uwmap, nseg, nk, sidx_rem, sidx_un, offs, head, med, rem pads
-    # (host), unary pads (host), pad bytes, their count, stream
+    # (host), unary pads (host), pad bytes, their count, scratch, stream
     "uhdr_rice_order": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                        _I, _P],
+                        _I, _P, _P],
+    # int32 scratch of uhdr_rice_order for nseg segments
+    "uhdr_rice_order_scratch": [_I],
     # zs, kmap, sidx_rem, sidx_un, offs, nseg, nk, start, nw, woff (host),
     # blob, stream
     "uhdr_rice_emit": [_P] * 5 + [_I, _I] + [_P] * 5,

@@ -32,28 +32,37 @@
 //   sum in a register, so the cumulative sum costs no extra pass and the
 //   tall (n*h*3/2, w) plane is never stored: each row goes straight to
 //   the y or uv output, << 6.
-// - B15 runs one CTA per 256-sample segment (one thread per sample): each
-//   thread forms its residual from the source in place. The pixel
-//   formats' channels are split and decorrelated on the load, so the
-//   stacked (G, R-G, B-G) planes are never stored, and the column edge
-//   padding is an index clamp. The block reduces the 10 (or 16) k costs
-//   with warp shuffles, and thread 0 picks k. Both schemes share the one
-//   read of the source.
-// - B16 is two launches. uhdr_rice_order is one CTA (1024 threads, a warp
-//   per contiguous range of segments) that reads the per-segment map
-//   twice: per-warp rank counts (__match_any_sync groups the lanes of one
-//   rank), an exclusive scan over warps, then each segment's place in the
-//   stable (rank, index) order of both bucket families, which is what
-//   JAX's jnp.sort of (rank << 22) | index computes. It also writes the
-//   fused head (counts, fit flag) and the bucket offsets. One CTA is the
-//   slow pattern B19's scan showed (PERF.md section 6); chip_smoke.py
-//   times it apart. uhdr_rice_emit gives each output row one warp: eight
-//   samples a lane (one 16-byte load), the remainder words OR-ed in
-//   shared memory, the unary terminator positions from a warp scan of
-//   q + 1, then a coalesced store of the row's words.
-// - B17 is B15's load (one warp per 64-sample segment, the maximum by
-//   __reduce_max_sync), B16's one-CTA counting order over the 9 width
-//   ranks, and B16's warp-per-row emit.
+// - B15 gives a warp one 256-column span of a run of 32 source rows,
+//   eight consecutive samples a lane (16-byte loads where the row is
+//   aligned; 8-byte at bits 8). It walks down the rows keeping the row
+//   above in registers, takes each left neighbour from the lane's own
+//   previous sample or lane - 1's last by a shuffle, and reads no sample
+//   twice but the one column left of the span. A pixel (10, 16 bits) is
+//   decoded once into its three planes, whose rows the same warp
+//   produces, each plane keeping its own place in its 32-row delta group;
+//   no plane index is divided out. Per segment row, each lane sums its
+//   z >> k serially (at bits 8 two samples a 32-bit word: the masked
+//   sums of a segment stay below 2^15 a half), the warp adds the 8 or 16
+//   sums by halving (16 or 9 shuffles a segment, against 50-80 a sample
+//   in the CTA-per-segment form), and one __reduce_min_sync picks k.
+//   Both schemes share the one read of the source.
+// - B16 is the order, then the emit. The order is a counting sort over
+//   tiles of 2048 segments in three launches: a CTA a tile counts its
+//   ranks (__match_any_sync groups the lanes of one rank), one exclusive
+//   scan over the 25 x tiles (rank, tile) counts (scan.cuh; a few
+//   thousand values) gives each tile its first place per rank and writes
+//   the offsets, the fused head and its pad bytes, and a CTA a tile
+//   places each segment at its tile's base plus its stable place in the
+//   tile: the stable (rank, index) order of both bucket families, which
+//   is what JAX's jnp.sort of (rank << 22) | index computes.
+//   uhdr_rice_emit gives a warp four output rows, their segments
+//   resolved and their 16-byte loads issued together; a remainder row is
+//   staged in shared memory and each lane builds whole words (no atomics),
+//   a unary row takes its terminator positions from a warp scan of q + 1;
+//   then a coalesced store of the row's words.
+// - B17 is B15's earlier load (one warp per 64-sample segment, the
+//   maximum by __reduce_max_sync), a one-CTA counting order over the 9
+//   width ranks (count_ranks / place_ranks), and a warp-per-row emit.
 // - B21 is B17's design on one 10-bit plane with 256-sample segments; the
 //   host's gather index replaces the order.
 #include <cuda_runtime.h>
@@ -61,6 +70,7 @@
 #include <cstdint>
 
 #include "color.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -156,9 +166,18 @@ __global__ void seg_kernel(const uint32_t* __restrict__ blob, SegPlan p,
 // w) u32 RGBA1010102 batch (bits 10) or an (n, h, w, 4) u16 F16-halves
 // batch (bits 16); the two pixel formats are decorrelated on the load
 // into the stacked planes (G, R-G, B-G mod 2^bits) of 3 * n * h rows.
-// Columns are edge-padded to nsegw * 256. mode 0: vertical deltas, 1:
+// Columns are edge-padded to nsegw * 256. MODE 0: vertical deltas, 1:
 // MED, 2: both (vertical into zs0 and map rows 0-1, MED into zs1 and rows
 // 2-3). Map rows: [k code, unary words].
+//
+// A warp walks one 256-column span down a run of kRiceRun source rows
+// (stacked rows at bits 8, frame rows at bits 10 and 16, where one load
+// of a pixel gives the same row of all three planes), eight consecutive
+// samples a lane. `up` is the register copy of the row before, `left`
+// the lane's previous sample or, for its first, lane - 1's last through a
+// shuffle (lane 0 loads the one column left of the span), `up-left` the
+// same of the row before. Delta groups reset by stacked row, so each
+// plane keeps its own place in its 32-row group.
 // ---------------------------------------------------------------------------
 
 struct PixSrc {
@@ -169,7 +188,7 @@ struct PixSrc {
 
 // Stacked-plane sample (row r, column x) of BITS-bit samples (8: the
 // composite, 10: RGBA1010102 words, 16: F16 halves); x is already
-// clamped.
+// clamped. B17's load.
 template <int BITS>
 __device__ __forceinline__ int pix_at(const PixSrc& s, long long r, int x) {
   if (BITS == 8) return ((const uint8_t*)s.p)[r * s.w + x];
@@ -192,87 +211,311 @@ __device__ __forceinline__ int zigzag_bits(int d, int bits) {
   return (ds << 1) ^ (ds >> 31);
 }
 
-// Sum over the CTA's 256 threads of v[0..nk); the result in tot[] of
-// every thread.
-__device__ __forceinline__ void reduce_k(int* v, int nk, int (*part)[16],
-                                         int* tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < nk; ++k) {
-    int x = v[k];
-    for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(0xffffffffu, x, d);
-    if (lane == 0) part[warp][k] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < nk) {
-    int s = 0;
-    for (int w = 0; w < 8; ++w) s += part[w][threadIdx.x];
-    tot[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
+constexpr int kRiceRun = 32;  // source rows a B15 warp walks
 
-// JAX _rice_seg_stats: the k with the fewest bits among those whose
-// unary part fits kUcap words (strict < keeps the smallest k).
-__device__ __forceinline__ void pick_k(const int* sq, int nk, int zero_code,
-                                       uint8_t* kc, uint8_t* uw) {
-  int best_bits = 1 << 30, best_k = 0, best_uw = 0;
-  for (int k = 0; k < nk; ++k) {
-    const int uwk = (sq[k] + kL + 31) >> 5;
-    const int bits = sq[k] + kL * (1 + k);
-    if (uwk <= kUcap && bits < best_bits) {
-      best_bits = bits, best_k = k, best_uw = uwk;
-    }
-  }
-  const bool zero = sq[0] == 0;
-  *kc = (uint8_t)(zero ? zero_code : best_k);
-  *uw = (uint8_t)(zero ? 0 : best_uw);
-}
-
+// A lane's eight samples of one source row as loaded: 8 bytes (bits 8),
+// 8 RGBA1010102 words (bits 10) or 8 F16-halves quads (bits 16), and
+// the pixel left of the span (read by lane 0 only).
 template <int BITS>
-__global__ void __launch_bounds__(256)
-stats_kernel(PixSrc src, int nsegw, int mode, long long nseg,
-             int16_t* __restrict__ zs0, int16_t* __restrict__ zs1,
-             uint8_t* __restrict__ maps) {
-  __shared__ int part[8][16];
-  __shared__ int tot[16];
-  constexpr int bits = BITS;
-  constexpr int nk = bits == 16 ? 16 : 10;
-  constexpr int zero_code = bits == 16 ? 31 : kZero;
-  const long long q = blockIdx.x;
-  const long long r = q / nsegw;
-  const int w = src.w;
-  const int x = (int)(q % nsegw) * kL + threadIdx.x;
-  const bool gstart = r % kG == 0;
-  const int xc = min(x, w - 1), xl = min(x - 1, w - 1);
-  const int cur = pix_at<BITS>(src, r, xc);
-  const int up = gstart ? 0 : pix_at<BITS>(src, r - 1, xc);
-  const long long o = q * kL + threadIdx.x;
-  constexpr int mask = (1 << bits) - 1;
-  int v[16];
-  int m = 0;
-  for (int scheme = 0; scheme < 2; ++scheme) {
-    const bool med = scheme == 1;
-    if ((mode == 0 && med) || (mode == 1 && !med)) continue;
-    int pred = up;
-    if (med) {
-      const int left = x == 0 ? 0 : pix_at<BITS>(src, r, xl);
-      const int ul = (gstart || x == 0) ? 0 : pix_at<BITS>(src, r - 1, xl);
-      const int mx = max(left, up), mn = min(left, up);
-      pred = ul >= mx ? mn : (ul <= mn ? mx : left + up - ul);
+struct RawRow {
+  static constexpr int kWords = BITS == 8 ? 2 : (BITS == 10 ? 8 : 16);
+  uint32_t v[kWords];
+  uint32_t left[BITS == 16 ? 2 : 1];
+};
+
+// Source row `row` at columns x0..x0+7, clamped to w - 1: one or more
+// 16-byte (8-byte at bits 8) loads where the row is aligned and the eight
+// columns lie inside it, else one load a column.
+template <int BITS>
+__device__ __forceinline__ void load_row(const void* __restrict__ src,
+                                         long long row, int w, int x0,
+                                         bool left, RawRow<BITS>& rr) {
+  const long long o = row * w;
+  const bool inside = x0 + 8 <= w;
+  if constexpr (BITS == 8) {
+    const uint8_t* p = (const uint8_t*)src + o;
+    if (inside && ((size_t)(p + x0) & 7) == 0) {
+      const uint2 t = *(const uint2*)(p + x0);
+      rr.v[0] = t.x, rr.v[1] = t.y;
+    } else {
+      rr.v[0] = rr.v[1] = 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        rr.v[e >> 2] |= (uint32_t)p[min(x0 + e, w - 1)] << (8 * (e & 3));
     }
-    const int z = zigzag_bits((cur - pred) & mask, bits);
-    (m == 0 ? zs0 : zs1)[o] = (int16_t)z;
-    for (int k = 0; k < nk; ++k) v[k] = z >> k;
-    reduce_k(v, nk, part, tot);
-    if (threadIdx.x == 0)
-      pick_k(tot, nk, zero_code, maps + (2 * m) * nseg + q,
-             maps + (2 * m + 1) * nseg + q);
-    ++m;
+    if (left) rr.left[0] = p[x0 - 1];
+  } else if constexpr (BITS == 10) {
+    const uint32_t* p = (const uint32_t*)src + o;
+    if (inside && ((size_t)(p + x0) & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 t = ((const uint4*)(p + x0))[i];
+        rr.v[4 * i] = t.x, rr.v[4 * i + 1] = t.y;
+        rr.v[4 * i + 2] = t.z, rr.v[4 * i + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) rr.v[e] = p[min(x0 + e, w - 1)];
+    }
+    if (left) rr.left[0] = p[x0 - 1];
+  } else {
+    const uint2* p = (const uint2*)src + o;
+    if (inside && ((size_t)(p + x0) & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 t = ((const uint4*)(p + x0))[i];
+        rr.v[4 * i] = t.x, rr.v[4 * i + 1] = t.y;
+        rr.v[4 * i + 2] = t.z, rr.v[4 * i + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const uint2 t = p[min(x0 + e, w - 1)];
+        rr.v[2 * e] = t.x, rr.v[2 * e + 1] = t.y;
+      }
+    }
+    if (left) {
+      const uint2 t = p[x0 - 1];
+      rr.left[0] = t.x, rr.left[1] = t.y;
+    }
+  }
+}
+
+// (G, R-G, B-G) mod 2^BITS of one RGBA1010102 word or F16-halves quad.
+template <int BITS>
+__device__ __forceinline__ void decor(uint32_t a, uint32_t b, int* g,
+                                      int* rg, int* bg) {
+  int r, gg, bb;
+  if constexpr (BITS == 10) {
+    r = a & 1023, gg = (a >> 10) & 1023, bb = (a >> 20) & 1023;
+  } else {
+    r = a & 0xFFFF, gg = a >> 16, bb = b & 0xFFFF;
+  }
+  constexpr int mask = (1 << BITS) - 1;
+  *g = gg, *rg = (r - gg) & mask, *bg = (bb - gg) & mask;
+}
+
+// The row's planes (one at bits 8, three at 10 and 16): c[p][e], and the
+// sample left of the span in l[p] (meaningful in lane 0 only).
+template <int BITS, int NP>
+__device__ __forceinline__ void decode_row(const RawRow<BITS>& rr,
+                                           int (&c)[NP][8], int (&l)[NP]) {
+  if constexpr (BITS == 8) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      c[0][e] = (rr.v[e >> 2] >> (8 * (e & 3))) & 255;
+    l[0] = rr.left[0] & 255;
+  } else {
+    const int step = BITS == 10 ? 1 : 2;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      decor<BITS>(rr.v[step * e], rr.v[step * e + step - 1], &c[0][e],
+                  &c[NP > 1 ? 1 : 0][e], &c[NP - 1][e]);
+    decor<BITS>(rr.left[0], rr.left[BITS == 16 ? 1 : 0], &l[0],
+                &l[NP > 1 ? 1 : 0], &l[NP - 1]);
+  }
+}
+
+// Sum over the warp of each of v[0..N) (N a power of 2, at most 32) by
+// halving: each step keeps half the values, sending the other half to
+// the lane across (N - 1 shuffles), then a butterfly over the lanes
+// that hold the same index. Lane l returns the total of index
+// (l >> (5 - log2 N)) & (N - 1). The steps are a template recursion so
+// that every index into v is a constant and v stays in registers.
+template <int N, int H>
+__device__ __forceinline__ void transpose_halve(uint32_t (&v)[N], int lane) {
+  if constexpr (H >= 1) {
+    constexpr int o = 32 * H / N;
+    const bool hi = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const uint32_t send = hi ? v[i] : v[i + H];
+      const uint32_t keep = hi ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    transpose_halve<N, H / 2>(v, lane);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ uint32_t warp_transpose_sum(uint32_t (&v)[N],
+                                                       int lane) {
+  transpose_halve<N, N / 2>(v, lane);
+  uint32_t s = v[0];
+#pragma unroll
+  for (int o = 16 / N; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// JAX _rice_seg_stats over the warp's 256 residuals (z: the lane's 8):
+// sq[k] = sum of z >> k; the k with the fewest bits sq[k] + 256 (1 + k)
+// among those whose unary part (sq[k] + 256 + 31) >> 5 fits kUcap words,
+// the smallest on a tie. Returned in every lane as (bits << 5) | k; an
+// all-zero segment gives k = 0 and bits = 256, and only it does.
+template <int BITS>
+__device__ __forceinline__ uint32_t rice_seg_key(const int (&z)[8],
+                                                 int lane) {
+  int k, sq;
+  bool valid = true;
+  if constexpr (BITS == 8) {
+    // z < 256, so the sum over a segment's 128 even (odd) samples of
+    // z & ~(2^k - 1) is < 2^15: the two 16-bit halves of a packed word
+    // never carry into each other, and that sum is 2^k sq[k] exactly.
+    // k > 7 gives sq = 0 and is never strictly better than k = 7.
+    uint32_t p[4], t[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = (uint32_t)z[2 * i] | ((uint32_t)z[2 * i + 1] << 16);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a = ((0xFFu << kk) & 0xFFu) * 0x10001u;
+      t[kk] = (p[0] & a) + (p[1] & a) + (p[2] & a) + (p[3] & a);
+    }
+    const uint32_t tot = warp_transpose_sum<8>(t, lane);
+    k = (lane >> 2) & 7;
+    sq = (int)(((tot & 0xFFFFu) + (tot >> 16)) >> k);
+  } else {
+    constexpr int nk = BITS == 16 ? 16 : 10;
+    uint32_t t[16];
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      uint32_t s = 0;
+      if (kk < nk)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += (uint32_t)z[e] >> kk;
+      t[kk] = s;
+    }
+    sq = (int)warp_transpose_sum<16>(t, lane);
+    k = (lane >> 1) & 15;
+    valid = k < nk;
+  }
+  const bool fits = valid && ((sq + kL + 31) >> 5) <= kUcap;
+  const uint32_t key =
+      fits ? ((uint32_t)(sq + kL * (1 + k)) << 5) | (uint32_t)k : 0xFFFFFFFFu;
+  return __reduce_min_sync(0xffffffffu, key);
+}
+
+// One plane's segment row: residuals of each scheme into zs (a 16-byte
+// store a lane) and, with STATS, the segment's map bytes. c: the lane's
+// samples, cl the one left of c[0] (0 at column 0); u, ucl: the same of
+// the row above, read only when the row does not start a delta group.
+template <int BITS, int MODE, bool STATS>
+__device__ __forceinline__ void rice_plane_row(
+    const int (&c)[8], int cl, const int (&u)[8], int ucl, bool gstart,
+    long long q, long long nseg, int lane, int16_t* __restrict__ zs0,
+    int16_t* __restrict__ zs1, uint8_t* __restrict__ maps) {
+  constexpr int mask = (1 << BITS) - 1;
+  constexpr int zero_code = BITS == 16 ? 31 : kZero;
+#pragma unroll
+  for (int m = 0; m < (MODE == 2 ? 2 : 1); ++m) {
+    const bool med = MODE == 1 || m == 1;
+    int z[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int up = gstart ? 0 : u[e];
+      int pred = up;
+      if (med) {
+        const int left = e ? c[e - 1] : cl;
+        const int ul = gstart ? 0 : (e ? u[e - 1] : ucl);
+        const int mx = max(left, up), mn = min(left, up);
+        pred = ul >= mx ? mn : (ul <= mn ? mx : left + up - ul);
+      }
+      z[e] = zigzag_bits((c[e] - pred) & mask, BITS);
+    }
+    uint4 st;
+    st.x = (uint32_t)z[0] | ((uint32_t)z[1] << 16);
+    st.y = (uint32_t)z[2] | ((uint32_t)z[3] << 16);
+    st.z = (uint32_t)z[4] | ((uint32_t)z[5] << 16);
+    st.w = (uint32_t)z[6] | ((uint32_t)z[7] << 16);
+    *(uint4*)((m ? zs1 : zs0) + q * kL + lane * 8) = st;
+    if (!STATS) continue;
+    const uint32_t key = rice_seg_key<BITS>(z, lane);
+    if (lane == 0) {
+      const int k = (int)(key & 31u), bits = (int)(key >> 5);
+      const bool zero = key == ((uint32_t)kL << 5);
+      const int uw = (bits - kL * (1 + k) + kL + 31) >> 5;
+      maps[2 * m * nseg + q] = (uint8_t)(zero ? zero_code : k);
+      maps[(2 * m + 1) * nseg + q] = (uint8_t)(zero ? 0 : uw);
+    }
+  }
+}
+
+// nrows: source rows (stacked rows at bits 8, frame rows n * h at 10 and
+// 16); plane p of source row r is stacked row p * nrows + r. Without
+// STATS only the residuals (chip_smoke.py times the load and residuals
+// apart from the reduction that way). Two CTAs an SM (at most 128
+// registers): unbounded, ptxas gave the 16-bit arm of both schemes 162
+// and it ran 6% slower on the H100 (0.168 against 0.159 ms a frame).
+template <int BITS, int MODE, bool STATS = true>
+__global__ void __launch_bounds__(256, 2)
+stats_kernel(const void* __restrict__ src, int w, int nsegw, long long nrows,
+             long long nseg, int16_t* __restrict__ zs0,
+             int16_t* __restrict__ zs1, uint8_t* __restrict__ maps) {
+  constexpr int NP = BITS == 8 ? 1 : 3;
+  const int lane = threadIdx.x & 31;
+  const long long wid = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int s = (int)(wid % nsegw);
+  const long long r0 = wid / nsegw * kRiceRun;
+  if (r0 >= nrows) return;
+  const long long r1 = min(r0 + kRiceRun, nrows);
+  const int x0 = s * kL + lane * 8;
+  const bool left = lane == 0 && s > 0;  // column x0 - 1 < w
+  // Every loop over planes is unrolled, so these stay in registers.
+  int gpos[NP], up[NP][8], ucl[NP];
+  bool need_up = false;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    gpos[p] = (int)((p * nrows + r0) % kG);
+    need_up = need_up || gpos[p] != 0;
+  }
+  if (need_up) {
+    // The stacked row above each plane's first: the source row before,
+    // or, at r0 = 0 (where plane 0 starts a group), the last row of the
+    // plane before.
+    RawRow<BITS> pr;
+    load_row<BITS>(src, r0 > 0 ? r0 - 1 : nrows - 1, w, x0, left, pr);
+    int pc[NP][8], pl[NP];
+    decode_row<BITS, NP>(pr, pc, pl);
+    const bool same = r0 > 0;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int q = p > 0 ? p - 1 : 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) up[p][e] = same ? pc[p][e] : pc[q][e];
+      const int cl = __shfl_up_sync(0xffffffffu, up[p][7], 1);
+      ucl[p] = lane == 0 ? (s > 0 ? (same ? pl[p] : pl[q]) : 0) : cl;
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) up[p][e] = 0;
+      ucl[p] = 0;
+    }
+  }
+  RawRow<BITS> nx;
+  load_row<BITS>(src, r0, w, x0, left, nx);
+  for (long long r = r0; r < r1; ++r) {
+    int c[NP][8], cl[NP];
+    decode_row<BITS, NP>(nx, c, cl);
+    if (r + 1 < r1) load_row<BITS>(src, r + 1, w, x0, left, nx);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int sh = __shfl_up_sync(0xffffffffu, c[p][7], 1);
+      const int l = lane == 0 ? (s > 0 ? cl[p] : 0) : sh;
+      rice_plane_row<BITS, MODE, STATS>(c[p], l, up[p], ucl[p], gpos[p] == 0,
+                                 (p * nrows + r) * nsegw + s, nseg, lane,
+                                 zs0, zs1, maps);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) up[p][e] = c[p][e];
+      ucl[p] = l;
+      gpos[p] = (gpos[p] + 1) & (kG - 1);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Stable (rank, index) order by counting: one CTA of 1024 threads, a
+// B17's stable (rank, index) order by counting: one CTA of 1024 threads, a
 // warp per contiguous range of the `n` items. Per-warp rank counts
 // (__match_any_sync groups the lanes of one rank), an exclusive scan over
 // warps, then each item's place. JAX computes the same order with
@@ -342,6 +585,16 @@ __device__ void place_ranks(int n, int nfam, const RankFn& rank_of,
 // segment's place in the stable (rank, index) order of both families.
 // nk = 10 for 8- and 10-bit samples (zero code 15), 16 for 16-bit ones
 // (zero code 31).
+//
+// A counting sort over tiles of kOrderTile segments, in three launches:
+// order_count_kernel counts each tile's ranks (a CTA a tile, a warp per
+// 256 segments, __match_any_sync groups the lanes of one rank) into
+// tcnt[rank][tile]; order_scan_kernel turns those counts into each
+// tile's first place per rank by one exclusive scan over (rank, tile)
+// per family (scan.cuh's block_scan_array over 25 x tiles counts) and
+// writes the offsets, the fused head and its pad bytes;
+// order_place_kernel counts its tile again per warp and puts each segment
+// at its tile's base + its stable place inside the tile.
 // ---------------------------------------------------------------------------
 
 struct RicePads {
@@ -349,52 +602,141 @@ struct RicePads {
   int un[7];    // ... of each unary class
 };
 
+constexpr int kOrderTile = 2048;  // segments a CTA: 8 warps x 256
+
+template <int NK>
+__device__ __forceinline__ int rice_rank(const uint8_t* __restrict__ kmap,
+                                         const uint8_t* __restrict__ uwmap,
+                                         int i, int fam) {
+  constexpr int zero_code = NK == 16 ? 31 : kZero;
+  constexpr int nrem = NK + 1;
+  const int kc = kmap[i];
+  if (fam == 0) return kc == zero_code ? NK : kc;
+  if (kc == zero_code) return nrem + 7;
+  const int uw = uwmap[i];
+  int c = 0;
+  while (c < 7 && kUcls[c] < uw) ++c;  // searchsorted, left side
+  return nrem + c;
+}
+
+// The calling warp's rank counts over segments [lo, min(lo + 256, nseg))
+// of both families, added into cnt[rank] (the warp's own row).
+template <int NK>
+__device__ __forceinline__ void warp_rank_counts(
+    const uint8_t* __restrict__ kmap, const uint8_t* __restrict__ uwmap,
+    int lo, int nseg, int* cnt) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  const int hi = min(lo + 256, nseg);
+  for (int i0 = lo; i0 < lo + 256; i0 += 32) {
+    const int i = i0 + lane;
+    for (int f = 0; f < 2; ++f) {
+      const int rk = i < hi ? rice_rank<NK>(kmap, uwmap, i, f) : -1;
+      const unsigned mr = __match_any_sync(0xffffffffu, rk);
+      if (rk >= 0 && (mr & lt) == 0) cnt[rk] += __popc(mr);
+      __syncwarp();
+    }
+  }
+}
+
+template <int NK>
+__global__ void __launch_bounds__(256)
+order_count_kernel(const uint8_t* __restrict__ kmap,
+                   const uint8_t* __restrict__ uwmap, int nseg,
+                   int* __restrict__ tcnt, int ntiles) {
+  __shared__ int cnt[8][kMaxRanks];
+  constexpr int nranks = NK + 9;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 8 * kMaxRanks; i += blockDim.x)
+    cnt[i / kMaxRanks][i % kMaxRanks] = 0;
+  __syncthreads();
+  warp_rank_counts<NK>(kmap, uwmap, blockIdx.x * kOrderTile + warp * 256,
+                       nseg, cnt[warp]);
+  __syncthreads();
+  if (threadIdx.x < nranks) {
+    int c = 0;
+    for (int w = 0; w < 8; ++w) c += cnt[w][threadIdx.x];
+    tcnt[threadIdx.x * ntiles + blockIdx.x] = c;
+  }
+}
+
 template <int NK>
 __global__ void __launch_bounds__(1024)
-order_kernel(const uint8_t* __restrict__ kmap,
-             const uint8_t* __restrict__ uwmap, int nseg,
-             int32_t* __restrict__ sidx_rem, int32_t* __restrict__ sidx_un,
-             int32_t* offs, uint32_t* head, int med, RicePads pads,
-             uint8_t* pad_bytes, int npad_bytes) {
-  __shared__ int cnt[33][kMaxRanks];
-  __shared__ int base[kMaxRanks];
-  constexpr int nk = NK;
-  constexpr int zero_code = nk == 16 ? 31 : kZero;
-  constexpr int nrem = nk + 1, nranks = nk + 9;
-  auto rank_of = [&](int i, int fam) {
-    const int kc = kmap[i];
-    if (fam == 0) return kc == zero_code ? nk : kc;
-    if (kc == zero_code) return nrem + 7;
-    const int uw = uwmap[i];
-    int c = 0;
-    while (c < 7 && kUcls[c] < uw) ++c;  // searchsorted, left side
-    return nrem + c;
-  };
-  count_ranks(nseg, 2, rank_of, cnt, nranks);
-  if (threadIdx.x == 0) {
-    int b = 0;
-    for (int r = 0; r < nrem; ++r) base[r] = b, b += cnt[32][r];
-    b = 0;
-    for (int r = nrem; r < nranks; ++r) base[r] = b, b += cnt[32][r];
-    if (offs) {
-      for (int r = 0; r < nk; ++r) offs[r] = base[r];
-      for (int c = 0; c < 7; ++c) offs[nk + c] = base[nrem + c];
-    }
-    if (head) {
-      bool fit = true;
-      for (int r = 0; r < nk; ++r) fit = fit && cnt[32][r] <= pads.rem[r];
-      for (int c = 0; c < 7; ++c)
-        fit = fit && cnt[32][nrem + c] <= pads.un[c];
-      head[0] = fit ? 1u : 0u;
-      head[1] = (uint32_t)med;
-      for (int r = 0; r < nranks; ++r) head[2 + r] = (uint32_t)cnt[32][r];
-    }
-    for (int e = 0; e < npad_bytes; ++e) pad_bytes[e] = 0;
+order_scan_kernel(int* __restrict__ tcnt, int ntiles, int32_t* offs,
+                  uint32_t* head, int med, RicePads pads, uint8_t* pad_bytes,
+                  int npad_bytes) {
+  __shared__ int warp_sums[32];
+  __shared__ int tot[kMaxRanks];
+  constexpr int nrem = NK + 1, nranks = NK + 9;
+  int* fam[2] = {tcnt, tcnt + nrem * ntiles};
+  int ftot[2];
+  for (int f = 0; f < 2; ++f) {
+    int* t = fam[f];
+    ftot[f] = uhdr_scan::block_scan_array(
+        (f ? 8 : nrem) * ntiles, 0, 0, warp_sums,
+        [&](int i) { return t[i]; }, [&](int i, int v) { t[i] = v; });
   }
   __syncthreads();
-  place_ranks(nseg, 2, rank_of, cnt, base, [&](int fam, int pos, int i) {
-    (fam == 0 ? sidx_rem : sidx_un)[pos] = i;
-  });
+  const int r = threadIdx.x;
+  if (r < nranks) {
+    const int f = r < nrem ? 0 : 1;
+    const int base = tcnt[r * ntiles];
+    const bool last = r == (f ? nranks : nrem) - 1;
+    tot[r] = (last ? ftot[f] : tcnt[(r + 1) * ntiles]) - base;
+    if (offs && r < NK) offs[r] = base;
+    if (offs && f && r < nrem + 7) offs[NK + r - nrem] = base;
+  }
+  __syncthreads();
+  if (head && threadIdx.x == 0) {
+    bool fit = true;
+    for (int k = 0; k < NK; ++k) fit = fit && tot[k] <= pads.rem[k];
+    for (int c = 0; c < 7; ++c) fit = fit && tot[nrem + c] <= pads.un[c];
+    head[0] = fit ? 1u : 0u;
+    head[1] = (uint32_t)med;
+    for (int k = 0; k < nranks; ++k) head[2 + k] = (uint32_t)tot[k];
+  }
+  for (int e = threadIdx.x; e < npad_bytes; e += blockDim.x) pad_bytes[e] = 0;
+}
+
+template <int NK>
+__global__ void __launch_bounds__(256)
+order_place_kernel(const uint8_t* __restrict__ kmap,
+                   const uint8_t* __restrict__ uwmap, int nseg,
+                   const int* __restrict__ tcnt, int ntiles,
+                   int32_t* __restrict__ sidx_rem,
+                   int32_t* __restrict__ sidx_un) {
+  __shared__ int cnt[8][kMaxRanks];
+  constexpr int nranks = NK + 9;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  for (int i = threadIdx.x; i < 8 * kMaxRanks; i += blockDim.x)
+    cnt[i / kMaxRanks][i % kMaxRanks] = 0;
+  __syncthreads();
+  const int lo = blockIdx.x * kOrderTile + warp * 256;
+  warp_rank_counts<NK>(kmap, uwmap, lo, nseg, cnt[warp]);
+  __syncthreads();
+  if (threadIdx.x < nranks) {
+    int run = tcnt[threadIdx.x * ntiles + blockIdx.x];
+    for (int w = 0; w < 8; ++w) {
+      const int c = cnt[w][threadIdx.x];
+      cnt[w][threadIdx.x] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  const int hi = min(lo + 256, nseg);
+  int* mine = cnt[warp];
+  for (int i0 = lo; i0 < lo + 256; i0 += 32) {
+    const int i = i0 + lane;
+    for (int f = 0; f < 2; ++f) {
+      const int rk = i < hi ? rice_rank<NK>(kmap, uwmap, i, f) : -1;
+      const unsigned mr = __match_any_sync(0xffffffffu, rk);
+      if (rk >= 0) (f ? sidx_un : sidx_rem)[mine[rk] + __popc(mr & lt)] = i;
+      __syncwarp();
+      if (rk >= 0 && (mr & lt) == 0) mine[rk] += __popc(mr);
+      __syncwarp();
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -414,59 +756,96 @@ struct RiceRows {
   long long woff[22];   // first word of each bucket in the blob
 };
 
+constexpr int kEmitRows = 4;  // output rows a B16 emit warp
+
 __global__ void __launch_bounds__(256)
 emit_kernel(const uint16_t* __restrict__ zs, const uint8_t* __restrict__ kmap,
             const int32_t* __restrict__ sidx_rem,
             const int32_t* __restrict__ sidx_un,
             const int32_t* __restrict__ offs, int nseg, int nk, RiceRows rows,
             uint32_t* __restrict__ blob) {
-  __shared__ uint32_t words[8][128];
+  __shared__ __align__(16) uint16_t zsh[8][kL];
+  __shared__ uint32_t words[8][kUcap];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nb = nk + 6;
-  const int R = blockIdx.x * 8 + warp;
-  if (R >= rows.start[nb]) return;
-  int b = 0;
-  while (R >= rows.start[b + 1]) ++b;
-  const int r = R - rows.start[b];
-  const int nw = rows.nw[b];
-  uint32_t* sw = words[warp];
-  for (int i = lane; i < nw; i += 32) sw[i] = 0u;
-  const bool rem = b < nk - 1;
-  // offs: remainder buckets k = 0..nk-1 at [0, nk), unary classes at
-  // [nk, nk + 7); bucket b is entry k = b + 1, or nk + (b - nk + 1): b + 1
-  // both.
-  const int pos = offs[b + 1] + r;
-  const int idx = pos < nseg ? (rem ? sidx_rem[pos] : sidx_un[pos]) : 0;
-  const uint4 raw = *(const uint4*)(zs + (long long)idx * kL + lane * 8);
-  const uint32_t pair[4] = {raw.x, raw.y, raw.z, raw.w};
-  int z[8];
-  for (int e = 0; e < 8; ++e) z[e] = (pair[e >> 1] >> (16 * (e & 1))) & 0xFFFF;
-  __syncwarp();
-  if (rem) {
-    const int k = b + 1;
-    const uint32_t mask = (1u << k) - 1u;
-    for (int e = 0; e < 8; ++e) {
-      const int j = lane * 8 + e;
-      atomicOr(&sw[j % nw], ((uint32_t)z[e] & mask) << ((j / nw) * k));
-    }
-  } else {
-    const int kk = min((int)kmap[idx], nk - 1);
-    int incl = 0;
-    for (int e = 0; e < 8; ++e) incl += (z[e] >> kk) + 1;
-    int scan = incl;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, scan, d);
-      if (lane >= d) scan += t;
-    }
-    int p = scan - incl - 1;
-    for (int e = 0; e < 8; ++e) {
-      p += (z[e] >> kk) + 1;
-      if ((p >> 5) < nw) atomicOr(&sw[p >> 5], 1u << (p & 31));
-    }
+  const int nb = nk + 6, total = rows.start[nb];
+  const int R0 = (blockIdx.x * 8 + warp) * kEmitRows;
+  if (R0 >= total) return;
+  // Lane j < kEmitRows resolves row R0 + j (its bucket, its place in the
+  // bucket's family order, the segment there and its k code) so that the
+  // rows' dependent loads overlap; past the end, row `total - 1` stands in.
+  int b = 0, kc = 0, idx = 0;
+  if (lane < kEmitRows) {
+    const int R = min(R0 + lane, total - 1);
+    while (R >= rows.start[b + 1]) ++b;
+    // offs: remainder buckets k = 0..nk-1 at [0, nk), unary classes at
+    // [nk, nk + 7); bucket b is entry k = b + 1, or nk + (b - nk + 1):
+    // b + 1 both.
+    const int pos = offs[b + 1] + R - rows.start[b];
+    const bool rem = b < nk - 1;
+    idx = pos < nseg ? (rem ? sidx_rem[pos] : sidx_un[pos]) : 0;
+    kc = rem ? 0 : kmap[idx];
   }
-  __syncwarp();
-  uint32_t* out = blob + rows.woff[b] + (long long)r * nw;
-  for (int i = lane; i < nw; i += 32) out[i] = sw[i];
+  uint4 raw[kEmitRows];
+#pragma unroll
+  for (int j = 0; j < kEmitRows; ++j) {
+    const int ij = __shfl_sync(0xffffffffu, idx, j);
+    raw[j] = *(const uint4*)(zs + (long long)ij * kL + lane * 8);
+  }
+#pragma unroll
+  for (int j = 0; j < kEmitRows; ++j) {
+    const int bj = __shfl_sync(0xffffffffu, b, j);
+    const int kj = __shfl_sync(0xffffffffu, kc, j);
+    if (R0 + j >= total) break;
+    const int nw = rows.nw[bj];
+    uint32_t* out =
+        blob + rows.woff[bj] + (long long)(R0 + j - rows.start[bj]) * nw;
+    if (bj < nk - 1) {
+      // Each word whole from the staged row: word i holds samples i + m
+      // nw at shift m k. Below 32 words (k = 1, 2) g = 32 / nw lanes
+      // share a word, lane part p taking m = p, p + g, ..., and OR them
+      // together.
+      *(uint4*)&zsh[warp][lane * 8] = raw[j];
+      __syncwarp();
+      const int k = bj + 1, slots = 32 / k;
+      const uint32_t mask = (1u << k) - 1u;
+      const int g = nw < 32 ? 32 / nw : 1;
+      const int part = lane / nw;  // < g for every lane when g > 1
+      for (int i = g > 1 ? lane % nw : lane; i < nw; i += 32) {
+        uint32_t word = 0;
+        for (int m = g > 1 ? part : 0; m < slots; m += g) {
+          const int jj = i + m * nw;
+          if (jj < kL) word |= ((uint32_t)zsh[warp][jj] & mask) << (m * k);
+        }
+        for (int o = nw; o < 32 && g > 1; o <<= 1)
+          word |= __shfl_xor_sync(0xffffffffu, word, o);
+        if (g == 1 || part == 0) out[i] = word;
+      }
+    } else {
+      uint32_t* sw = words[warp];
+      for (int i = lane; i < nw; i += 32) sw[i] = 0u;
+      const uint32_t pair[4] = {raw[j].x, raw[j].y, raw[j].z, raw[j].w};
+      int z[8];
+      for (int e = 0; e < 8; ++e)
+        z[e] = (pair[e >> 1] >> (16 * (e & 1))) & 0xFFFF;
+      __syncwarp();
+      const int kk = min(kj, nk - 1);
+      int incl = 0;
+      for (int e = 0; e < 8; ++e) incl += (z[e] >> kk) + 1;
+      int scan = incl;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, scan, d);
+        if (lane >= d) scan += t;
+      }
+      int p = scan - incl - 1;
+      for (int e = 0; e < 8; ++e) {
+        p += (z[e] >> kk) + 1;
+        if ((p >> 5) < nw) atomicOr(&sw[p >> 5], 1u << (p & 31));
+      }
+      __syncwarp();
+      for (int i = lane; i < nw; i += 32) out[i] = sw[i];
+    }
+    __syncwarp();  // zsh and words are free for the next row
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -664,6 +1043,20 @@ __global__ void composite_kernel(Plane yp, Plane up, Plane vp, Plane gp,
 
 inline int blocks(long long n, int per) { return (int)((n + per - 1) / per); }
 
+// B16's order: count, scan, place (tcnt: kMaxRanks x ntiles scratch).
+template <int NK>
+void launch_order(const uint8_t* kmap, const uint8_t* uwmap, int nseg,
+                  int ntiles, int* tcnt, int32_t* sidx_rem, int32_t* sidx_un,
+                  int32_t* offs, uint32_t* head, int med, RicePads pads,
+                  uint8_t* pad, int npad, cudaStream_t st) {
+  order_count_kernel<NK><<<ntiles, 256, 0, st>>>(kmap, uwmap, nseg, tcnt,
+                                                   ntiles);
+  order_scan_kernel<NK><<<1, 1024, 0, st>>>(tcnt, ntiles, offs, head, med,
+                                             pads, pad, npad);
+  order_place_kernel<NK><<<ntiles, 256, 0, st>>>(kmap, uwmap, nseg, tcnt,
+                                                   ntiles, sidx_rem, sidx_un);
+}
+
 }  // namespace
 
 extern "C" {
@@ -700,36 +1093,59 @@ int uhdr_p010_seg_unpack(const void* blob, int rows, int w, int nsegw,
 // u32 RGBA1010102 batch (bits 10) or the (n, h, w, 4) u16 F16 batch
 // (bits 16), nh = n * h, rows = 3 * nh stacked rows of width w;
 // zs0/zs1: (nseg, 256) int16 (zs1 only in mode 2); maps: (2 or 4, nseg)
-// u8.
+// u8, or null for the residuals alone.
 int uhdr_rice_stats(const void* src, long long rows, int w, int nsegw,
                     int mode, int bits, long long nh, void* zs0, void* zs1,
                     void* maps, void* stream) {
   const long long nseg = rows * nsegw;
-  PixSrc s{src, nh, w};
-  auto kernel = bits == 16 ? stats_kernel<16>
-                           : (bits == 10 ? stats_kernel<10> : stats_kernel<8>);
-  kernel<<<(unsigned)nseg, 256, 0, (cudaStream_t)stream>>>(
-      s, nsegw, mode, nseg, (int16_t*)zs0, (int16_t*)zs1, (uint8_t*)maps);
+  const long long nrows = bits == 8 ? rows : nh;
+  const long long warps = (nrows + kRiceRun - 1) / kRiceRun * nsegw;
+  using Kernel = void (*)(const void*, int, int, long long, long long,
+                          int16_t*, int16_t*, uint8_t*);
+  // Without maps, the load and residuals alone (chip_smoke.py times
+  // B15's two parts apart so).
+  static const Kernel kernels[2][3][3] = {
+      {{stats_kernel<8, 0>, stats_kernel<8, 1>, stats_kernel<8, 2>},
+       {stats_kernel<10, 0>, stats_kernel<10, 1>, stats_kernel<10, 2>},
+       {stats_kernel<16, 0>, stats_kernel<16, 1>, stats_kernel<16, 2>}},
+      {{stats_kernel<8, 0, false>, stats_kernel<8, 1, false>,
+        stats_kernel<8, 2, false>},
+       {stats_kernel<10, 0, false>, stats_kernel<10, 1, false>,
+        stats_kernel<10, 2, false>},
+       {stats_kernel<16, 0, false>, stats_kernel<16, 1, false>,
+        stats_kernel<16, 2, false>}}};
+  const Kernel kernel =
+      kernels[maps ? 0 : 1][bits == 16 ? 2 : (bits == 10 ? 1 : 0)][mode];
+  kernel<<<blocks(warps, 8), 256, 0, (cudaStream_t)stream>>>(
+      src, w, nsegw, nrows, nseg, (int16_t*)zs0, (int16_t*)zs1,
+      (uint8_t*)maps);
   return (int)cudaGetLastError();
 }
+
 
 // B16 order. kmap/uwmap: nseg u8 each; nk: 10 or 16 remainder widths;
 // sidx_rem/sidx_un: nseg int32 out; offs: nk + 7 int32 out or null;
 // head: nk + 11 u32 out or null (with the pads, nk and 7 host ints, for
-// its fit flag); pad: bytes to zero after the map (fused layout).
+// its fit flag); pad: bytes to zero after the map (fused layout);
+// scratch: uhdr_rice_order_scratch(nseg) int32.
 int uhdr_rice_order(const void* kmap, const void* uwmap, int nseg, int nk,
                     void* sidx_rem, void* sidx_un, void* offs, void* head,
                     int med, const int* rem_pads, const int* un_pads,
-                    void* pad, int npad, void* stream) {
+                    void* pad, int npad, void* scratch, void* stream) {
   RicePads pads;
   for (int j = 0; j < 16; ++j) pads.rem[j] = j < nk ? rem_pads[j] : 0;
   for (int c = 0; c < 7; ++c) pads.un[c] = un_pads[c];
-  auto kernel = nk == 16 ? order_kernel<16> : order_kernel<10>;
-  kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)kmap, (const uint8_t*)uwmap, nseg, (int32_t*)sidx_rem,
-      (int32_t*)sidx_un, (int32_t*)offs, (uint32_t*)head, med, pads,
-      (uint8_t*)pad, npad);
+  const int ntiles = (nseg + kOrderTile - 1) / kOrderTile;
+  (nk == 16 ? launch_order<16> : launch_order<10>)(
+      (const uint8_t*)kmap, (const uint8_t*)uwmap, nseg, ntiles,
+      (int*)scratch, (int32_t*)sidx_rem, (int32_t*)sidx_un, (int32_t*)offs,
+      (uint32_t*)head, med, pads, (uint8_t*)pad, npad, (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// int32 scratch of uhdr_rice_order for nseg segments: tile rank counts.
+int uhdr_rice_order_scratch(int nseg) {
+  return kMaxRanks * ((nseg + kOrderTile - 1) / kOrderTile);
 }
 
 // B16 emit. zs: (nseg, 256) int16; kmap: nseg u8; offs: nk + 7 int32 on
@@ -744,7 +1160,8 @@ int uhdr_rice_emit(const void* zs, const void* kmap, const void* sidx_rem,
   for (int b = 0; b <= nb; ++b) rows.start[b] = start[b];
   for (int b = 0; b < nb; ++b) rows.nw[b] = nw[b], rows.woff[b] = woff[b];
   if (rows.start[nb] == 0) return 0;
-  emit_kernel<<<blocks(rows.start[nb], 8), 256, 0, (cudaStream_t)stream>>>(
+  emit_kernel<<<blocks(rows.start[nb], 8 * kEmitRows), 256, 0,
+                (cudaStream_t)stream>>>(
       (const uint16_t*)zs, (const uint8_t*)kmap, (const int32_t*)sidx_rem,
       (const int32_t*)sidx_un, (const int32_t*)offs, nseg, nk, rows,
       (uint32_t*)blob);

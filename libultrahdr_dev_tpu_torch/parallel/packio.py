@@ -598,6 +598,22 @@ def rice_stats(x: torch.Tensor, schemes=(False,), maps=None):
 rice_stats.launches = rice_stats.launches10 = rice_stats.launches16 = 0
 
 
+def _rice_residuals(x: torch.Tensor, schemes=(False,)):
+    """B15's load and residuals alone on a CUDA source (uhdr_rice_stats
+    without maps: no per-segment reduction): rice_stats's residuals, for
+    timing B15's two parts apart. Not counted in the launches."""
+    mode = _check_schemes(schemes)
+    bits, _, _, w, rows, nsegw, nseg = _geometry(x)
+    build.require(x, "x", x.dtype)
+    zss = tuple(torch.empty((nseg, RL), dtype=torch.int16, device=x.device)
+                for _ in schemes)
+    build.check(build.get_lib().uhdr_rice_stats(
+        x.data_ptr(), rows, w, nsegw, mode, bits, rows // 3,
+        zss[0].data_ptr(), zss[-1].data_ptr(), None, build.stream_of(x)),
+        "uhdr_rice_stats")
+    return zss
+
+
 def _rice_word_offs(rem_npads, un_npads):
     """Word offsets of each bucket in a Rice blob (JAX packio.py:1431);
     the k set is the one of len(rem_npads) widths."""
@@ -708,20 +724,25 @@ def _bucket_rows(rem_npads, un_npads):
 
 def _rice_order(kuw, sidx, offs=None, head=None, med: bool = False,
                 pads=None, pad_bytes=None, nk: int = 10):
-    """B16's first launch (uhdr_rice_order): each segment's place in both
-    stable orders into sidx (2, nseg) int32; with `offs` / `head` also
-    the bucket offsets and the fused head (fit flag against `pads`, the
+    """B16's first launch (uhdr_rice_order: a count, a scan and a place
+    kernel over tiles of segments): each segment's place in both stable
+    orders into sidx (2, nseg) int32; with `offs` / `head` also the
+    bucket offsets and the fused head (fit flag against `pads`, the
     (rem, unary) padding arrays)."""
     nseg = kuw.shape[1]
     rem_p, un_p = pads if pads is not None else (
         np.zeros(nk, np.int32), np.zeros(len(_RICE_UCLS), np.int32))
     pad_ptr, npad = (pad_bytes.data_ptr(), pad_bytes.numel()) \
         if pad_bytes is not None and pad_bytes.numel() else (None, 0)
-    build.check(build.get_lib().uhdr_rice_order(
+    lib = build.get_lib()
+    scratch = torch.empty(lib.uhdr_rice_order_scratch(nseg),
+                          dtype=torch.int32, device=kuw.device)
+    build.check(lib.uhdr_rice_order(
         kuw[0].data_ptr(), kuw[1].data_ptr(), nseg, nk, sidx[0].data_ptr(),
         sidx[1].data_ptr(), None if offs is None else offs.data_ptr(),
         None if head is None else head.data_ptr(), int(med), _ptr(rem_p),
-        _ptr(un_p), pad_ptr, npad, build.stream_of(kuw)), "uhdr_rice_order")
+        _ptr(un_p), pad_ptr, npad, scratch.data_ptr(),
+        build.stream_of(kuw)), "uhdr_rice_order")
 
 
 def _rice_emit(zs, kuw, sidx, offs, rem_npads, un_npads, blob):

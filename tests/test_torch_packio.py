@@ -190,6 +190,79 @@ def test_fused_buffer_equals_jax(med, pads):
     assert int(want[bw]) == (pads != "tight")
 
 
+def edge_composite(n, h, w, content, seed=0):
+    """An (n, 3*h, w) u8 composite of the content B15 and B16 branch on:
+    all zero (every segment in the zero rank), full-range noise (the
+    unary cap and the largest k) or `composite`'s smooth content."""
+    if content == "zero":
+        return np.zeros((n, 3 * h, w), np.uint8)
+    if content == "noise":
+        rng = np.random.default_rng(seed)
+        return rng.integers(0, 256, (n, 3 * h, w)).astype(np.uint8)
+    return composite(n, h, w, seed=seed, noisy_rows=5)
+
+
+@pytest.mark.parametrize("content", ["zero", "noise"])
+def test_plain_b15_edge_content_equals_jax(content):
+    """All-zero and full-range content, on a shape whose JAX pass 1 the
+    tests above already compile."""
+    n, h, w = 2, 48, 300
+    comp = edge_composite(n, h, w, content, seed=11)
+    zss, maps = packio.rice_stats(torch.from_numpy(comp), (False, True))
+    want = jpackio._pass1_both_fn((n, h, w), 8)(comp)
+    for z, wz in zip(zss, want[:-1]):
+        assert np.array_equal(z.numpy().view(np.uint16), np.asarray(wz))
+    assert np.array_equal(maps.numpy(), np.asarray(want[-1]))
+    if content == "zero":
+        assert set(maps.numpy()[[0, 2]].ravel().tolist()) == {15}
+    else:  # some segment's k is held up by the unary cap
+        assert int(maps.numpy()[[1, 3]].max()) == packio._RICE_UCAP
+
+
+def test_plain_b15_b16_narrow_rows_equal_jax():
+    """w < 256: each row is one partial segment whose columns past w
+    repeat column w - 1; pass 1 and the fused buffer as JAX's."""
+    n, h, w = 1, 24, 100
+    comp = edge_composite(n, h, w, "smooth", seed=12)
+    zss, maps = packio.rice_stats(torch.from_numpy(comp), (False, True))
+    want = jpackio._pass1_both_fn((n, h, w), 8)(comp)
+    for z, wz in zip(zss, want[:-1]):
+        assert np.array_equal(z.numpy().view(np.uint16), np.asarray(wz))
+    assert np.array_equal(maps.numpy(), np.asarray(want[-1]))
+    got = packio.rice_fused(torch.from_numpy(comp), True, (32,) * 10,
+                            (32,) * 7)
+    want = np.asarray(jpackio._fused_fetch_fn((n, h, w), 8, True, (32,) * 10,
+                                              (32,) * 7)(comp))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("med", [False, True])
+@pytest.mark.parametrize("content", ["zero", "noise"])
+def test_b16_edge_content_equals_jax(content, med):
+    """The two-phase blob and the fused buffer of all-zero and
+    full-range content, on the static paddings the tests above compile
+    (the seed-8 plan of the first shape, and the tight 32 rows), so no
+    new JAX compile: zero content fits (an empty remainder family), noise
+    does not."""
+    n, h, w = COMP_SHAPES[0]
+    base = composite(n, h, w, seed=8, noisy_rows=9)
+    _, base_kuw = packio.rice_stats(torch.from_numpy(base), (med,))
+    _, _, rem_npads, un_npads, _, _ = _plan(base_kuw.numpy())
+    comp = edge_composite(n, h, w, content, seed=13)
+    (zs,), kuw = packio.rice_stats(torch.from_numpy(comp), (med,))
+    offs = _plan(kuw.numpy())[4]
+    got = packio.rice_pack(zs, kuw, offs, rem_npads, un_npads)
+    want = jpackio._rice_devpack_fn(zs.shape[0], rem_npads, un_npads)(
+        zs.numpy().view(np.uint16), kuw.numpy(), offs)
+    assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
+    tight = (32,) * 10, (32,) * 7
+    got = packio.rice_fused(torch.from_numpy(comp), med, *tight)
+    want = np.asarray(jpackio._fused_fetch_fn((n, h, w), 8, med,
+                                              *tight)(comp))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    assert int(want[packio._fused_blob_words(*tight)]) == (content == "zero")
+
+
 # ---------------------------------------------------------------------------
 # Readback: the fetch and the host unpack.
 # ---------------------------------------------------------------------------

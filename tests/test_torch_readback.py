@@ -156,6 +156,64 @@ def test_b16_fused_equals_jax(bits, med, tight):
     assert hl == jpackio._fused_head_len(_kset(bits)[0])
 
 
+def _edge_src(bits, n, h, w, content, seed=0):
+    """(numpy pixels, port tensor) of the content B15 and B16 branch on:
+    all zero, full-range noise, or (bits 16) G - R and G - B flipping by
+    2^15 from row to row, whose best k is 15."""
+    if content == "noise":
+        return _src(bits, n, h, w, seed, noise=True)
+    rng = np.random.default_rng(seed)
+    if bits == 10:
+        x = np.full((n, h, w), 0xC0000000, np.uint32)
+        return x, torch.from_numpy(x.view(np.int32))
+    x = np.zeros((n, h, w, 4), np.uint16)
+    x[..., 3] = 0x3C00
+    if content == "k15":
+        g = rng.integers(0, 65536, (n, h, w))
+        flip = (np.arange(h) % 2 * 0x8000)[None, :, None]
+        x[..., 0], x[..., 1], x[..., 2] = g ^ flip, g, g ^ flip ^ 0x8000
+    return x, torch.from_numpy(x.view(np.int16))
+
+
+EDGE_CONTENT = [(10, "zero"), (10, "noise"), (16, "zero"), (16, "noise"),
+                (16, "k15")]
+
+
+@pytest.mark.parametrize("bits,content", EDGE_CONTENT)
+def test_b15_edge_content_equals_jax(bits, content):
+    """w = 200 < 256 (one partial segment a row), on the shape whose JAX
+    pass 1 the tests above compile."""
+    shape = SHAPES[0]
+    x, t = _edge_src(bits, *shape, content, seed=5)
+    (zv, zm), maps = packio.rice_stats(t, (False, True))
+    jzv, jzm, jmaps = jpackio._pass1_both_fn(shape, bits)(jnp.asarray(x))
+    assert np.array_equal(zv.numpy().view(np.uint16), np.asarray(jzv))
+    assert np.array_equal(zm.numpy().view(np.uint16), np.asarray(jzm))
+    assert np.array_equal(maps.numpy(), np.asarray(jmaps))
+    codes = set(maps.numpy()[[0, 2]].ravel().tolist())
+    if content == "zero":
+        assert codes == {_kset(bits)[1]}
+    if content == "k15":
+        assert 15 in codes
+
+
+@pytest.mark.parametrize("bits,content", EDGE_CONTENT)
+@pytest.mark.parametrize("med", [False, True])
+def test_b16_edge_content_fused_equals_jax(bits, content, med):
+    """The fused buffer of the edge content on the static paddings that
+    test_b16_fused_equals_jax compiles (the seed-4 plan, and its tight
+    form), so no new JAX compile."""
+    shape = (2, 64, 200)
+    _, base = _src(bits, *shape, seed=4)
+    plan = _plan(bits, base, med)[2]
+    x, t = _edge_src(bits, *shape, content, seed=6)
+    for rp in (plan[2], tuple(max(32, r // 4) for r in plan[2])):
+        got = packio.rice_fused(t, med, rp, plan[3])
+        want = jpackio._fused_fetch_fn(shape, bits, med, rp, plan[3])(
+            jnp.asarray(x))
+        assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
 FETCHES = {10: ("fetch_rgba1010102_rice", "fetch_rgba1010102_med",
                 "fetch_rgba1010102_auto"),
            16: ("fetch_rgba_f16_rice", "fetch_rgba_f16_med",
