@@ -27,12 +27,14 @@ UhdrDecoder, UltraHdr, and the decode of the reference goldens in
 tests/goldens), checks what comes out, and times the kernels and the
 stages.
 
-Phases: B1, B2 (bitwise), B5, B6 (with its 10-bit planar arm), B11, B7
-kernel vs plain (B2 and B5 timed by CUDA-graph replay; B6 and B11 also
-at odd widths and heights); B6's exactly rounded pow (pow_exact =
-pow_rn bitwise over every float32 its call sites can receive, the share
-that took its double path, both pows' float64 instructions in the SASS
-and their times); B2's
+Phases: B1 (HLG and PQ, timed; also at a width of 1296 and on
+full-range codes), B2 (bitwise), B5, B6 (with its 10-bit planar arm),
+B11, B7 kernel vs plain (B2 and B5 timed by CUDA-graph replay; B6 and
+B11 also at odd widths and heights); the exactly rounded pow of B6,
+B11, B1, B9 and B10b (pow_exact = pow_rn bitwise over every float32 its
+call sites can receive, the PQ inverse OETF's exponents among them, the
+share that took its double path, both pows' float64 instructions in the
+SASS and their times); B2's
 tensor-core premise (every row sum of its bf16 mma exact on two
 adversarial rows of each of the 1,536 (term, row, output column)
 triples and on sharp-edged blocks, then B2 = plain bitwise on those
@@ -40,14 +42,16 @@ blocks, on the 1,179,648 blocks of tests/test_torch_dct.py's bitwise
 cases and on its dense HLG V plane; HMMA in B2's SASS); B3 (Huffman
 encode) kernel vs plain (also at intervals of 43 and 300 MCUs) and its
 JPEG/R bytes vs the host-Huffman route;
-B9 (API-1 front end) kernel vs plain and its JPEG/R bytes vs the
-host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
+B9 (API-1 front end) kernel vs plain (also at a width of 1296) and its
+JPEG/R bytes vs the host-Huffman route; B4 (Huffman decode) kernel vs plain vs the host
 decoder on the port's streams, on the restart-less goldens (DC carry),
 on garbage (also lanes at every start byte mod 4 and start bit, windows
 ending mid-word and at the stream's end), on DHTs with 1- and 16-bit
 codes and on two frames with different DHTs in one launch; B22 (the
-decode's log emission) on the same inputs and the handoff: B22 kernel =
-B22 plain = B4 kernel; B10 (B10a tonemap and B10c re-encode bit-exact,
+decode's log emission) on the same inputs, the handoff, garbage lanes
+cut short, a truncated stream and flat (DC-only) content: B22 kernel =
+B22 plain = B4 kernel, timed beside B4 in turns with its pass split;
+B10 (B10a tonemap and B10c re-encode bit-exact,
 B10b in five variants); B12 (decode_jpeg's device route on gray,
 4:2:0, 4:2:2, 4:4:4 and a restart-marked 4:2:0 stream: kernels = plain
 = host-Huffman route, B22 then B5 = B4 then B5); B13 (each single
@@ -144,9 +148,9 @@ BF16_TC_FLOPS = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 # counted the same way. Each row counts the least work known for its
 # function, whatever the kernel that ran it: for B6 one pow a pixel
 # (green; red and blue are reads of B6's sRGB tables, built once per
-# device), also for a kernel that pays three double pow()s. The double
-# pow() of encode_front.cu (B1, B9, B10b) costs more (pow_phase counts
-# both in the SASS).
+# device). encode_front.cu (B1, B9, B10b) computes its pows with the
+# same pow_exact (pow_phase counts its and the double pow()'s float64
+# instructions in the SASS).
 POW_F64_OPS = 36
 OPS = {
     # apply.cu per output pixel: 4 load/normalize, 14 YUV -> RGB, 3 +
@@ -401,6 +405,85 @@ def _timed(label: str, run, per: int = FRAMES, iters: int = 20) -> dict:
     return dict(ms=ms, enqueue_ms=enqueue_ms)
 
 
+# B1's edge width: 16-aligned, 162 tiles of 8 columns a row (no multiple
+# of a CTA's 256 tiles).
+B1_EDGE_W = 1296
+
+
+def full_range_p010(n: int, h: int, w: int, seed: int):
+    """P010 frames of full-range codes: luma constant over 8x8 blocks at
+    10-bit 0, 1023 or a random code (the blocks at 0 and 1023 floor and
+    saturate the gain codes), uniform random chroma over all 10-bit
+    codes. uint16 (n, h, w) and (n, h/2, w)."""
+    rng = np.random.default_rng(seed)
+    lvl = rng.choice(np.array([0, 1023, -1]), (n, h // 8, w // 8))
+    lvl = np.where(lvl < 0, rng.integers(0, 1024, lvl.shape), lvl)
+    y = np.kron(lvl, np.ones((1, 8, 8), np.int64)).astype(np.uint16) << 6
+    uv = rng.integers(0, 1024, (n, h // 2, w), dtype=np.uint16) << 6
+    return y, uv
+
+
+def b1_check(y, uv, gamut: str, tf: str, what: str,
+             extremes: bool = False) -> int:
+    """B1 against its plain version: gain codes <= 1 apart on <= 1e-4
+    of samples, base planes <= 1 apart; with `extremes`, the input must
+    give both the saturated and the floored gain code. Returns the max
+    |diff|."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import color, gainmap as gm
+
+    got = gm.encode_front(y, uv, gamut, tf)
+    ref = gm.encode_front_plain(y, uv, gamut, tf)
+    d = [(g.to(torch.int32) - r.to(torch.int32)).abs()
+         for g, r in zip(got, ref)]
+    n_off = int((d[0] > 0).sum())
+    ends = ""
+    if extremes:
+        _, _, _, _, sat, floor = color.gain_code_params(
+            1.0, color.hdr_inv_oetf_fn(tf)[1] / color.SDR_WHITE_NITS)
+        n_sat, n_floor = (int((ref[0] == c).sum()) for c in (sat, floor))
+        ends = f"; {n_sat} saturated ({sat}), {n_floor} floored ({floor})"
+        require(n_sat > 0 and n_floor > 0, f"B1 {what} {gamut}/{tf}: the "
+                f"input reaches no saturated or no floored gain code")
+    log(f"B1 encode_front {what} {gamut}/{tf}: max |diff| gain "
+        f"{int(d[0].max())} on {n_off} of {d[0].numel()} samples, planes "
+        f"max {max(int(x.max()) for x in d[1:])}{ends}")
+    require(int(d[0].max()) <= 1 and n_off <= 1e-4 * d[0].numel(),
+            f"B1 {what} {gamut}/{tf}: gain codes disagree with the plain "
+            f"version")
+    require(all(int(x.max()) <= 1 for x in d[1:]),
+            f"B1 {what} {gamut}/{tf}: base planes disagree with the plain "
+            f"version")
+    return max(int(x.max()) for x in d)
+
+
+def b1_times(y, uv, gamut: str, tf: str) -> dict:
+    """B1's kernels-line row for one configuration: ms per frame by CUDA
+    events (and by CUDA graph), the plain version's, the bytes and the
+    operations (OPS: the gain-map samples and the re-encoded quads)."""
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+
+    n, h, w = y.shape
+    out = gm.encode_front(y, uv, gamut, tf)
+    samples = ops(f"B9 map {tf}", (h // 4) * (w // 4))
+    quads = ops("B9 quad", (h // 2) * (w // 2))
+    row = dict(
+        err=0, ms=cuda_ms(lambda: gm.encode_front(y, uv, gamut, tf), 20) / n,
+        graph_ms=graph_ms(lambda: gm.encode_front(y, uv, gamut, tf), 20) / n,
+        plain_ms=cuda_ms(lambda: gm.encode_front_plain(y, uv, gamut, tf), 3)
+        / n, bytes=nbytes(y, uv, *out) / n, library_ms=None,
+        flops=samples["flops"] + quads["flops"], dflops=samples["dflops"])
+    t_bytes = bound(row["bytes"])[0]
+    t_ops = bound(0.0, row["flops"], row["dflops"])[0]
+    log(f"B1 {gamut}/{tf}: kernel {row['ms']:.4f} ms/frame by CUDA events "
+        f"({row['graph_ms']:.4f} by CUDA graph), plain {row['plain_ms']:.3f}"
+        f"; byte bound {t_bytes:.4f} ({row['bytes'] / 1e6:.1f} MB), "
+        f"operation bound {t_ops:.4f} ({row['dflops'] / 1e9:.3f} GFLOP f64, "
+        f"{row['flops'] / 1e9:.3f} f32) ms/frame")
+    return row
+
+
 def kernel_phases(dev, results: dict):
     """B1, B2, B5, B6, B11 and B7 against their plain versions at the
     4080x3072 shapes, on inputs from a seed; the stages feed each other
@@ -417,24 +500,26 @@ def kernel_phases(dev, results: dict):
     gamut, tf = CONFIGS[0]
 
     # B1: gain codes <= 1 apart on <= 1e-4 of samples; planes <= 1 apart.
+    # Both configurations (HLG and PQ), timed; the kernels line reports
+    # HLG's. Edges: a 16-aligned width (1296) whose tiles fill no whole
+    # CTA row, and full-range codes (saturated and floored gain codes).
     got = gm.encode_front(y, uv, gamut, tf)
-    ref = gm.encode_front_plain(y, uv, gamut, tf)
-    d = [(g.to(torch.int32) - r.to(torch.int32)).abs()
-         for g, r in zip(got, ref)]
-    n_off = int((d[0] > 0).sum())
-    err_b1 = max(int(x.max()) for x in d)
-    log(f"B1 encode_front: max |diff| gain {int(d[0].max())} on {n_off} of "
-        f"{d[0].numel()} samples, planes max "
-        f"{max(int(x.max()) for x in d[1:])}")
-    require(int(d[0].max()) <= 1 and n_off <= 1e-4 * d[0].numel(),
-            "B1 gain codes disagree with the plain version")
-    require(all(int(x.max()) <= 1 for x in d[1:]),
-            "B1 base planes disagree with the plain version")
-    results["B1"] = dict(
-        err=err_b1,
-        ms=cuda_ms(lambda: gm.encode_front(y, uv, gamut, tf), 20) / FRAMES,
-        plain_ms=cuda_ms(lambda: gm.encode_front_plain(y, uv, gamut, tf), 3)
-        / FRAMES, bytes=nbytes(y, uv, *got) / FRAMES, library_ms=None)
+    err_b1 = 0
+    for g_, t_ in CONFIGS:
+        b1_check(y, uv, g_, t_, f"{W}x{H}")
+        row = b1_times(y, uv, g_, t_)
+        if (g_, t_) == (gamut, tf):
+            results["B1"] = row
+        err_b1 = max(err_b1, row["err"])
+    wy, wuv = (batched.p010_to_device(a, dev)
+               for a in synth_p010(FRAMES, H, B1_EDGE_W, SEED + 7))
+    fy, fuv = (batched.p010_to_device(a, dev)
+               for a in full_range_p010(FRAMES, H, W, SEED + 8))
+    for g_, t_ in CONFIGS:
+        err_b1 = max(err_b1, b1_check(wy, wuv, g_, t_, f"{B1_EDGE_W}x{H}"),
+                     b1_check(fy, fuv, g_, t_, f"{W}x{H} full-range",
+                              extremes=True))
+    results["B1"]["err"] = err_b1
     gmap, yb, ub, vb = got
 
     # B2: int16 bitwise equal (both compute JAX's kron form, the dots'
@@ -707,12 +792,14 @@ def _f64_op(op: str) -> bool:
 
 
 def pow_phase(dev):
-    """B6's pow_exact against pow_rn (the double pow() it replaces),
-    bitwise, over every float32 its call sites can receive: [0.09, 1]
-    for the sRGB inverse OETF's base ((0.04045 + 0.055) / 1.055 =
-    0.0905...), every positive finite float32 for the PQ OETF's
-    exponents m1 and m2 (with the share of the PQ ratio's own range,
-    [c1, c2 / c3], apart); the share that took the double path; each
+    """pow_exact (B6, B11, B1, B9, B10b) against pow_rn (the double
+    pow() it replaces), bitwise, over every float32 its call sites can
+    receive: [0.09, 1] for the sRGB inverse OETF's base ((0.04045 +
+    0.055) / 1.055 = 0.0905...), every positive finite float32 for the
+    PQ OETF's exponents m1 and m2 (with the share of the PQ ratio's own
+    range, [c1, c2 / c3], apart), every positive float32 <= 1 for the
+    PQ inverse OETF's exponents (its bases lie in [0, 1]: the callers
+    clamp RGB to [0, 1]); the share that took the double path; each
     pow's float64 instructions in the built SASS (pow_probe_kernel) and
     its time on 2^24 inputs; B6's sRGB red / blue tables against the
     plain version, entry by entry."""
@@ -729,7 +816,11 @@ def pow_phase(dev):
                ("PQ x^m1 on every positive finite float32", m1, 1, inf_bits),
                ("PQ x^m2 on every positive finite float32", m2, 1, inf_bits),
                ("PQ x^m2 on the PQ ratio's range [c1, c2 / c3]", m2,
-                _f32_bits(c1), _f32_bits(np.float32(c2) / np.float32(c3)) + 1))
+                _f32_bits(c1), _f32_bits(np.float32(c2) / np.float32(c3)) + 1),
+               ("PQ inverse x^0.0126833 on every positive float32 <= 1",
+                0.0126833, 1, _f32_bits(1.0) + 1),
+               ("PQ inverse x^6.2773946361 on every positive float32 <= 1",
+                6.2773946361, 1, _f32_bits(1.0) + 1))
     for label, p, lo, hi in domains:
         bad, slow = gm.pow_exact_check(p, lo, hi, dev)
         log(f"pow_exact, {label}: {bad} of {hi - lo} results differ from "
@@ -879,32 +970,53 @@ def sdr_rendition(y_np, uv_np, sdr_gamut: str, dev):
             for p in gm.convert_yuv_encoding_plain(*top, "bt2100", sdr_gamut)]
 
 
+def b9_check(planes, sg: str, hg: str, tf: str, what: str):
+    """B9 against its plain version: gain codes <= 1 apart on <= 1e-4 of
+    samples, base planes bit-exact. Returns (its outputs, the gain
+    codes' |diff|)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+
+    got = gm.encode_front_api1(*planes, sg, hg, tf)
+    ref = gm.encode_front_api1_plain(*planes, sg, hg, tf)
+    d = (got[0].to(torch.int32) - ref[0].to(torch.int32)).abs()
+    n_off = int((d > 0).sum())
+    log(f"B9 encode_front_api1 {what} {sg}/{hg}/{tf}: max |diff| gain "
+        f"{int(d.max())} on {n_off} of {d.numel()} samples; base planes "
+        f"{'equal' if all(map(torch.equal, got[1:], ref[1:])) else 'DIFFER'}")
+    require(int(d.max()) <= 1 and n_off <= 1e-4 * d.numel(),
+            f"B9 {what} {sg}/{hg}/{tf} gain codes disagree with the plain "
+            f"version")
+    require(all(map(torch.equal, got[1:], ref[1:])),
+            f"B9 {what} {sg}/{hg}/{tf} base planes differ from the plain "
+            f"version")
+    return got, d
+
+
 def b9_phase(dev, results: dict):
     """B9 (API-1 front end) against its plain version for both API-1
     configurations (gain codes <= 1 apart on <= 1e-4 of samples, base
-    planes bit-exact), and the API-1 JPEG/R bytes through B2 and B3
-    against the host-Huffman route of the same coefficients."""
+    planes bit-exact), also at B1's edge width, and the API-1 JPEG/R
+    bytes through B2 and B3 against the host-Huffman route of the same
+    coefficients."""
     import torch
 
     from libultrahdr_dev_tpu_torch.ops import gainmap as gm
     from libultrahdr_dev_tpu_torch.parallel import batched
 
+    def api1_planes(y_np, uv_np, sg):
+        return ([batched.p010_to_device(a, dev) for a in (y_np, uv_np)]
+                + [torch.from_numpy(p).to(dev)
+                   for p in sdr_rendition(y_np, uv_np, sg, dev)])
+
     for i, (sg, hg, tf) in enumerate(API1_CONFIGS):
+        b9_check(api1_planes(*synth_p010(FRAMES, H, B1_EDGE_W,
+                                         SEED + 25 + i), sg),
+                 sg, hg, tf, f"{B1_EDGE_W}x{H}")
         y_np, uv_np = synth_p010(FRAMES, H, W, SEED + 20 + i)
-        planes = ([batched.p010_to_device(a, dev) for a in (y_np, uv_np)]
-                  + [torch.from_numpy(p).to(dev)
-                     for p in sdr_rendition(y_np, uv_np, sg, dev)])
-        got = gm.encode_front_api1(*planes, sg, hg, tf)
-        ref = gm.encode_front_api1_plain(*planes, sg, hg, tf)
-        d = (got[0].to(torch.int32) - ref[0].to(torch.int32)).abs()
-        n_off = int((d > 0).sum())
-        log(f"B9 encode_front_api1 {sg}/{hg}/{tf}: max |diff| gain "
-            f"{int(d.max())} on {n_off} of {d.numel()} samples; base planes "
-            f"{'equal' if all(map(torch.equal, got[1:], ref[1:])) else 'DIFFER'}")
-        require(int(d.max()) <= 1 and n_off <= 1e-4 * d.numel(),
-                f"B9 {sg}/{hg}/{tf} gain codes disagree with the plain version")
-        require(all(map(torch.equal, got[1:], ref[1:])),
-                f"B9 {sg}/{hg}/{tf} base planes differ from the plain version")
+        planes = api1_planes(y_np, uv_np, sg)
+        got, d = b9_check(planes, sg, hg, tf, f"{W}x{H}")
         coefs = batched.encode_coefs_stage_api1(*planes, sg, hg, tf, 95)
         streams = batched.encode_device_stage_api1(*planes, sg, hg, tf, 95)
         blobs = batched.assemble_api0(streams, sg, tf, 95)[0]
@@ -1210,10 +1322,9 @@ def b4_phase(dev, results: dict, kept: dict):
         streams = [dd.parse_device_stream(j) for j in jpegs]
         require(all(s is not None for s in streams),
                 f"B4 {what}: not on the device route")
-        ln = dd.pack_streams(streams)
+        inputs = _stream_inputs(streams, dev)
+        ln = inputs[0][0]
         fast = dd.fast_lookup_table(ln.tables)
-        inputs = [(ln, batched._upload([ln.src, ln.frames, ln.lanes,
-                                        ln.tables], dev))]
         n, _ = _check_b4_b22(inputs, what)
         got, = _b4(inputs)
         for f, j in enumerate(jpegs):
@@ -1229,14 +1340,16 @@ def b4_phase(dev, results: dict, kept: dict):
             f"of {fast.size // len(jpegs)})")
 
 
-def _garbage_b4_inputs(dev):
-    """B4's garbage windows (b4_phase): 256 lanes of random bytes, 2
-    MCUs each, random start bits."""
+def _garbage_b4_inputs(dev, win: int = 384, seed: int = SEED + 3):
+    """B4's garbage windows (b4_phase): 256 lanes of random bytes in
+    windows of `win` bytes, 2 MCUs (12 blocks) each, random start bits.
+    In 20-byte windows most lanes run out of bits before their last
+    block, so they are cut short and leave blocks they never enter."""
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.parallel import batched
 
-    rng = np.random.default_rng(SEED + 3)
-    nl, win, mx, my = 256, 384, 64, 8   # 512 MCUs, 2 per lane
+    rng = np.random.default_rng(seed)
+    nl, mx, my = 256, 64, 8   # 512 MCUs, 2 per lane
     src = rng.integers(0, 256, nl * win, dtype=np.uint8)
     rows = np.asarray([dd.frame_row(0, src.size, win, 2, 0, nl, False, 2)],
                       np.int32)
@@ -1371,18 +1484,50 @@ def _check_b22(inputs, what: str, want=None):
     return got
 
 
+def _stream_inputs(streams, dev):
+    """Packed B4 inputs of parsed streams of one geometry."""
+    from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    ln = dd.pack_streams(streams)
+    return [(ln, batched._upload([ln.src, ln.frames, ln.lanes, ln.tables],
+                                 dev))]
+
+
+def _flat_jpegs(dev) -> dict:
+    """GW x GH 4:2:0 JPEGs of flat 8x8 blocks (random levels: DC only,
+    one log entry a block), restart-less and at restart interval 4."""
+    from libultrahdr_dev_tpu_torch.jpeg import codec
+
+    rng = np.random.default_rng(SEED + 7)
+
+    def flat(h, w):
+        lvl = rng.integers(0, 256, (-(-h // 8), -(-w // 8)), dtype=np.uint8)
+        return np.kron(lvl, np.ones((8, 8), np.uint8))[:h, :w]
+
+    planes = {"y": flat(GH, GW), "u": flat(GH // 2, GW // 2),
+              "v": flat(GH // 2, GW // 2)}
+    return {r: codec.encode_jpeg(planes, 90, restart_interval=r, device=dev)
+            for r in (0, 4)}
+
+
 def b22_phase(dev, results: dict, kept: dict):
     """B22 (the decode's log emission) on B4's phase's inputs: the
     streams B3 wrote (4080x3072, batch 2), the handoff (B3's chunk
-    buffers read in place), the restart-less goldens (DC carry) and the
-    garbage windows: B22 kernel = B22 plain = B4 kernel, bitwise. Times
-    B22 beside B4 on the own streams, in turns (B4, B22, B22, B4), and
+    buffers read in place), the restart-less goldens (DC carry), the
+    garbage windows, garbage lanes cut short (blocks they never enter),
+    a truncated stream and flat (DC-only) content: B22 kernel = B22
+    plain = B4 kernel, bitwise. Times B22 beside B4 on the own streams,
+    in turns (B4, B22, B22, B4), splits B22's device time by pass, and
     counts the coefficients B22's log holds."""
+    import copy
+
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
     from libultrahdr_dev_tpu_torch.parallel import batched
 
     coefs, _, _, blobs = kept[CONFIGS[0]]
-    inputs = _b4_inputs(batched.decode_host_stage(blobs), dev)
+    frames = batched.decode_host_stage(blobs)
+    inputs = _b4_inputs(frames, dev)
     got = _check_b22(inputs, "own streams")
     log(f"B22 own streams: kernel = plain = B4 ({W}x{H}, batch {FRAMES})")
     _check_b22(_handoff_b4_inputs(kept, dev), "handoff",
@@ -1397,11 +1542,28 @@ def b22_phase(dev, results: dict, kept: dict):
     g = _check_b22(_garbage_b4_inputs(dev), "garbage windows")
     log(f"B22 garbage: kernel = plain = B4 on 256 random windows "
         f"({sum(int((a != 0).sum()) for a in g[0])} nonzero coefficients)")
+    n, nz = _check_b4_b22(_garbage_b4_inputs(dev, 20, SEED + 6),
+                          "short windows")
+    log(f"B22 garbage lanes cut short (20-byte windows, 12 blocks a lane): "
+        f"B4 = plain, B22 = plain = B4 ({n} coefficients, {nz} nonzero)")
+    cut = copy.copy(frames[0].streams[0])
+    cut.dest = cut.dest[:cut.dest.size * 3 // 5].copy()
+    n, nz = _check_b4_b22(_stream_inputs([cut], dev), "truncated stream")
+    log(f"B22 truncated stream (frame 0's base cut to 3/5 of its "
+        f"{frames[0].streams[0].dest.size} bytes): B4 = plain, B22 = plain "
+        f"= B4 ({nz} nonzero coefficients)")
+    for r, jpeg in _flat_jpegs(dev).items():
+        n, nz = _check_b4_b22(_stream_inputs([dd.parse_device_stream(jpeg)],
+                                             dev), f"flat r={r}")
+        log(f"B22 flat DC-only 4:2:0 {GW}x{GH}, restart interval {r}: B4 = "
+            f"plain, B22 = plain = B4 ({n // 64} blocks, {nz} nonzero "
+            f"coefficients)")
 
     emitted = sum(int(dd._decode_rst_chunks_log(
         *arrays, ln.gray, ln.sampling, ln.mcus_x, ln.mcus_y)[1].sum())
         for ln, arrays in inputs)
     nonzero = sum(int((p != 0).sum()) for img in got for p in img)
+    blocks = sum(p.shape[0] * p.shape[1] for img in got for p in img)
     b4_ms = [graph_ms(lambda: _b4(inputs), 10) / FRAMES]
     b22_ms = [graph_ms(lambda: _b4(inputs, mode="log"), 10) / FRAMES
               for _ in range(2)]
@@ -1414,7 +1576,16 @@ def b22_phase(dev, results: dict, kept: dict):
         f"{b4_ms[1]:.4f} ms/frame (B22 by CUDA events {b22_events:.4f}); "
         f"{emitted / FRAMES:.0f} coefficients "
         f"emitted a frame ({nonzero / FRAMES:.0f} nonzero), log "
-        f"{6 * emitted / FRAMES / 1e6:.1f} MB a frame")
+        f"{4 * emitted / FRAMES / 1e6:.1f} MB and block starts "
+        f"{4 * blocks / FRAMES / 1e6:.1f} MB a frame")
+    split = {k: v / FRAMES for k, v in device_ms_by_kernel(
+        lambda: _b4(inputs, mode="log"), 10).items()}
+    log(f"B22 pass split ({W}x{H}, batch {FRAMES}; device ms/frame, "
+        f"profiler): pass 1 (log_kernel) "
+        f"{split.get('log_kernel', float('nan')):.4f}, pass 2 "
+        f"(rebuild_kernel) {split.get('rebuild_kernel', float('nan')):.4f}, "
+        f"tables {split.get('table_kernel', float('nan')):.4f}, carry scan "
+        f"{split.get('carry_scan_kernel', float('nan')):.4f}")
     log_breakdown(f"B22 ({W}x{H}, batch {FRAMES})",
                   lambda: _b4(inputs, mode="log"), 5, b22_events * FRAMES)
     results["B22"] = dict(
@@ -3723,7 +3894,7 @@ def main() -> int:
                lambda: kernel_phases(dev, results))]
     kept = {}
     phases.append(("B2 tensor-core premise", lambda: b2_premise_phase(dev)))
-    phases.append(("B6 pow_exact", lambda: pow_phase(dev)))
+    phases.append(("pow_exact", lambda: pow_phase(dev)))
     phases.append(("B3", lambda: kept.update(b3_phase(dev, results))))
     phases.append(("B9", lambda: b9_phase(dev, results)))
     phases.append(("B4", lambda: b4_phase(dev, results, kept)))

@@ -3,8 +3,9 @@
 one process on one NVIDIA GPU: B2 (fdct_quant), B5 (dequant_idct), B4
 and B22 (the Huffman decode, dense and log emission), B12-dec (B4 then
 B5), B19 (the restart-less Huffman encode), B3 and B12-enc (the
-restart-interval Huffman encode), B6 / B11 (the gain-map apply) and
-B15 / B16 (Rice pass 1 and the Rice pack of the packed readbacks).
+restart-interval Huffman encode), B6 / B11 (the gain-map apply), B1 /
+B9 / B10b (the encode front ends) and B15 / B16 (Rice pass 1 and the
+Rice pack of the packed readbacks).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
@@ -19,7 +20,10 @@ general route's 4000x3000 base and 1000x750 gain map (B19), B2's
 coefficients of the batch (B3: base and gain map at the device routes'
 interval of 4 MCUs), encode_jpeg's coefficients of a 4000x3000 4:2:0
 frame at r = 4 (B12-enc), B5's pixels of the batch (B6 in its four
-output formats, B11 to HLG), and chip_smoke.py's readback inputs (a
+output formats, B11 to HLG), the batch's P010 frames (B1 at HLG and PQ;
+B9 with chip_smoke.py's BT.709 SDR rendition, HLG), a tonemapped
+4000x3000 frame (B10b, the general route's API-0 gain map), and
+chip_smoke.py's readback inputs (a
 4080x3072 batch of 4 decoded to the u8 planes composite, to HLG
 RGBA1010102 and to F16: B15 and B16 at 8, 10 and 16 bits).
 
@@ -28,7 +32,8 @@ trees bitwise equal to each other, with their off-count against the
 plain version; B4, B22 and B12-dec of both trees bitwise equal to each
 other; B19's, B3's and B12-enc's streams and bits of both trees bitwise
 equal; B6 (F16, HLG, PQ, 10-bit planar) and B11 (HLG) of both trees
-bitwise equal; B15's residuals and maps (both schemes), B16's orders,
+bitwise equal; B1 (HLG, PQ), B9 and B10b of both trees bitwise equal;
+B15's residuals and maps (both schemes), B16's orders,
 two-phase blobs (each scheme on its host plan) and fused buffers (fit
 and no fit) of both trees bitwise equal, and equal to the plain
 versions; B17's widths and pack of both trees bitwise equal; each
@@ -38,9 +43,11 @@ source.
 Times, ms per frame, in turns (other, this, this, other): B2, B5, B4,
 B22 and B12-dec by CUDA-graph replay and by CUDA events, B20 (B1 + B2)
 by CUDA graph, B19, B3 and B12-enc by CUDA events with their syncs (as
-chip_smoke.py times them), B6 and B11 by CUDA graph; then each tree's
-device ms by kernel (torch.profiler) of B4, B22, B12-dec, B19, B3,
-B12-enc, B6 (F16, PQ) and B11; B15 (both schemes) and B16 (the MED
+chip_smoke.py times them), B6 and B11 by CUDA graph, B1 (HLG, PQ), B9
+and B10b by CUDA events and by CUDA graph; then each tree's device ms
+by kernel (torch.profiler) of B4, B22 (its pass split: log_kernel,
+rebuild_kernel), B12-dec, B19, B3, B12-enc, B6 (F16, PQ), B11 and B1
+(HLG, PQ); B15 (both schemes) and B16 (the MED
 two-phase pack: order and emit) at 8, 10 and 16 bits by CUDA events
 with each tree's device ms by kernel, and the three packed fetches
 (B15 + B16 + D2H + native unpack) by the host clock, synchronized. Prints the card's name and power
@@ -325,6 +332,30 @@ def main(argv) -> int:
     def b6(m, fmt, luts=False):
         return [m["gainmap"].apply_gainmap(*apply_args[fmt], luts)]
 
+    # B1 (HLG and PQ) and B9 (API-1, HLG) on the batch; B10b (the
+    # general route's API-0 gain map) on one 4000x3000 frame.
+    sg, hg, tf1 = cs.API1_CONFIGS[0]
+    api1 = [y, uv] + [torch.from_numpy(p).to(dev)
+                      for p in cs.sdr_rendition(y_np, uv_np, sg, dev)]
+    ty, tuv = (batched.p010_to_device(a, dev)
+               for a in cs.synth_p010(1, cs.GH, cs.GW, cs.SEED + 40))
+    tm = gm.tonemap_p010(ty, tuv)
+
+    def b1(m, cfg):
+        return list(m["gainmap"].encode_front(y, uv, *cfg))
+
+    def b9(m):
+        return list(m["gainmap"].encode_front_api1(*api1, sg, hg, tf1))
+
+    def b10b(m):
+        return [m["gainmap"].generate_gainmap(
+            *tm, ty, tuv, sdr_gamut="bt2100", hdr_gamut="bt2100",
+            hdr_tf="hlg")[0]]
+
+    fronts = {"B1 HLG": lambda m: b1(m, cs.CONFIGS[0]),
+              "B1 PQ": lambda m: b1(m, cs.CONFIGS[1]),
+              "B9": b9, "B10b": b10b}
+
     applies = {"B6 F16": lambda m: b6(m, "hdr_linear"),
                "B6 HLG": lambda m: b6(m, "hdr_hlg"),
                "B6 PQ": lambda m: b6(m, "hdr_pq"),
@@ -333,14 +364,15 @@ def main(argv) -> int:
 
     for what, fn in (("B4", b4), ("B22", lambda m: b4(m, "log")),
                      ("B12-dec", b12), ("B19", b19), ("B3", b3),
-                     ("B12-enc", b12e), *applies.items()):
+                     ("B12-enc", b12e), *applies.items(),
+                     *fronts.items()):
         a, b = fn(trees["other"]), fn(trees["this"])
         same = len(a) == len(b) and all(map(torch.equal, a, b))
         print(f"{what} of both trees bitwise equal: {same}", flush=True)
         cs.require(same, f"{what} differs between the trees")
 
     def b20(m):
-        g, yb, ub, vb = gm.encode_front(y, uv, gamut, tf)
+        g, yb, ub, vb = m["gainmap"].encode_front(y, uv, gamut, tf)
         return [m["dct"].fdct_quant(p, q) for p, q in
                 ((yb, qs[0]), (ub, qs[1]), (vb, qs[1]), (g, qs[2]))]
 
@@ -368,6 +400,11 @@ def main(argv) -> int:
         for what, fn in applies.items():
             t[what.replace(" ", "_") + "_graph"] = cs.graph_ms(
                 lambda fn=fn: fn(m), 10) / frames
+        for what, fn in fronts.items():
+            per = 1 if what == "B10b" else frames
+            key = what.replace(" ", "_")
+            t[key + "_events"] = cs.cuda_ms(lambda fn=fn: fn(m), 20) / per
+            t[key + "_graph"] = cs.graph_ms(lambda fn=fn: fn(m), 20) / per
         print(f"turn {turn} {name}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in t.items()) + f" ms/frame ({smi})",
             flush=True)
@@ -383,6 +420,10 @@ def main(argv) -> int:
                               ("B6 F16", lambda: b6(m, "hdr_linear"), frames),
                               ("B6 PQ", lambda: b6(m, "hdr_pq"), frames),
                               ("B11 HLG", lambda: b6(m, "hdr_hlg", True),
+                               frames),
+                              ("B1 HLG", lambda: b1(m, cs.CONFIGS[0]),
+                               frames),
+                              ("B1 PQ", lambda: b1(m, cs.CONFIGS[1]),
                                frames)):
             by = {k: v / per
                   for k, v in cs.device_ms_by_kernel(fn, 10).items()}

@@ -19,7 +19,7 @@ _METADATA_FIELDS = ("version", "max_content_boost", "min_content_boost",
                     "hdr_capacity_min", "hdr_capacity_max")
 
 
-def to_torch_qtables(*qtables, device="cpu") -> tuple[torch.Tensor, ...]:
+def to_torch_qtables(*qtables, device="cuda") -> tuple[torch.Tensor, ...]:
     """8x8 (or 64) natural-order quant tables -> (64,) int32 tensors on
     `device`, the layout jpeg/dct.py's kernels take."""
     return tuple(torch.from_numpy(np.asarray(q, np.int32).reshape(64).copy())

@@ -20,12 +20,13 @@ deinterleave_yuv420_device) is index arithmetic inside it.
 Emission, as JAX's ``emit_mode``: "dense" (B4, the default) keeps each
 lane's current block and writes it out whole; "log" (B22, JAX's
 body_log) appends only the coefficients a lane emits to a compact
-(position, value) log and rebuilds the dense grids from it in a second,
-parallel pass. The two give the same grids bit for bit on any input.
-The default is read from ``UHDR_DECODE_EMIT`` at import; any value but
-"log" means dense. JAX's ``UHDR_DECODE_UNITS`` (units decoded per loop
-step) has no counterpart: the port decodes one unit a step, and the
-result does not depend on it.
+(zigzag index, value) log, notes where each block's entries start, and
+rebuilds the dense grids from it in a second, parallel pass. The two
+give the same grids bit for bit on any input. The default is read from
+``UHDR_DECODE_EMIT`` at import; any value but "log" means dense. JAX's
+``UHDR_DECODE_UNITS`` (units decoded per loop step) has no counterpart:
+the port decodes one unit a step, and the result does not depend on
+it.
 
 Huffman tables are data: each frame's decode tables are built from its
 own DHT definitions (``decode_tables``), so frames that differ in
@@ -778,24 +779,25 @@ def _decode_rst_chunks_log(src, frames, lanes, tabs, gray: bool, sampling,
                           mcus_x: int, mcus_y: int):
     """B22 on CUDA tensors: (the grids, the (nl,) int32 count of
     coefficients each lane emitted). Pass 1 decodes each lane into its
-    segment of a (position, value) log sized for every coefficient of
-    the batch (n * blocks * 64 entries: int32 positions, int16 values);
-    pass 2 rebuilds the grids from it. Counts ``decode_rst_chunks.
-    log_launches``; raises on a build or launch failure."""
+    segment of a log sized for every coefficient of the batch (n *
+    blocks * 64 int32 entries, zigzag index << 16 | value) and writes
+    each block's first log index (n * blocks int32); pass 2 rebuilds the
+    grids from them. Counts ``decode_rst_chunks.log_launches``; raises
+    on a build or launch failure."""
     lib = build.get_lib()
     grids, lookups, y, u, v, dcsum, args = _launch_args(
         lib, src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y)
-    entries = sum(g.numel() for g in grids)
+    blocks = sum(g.shape[0] * g.shape[1] for g in grids)
     dev = src.device
-    pos = torch.empty(entries, dtype=torch.int32, device=dev)
-    val = torch.empty(entries, dtype=torch.int16, device=dev)
+    ent = torch.empty(blocks * 64, dtype=torch.int32, device=dev)
+    start = torch.empty(blocks, dtype=torch.int32, device=dev)
     cnt = torch.empty(lanes.shape[0], dtype=torch.int32, device=dev)
     decode_rst_chunks.log_launches += 1
     build.check(lib.uhdr_huff_decode_log(
         src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
-        tabs.data_ptr(), lookups.data_ptr(), pos.data_ptr(), val.data_ptr(),
-        cnt.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
-        dcsum.data_ptr(), *args, build.stream_of(src)),
+        tabs.data_ptr(), lookups.data_ptr(), ent.data_ptr(),
+        start.data_ptr(), cnt.data_ptr(), y.data_ptr(), u.data_ptr(),
+        v.data_ptr(), dcsum.data_ptr(), *args, build.stream_of(src)),
         "uhdr_huff_decode_log")
     return tuple(grids), cnt
 

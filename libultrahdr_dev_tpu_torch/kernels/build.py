@@ -97,7 +97,7 @@ SIGNATURES = {
     # src, frames, lanes, tables, lookups, y, u, v, dcsum, n, n_lanes,
     # gray, hs, vs, mcus_x, mcus_y, stream
     "uhdr_huff_decode": [_P] * 9 + [_I] * 7 + [_P],
-    # src, frames, lanes, tables, lookups, log positions, log values,
+    # src, frames, lanes, tables, lookups, log entries, block starts,
     # counts, y, u, v, dcsum, n, n_lanes, gray, hs, vs, mcus_x, mcus_y,
     # stream
     "uhdr_huff_decode_log": [_P] * 12 + [_I] * 7 + [_P],

@@ -118,15 +118,6 @@ __device__ __forceinline__ uint32_t pack10(float c) {
   return (uint32_t)(clamp01(c) * 1023.0f) & 0x3FFu;
 }
 
-// Fills a CTA's copy of pow_exact's tables (the caller synchronizes).
-__device__ __forceinline__ void load_pow_tables(uhdr::PowTables* dst) {
-  const double* src = reinterpret_cast<const double*>(&uhdr::kPowTables);
-  double* d = reinterpret_cast<double*>(dst);
-  for (int i = threadIdx.x; i < (int)(sizeof(uhdr::PowTables) / 8);
-       i += blockDim.x)
-    d[i] = src[i];
-}
-
 // The two luma bytes of a quad row: one 2-byte load when both are in
 // the row and the address is even.
 __device__ __forceinline__ void load_pair(const uint8_t* p, int n,
@@ -190,7 +181,7 @@ apply_kernel(Plane yp, Plane up, Plane vp, Plane gp,
     for (int i = threadIdx.x; i < kSrgbLutN; i += kThreads)
       srgb[i] = srgb_lut[i];
   } else {
-    load_pow_tables(&ptab);
+    uhdr::load_pow_tables(&ptab);
   }
   if (table) {  // (row phase, bottom edge) x (column phase, right edge)
     for (int i = threadIdx.x; i < 4 * scale * scale; i += kThreads) {
@@ -334,7 +325,7 @@ apply_kernel(Plane yp, Plane up, Plane vp, Plane gp,
 // apply_kernel's own arithmetic.
 __global__ void __launch_bounds__(256) srgb_rb_kernel(float* __restrict__ t) {
   __shared__ uhdr::PowTables ptab;
-  load_pow_tables(&ptab);
+  uhdr::load_pow_tables(&ptab);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;  // < 65,536
   const uhdr::YuvToRgb to_rgb = bt601();
@@ -353,7 +344,7 @@ __global__ void __launch_bounds__(256)
 pow_check_kernel(float p, unsigned lo, unsigned hi,
                  unsigned long long* __restrict__ counts) {
   __shared__ uhdr::PowTables ptab;
-  load_pow_tables(&ptab);
+  uhdr::load_pow_tables(&ptab);
   __syncthreads();
   unsigned long long bad = 0, slow = 0;
   for (unsigned long long b = lo + blockIdx.x * blockDim.x + threadIdx.x;
@@ -383,7 +374,7 @@ pow_probe_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
                  float p) {
   __shared__ uhdr::PowTables ptab;
   if (kExact) {
-    load_pow_tables(&ptab);
+    uhdr::load_pow_tables(&ptab);
     __syncthreads();
   }
   int i = blockIdx.x * blockDim.x + threadIdx.x;

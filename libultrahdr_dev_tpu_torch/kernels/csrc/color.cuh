@@ -3,9 +3,12 @@
 // only where fmaf() says so: exactly where ops/color.py:fma fuses them,
 // following the JAX reference as XLA compiles it. A division by a
 // constant is a multiplication by the constant's float32 reciprocal,
-// and pow() is evaluated in double, as in ops/color.py (pow_rn; pow_exact
-// gives the same bits at less cost). Shared by
-// encode_front.cu (B1, B9), apply.cu (B6, B11) and sdr_out.cu (B7).
+// and pow() is evaluated in double, as in ops/color.py (pow_rn); every
+// pow of the kernels is pow_exact, which gives pow_rn's bits at less
+// cost: B6 and B11 (apply.cu: the sRGB inverse OETF's green, the PQ
+// OETF) and B1, B9 and B10b (encode_front.cu: the sRGB inverse OETF and
+// the PQ inverse OETF of the computed arm). Shared by encode_front.cu
+// (B1, B9, B10a-c), apply.cu (B6, B11) and sdr_out.cu (B7).
 // Constants are written (float)<double> so that they round the way the
 // Python constants do (decimal -> double -> float32).
 #pragma once
@@ -267,15 +270,20 @@ __device__ __forceinline__ float pow_exact(float x, float p,
   return pow_rn(x, p);
 }
 
+// Fills a CTA's copy of pow_exact's tables (2.5 KB; the caller
+// synchronizes before the first pow_exact).
+__device__ __forceinline__ void load_pow_tables(PowTables* dst) {
+  const double* src = reinterpret_cast<const double*>(&kPowTables);
+  double* d = reinterpret_cast<double*>(dst);
+  for (int i = threadIdx.x; i < (int)(sizeof(PowTables) / 8);
+       i += blockDim.x)
+    d[i] = src[i];
+}
+
 __device__ __forceinline__ float srgb_inv_oetf_exact(float e,
                                                      const PowTables& t) {
   if (e <= (float)0.04045) return e * kRcp1292;
   return pow_exact((e + (float)0.055) * kRcp1055, (float)2.4, t);
-}
-
-__device__ __forceinline__ float srgb_inv_oetf(float e) {
-  if (e <= (float)0.04045) return e * kRcp1292;
-  return pow_rn((e + (float)0.055) * kRcp1055, (float)2.4);
 }
 
 __device__ __forceinline__ float hlg_oetf(float e) {
@@ -296,16 +304,21 @@ __device__ __forceinline__ float pq_oetf(float e, const PowTables& t) {
   return pow_exact(fmaf(kPqC2, ep, kPqC1) / fmaf(kPqC3, ep, 1.0f), kPqM2, t);
 }
 
-__device__ __forceinline__ float pq_inv_oetf(float e) {
+// The PQ inverse OETF (ops/color.py:pq_inv_oetf), its powers by
+// pow_exact: for e in [0, 1] (the callers clamp) both bases lie in
+// [0, 1], where chip_smoke.py's pow_phase holds pow_exact to pow_rn on
+// every float32 for both exponents.
+__device__ __forceinline__ float pq_inv_oetf(float e, const PowTables& t) {
   if (e <= (float)0.0001) return 0.0f;
-  float ef = pow_rn(fmaxf(e, (float)1e-5), kPqInvF);
+  float ef = pow_exact(fmaxf(e, (float)1e-5), kPqInvF, t);
   float num = fmaf(kPqInvA, ef, -kPqInvB);
   float den = fmaf(-kPqInvD, ef, kPqInvC);
-  return pow_rn(fmaxf(num / den, 0.0f), kPqInvE);
+  return pow_exact(fmaxf(num / den, 0.0f), kPqInvE, t);
 }
 
-__device__ __forceinline__ float hdr_inv_oetf(float e, int tf) {
-  return tf == kHlg ? hlg_inv_oetf(e) : tf == kPq ? pq_inv_oetf(e) : e;
+__device__ __forceinline__ float hdr_inv_oetf(float e, int tf,
+                                              const PowTables& t) {
+  return tf == kHlg ? hlg_inv_oetf(e) : tf == kPq ? pq_inv_oetf(e, t) : e;
 }
 
 // YUV -> RGB with the reference's clamping; cr, cb and the green

@@ -71,30 +71,39 @@
 // it (8 16-byte stores) and stores each emitted coefficient there (one
 // 2-byte store); a lane cut short leaves its remaining blocks zeroed.
 // No array is indexed at run time, so nothing is on the stack. B22:
-// pass 1 runs the same unit steps and appends each emitted coefficient
-// (its int32 position in the lane, block * 64 + zigzag index, and its
-// int16 value) to the lane's own segment of a log sized for every
-// coefficient of the frame (a lane's segment starts at its first block
-// * 64); it writes no zeros. Positions rise strictly within a lane.
-// Pass 2, one warp per output block: a lower bound of block * 64 in the
-// lane's positions finds the block's first entry, the warp scatters the
-// block's entries into a zeroed 64-entry tile in shared memory and
-// writes the 128 B of the block coalesced.
+// pass 1 runs the same unit steps and appends each emitted coefficient,
+// as one int32 (its zigzag index << 16 | its int16 value), to the
+// lane's own segment of a log sized for every coefficient of the frame
+// (a lane's segment starts at its first block * 64); it writes no
+// zeros. Pass 1 also writes each block's first log index into `start`
+// (an int32 per block, in the frame's block order m * bpm + slot): the
+// lane's count as it enters the block, and for the blocks it never
+// enters (a lane cut short) its final count, so they hold no entry.
+// Pass 2, a quarter-warp per output block in the grids' own order
+// (consecutive groups write consecutive blocks): the block's entries
+// are [start[b], start[b + 1]), or up to the lane's count for its last
+// block; no search. The 8 threads zero a 128 B tile in shared memory,
+// scatter the block's entries into it (most blocks hold 0 or 1), add
+// the DC carry and write the block with one 16-byte store each. (An
+// earlier form found each block's first entry by a binary search
+// through the lane's positions in global memory, a warp a block.)
 //
-// The DC carry, shared by both: a CTA per carrying frame scans its
-// lanes' DC sums (int32 wrap, scan.cuh) into their exclusive prefixes,
-// in place, then an add pass of a thread per output block adds its
-// lane's prefix to the block's DC (int16 wrap): the one add a block the
-// one-CTA walk it replaces made, so the grids are the same bits.
+// The DC carry: a CTA per carrying frame scans its lanes' DC sums
+// (int32 wrap, scan.cuh) into their exclusive prefixes, in place; B4
+// then runs an add pass of a thread per output block, adding its lane's
+// prefix to the block's DC (int16 wrap), and B22's pass 2 adds it as it
+// writes the block: the one add a block the one-CTA walk it replaces
+// made, so the grids are the same bits.
 //
 // Bound: memory traffic. Per 4080x3072 frame B4 reads ~1-2 MB of
 // stream and writes 39.2 MB of coefficients, ~12 us at 3.35 TB/s, and
-// B22, the same function, has the same floor: its log (6 B per emitted
-// coefficient, written and read back) is its own intermediate. What
-// holds the kernels above it is each lane's serial unit chain (a unit's
-// length sets where the next starts): ~100-130 units a lane, each a
-// dependent chain of some 150 instructions issued in order, with only
-// ~12-15k lanes a frame (1-2 warps a scheduler) to hide it (PERF.md).
+// B22, the same function, has the same floor: its log (4 B per emitted
+// coefficient) and `start` (4 B a block), each written and read back,
+// are its own intermediates. What holds the kernels above it is each
+// lane's serial unit chain (a unit's length sets where the next
+// starts): ~100-130 units a lane, each a dependent chain of some 150
+// instructions issued in order, with only ~12-15k lanes a frame (1-2
+// warps a scheduler) to hide it (PERF.md).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -538,20 +547,23 @@ decode_kernel(const uint8_t* __restrict__ src,
 }
 
 // B22 pass 1: the lane's emitted coefficients, in decode order, into
-// its segment of the log (pos: position in the lane, block * 64 +
-// zigzag index; val: the value), their count into cnt. The segment of
-// lane idx starts at its first block, idx * bpm * r, in its frame's
-// part of the log (frame f at f * blocks * 64 entries) and holds the
-// positions below min(target, the frame's blocks from there) * 64: all
-// of them on consistent descriptors, where a lane emits only into its
-// blocks below target, at most 64 a block. Grid as decode_kernel's.
+// its segment of the log (ent: zigzag index << 16 | the value's 16
+// bits), their count into cnt, and each of its blocks' first log index
+// into start. The segment of lane idx starts at its first block, first
+// = idx * bpm * r, in its frame's part of the log (frame f at f * blocks
+// * 64 entries) and holds the coefficients of its blocks below nblk =
+// min(target, the frame's blocks from there): all of them on consistent
+// descriptors, where a lane emits only into its blocks below target, at
+// most 64 a block. start[f * blocks + first + b] for b < nblk is the
+// count as the lane enters block b, or its final count for a block it
+// never enters. Grid as decode_kernel's.
 __global__ void __launch_bounds__(kThreads)
 log_kernel(const uint8_t* __restrict__ src,
            const int32_t* __restrict__ frames,
            const int32_t* __restrict__ lanes,
            const int32_t* __restrict__ tables,
-           const Lookup* __restrict__ lookups, int32_t* __restrict__ pos,
-           int16_t* __restrict__ val, int32_t* __restrict__ cnt,
+           const Lookup* __restrict__ lookups, uint32_t* __restrict__ ent,
+           int32_t* __restrict__ start, int32_t* __restrict__ cnt,
            int32_t* __restrict__ dcsum, int n_lanes, Geometry g) {
   __shared__ Lookup s;
   __shared__ uint32_t stage[kStageWords];
@@ -575,75 +587,111 @@ log_kernel(const uint8_t* __restrict__ src,
   lane_init(L, src, fr, lanes, idx, lane, g, bpm, staged, base);
   long long fb = (long long)g.mcus_x * g.mcus_y * bpm;
   long long first = min((long long)idx * bpm * L.r, fb);
-  int limit = (int)max(0LL, min((long long)L.target, fb - first)) * 64;
-  size_t seg = ((size_t)f * fb + first) * 64;
+  int nblk = (int)max(0LL, min((long long)L.target, fb - first));
+  uint32_t* seg = ent + ((size_t)f * fb + first) * 64;
+  int32_t* st = start + (size_t)f * fb + first;
   int c = 0;
+  if (nblk > 0) st[0] = 0;
   do {
     int blk = L.blk, at, v;
     bool ended;
-    if (unit_step(L, s, tab, g, ypm, bpm, at, v, ended)) {
-      int p = blk * 64 + at;
-      if (p < limit) {
-        pos[seg + c] = p;
-        val[seg + c] = (int16_t)v;
-        ++c;
-      }
-    }
+    if (unit_step(L, s, tab, g, ypm, bpm, at, v, ended) && blk < nblk)
+      seg[c++] = (uint32_t)at << 16 | (uint16_t)v;
+    if (ended && L.blk < nblk) st[L.blk] = c;
   } while (!lane_done(L));
+  for (int b = L.blk + 1; b < nblk; ++b) st[b] = c;
   cnt[lane] = c;
   dcsum[3 * lane] = L.dc0;
   dcsum[3 * lane + 1] = L.dc1;
   dcsum[3 * lane + 2] = L.dc2;
 }
 
-constexpr int kRebuildWarps = 8;
+constexpr int kRebuildThreads = 256;  // 32 blocks a CTA, 8 threads each
+constexpr int kRebuildBlocks = kRebuildThreads / 8;
 
-// B22 pass 2: one warp per output block (frame f, MCU m, slot), every
-// block of the grids once. The block is lane m / r's block b; a lower
-// bound of b * 64 in the lane's (rising) positions finds its first
-// entry, the warp scatters the block's entries into a zeroed tile and
-// writes its 128 B coalesced. A block of no lane (descriptors that do
-// not cover the frame) is written as zeros.
-__global__ void rebuild_kernel(const int32_t* __restrict__ frames,
-                               const int32_t* __restrict__ pos,
-                               const int16_t* __restrict__ val,
-                               const int32_t* __restrict__ cnt,
-                               int16_t* __restrict__ y,
-                               int16_t* __restrict__ u,
-                               int16_t* __restrict__ v, Geometry g) {
-  __shared__ __align__(16) int16_t tile[kRebuildWarps][64];
-  int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+// B22 pass 2, after the carry scan: 8 threads per output block, every
+// block of the grids once, in the grids' order (the batch's Y blocks
+// row by row, then U's, then V's; gray: its one grid). The block is MCU
+// m, slot `slot` of frame f, lane m / r's block b; its entries are
+// [start[b], start[b + 1]) of the lane's segment, or [start[b], cnt)
+// for the lane's last block. The 8 threads zero a tile in shared
+// memory, scatter the entries into it, and write the block, thread t
+// its bytes [16 t, 16 t + 16), the DC with its lane's carry prefix
+// added (int16 wrap). A block of no lane (descriptors that do not
+// cover the frame) is written as zeros, with no carry.
+__global__ void __launch_bounds__(kRebuildThreads)
+rebuild_kernel(const int32_t* __restrict__ frames,
+               const uint32_t* __restrict__ ent,
+               const int32_t* __restrict__ start,
+               const int32_t* __restrict__ cnt,
+               const int32_t* __restrict__ prefix, int16_t* __restrict__ y,
+               int16_t* __restrict__ u, int16_t* __restrict__ v, Geometry g,
+               int n_lanes) {
+  __shared__ __align__(16) int16_t tile[kRebuildBlocks][64];
+  int t = threadIdx.x & 7, grp = threadIdx.x >> 3;
   int ypm = g.gray ? 1 : g.hs * g.vs;
   int bpm = g.gray ? 1 : ypm + 2;
-  long long fb = (long long)g.mcus_x * g.mcus_y * bpm;
-  long long w = (long long)blockIdx.x * kRebuildWarps + warp;
-  if (w >= fb * g.n) return;
-  int f = (int)(w / fb);
-  int rem = (int)(w - f * fb);
-  int m = rem / bpm, slot = rem - m * bpm;
-  const int32_t* fr = frames + f * kFrameFields;
-  int r = fr[F_R], idx = m / r;
-  uint32_t* tw = reinterpret_cast<uint32_t*>(tile[warp]);
-  tw[t] = 0u;
-  __syncwarp();
-  if (idx < fr[F_NLANES]) {
-    size_t seg = ((size_t)f * fb + (size_t)idx * bpm * r) * 64;
-    const int32_t* lp = pos + seg;
-    int nent = cnt[fr[F_LANE0] + idx];
-    int key = ((m - idx * r) * bpm + slot) * 64;
-    int lo = 0, hi = nent;
-    while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (lp[mid] < key) lo = mid + 1; else hi = mid;
+  // Block counts in 32 bits (the launcher checks the batch's blocks fit).
+  unsigned mcus = (unsigned)g.mcus_x * g.mcus_y;
+  unsigned ny = mcus * ypm;            // Y (or gray) blocks a frame
+  unsigned nc = g.gray ? 0u : mcus;    // U or V blocks a frame
+  unsigned q = blockIdx.x * kRebuildBlocks + grp;
+  bool valid = q < g.n * (ny + 2 * nc);
+  int f = 0, m = 0, slot = 0;
+  int16_t* out = y;
+  if (valid && q < g.n * ny) {
+    f = (int)(q / ny);
+    unsigned rem = q - f * ny;
+    out = y + (size_t)q * 64;
+    if (g.gray) {
+      m = (int)rem;
+    } else {
+      unsigned bw = g.mcus_x * g.hs;
+      int by = (int)(rem / bw), bx = (int)(rem - by * bw);
+      int my = by / g.vs, mx = bx / g.hs;
+      m = my * g.mcus_x + mx;
+      slot = (by - my * g.vs) * g.hs + bx - mx * g.hs;
     }
-    int end = min(lo + 64, nent);
-    for (int e = lo + t; e < end; e += 32) {
-      int p = lp[e] - key;
-      if (p < 64) tile[warp][p] = val[seg + e];
+  } else if (valid) {
+    unsigned qc = q - g.n * ny;
+    int plane = (int)(qc / (g.n * nc));
+    qc -= plane * g.n * nc;
+    f = (int)(qc / nc);
+    m = (int)(qc - f * nc);
+    slot = ypm + plane;
+    out = (plane ? v : u) + (size_t)qc * 64;
+  }
+  reinterpret_cast<uint4*>(tile[grp])[t] = make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();
+  const int32_t* fr = frames + f * kFrameFields;
+  int r = fr[F_R], idx = m / r, nl = fr[F_NLANES];
+  int lane = fr[F_LANE0] + idx;
+  bool owned = valid && idx < nl && lane < n_lanes;
+  if (owned) {
+    long long fb = (long long)mcus * bpm;
+    long long first = (long long)idx * bpm * r;
+    int target = idx < nl - 1
+                     ? bpm * r : bpm * (int)(mcus - (long long)r * (nl - 1));
+    int nblk = (int)min((long long)target, fb - first);
+    int b = (int)((long long)m * bpm + slot - first);
+    size_t sb = (size_t)f * fb + first + b;
+    int s0 = start[sb];
+    int s1 = b + 1 < nblk ? start[sb + 1] : cnt[lane];
+    const uint32_t* seg = ent + ((size_t)f * fb + first) * 64;
+    for (int e = s0 + t; e < s1; e += 8) {
+      uint32_t x = seg[e];
+      tile[grp][x >> 16] = (int16_t)(x & 0xFFFFu);
     }
   }
   __syncwarp();
-  reinterpret_cast<uint32_t*>(block_ptr(y, u, v, g, f, m, slot))[t] = tw[t];
+  uint4 w = reinterpret_cast<const uint4*>(tile[grp])[t];
+  if (owned && t == 0 && fr[F_CARRY]) {
+    int comp = g.gray || slot < ypm ? 0 : slot - (ypm - 1);
+    int16_t dc = (int16_t)(w.x & 0xFFFFu);
+    dc = (int16_t)(dc + (int16_t)prefix[3 * lane + comp]);
+    w.x = (w.x & 0xFFFF0000u) | (uint16_t)dc;
+  }
+  if (valid) reinterpret_cast<uint4*>(out)[t] = w;
 }
 
 // DC carry, pass 1: one CTA per frame; a frame that carries (F_CARRY)
@@ -765,12 +813,14 @@ int uhdr_huff_decode(const void* src, const void* frames, const void* lanes,
   return launch_carry(frames, dcsum, y, u, v, g, s);
 }
 
-// B22, on B4's inputs and outputs, with its log: pos int32 and val
-// int16 of n * blocks * 64 entries (blocks: the grids' blocks of one
-// frame, summed over the planes), cnt int32 (n_lanes) scratch.
+// B22, on B4's inputs and outputs, with its log: ent int32 of n *
+// blocks * 64 entries and start int32 of n * blocks (blocks: the grids'
+// blocks of one frame, summed over the planes), cnt int32 (n_lanes)
+// scratch. Runs the tables, pass 1, the carry scan, then pass 2 (which
+// adds the carry).
 int uhdr_huff_decode_log(const void* src, const void* frames,
                          const void* lanes, const void* tables,
-                         void* lookups, void* pos, void* val, void* cnt,
+                         void* lookups, void* ent, void* start, void* cnt,
                          void* y, void* u, void* v, void* dcsum, int n,
                          int n_lanes, int gray, int hs, int vs, int mcus_x,
                          int mcus_y, void* stream) {
@@ -780,19 +830,24 @@ int uhdr_huff_decode_log(const void* src, const void* frames,
   if (e != 0) return e;
   log_kernel<<<decode_grid(n, n_lanes), kThreads, 0, s>>>(
       (const uint8_t*)src, (const int32_t*)frames, (const int32_t*)lanes,
-      (const int32_t*)tables, (const Lookup*)lookups, (int32_t*)pos,
-      (int16_t*)val, (int32_t*)cnt, (int32_t*)dcsum, n_lanes, g);
+      (const int32_t*)tables, (const Lookup*)lookups, (uint32_t*)ent,
+      (int32_t*)start, (int32_t*)cnt, (int32_t*)dcsum, n_lanes, g);
   e = (int)cudaGetLastError();
   if (e != 0) return e;
-  long long bpm = gray ? 1 : hs * vs + 2;
-  long long warps = (long long)n * mcus_x * mcus_y * bpm;
-  rebuild_kernel<<<(unsigned)((warps + kRebuildWarps - 1) / kRebuildWarps),
-                   kRebuildWarps * 32, 0, s>>>(
-      (const int32_t*)frames, (const int32_t*)pos, (const int16_t*)val,
-      (const int32_t*)cnt, (int16_t*)y, (int16_t*)u, (int16_t*)v, g);
+  carry_scan_kernel<<<n, kScanThreads, 0, s>>>((const int32_t*)frames,
+                                               (int32_t*)dcsum);
   e = (int)cudaGetLastError();
   if (e != 0) return e;
-  return launch_carry(frames, dcsum, y, u, v, g, s);
+  long long blocks =
+      (long long)n * mcus_x * mcus_y * (gray ? 1 : hs * vs + 2);
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  rebuild_kernel<<<(unsigned)((blocks + kRebuildBlocks - 1) /
+                              kRebuildBlocks),
+                   kRebuildThreads, 0, s>>>(
+      (const int32_t*)frames, (const uint32_t*)ent, (const int32_t*)start,
+      (const int32_t*)cnt, (const int32_t*)dcsum, (int16_t*)y, (int16_t*)u,
+      (int16_t*)v, g, n_lanes);
+  return (int)cudaGetLastError();
 }
 
 // Bytes of one frame's lookup scratch.

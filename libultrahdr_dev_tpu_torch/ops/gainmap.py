@@ -43,6 +43,7 @@ dimension.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -207,8 +208,10 @@ def encode_front_plain(y_p010, uv_p010, gamut: str, hdr_tf: str):
                         uv, gamut, gamut, hdr_tf)
 
 
+@functools.lru_cache(maxsize=None)
 def _gain_params(hdr_tf: str):
-    """(hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor)."""
+    """(hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor); cached,
+    as the wrappers' host work per call counts beside the kernels."""
     _, hdr_white = color.hdr_inv_oetf_fn(hdr_tf)
     min_b, max_b, log2_min, denom, sat, floor = color.gain_code_params(
         1.0, hdr_white / color.SDR_WHITE_NITS)
@@ -231,6 +234,14 @@ def _convert_params(gamut: str):
     return 1, (m[0][1], m[0][2], m[1][1], m[1][2], m[2][1], m[2][2])
 
 
+def _require_aligned(t, name: str, n: int):
+    """Raise unless `t`'s data starts on an n-byte boundary: B1 and B9
+    read their inputs with n-byte vector loads."""
+    if t.data_ptr() % n:
+        raise ValueError(f"{name}: the encode front end needs its data "
+                         f"{n}-byte aligned")
+
+
 def _front_outputs(n, h, w, dev):
     gmap = torch.empty((n, h // 4, w // 4), dtype=torch.uint8, device=dev)
     y601 = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
@@ -246,6 +257,8 @@ def encode_front(y_p010, uv_p010, gamut: str, hdr_tf: str):
     n, h, w = _check_p010(y_p010, uv_p010)
     build.require(y_p010, "y_p010", torch.int16)
     build.require(uv_p010, "uv_p010", torch.int16)
+    _require_aligned(y_p010, "y_p010", 16)
+    _require_aligned(uv_p010, "uv_p010", 16)
     out = _front_outputs(n, h, w, y_p010.device)
     hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor = \
         _gain_params(hdr_tf)
@@ -298,6 +311,10 @@ def encode_front_api1(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
     build.require(uv_p010, "uv_p010", torch.int16)
     for t, name in ((sdr_y, "sdr_y"), (sdr_u, "sdr_u"), (sdr_v, "sdr_v")):
         build.require(t, name, torch.uint8)
+    for t, name, align in ((y_p010, "y_p010", 16), (uv_p010, "uv_p010", 16),
+                           (sdr_y, "sdr_y", 8), (sdr_u, "sdr_u", 4),
+                           (sdr_v, "sdr_v", 4)):
+        _require_aligned(t, name, align)
     out = _front_outputs(n, h, w, y_p010.device)
     fp, ip = _gain_arrays(sdr_gamut, hdr_gamut, hdr_tf, False,
                           *_convert_params(sdr_gamut))
@@ -314,11 +331,13 @@ def encode_front_api1(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
 encode_front_api1.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _gain_arrays(sdr_gamut: str, hdr_gamut: str, hdr_tf: str,
                  sdr_is_601: bool, convert: int = 0,
                  mvals=(0.0,) * 6):
-    """The host parameter arrays (fp float32, ip int32) of the gain-map
-    kernels' C entry points (encode_front.cu:unpack_gain)."""
+    """The host parameter arrays (fp float32, ip int32, read-only) of the
+    gain-map kernels' C entry points (encode_front.cu:unpack_gain);
+    cached."""
     hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor = \
         _gain_params(hdr_tf)
     gm = color.hdr_gamut_conversion_matrix(sdr_gamut, hdr_gamut)
@@ -329,6 +348,7 @@ def _gain_arrays(sdr_gamut: str, hdr_gamut: str, hdr_tf: str,
          *mvals], np.float32)
     ip = np.asarray([TF_IDS[hdr_tf], int(gm is not None), convert, sat,
                      floor], np.int32)
+    fp.flags.writeable = ip.flags.writeable = False
     return fp, ip
 
 

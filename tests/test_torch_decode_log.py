@@ -109,7 +109,11 @@ def _jax_log_kernel(r, n_mcus, gray, tkey, carry, ypm, units):
 def _jax_log_grids(data):
     """JAX's decode_rst_chunks(emit_mode="log") of one parsed JPEG, as
     per-plane grids (the JAX de-interleave)."""
-    ds = jdd.parse_device_stream(data)
+    return _jax_log_grids_of(jdd.parse_device_stream(data))
+
+
+def _jax_log_grids_of(ds):
+    """_jax_log_grids of a parsed JAX DeviceStream."""
     hs, vs = ds.sampling
     carry = ds.start_bits is not None
     sb = ds.start_bits if carry else np.zeros(ds.n_lanes, np.int32)
@@ -181,6 +185,45 @@ def test_log_golden_dc_carry_as_jax_and_dense(k):
     """The reference's restart-less encode (libjpeg tables)."""
     data = mux.extract_primary_and_gainmap(open(GOLDEN, "rb").read())[k]
     assert _assert_log_as_jax_and_dense(data).start_bits is not None
+
+
+def test_log_flat_dc_only_as_jax_and_dense():
+    """Flat 8x8 blocks, 4:2:0 at restart interval 2: every block holds
+    its DC alone, one log entry a block."""
+    rng = np.random.default_rng(31)
+
+    def flat(h, w):
+        lvl = rng.integers(0, 256, (h // 8, w // 8)).astype(np.uint8)
+        return np.kron(lvl, np.ones((8, 8), np.uint8))
+
+    data = codec.encode_jpeg({"y": flat(64, 128), "u": flat(32, 64),
+                              "v": flat(32, 64)}, 90, restart_interval=2,
+                             device="cpu")
+    ds = _assert_log_as_jax_and_dense(data)
+    grids = _port_grids([ds], "log")
+    assert all(not bool(g[..., 1:].any()) for g in grids)
+    assert all(bool(g[..., 0].any()) for g in grids)
+
+
+@pytest.mark.parametrize("image", [0, 1], ids=["color_base", "gray_map"])
+def test_log_truncated_stream_as_jax_and_dense(image):
+    """The port's own stream cut to 3/5 of its bytes (the windows and
+    lanes as before): lanes past the cut read zeros, lanes across it
+    decode into garbage and may stop short of their last blocks."""
+    data = mux.extract_primary_and_gainmap(_encoded()[0][0])[image]
+    ds = tdd.parse_device_stream(data)
+    cut = ds.dest.size * 3 // 5
+    ds.dest = ds.dest[:cut].copy()
+    jds = jdd.parse_device_stream(data)
+    jds.dest = jds.dest.copy()
+    jds.dest[cut:] = 0
+    log = _port_grids([ds], "log")
+    want = _jax_log_grids_of(jds)
+    assert len(log) == len(want)
+    for p, w in zip(log, want):
+        np.testing.assert_array_equal(p[0].numpy(), w)
+    for p, d in zip(log, _port_grids([ds], "dense")):
+        assert torch.equal(p, d)
 
 
 def _assert_planes_as_jax(data, got, want):

@@ -49,6 +49,45 @@ def test_encode_front_matches_jax(gamut, tf):
         assert int(np.abs(g[0].numpy().astype(np.int64) - w).max()) <= 1
 
 
+def _full_range_p010(h, w, seed):
+    """Full-range codes: luma constant over 8x8 blocks at 10-bit 0, 1023
+    or a random code (boxes at 0 and 1023 floor and saturate the gain
+    codes), chroma uniform over all 10-bit codes."""
+    rng = np.random.default_rng(seed)
+    lvl = rng.choice(np.array([0, 1023, -1]), (h // 8, w // 8))
+    lvl = np.where(lvl < 0, rng.integers(0, 1024, lvl.shape), lvl)
+    y = np.kron(lvl, np.ones((8, 8), np.int64)).astype(np.uint16) << 6
+    uv = rng.integers(0, 1024, (h // 2, w)).astype(np.uint16) << 6
+    return y, uv
+
+
+@pytest.mark.parametrize("gamut,tf", [("bt2100", "hlg"), ("bt709", "pq")])
+@pytest.mark.parametrize("case", ["width_272", "full_range"])
+def test_encode_front_edges_match_jax(case, gamut, tf):
+    """B1 at a 16-aligned width of 68 gain-map columns (48x272) and on
+    full-range codes (128x192, saturated and floored gain codes), with
+    test_encode_front_matches_jax's tolerance."""
+    if case == "width_272":
+        y, uv = _p010(48, 272, seed=7)
+    else:
+        y, uv = _full_range_p010(H, W, seed=8)
+    y8, u8, v8 = jgm.tonemap_p010(y, uv)
+    kernel, _ = jgm._generate_kernel(gamut, gamut, tf, False, False)
+    want_map = np.asarray(kernel(y8, u8, v8, y, uv))
+    want_base = [np.asarray(p) for p in
+                 jgm.convert_yuv_encoding(y8, u8, v8, gamut, "p3")]
+    got = tgm.encode_front(torch.from_numpy(y.view(np.int16))[None],
+                           torch.from_numpy(uv.view(np.int16))[None],
+                           gamut, tf)
+    d = np.abs(got[0][0].numpy().astype(np.int64) - want_map)
+    assert int(d.max()) <= 1
+    assert float((d == 0).mean()) >= 0.999
+    for g, w in zip(got[1:], want_base):
+        assert int(np.abs(g[0].numpy().astype(np.int64) - w).max()) <= 1
+    if case == "full_range":
+        assert {0, 254 if tf == "hlg" else 255} <= set(np.unique(want_map))
+
+
 def _planes(h, w, seed):
     """Smooth decode intermediates, as tests/test_hostapply.py makes
     them (JPEG-decoded content is block-smooth)."""

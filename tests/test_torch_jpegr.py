@@ -124,8 +124,8 @@ def test_decode_matches_jax_host_route(gamut, tf, fmt):
     # Both packages decoded from identical state.
     assert res.metadata == metadata_from_jax(jax_meta)
     frame, = batched.decode_host_stage([blob])
-    for ours, theirs in zip(to_torch_qtables(*frame.qtables),
-                            to_torch_qtables(*jax_qtables)):
+    for ours, theirs in zip(to_torch_qtables(*frame.qtables, device="cpu"),
+                            to_torch_qtables(*jax_qtables, device="cpu")):
         assert bool((ours == theirs).all())
 
 
