@@ -29,8 +29,10 @@ stages.
 
 Phases: B1 (HLG and PQ, timed; also at a width of 1296 and on
 full-range codes), B2 (bitwise), B5, B6 (with its 10-bit planar arm),
-B11, B7 kernel vs plain (B2 and B5 timed by CUDA-graph replay; B6 and
-B11 also at odd widths and heights); the exactly rounded pow of B6,
+B11, B7 kernel vs plain (B2 and B5 timed by CUDA-graph replay; B6, B11
+and B7 also at odd widths and heights; B7 also on a 4001x2999 frame, a
+1080x1920 and a 1081-wide editor output and all-0 and all-255 content,
+each bitwise); the exactly rounded pow of B6,
 B11, B1, B9 and B10b (pow_exact = pow_rn bitwise over every float32 its
 call sites can receive, the PQ inverse OETF's exponents among them, the
 share that took its double path, both pows' float64 instructions in the
@@ -55,9 +57,12 @@ B10 (B10a tonemap and B10c re-encode bit-exact,
 B10b in five variants); B12 (decode_jpeg's device route on gray,
 4:2:0, 4:2:2, 4:4:4 and a restart-marked 4:2:0 stream: kernels = plain
 = host-Huffman route, B22 then B5 = B4 then B5); B13 (each single
-effect, the converter's 4-step chain and a chain longer than one
-launch on a 4000x3000 YUV420 frame and its
-1000x750 gain map, bitwise equal to the plain version); B19
+effect, the converter's 4-step chain (one launch per image: 2 for frame
+and map) and a chain longer than one launch on a 4000x3000 YUV420 frame
+and its 1000x750 gain map; the edges of its tiles: a 4001x2999 frame
+with 2001x1500 chroma, a 1081-wide crop at an unaligned left edge, a
+2x resize up, quarter turns of sides that are no multiple of a tile, a
+monochrome image; all bitwise equal to the plain version); B19
 (restart-less Huffman encode) on the general route's base and gain map,
 encode_jpeg's 4:2:2 and 4:4:4 planes, edge-case blocks (edge_blocks)
 over three frames of several 256-block tiles and a dense 4080x3072
@@ -138,6 +143,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # outside the tensor cores
 FP64_FLOPS = 34e12          # H100 SXM data sheet, outside the tensor cores
 BF16_TC_FLOPS = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+# The parent's times of the kernels this tree redesigned last (ms per
+# frame; PR 14's last run of this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W), printed beside this run's.
+PARENT_MS = {"B7": 0.0712, "B13 crop 3600x2248": 0.0378,
+             "B13 mirror horizontal": 0.0660, "B13 rotate 90": 0.1197,
+             "B13 rotate 180": 0.0694, "B13 resize 1080x1920": 0.0222,
+             "B13 converter chain": 0.0371}
 
 # Operations per sample, counted from the kernels' sources (the branch a
 # sample usually takes): float32 operations (a fused multiply-add 2;
@@ -656,12 +668,8 @@ def kernel_phases(dev, results: dict):
                         exact >= 0.999, f"{name} {fmt} at {w_}x{h_} "
                         f"disagrees with the plain version")
 
-    # B7: bit-exact.
-    out = gm.yuv420_to_rgba8888(y8, u8, v8)
-    err_b7 = int((out != gm.yuv420_to_rgba8888_plain(y8, u8, v8)).sum())
-    log(f"B7 yuv420_to_rgba8888: {err_b7} of {out.numel()} words differ "
-        f"from the plain version")
-    require(err_b7 == 0, "B7 is not bit-exact with the plain version")
+    # B7: bit-exact, here and at its edges (b7_edges).
+    out = b7_check(f"{W}x{H}, batch {FRAMES}", y8, u8, v8)
     results["B7"] = dict(
         err=0, ms=cuda_ms(lambda: gm.yuv420_to_rgba8888(y8, u8, v8), 20) /
         FRAMES,
@@ -669,6 +677,54 @@ def kernel_phases(dev, results: dict):
                          3) / FRAMES,
         bytes=(in_bytes - FRAMES * (H // 4) * (W // 4) + nbytes(out)) /
         FRAMES, library_ms=None, **ops("B7", H * W))
+    log(f"B7: kernel {results['B7']['ms']:.4f} ms/frame by CUDA events "
+        f"(parent, PR 14: {PARENT_MS['B7']:.4f})")
+    b7_edges(dev, y8, u8, v8)
+
+
+def b7_check(label: str, y8, u8, v8):
+    """B7 bitwise equal to its plain version on these planes."""
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+
+    out = gm.yuv420_to_rgba8888(y8, u8, v8)
+    err = int((out != gm.yuv420_to_rgba8888_plain(y8, u8, v8)).sum())
+    log(f"B7 yuv420_to_rgba8888 {label}: {err} of {out.numel()} words "
+        f"differ from the plain version")
+    require(err == 0, f"B7 {label} is not bit-exact with the plain version")
+    return out
+
+
+def b7_edges(dev, y8, u8, v8):
+    """B7 at the edges of its 2x8 pixel blocks, bitwise: a 4001x2999
+    frame (odd h and w), the editor's contiguous 1080x1920 output and a
+    1081-wide crop (rows at unaligned addresses), B5's padded crops at
+    odd sizes, all-0 and all-255 content."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import PixelFormat, RawImage
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    rng = np.random.default_rng(SEED + 75)
+    h, w = 2999, 4001
+    odd = [torch.from_numpy(rng.integers(0, 256, (1,) + s, dtype=np.uint8))
+           .to(dev) for s in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                              ((h + 1) // 2, (w + 1) // 2))]
+    b7_check(f"{w}x{h}", *odd)
+    img = RawImage(fmt=PixelFormat.YUV420, width=W, height=H,
+                   planes={k: p[0] for k, p in zip("yuv", (y8, u8, v8))})
+    for label, chain in (
+            ("editor output {}x{}".format(*CONV_SIZE), converter_chain()),
+            ("editor crop 1081x2000", [editor.CropEffect(6, 1087, 0,
+                                                         2000)])):
+        e = editor.apply_effects(img, chain)
+        b7_check(label, *(e.planes[k][None] for k in "yuv"))
+    for w_, h_ in ((1023, 765), (1017, 765)):
+        ch_, cw_ = (h_ + 1) // 2, (w_ + 1) // 2
+        b7_check(f"B5 crop {w_}x{h_}", y8[:, :h_, :w_], u8[:, :ch_, :cw_],
+                 v8[:, :ch_, :cw_])
+    for value in (0, 255):
+        b7_check(f"all {value}", *(torch.full_like(p, value)
+                                   for p in (y8, u8, v8)))
 
 
 def _kind_plane(kind: str, seed: int):
@@ -2447,8 +2503,9 @@ def b13_phase(dev, results: dict):
     """B13 (the effect chain) bitwise equal to its plain version on a
     4000x3000 YUV420 frame: each single effect (timed beside one PyTorch
     call per plane), the converter's 4-step chain on the frame and its
-    1000x750 gain map (the kernels line's row), and a 22-step chain that
-    takes two launches per plane."""
+    1000x750 gain map (the kernels line's row; one launch per image),
+    a 22-step chain that takes two launches, and the edges of the
+    kernel's tiles (b13_edges)."""
     import torch
 
     from libultrahdr_dev_tpu_torch import PixelFormat, RawImage
@@ -2464,10 +2521,6 @@ def b13_phase(dev, results: dict):
                     height=GH // 4, planes={"y": torch.from_numpy(
                         np.ascontiguousarray(planes[0][::4, ::4])).to(dev)})
 
-    def same(a, b):
-        return (a.width, a.height) == (b.width, b.height) and all(
-            torch.equal(a.planes[k], b.planes[k]) for k in a.planes)
-
     chain = converter_chain()
     # The single crop cuts columns too: a crop of whole rows is a view in
     # PyTorch, and its .contiguous() copies nothing.
@@ -2480,9 +2533,7 @@ def b13_phase(dev, results: dict):
                "resize {}x{}".format(*CONV_SIZE): chain[3]}
     rows = {}
     for label, e in singles.items():
-        got = editor.apply_effects(frame, [e])
-        require(same(got, editor.apply_effects_plain(frame, [e])),
-                f"B13 {label}: kernel differs from the plain version")
+        got = b13_check(f"B13 {label}", frame, [e], launches=1)
         row = dict(
             ms=graph_ms(lambda: editor.apply_effects(frame, [e]), 20),
             plain_ms=cuda_ms(lambda: editor.apply_effects_plain(frame, [e]),
@@ -2492,9 +2543,10 @@ def b13_phase(dev, results: dict):
         row["bound_ms"], row["bound_by"] = bound(row["bytes"])
         rows[label] = row
         log(f"B13 {label}: bitwise = plain; kernel {row['ms']:.4f} ms "
-            f"(3 launches, CUDA graph), library {row['library_ms']:.4f} "
-            f"ms, plain {row['plain_ms']:.3f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bytes'] / 1e6:.2f} MB)")
+            f"(1 launch, CUDA graph; parent, PR 14, 3 launches: "
+            f"{PARENT_MS.get('B13 ' + label, 'not recorded')}), library "
+            f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bytes'] / 1e6:.2f} MB)")
 
     gchain = editor.scale_effects(chain, 4)
 
@@ -2502,20 +2554,18 @@ def b13_phase(dev, results: dict):
         return (editor.apply_effects(frame, chain),
                 editor.apply_effects(gmap, gchain))
 
-    got = run()
-    require(same(got[0], editor.apply_effects_plain(frame, chain)) and
-            same(got[1], editor.apply_effects_plain(gmap, gchain)),
-            "B13 converter chain: kernel differs from the plain version")
+    got = (b13_check("B13 converter chain, frame", frame, chain, launches=1),
+           b13_check("B13 converter chain, gain map", gmap, gchain,
+                     launches=1))
     cw, ch = CONV_SIZE
     require((got[0].width, got[0].height, got[1].width, got[1].height) ==
             (cw, ch, cw // 4, ch // 4), "B13 converter chain: bad geometry")
     long_chain = [editor.RotateEffect(90), editor.MirrorEffect("vertical"),
                   editor.RotateEffect(270),
                   editor.MirrorEffect("horizontal")] * 5 + chain[:2]
-    require(len(long_chain) > editor.MAX_STEPS and same(
-        editor.apply_effects(frame, long_chain),
-        editor.apply_effects_plain(frame, long_chain)),
-        "B13 22-step chain: kernel differs from the plain version")
+    require(len(long_chain) > editor.MAX_STEPS,
+            "B13: the long chain fits one launch")
+    b13_check("B13 22-step chain", frame, long_chain, launches=2)
     results["B13"] = dict(
         err=0, ms=graph_ms(run, 20), enqueue_ms=cuda_ms(run, 20),
         plain_ms=cuda_ms(lambda: (editor.apply_effects_plain(frame, chain),
@@ -2525,11 +2575,73 @@ def b13_phase(dev, results: dict):
                + nbytes(*got[0].planes.values(), *got[1].planes.values())),
         library_ms=None, rows=rows)
     r = results["B13"]
-    log(f"B13 converter chain (frame + gain map, 4 launches): bitwise = "
+    log(f"B13 converter chain (frame + gain map, 2 launches): bitwise = "
         f"plain; kernel {r['ms']:.4f} ms by CUDA graph ({r['enqueue_ms']:.4f}"
-        f" launched one by one), plain {r['plain_ms']:.3f} ms, "
-        f"{r['bytes'] / 1e6:.2f} MB; the 22-step chain (two launches per "
-        f"plane) = plain")
+        f" launched one by one; parent, PR 14, 4 launches: "
+        f"{PARENT_MS['B13 converter chain']:.4f} by graph, 0.136 one by "
+        f"one), plain {r['plain_ms']:.3f} ms, {r['bytes'] / 1e6:.2f} MB")
+    b13_edges(dev, frame, gmap)
+
+
+def b13_check(label: str, img, effects, launches: int):
+    """apply_effects on `img` bitwise equal to the plain version, in
+    `launches` B13 launches (all planes of the image in each)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    before = editor.apply_effects.launches
+    got = editor.apply_effects(img, effects)
+    n = editor.apply_effects.launches - before
+    want = editor.apply_effects_plain(img, effects)
+    require((got.width, got.height) == (want.width, want.height) and all(
+        torch.equal(got.planes[k], want.planes[k]) for k in want.planes),
+        f"{label}: kernel differs from the plain version")
+    require(n == launches, f"{label}: {n} B13 launches, not {launches}")
+    log(f"{label}: {got.width}x{got.height}, bitwise = plain in {n} "
+        f"launch{'es' if n > 1 else ''}")
+    return got
+
+
+def b13_edges(dev, frame, gmap):
+    """B13 at the edges of its tiles and chunks, bitwise: a 4001x2999
+    frame (2001x1500 chroma) through each effect; a crop to an odd width
+    at a left edge that is no multiple of 16; a 2x resize up; quarter
+    turns of a plane whose sides are no multiple of the 64-row tile; the
+    monochrome gain map through each effect."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import PixelFormat, RawImage
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    rng = np.random.default_rng(SEED + 71)
+    h, w = 2999, 4001
+    odd = RawImage(fmt=PixelFormat.YUV420, width=w, height=h, planes={
+        k: torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+        for k, s in (("y", (h, w)), ("u", ((h + 1) // 2, (w + 1) // 2)),
+                     ("v", ((h + 1) // 2, (w + 1) // 2)))})
+    require(tuple(odd.planes["u"].shape) == (1500, 2001),
+            "B13: bad odd chroma")
+    effects = (editor.CropEffect(6, 1087, 3, 2501),
+               editor.MirrorEffect("horizontal"),
+               editor.MirrorEffect("vertical"), editor.RotateEffect(90),
+               editor.RotateEffect(180), editor.RotateEffect(270),
+               editor.ResizeEffect(1082, 1924))
+    for e in effects:
+        b13_check(f"B13 {w}x{h} {e}", odd, [e], launches=1)
+    b13_check(f"B13 {GW}x{GH} crop to 1081 wide at left 6", frame,
+              [editor.CropEffect(6, 1087, 10, 2011)], launches=1)
+    b13_check(f"B13 {GW}x{GH} resize up 2x", frame,
+              [editor.ResizeEffect(2 * GW, 2 * GH)], launches=1)
+    b13_check(f"B13 {w}x{h} crop, rotate 270, resize, mirror", odd,
+              [editor.CropEffect(2, 3001, 1, 2800),
+               editor.RotateEffect(270), editor.ResizeEffect(1500, 2000),
+               editor.MirrorEffect("horizontal")], launches=1)
+    for e in effects[1:] + (editor.CropEffect(5, gmap.width - 99, 3,
+                                              gmap.height - 50),
+                            editor.ResizeEffect(2000, 1500)):
+        b13_check(f"B13 monochrome {gmap.width}x{gmap.height} {e}", gmap,
+                  [e], launches=1)
 
 
 def _b19_check(label: str, kernel, plain, host_scans):
@@ -2920,7 +3032,7 @@ def stage_times_converter(dev, smi: str, conv: dict):
             "converter call (decode + effects + encode)": host_ms(
                 lambda: UltraHdr(dev).add_image(blob).convert(cfg), 3),
             "converter decode (B12 base + gain map)": host_ms(decode, 3),
-            "converter effects (B13 x 4)": host_ms(effects, 5),
+            "converter effects (B13 x 2)": host_ms(effects, 5),
             "converter encode (API-x: B2, B19, D2H, finalize, mux)": host_ms(
                 lambda: JpegR(dev).encode_apix(sdr, gmap, s.metadata, 95,
                                                exif=s.exif), 3),
@@ -3750,7 +3862,8 @@ def counters():
     counts its YCbCr and gray wrappers apart (B19, B19g); B11 is the
     table arm of B6's wrapper, B6r its 10-bit planar arm (counted in B6
     or B11 as well); B12 counts decode_jpeg's device-route calls (each
-    one B4 (or B22) and B5 launches); B13 counts edit_plane's launches;
+    one B4 (or B22) and B5 launches); B13 counts apply_effects' launches
+    (one per image: all its planes in one launch);
     B22 is the log-emission arm of B4's wrapper."""
     from libultrahdr_dev_tpu_torch.jpeg import codec, dct
     from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
@@ -3828,7 +3941,7 @@ KERNELS = {
             "libultrahdr_dev_tpu/jpeg/device_decode.py:876"),
     "B12e": ("huff_encode_rst_jpeg", "libultrahdr_dev_tpu_torch/kernels/"
              "csrc/huff_encode.cu", "libultrahdr_dev_tpu/jpeg/codec.py:326"),
-    "B13": ("edit_plane", "libultrahdr_dev_tpu_torch/kernels/csrc/editor.cu",
+    "B13": ("edit_planes", "libultrahdr_dev_tpu_torch/kernels/csrc/editor.cu",
             "libultrahdr_dev_tpu/ops/editor.py:71"),
     "B19": ("huff_encode_restartless", "libultrahdr_dev_tpu_torch/kernels/"
             "csrc/huff_encode.cu",
@@ -3970,7 +4083,9 @@ def main() -> int:
          "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"],
          "bound_by": results[k]["bound_by"],
-         "library_ms": results[k]["library_ms"]} for k in KERNELS]}))
+         "library_ms": results[k]["library_ms"],
+         **({"launches_count": "images: one launch edits all planes of an "
+             "image"} if k == "B13" else {})} for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

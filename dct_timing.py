@@ -5,10 +5,12 @@ and B22 (the Huffman decode, dense and log emission), B12-dec (B4 then
 B5), B19 (the restart-less Huffman encode), B3 and B12-enc (the
 restart-interval Huffman encode), B6 / B11 (the gain-map apply), B1 /
 B9 / B10b (the encode front ends) and B15 / B16 (Rice pass 1 and the
-Rice pack of the packed readbacks).
+Rice pack of the packed readbacks), B7 (the SDR output) and B13 (the
+effect chain).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
+    python3 dct_timing.py _verify/other --only B7,B13   # those two alone
 
 Both trees' kernels are built from their own sources (each into its own
 git-ignored _build directory) and called through their own wrappers on
@@ -25,7 +27,10 @@ B9 with chip_smoke.py's BT.709 SDR rendition, HLG), a tonemapped
 4000x3000 frame (B10b, the general route's API-0 gain map), and
 chip_smoke.py's readback inputs (a
 4080x3072 batch of 4 decoded to the u8 planes composite, to HLG
-RGBA1010102 and to F16: B15 and B16 at 8, 10 and 16 bits).
+RGBA1010102 and to F16: B15 and B16 at 8, 10 and 16 bits), B5's
+planes of the batch (B7) and chip_smoke.py's B13 frame: a 4000x3000
+YUV420 image and its 1000x750 gain map (each single effect of its B13
+phase, and the converter's chain on both).
 
 Checks: B2 of both trees bitwise equal to the plain version; B5 of both
 trees bitwise equal to each other, with their off-count against the
@@ -38,7 +43,8 @@ two-phase blobs (each scheme on its host plan) and fused buffers (fit
 and no fit) of both trees bitwise equal, and equal to the plain
 versions; B17's widths and pack of both trees bitwise equal; each
 tree's packed fetch of the composite, the HLG and the F16 pixels = the
-source.
+source; B7 and B13 (each single effect, the chain) of both trees
+bitwise equal.
 
 Times, ms per frame, in turns (other, this, this, other): B2, B5, B4,
 B22 and B12-dec by CUDA-graph replay and by CUDA events, B20 (B1 + B2)
@@ -50,8 +56,11 @@ rebuild_kernel), B12-dec, B19, B3, B12-enc, B6 (F16, PQ), B11 and B1
 (HLG, PQ); B15 (both schemes) and B16 (the MED
 two-phase pack: order and emit) at 8, 10 and 16 bits by CUDA events
 with each tree's device ms by kernel, and the three packed fetches
-(B15 + B16 + D2H + native unpack) by the host clock, synchronized. Prints the card's name and power
-limit and, last, one JSON object of the times.
+(B15 + B16 + D2H + native unpack) by the host clock, synchronized; B7
+by CUDA events and by CUDA graph, each B13 single effect by CUDA graph,
+the B13 chain (frame + map) by CUDA graph and launched one by one (CUDA
+events), in turns. Prints the card's name and power limit and, last,
+one JSON object of the times.
 """
 
 from __future__ import annotations
@@ -86,7 +95,84 @@ def modules(prefix: str) -> dict:
             for k in ("dct", "device_decode", "device_entropy")}
     mods["gainmap"] = importlib.import_module(f"{prefix}.ops.gainmap")
     mods["packio"] = importlib.import_module(f"{prefix}.parallel.packio")
+    mods["editor"] = importlib.import_module(f"{prefix}.ops.editor")
+    mods["types"] = importlib.import_module(f"{prefix}.types")
     return mods
+
+
+def sdr_edit_timing(cs, trees: dict, dev, smi: str):
+    """B7 and B13 of both trees: bitwise checks, then times in turns
+    (other, this, this, other). -> {tree: [times of each turn]}."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import editor
+
+    frames = cs.FRAMES
+    y_np, uv_np = cs.synth_p010(frames, cs.H, cs.W, cs.SEED)
+    y8, u8, v8 = cs._decoded_planes(dev, y_np, uv_np)[0][:3]
+    outs = [m["gainmap"].yuv420_to_rgba8888(y8, u8, v8)
+            for m in trees.values()]
+    cs.require(torch.equal(*outs), "B7 differs between the trees")
+    print("B7 of both trees bitwise equal", flush=True)
+
+    # chip_smoke.py's B13 frame and gain map, as each tree's RawImage.
+    gy, guv = cs.synth_p010(1, cs.GH, cs.GW, cs.SEED + 70)
+    planes = [torch.from_numpy((a >> 8).astype(np.uint8)).to(dev) for a in
+              (gy[0], guv[0, :, 0::2], guv[0, :, 1::2])]
+    gplane = planes[0][::4, ::4].contiguous()
+    chain = cs.converter_chain()
+    crop = editor.CropEffect(cs.GW // 20, cs.GW - cs.GW // 20,
+                             *cs.CONV_ROWS)
+    singles = {"crop": crop, "mirror": chain[2], "rotate90": chain[1],
+               "rotate180": editor.RotateEffect(180), "resize": chain[3]}
+
+    def images(m):
+        t = m["types"]
+        frame = t.RawImage(fmt=t.PixelFormat.YUV420, width=cs.GW,
+                           height=cs.GH, planes=dict(zip("yuv", planes)))
+        gmap = t.RawImage(fmt=t.PixelFormat.MONOCHROME, width=cs.GW // 4,
+                          height=cs.GH // 4, planes={"y": gplane})
+        return frame, gmap
+
+    def port(m, effects):
+        """The effects as the tree's own dataclasses."""
+        ed = m["editor"]
+        return [getattr(ed, type(e).__name__)(**vars(e)) for e in effects]
+
+    def calls(m):
+        frame, gmap = images(m)
+        ed = m["editor"]
+        fx = {k: port(m, [e]) for k, e in singles.items()}
+        c, gc = port(m, chain), port(m, editor.scale_effects(chain, 4))
+        out = {k: (lambda e=e: [ed.apply_effects(frame, e)])
+               for k, e in fx.items()}
+        out["chain"] = lambda: [ed.apply_effects(frame, c),
+                                ed.apply_effects(gmap, gc)]
+        return out
+
+    runs = {name: calls(m) for name, m in trees.items()}
+    for k in runs["this"]:
+        a, b = (
+            [p for img in runs[n][k]() for p in img.planes.values()]
+            for n in ("other", "this"))
+        cs.require(len(a) == len(b) and all(map(torch.equal, a, b)),
+                   f"B13 {k} differs between the trees")
+    print("B13 of both trees bitwise equal: each single effect and the "
+          "chain", flush=True)
+    times = {}
+    for turn, name in enumerate(("other", "this", "this", "other")):
+        m, r = trees[name], runs[name]
+        b7 = lambda: m["gainmap"].yuv420_to_rgba8888(y8, u8, v8)  # noqa
+        t = dict(B7_events=cs.cuda_ms(b7, 20) / frames,
+                 B7_graph=cs.graph_ms(b7, 20) / frames)
+        for k, fn in r.items():
+            t[f"B13_{k}_graph"] = cs.graph_ms(fn, 20)
+        t["B13_chain_events"] = cs.cuda_ms(r["chain"], 20)
+        print(f"turn {turn} {name}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f" ms/frame ({smi})",
+            flush=True)
+        times.setdefault(name, []).append(t)
+    return times
 
 
 def rice_timing(cs, trees: dict, dev, smi: str):
@@ -207,7 +293,10 @@ def rice_timing(cs, trees: dict, dev, smi: str):
 def main(argv) -> int:
     import torch
 
-    if len(argv) != 2 or not torch.cuda.is_available():
+    only = argv[3].split(",") if len(argv) == 4 and argv[2] == "--only" \
+        else None
+    if len(argv) != (4 if only else 2) or not torch.cuda.is_available() \
+            or not set(only or ()) <= {"B7", "B13"}:
         print(__doc__, file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -224,6 +313,10 @@ def main(argv) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}\n{smi}", flush=True)
     load_other(argv[1])
     trees = {"other": modules("uhdr_other"), "this": modules(PKG)}
+    if only:
+        print(json.dumps({"device": smi, "times": sdr_edit_timing(
+            cs, trees, dev, smi)}))
+        return 0
 
     frames = cs.FRAMES
     y_np, uv_np = cs.synth_p010(frames, cs.H, cs.W, cs.SEED)
@@ -437,6 +530,9 @@ def main(argv) -> int:
             t.update(r)
     for name, by in rice_by.items():
         by_kernel[name].update(by)
+    for name, ts in sdr_edit_timing(cs, trees, dev, smi).items():
+        for t, r in zip(times[name], ts):
+            t.update(r)
     print(json.dumps({"device": smi, "times": times,
                       "by_kernel": by_kernel}))
     return 0

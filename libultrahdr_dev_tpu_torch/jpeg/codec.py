@@ -33,7 +33,7 @@ from .device_decode import decode_jpeg_device
 from .native import get_lib
 
 MAX_DIM = 8192  # jpegdecoderhelper.h:42-43
-_QUEUED = "queued in ROADMAP.md Queue A item 13 (off-path decode formats)"
+_QUEUED = "queued in ROADMAP.md Queue A, \"Off-path formats\""
 
 
 def _huff_arrays(selections):
@@ -279,7 +279,7 @@ def encode_gray_scan(gz: np.ndarray, restart_interval: int) -> bytes:
 # ---------------------------------------------------------------------------
 
 _QUEUED_ARITH = ("arithmetic coding in encode_jpeg is queued in ROADMAP.md "
-                 "Queue A item 6 (off-path formats)")
+                 "Queue A, \"Off-path formats\"")
 
 
 def _align(x: int, m: int) -> int:

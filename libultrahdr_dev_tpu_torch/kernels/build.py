@@ -103,8 +103,9 @@ SIGNATURES = {
     "uhdr_huff_decode_log": [_P] * 12 + [_I] * 7 + [_P],
     # bytes of one frame's lookup scratch
     "uhdr_huff_lookup_bytes": [],
-    # src, src row stride, dst, oh, ow, steps (host), n, stream
-    "uhdr_edit_plane": [_P, _L, _P, _I, _I, _P, _I, _P],
+    # per plane (src, src row stride, dst) and (oh, ow, steps) (host),
+    # planes, steps, stream
+    "uhdr_edit_planes": [_P, _P, _I, _I, _P],
     # y hi, y lob, uv hi, uv lob, y out, uv out, y quads, uv quads, stream
     "uhdr_p010_dense_unpack": [_P] * 6 + [_L] * 2 + [_P],
     # blob, rows, w, nsegw, yrows, n2, n5, n10, y out, uv out, stream

@@ -17,22 +17,25 @@ sizes, and it validates each effect where JAX does. A plane's plan is a
 list of steps (kind, h, w, a, b, c, d): the shape before the step and
 its parameters (crop: top, left, out h, out w; mirror: a = 1 for
 horizontal; rotate: a = clockwise degrees; resize: c, d = out h, out w).
-Then ONE launch of B13 (kernels/csrc/editor.cu) per plane writes the
-plane's output: each output byte runs the steps in reverse to find its
-source byte. No intermediate plane reaches device memory. A chain longer
-than the kernel's step array (MAX_STEPS) goes out as successive
-launches.
+Each step maps each output axis to one input axis, so a plan is one swap
+bit and two 1-D maps (axis_maps, the specification of the kernel's
+walk). Then ONE launch of B13 (kernels/csrc/editor.cu) per image writes
+every plane's output: each tile walks its rows and columns through the
+steps once and copies. No intermediate plane reaches device memory. A
+chain longer than the kernel's step array (MAX_STEPS) goes out as
+successive launches.
 
-Planes are 2-D torch tensors. ``edit_plane`` runs the plain version
+Planes are 2-D torch tensors. ``edit_planes`` runs the plain version
 (``edit_plane_plain``: torch slicing, flip, rot90 and index gathers) for
-a tensor on the CPU and the CUDA kernel for a CUDA tensor; it counts
-kernel launches in ``apply_effects.launches``. The plain version takes
-any dtype.
+tensors on the CPU and the CUDA kernel for CUDA tensors; it counts
+kernel launches (one per image and MAX_STEPS steps) in
+``apply_effects.launches``. The plain version takes any dtype.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -183,29 +186,119 @@ def _out_shape(steps) -> tuple[int, int]:
     return h, w
 
 
-def edit_plane(p: torch.Tensor, steps) -> torch.Tensor:
-    """B13 wrapper: the plain version for a CPU tensor; for a CUDA
-    tensor, uint8 with unit column stride, one kernel launch per
-    MAX_STEPS steps. Returns the contiguous edited plane."""
-    if not p.is_cuda:
-        return edit_plane_plain(p, steps)
-    if p.dtype != torch.uint8 or p.dim() != 2 or p.stride(1) != 1:
-        raise ValueError("edit_plane: expected a 2-D uint8 CUDA tensor "
-                         "with unit column stride")
+def axis_maps(steps):
+    """A plan as (swap, R, C): int64 tensors R over the output rows and C
+    over the output columns with out[y][x] = src[R[y]][C[x]], or
+    src[C[x]][R[y]] when swap. Each map runs the steps backwards, each
+    step taking an output axis to one input axis (editor.cu:walk does the
+    same per tile)."""
+    oh, ow = _out_shape(steps)
+    maps = []
+    for axis, n in ((0, oh), (1, ow)):
+        v = torch.arange(n, dtype=torch.int64)
+        for kind, h, w, a, b, c, d in reversed(steps):
+            if kind == CROP:
+                v = v + (b if axis else a)
+            elif kind == MIRROR:
+                if axis == (1 if a else 0):
+                    v = (w if axis else h) - 1 - v
+            elif kind == ROTATE:
+                if a == 180:
+                    v = (w if axis else h) - 1 - v
+                else:   # swaps the axes; 90 flips out columns, 270 rows
+                    if (a == 90) == (axis == 1):
+                        v = (h if a == 90 else w) - 1 - v
+                    axis ^= 1
+            else:
+                v = v * (w if axis else h) // (d if axis else c)
+        maps.append((axis, v))
+    (row_axis, rows), (_, cols) = maps
+    return row_axis == 1, rows, cols
+
+
+class _Plan(NamedTuple):
+    """A chain planned for one image: the result's size, the planes'
+    names and steps, and per launch (MAX_STEPS steps) the output shapes
+    and the kernel's int table (per plane: oh, ow, then 7 ints a step)."""
+
+    width: int
+    height: int
+    names: list
+    steps: list
+    launches: list
+    fits32: bool   # every resize's i * n_in fits 32 bits (editor.cu)
+
+
+_PLANS: dict = {}
+
+
+def _plan(img: RawImage, effects) -> _Plan:
+    """plan_effects and the kernel's tables, memoized on the image's
+    format, size and plane shapes and on the effects' values: the
+    converter edits each frame and its gain map through one chain."""
+    try:
+        key = (img.fmt, img.width, img.height,
+               tuple((k, *p.shape) for k, p in img.planes.items()),
+               tuple((type(e), *vars(e).values()) for e in effects))
+    except TypeError:   # not an effect: plan_effects raises
+        key = None
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    width, height, steps = plan_effects(img, effects)
+    names = list(steps)
+    plans = [steps[k] for k in names]
+    launches = []
+    for i in range(0, len(plans[0]), MAX_STEPS):
+        chunks = [s[i:i + MAX_STEPS] for s in plans]
+        shapes = [_out_shape(c) for c in chunks]
+        launches.append((shapes, np.array(
+            [(*sh, *(v for st in c for v in st))
+             for sh, c in zip(shapes, chunks)], np.int32)))
+    fits32 = all(max((c - 1) * h, (d - 1) * w) < 1 << 32
+                 for s in plans for kind, h, w, a, b, c, d in s
+                 if kind == RESIZE)
+    plan = _Plan(width, height, names, plans, launches, fits32)
+    if key is not None:
+        if len(_PLANS) >= 64:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    return plan
+
+
+def _plain_planes(planes, plan: _Plan):
+    return [edit_plane_plain(p, s) for p, s in zip(planes, plan.steps)]
+
+
+def edit_planes(planes, plan: _Plan):
+    """B13 wrapper: the planes of an image (2-D tensors, in plan.names'
+    order) through the plan. The plain version for CPU tensors; for CUDA
+    tensors (uint8, unit column stride) one kernel launch for all planes
+    per MAX_STEPS steps. Returns the contiguous edited planes."""
+    if not any(p.is_cuda for p in planes):
+        return _plain_planes(planes, plan)
+    for p in planes:
+        if not p.is_cuda or p.dtype != torch.uint8 or p.dim() != 2 \
+                or p.stride(1) != 1:
+            raise ValueError("edit_planes: expected 2-D uint8 CUDA tensors "
+                             "with unit column stride")
+    if not plan.fits32:
+        raise ValueError("edit_planes: resize beyond 32-bit indexing")
     lib = build.get_lib()
-    for i in range(0, len(steps), MAX_STEPS):
-        chunk = steps[i:i + MAX_STEPS]
-        oh, ow = _out_shape(chunk)
-        out = torch.empty((oh, ow), dtype=torch.uint8, device=p.device)
-        if oh and ow:
-            desc = np.ascontiguousarray(chunk, np.int32)
+    dev = planes[0].device
+    stream = build.stream_of(planes[0])
+    for shapes, ints in plan.launches:
+        outs = [torch.empty(sh, dtype=torch.uint8, device=dev)
+                for sh in shapes]
+        ptrs = np.array([(p.data_ptr(), p.stride(0), o.data_ptr())
+                         for p, o in zip(planes, outs)], np.int64)
+        if any(o.numel() for o in outs):
             apply_effects.launches += 1
-            build.check(lib.uhdr_edit_plane(
-                p.data_ptr(), p.stride(0), out.data_ptr(), oh, ow,
-                desc.ctypes.data, len(chunk), build.stream_of(p)),
-                "uhdr_edit_plane")
-        p = out
-    return p
+            build.check(lib.uhdr_edit_planes(
+                ptrs.ctypes.data, ints.ctypes.data, len(planes),
+                (ints.shape[1] - 2) // 7, stream), "uhdr_edit_planes")
+        planes = outs
+    return planes
 
 
 def _check_planes(img: RawImage):
@@ -218,17 +311,17 @@ def _apply(img: RawImage, effects, edit) -> RawImage:
     if not effects:
         return img
     _check_planes(img)
-    width, height, steps = plan_effects(img, effects)
-    return replace(img, width=width, height=height,
-                   planes={k: edit(img.planes[k], s)
-                           for k, s in steps.items()})
+    plan = _plan(img, effects)
+    out = edit([img.planes[k] for k in plan.names], plan)
+    return replace(img, width=plan.width, height=plan.height,
+                   planes=dict(zip(plan.names, out)))
 
 
 def apply_effects(img: RawImage, effects) -> RawImage:
     """Chain effects in order (editorhelper.cpp:362-446 addEffects): one
-    B13 launch per plane (the plain version on the CPU). An empty chain
-    returns `img` itself, as in the JAX package."""
-    return _apply(img, effects, edit_plane)
+    B13 launch for all planes of the image (the plain version on the
+    CPU). An empty chain returns `img` itself, as in the JAX package."""
+    return _apply(img, effects, edit_planes)
 
 
 apply_effects.launches = 0
@@ -236,7 +329,7 @@ apply_effects.launches = 0
 
 def apply_effects_plain(img: RawImage, effects) -> RawImage:
     """apply_effects through the plain version, on any device."""
-    return _apply(img, effects, edit_plane_plain)
+    return _apply(img, effects, _plain_planes)
 
 
 def crop(img: RawImage, e: CropEffect) -> RawImage:

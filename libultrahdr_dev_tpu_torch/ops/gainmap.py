@@ -865,12 +865,16 @@ def yuv420_to_rgba8888_plain(y8, u8, v8):
 def yuv420_to_rgba8888(y8, u8, v8):
     """B7 wrapper: the plain version on the CPU, the CUDA kernel on CUDA
     tensors. Same signature and result as yuv420_to_rgba8888_plain; the
-    kernel reads row-strided planes in place."""
+    kernel reads row-strided planes in place, with 32-bit offsets within
+    a plane."""
     if not y8.is_cuda:
         return yuv420_to_rgba8888_plain(y8, u8, v8)
     n, h, w = _check_chroma(y8, u8, v8)
     strides = [s for t, name in ((y8, "y8"), (u8, "u8"), (v8, "v8"))
                for s in _plane_strides(t, name)]
+    if max(h * w, *(t.shape[1] * t.stride(1) for t in (y8, u8, v8))) \
+            >= 1 << 31:
+        raise ValueError("yuv420_to_rgba8888: a plane beyond 32-bit offsets")
     out = torch.empty((n, h, w), dtype=torch.int32, device=y8.device)
     lib = build.get_lib()
     yuv420_to_rgba8888.launches += 1

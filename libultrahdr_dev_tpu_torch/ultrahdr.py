@@ -24,7 +24,7 @@ JAX JpegR takes it, on the host.
 
 HEIC / AVIF input and output (the JAX package's HeifR arms) raise
 UHDR_CODEC_UNSUPPORTED_FEATURE: they are queued in ROADMAP.md Queue A
-item 12a.
+("The converter's HEIF/AVIF arms").
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ from .ops import editor, gainmap as gm
 from .types import (ColorGamut, ColorTransfer, GainMapMetadata,
                     OutputFormat, PixelFormat, RawImage, err)
 
-_HEIF_QUEUED = "is queued in ROADMAP.md Queue A item 12a (HEIF/AVIF arms)"
+_HEIF_QUEUED = ("is queued in ROADMAP.md Queue A, \"The converter's "
+                "HEIF/AVIF arms\"")
 
 
 def sniff_format(data: bytes) -> str:

@@ -98,6 +98,58 @@ def test_effects_bit_exact_with_jax(fmt, h, w, chain):
                      getattr(te, fn)(timg, _port(chain)[0]))
 
 
+def _random_chain(rng, h: int, w: int, n: int):
+    """A valid chain of n effects on an (h, w) image, drawn from rng."""
+    chain = []
+    for _ in range(n):
+        kind = rng.integers(4)
+        if kind == 0 and h > 4 and w > 4:
+            left, top = int(rng.integers(w - 3)), int(rng.integers(h - 3))
+            right = int(rng.integers(left + 2, w + 1))
+            bottom = int(rng.integers(top + 2, h + 1))
+            chain.append(C(left, right, top, bottom))
+            w, h = right - (left & ~1), bottom - (top & ~1)
+        elif kind == 1:
+            chain.append(M(("horizontal", "vertical")[rng.integers(2)]))
+        elif kind == 2:
+            deg = int((90, 180, 270)[rng.integers(3)])
+            chain.append(R(deg))
+            if deg != 180:
+                h, w = w, h
+        else:
+            w, h = 2 * int(rng.integers(2, 40)), 2 * int(rng.integers(2, 40))
+            chain.append(Z(w, h))
+    return chain
+
+
+_RNG = np.random.default_rng(1515)
+# (image h, w, chain): ten seeded chains of 1-16 effects, odd and even
+# image sizes.
+RANDOM_CASES = [(h, w, _random_chain(_RNG, h, w, int(_RNG.integers(1, 17))))
+                for h, w in ((37, 53), (40, 56), (33, 64), (64, 31), (45, 45),
+                             (20, 90), (91, 22), (48, 48), (39, 70), (58, 41))]
+
+
+@pytest.mark.parametrize("fmt,h,w,chain",
+                         [("YUV420", *c) for c in CASES]
+                         + [("MONOCHROME", *c) for c in RANDOM_CASES])
+def test_axis_maps_gather_as_jax(fmt, h, w, chain):
+    """editor.cu's premise: each plane's plan is one swap bit and two 1-D
+    maps. The source plane gathered through axis_maps equals the JAX
+    package's apply_effects output, plane by plane (the random chains
+    on one plane, to keep JAX's compiles few)."""
+    jimg, timg = _images(fmt, h, w, seed=h + w + len(chain))
+    jout = je.apply_effects(jimg, chain)
+    _, _, steps = te.plan_effects(timg, _port(chain))
+    assert set(steps) == set(jout.planes)
+    for k, plan in steps.items():
+        swap, rows, cols = te.axis_maps(plan)
+        assert rows.dtype == cols.dtype == torch.int64
+        p = timg.planes[k]
+        got = p[cols][:, rows].T if swap else p[rows][:, cols]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jout.planes[k]))
+
+
 def test_chain_longer_than_one_launch():
     """A chain longer than the kernel's step array: the same result."""
     chain = [R(90), M("horizontal"), R(270), M("vertical")] * 5

@@ -108,7 +108,8 @@ def test_encode_jpeg_unported_options_raise():
     """Arithmetic coding still raises; a restart interval, once queued,
     now encodes (B12-enc's plain version) to the JAX package's bytes."""
     planes = _planes("420", 16, 16, seed=1)
-    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE.*item 6"):
+    with pytest.raises(UhdrError,
+                       match="UNSUPPORTED_FEATURE.*Off-path formats"):
         tcodec.encode_jpeg(planes, quality=90, device="cpu",
                            arithmetic=True)
     assert tcodec.encode_jpeg(planes, quality=90, device="cpu",

@@ -50,11 +50,29 @@ def _yuv(h, w, kind, seed):
             rng.integers(0, 256, (ch, cw)).astype(np.uint8))
 
 
+def _padded(a, seed):
+    """a as a strided view into a wider, taller buffer of noise."""
+    rng = np.random.default_rng(seed)
+    h, w = a.shape
+    big = rng.integers(0, 256, (h + 3, w + 13)).astype(np.uint8)
+    big[1:h + 1, 5:w + 5] = a
+    return big[1:h + 1, 5:w + 5]
+
+
 @pytest.mark.parametrize("h,w,kind", [
     (64, 96, "random"), (67, 93, "random"), (1, 1, "random"),
-    (34, 18, "flat"), (31, 45, "saturated")])
+    (34, 18, "flat"), (31, 45, "saturated"),
+    # the edges of B7's 2x8 pixel blocks: widths 7-9 and 15-17, heights
+    # 1-3, and planes read through strided views of padded buffers
+    (1, 7, "random"), (2, 8, "random"), (3, 9, "random"),
+    (1, 15, "random"), (2, 16, "random"), (3, 17, "random"),
+    (3, 7, "saturated"), (1, 16, "random"), (2, 9, "random"),
+    (35, 41, "padded"), (3, 17, "padded")])
 def test_b7_plain_matches_jax(h, w, kind):
     y, u, v = _yuv(h, w, kind, seed=h * w)
+    if kind == "padded":
+        y, u, v = (_padded(a, seed=k) for k, a in enumerate((y, u, v)))
+        assert not y.flags.c_contiguous
     want = np.asarray(jgm.yuv420_to_rgba8888(y, u, v))
     got = tgm.yuv420_to_rgba8888(*(torch.from_numpy(a)[None]
                                    for a in (y, u, v)))

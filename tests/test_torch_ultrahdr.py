@@ -390,12 +390,15 @@ def test_error_codes_match_jax():
 @pytest.mark.parametrize("codec", ["heic", "heic_r", "heic_10bit", "avif",
                                    "avif_r", "avif_10bit"])
 def test_heif_requests_raise_unsupported(codec):
-    """HEIC / AVIF outputs and inputs are queued (ROADMAP Queue A 12a)."""
+    """HEIC / AVIF outputs and inputs are queued (ROADMAP Queue A, "The
+    converter's HEIF/AVIF arms")."""
     _, ts = _ingest("p010")
-    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE.*12a"):
+    with pytest.raises(UhdrError,
+                       match="UNSUPPORTED_FEATURE.*HEIF/AVIF arms"):
         ts.convert(UltraHdrConfig(output_codec=codec))
     brand = b"avif" if codec.startswith("avif") else b"heic"
-    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE.*12a"):
+    with pytest.raises(UhdrError,
+                       match="UNSUPPORTED_FEATURE.*HEIF/AVIF arms"):
         UltraHdr("cpu").add_image(b"\x00\x00\x00\x18ftyp" + brand
                                   + b"\x00" * 64)
 
