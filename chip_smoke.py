@@ -71,11 +71,16 @@ batch: kernel = plain, finalized scans = the host coder's; B12-enc
 {1, 4, 17, 86, 300} (the last two longer than a B3 tile): kernel = plain
 = the host coder with RSTn markers; B0 and B14 (the P010
 upload: dense on uniform noise, segment-packed on bench content), B18
-(the planes composite of a decoded batch of 4), B15 and B16 (Rice pass 1
-and pack over that composite, vertical and MED, two-phase and fused),
-bitwise; B15 and B16 at 10 and 16 bits (both schemes, two-phase and
-fused), B17 and B21 on a decoded batch of 4, bitwise, each host unpack =
-the device pixels; the main-path windows (API-0 round trip, handoff,
+(the planes composite of a decoded batch of 4, timed by CUDA graph and
+events; and its edges: odd widths, h + ch + gh not a multiple of 3,
+strided views at odd offsets, batches of 1 and 4), B15 and B16 (Rice
+pass 1 and pack over that composite, vertical and MED, two-phase and
+fused), bitwise; B15 and B16 at 10 and 16 bits (both schemes, two-phase
+and fused), B17 and B21 on a decoded batch of 4, bitwise, each host
+unpack = the device pixels (B17's order alone = the stable sort, its
+rank totals = the host's counts, timed apart from the pack; and its
+edges: all zero, noise, segment counts off the order's tile, several
+tiles, padding rows that carry); the main-path windows (API-0 round trip, handoff,
 goldens, the log-emission window: the API-0 blob decodes, the handoff
 decode and decode_jpeg at 4000x3000 with the emission default set to
 "log", each output = the dense route's, B22 launched and B4 not; API-1
@@ -150,6 +155,9 @@ PARENT_MS = {"B7": 0.0712, "B13 crop 3600x2248": 0.0378,
              "B13 mirror horizontal": 0.0660, "B13 rotate 90": 0.1197,
              "B13 rotate 180": 0.0694, "B13 resize 1080x1920": 0.0222,
              "B13 converter chain": 0.0371}
+# ... and of B17b and B18 (ms per frame of the batch of 4, CUDA events;
+# the parent tree's last run of this script, same card and limit).
+PARENT_MS.update({"B17b": 0.4284, "B18": 0.0650})
 
 # Operations per sample, counted from the kernels' sources (the branch a
 # sample usually takes): float32 operations (a fused multiply-add 2;
@@ -323,6 +331,7 @@ def device_ms_by_kernel(fn, iters: int) -> dict:
         if us > 0:
             key = e.key.replace("(anonymous namespace)::", "")
             name = key.split("(")[0].split("<")[0].split("::")[-1].strip()
+            name = name.removeprefix("void ")  # a template's return type
             out[name or key] = out.get(name or key, 0.0) + us / 1e3 / iters
     return out
 
@@ -3065,18 +3074,22 @@ def _decoded_planes(dev, y_np, uv_np):
 
 def _rice_edge_batch(bits: int, n: int, h: int, w: int, kind: str,
                      rng) -> np.ndarray:
-    """A readback source at the edges B15 and B16 branch on: an (n, 3h,
-    w) u8 composite (bits 8), (n, h, w) RGBA1010102 words with alpha 3
+    """A readback source at the edges B15, B16 and B17 branch on: an (n,
+    3h, w) u8 composite (bits 8), (n, h, w) RGBA1010102 words with alpha 3
     (bits 10) or (n, h, w, 4) F16 halves with alpha 1.0 (bits 16), of
     `kind` "smooth" (a random walk along rows), "zero", "noise" (full
-    range: the unary cap and the largest k) or "k15" (bits 16: G - R and
-    G - B flipping by 2^15 from row to row, whose best k is 15)."""
+    range: the unary cap and the largest k), "carry" (noise but for the
+    first 64 columns, which vary by 1 from row to row: a few narrow
+    segments among wide ones) or "k15" (bits 16: G - R and G - B flipping
+    by 2^15 from row to row, whose best k is 15)."""
     top = 1 << bits
     shape = (n, 3 * h, w) if bits == 8 else (n, h, w, 3)
     if kind == "zero":
         ch = np.zeros(shape, np.int64)
-    elif kind == "noise":
+    elif kind in ("noise", "carry"):
         ch = rng.integers(0, top, shape)
+        if kind == "carry":
+            ch[:, :, :64] = top // 2 + rng.integers(0, 2, ch[:, :, :64].shape)
     elif kind == "k15":
         g = rng.integers(0, top, shape[:3])
         flip = (np.arange(h) % 2 * 0x8000)[None, :, None]
@@ -3190,16 +3203,138 @@ def rice_edge_checks(dev, bits: int, seed: int):
         f"{t + 1} and {3 * t + 517} (tile {t}; ties in every rank)")
 
 
+#: (label, n, h, w, row padding, column offset) of the B18 edge inputs:
+#: odd widths (cw and wc not multiples of 16, misaligned output rows),
+#: h + ch + gh not a multiple of 3, planes given as strided views of
+#: padded planes at an odd column offset, batches of 1 and 4.
+B18_EDGES = (("w 4001, batch 1", 1, 3001, 4001, 0, 0),
+             ("w 245, batch 4", 4, 123, 245, 0, 0),
+             ("views at offset 3, batch 4", 4, 3072, 4080, 16, 3),
+             ("views at offset 5, w 1001, batch 1", 1, 777, 1001, 6, 5))
+
+
+def b18_edges(dev, seed: int):
+    """B18 bitwise = its plain version on B18_EDGES: each plane (Y, U, V
+    and a quarter-size gain map) of random bytes, as a strided view of a
+    larger plane where a padding or an offset is given."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+
+    rng = np.random.default_rng(seed)
+    for label, n, h, w, pad, off in B18_EDGES:
+        ch, cw = (h + 1) // 2, (w + 1) // 2
+        planes = []
+        for ph, pw in ((h, w), (ch, cw), (ch, cw), (h // 4, w // 4)):
+            big = torch.from_numpy(rng.integers(
+                0, 256, (n, ph + pad, pw + pad + off), dtype=np.uint8)).to(dev)
+            planes.append(big[:, pad // 2:pad // 2 + ph, off:off + pw])
+        comp = gm.planes_composite(*planes)
+        require(torch.equal(comp, gm.planes_composite_plain(*planes)),
+                f"B18 {label} differs from its plain version")
+        rows = h + ch + h // 4
+        log(f"B18 edge {label}: kernel = plain, {tuple(comp.shape)} u8 "
+            f"(h + ch + gh = {rows}, {rows % 3} mod 3; wc {comp.shape[2]}, "
+            f"{comp.shape[2] % 16} mod 16; Y row stride "
+            f"{planes[0].stride(1)}, column offset {off})")
+
+
+#: (label, n, h, w, kind) of the B17 edge inputs (kinds of
+#: _rice_edge_batch): an all-zero batch (every segment rank 0: the
+#: buckets hold only padding rows), uniform noise (one bucket holds
+#: nearly all), nseg not a multiple of the order's 2048-segment tile
+#: (one tile; 30 segments; a last tile of one segment), several tiles,
+#: and the carry case (narrow buckets whose padding rows take width-10
+#: segments, whose slots carry into their neighbours).
+B17_EDGES = (("all zero", 1, 40, 600, "zero"),
+             ("noise", 1, 37, 600, "noise"),
+             ("one tile", 1, 37, 600, "smooth"),
+             ("nseg 30", 2, 5, 64, "smooth"),
+             ("nseg 2049", 1, 683, 64, "smooth"),
+             ("several tiles", 2, 96, 1000, "smooth"),
+             ("carry", 2, 40, 640, "carry"))
+
+
+def b17_check(x, label: str):
+    """B17 (widths, the order alone, the pack) on the (n, h, w) RGBA1010102
+    batch x against the plain versions, bitwise, the order's rank totals
+    against the host's counts and its places against the stable sort,
+    the host unpack = x. -> (zs, bc, offs, npads, blob, counts, carry)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n, h, w = x.shape
+    zs, bc = packio.rct_widths(x)
+    zp, bp = packio.rct_widths_plain(x)
+    require(torch.equal(zs, zp) and torch.equal(bc, bp),
+            f"B17 {label}: widths differ from the plain version")
+    bm = bc.cpu().numpy()
+    flat = bm.reshape(-1)
+    counts = np.bincount(packio.FINE_RANK[flat], minlength=9)
+    npads = tuple(packio._pow2_pad(max(int(c), 1), floor=32)
+                  for c in counts[1:])
+    offs = np.cumsum(counts[:8]).astype(np.int32)
+    sidx = torch.empty(flat.size, dtype=torch.int32, device=x.device)
+    totals = torch.empty(9, dtype=torch.int32, device=x.device)
+    packio._rct_order(bc, sidx, totals)
+    require(np.array_equal(totals.cpu().numpy(), counts),
+            f"B17 {label}: the order's rank totals differ from the host's "
+            f"counts")
+    rank = torch.from_numpy(packio.FINE_RANK).to(x.device)[bc.reshape(-1)
+                                                           .long()]
+    require(torch.equal(sidx.long(), packio._stable_order(rank, 0)),
+            f"B17 {label}: the order differs from the stable sort")
+    blob = packio.rct_pack(zs, bc, offs, npads)
+    require(torch.equal(blob, packio.rct_pack_plain(zs, bc, offs, npads)),
+            f"B17 {label}: the pack differs from the plain version")
+    out = packio._host_unpack_rct(blob.cpu().numpy().view(np.uint32), bm,
+                                  npads, n, h, w)
+    require(np.array_equal(out, x.cpu().numpy().view(np.uint32)),
+            f"B17 {label}: host unpack != the pixels")
+    carry = any(c < p and o + c < flat.size
+                for c, p, o in zip(counts[1:], npads, offs))
+    return zs, bc, offs, npads, blob, counts, carry
+
+
+def b17_edges(dev, seed: int):
+    """b17_check on B17_EDGES; the all-zero batch must put every segment
+    in rank 0, the noise nearly all in one bucket, and some input must
+    put wider segments in a bucket's padding rows."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    carried = False
+    for label, n, h, w, kind in B17_EDGES:
+        x = torch.from_numpy(_rice_edge_batch(10, n, h, w, kind, rng)).to(dev)
+        counts, carry = b17_check(x, label)[5:]
+        nseg = int(counts.sum())
+        if kind == "zero":
+            require(counts[0] == nseg, "B17 all zero: not every segment in "
+                    "rank 0")
+        if kind == "noise":
+            require(counts.max() >= 0.9 * nseg, "B17 noise: no bucket holds "
+                    "nearly all segments")
+        carried = carried or carry
+        log(f"B17 edge {label} ({n}x{h}x{w}, {nseg} segments, "
+            f"{-(-nseg // RICE_ORDER_TILE)} order tiles, rank counts "
+            f"{counts.tolist()}, padding rows with wider segments: {carry})"
+            f": kernels = plain, order = stable sort, totals = counts, "
+            f"host unpack = pixels")
+    require(carried, "no B17 edge input put wider segments in padding rows")
+
+
 def packio_phase(dev, results: dict, kept: dict):
     """B0, B14, B18, B15 and B16 against their plain versions at the
     serving loop's shapes (4080x3072, batch SERVE_FRAMES), bitwise: the
     upload's B14 on bench content (seg mode) and B0 on uniform noise
     (dense mode), each also equal to the input; B18 over a decoded
-    batch's planes; B15 (vertical, MED, both) and B16 (two-phase on the
-    host plan, fused on the same paddings and on tight ones) over that
-    composite, then at the edges (rice_edge_checks); B16's order and emit
-    timed apart, B15's load and residuals apart from its reduction
-    (rice_parts). Keeps the planes and composite for the stage times."""
+    batch's planes and at its edges (b18_edges); B15 (vertical, MED,
+    both) and B16 (two-phase on the host plan, fused on the same paddings
+    and on tight ones) over that composite, then at the edges
+    (rice_edge_checks); B16's order and emit timed apart, B15's load and
+    residuals apart from its reduction (rice_parts). Keeps the planes and
+    composite for the stage times."""
     import torch
 
     from libultrahdr_dev_tpu_torch.device import upload
@@ -3261,12 +3396,17 @@ def packio_phase(dev, results: dict, kept: dict):
     require(torch.equal(comp, gm.planes_composite_plain(*planes)),
             "B18 differs from its plain version")
     log(f"B18 planes_composite: kernel = plain, {tuple(comp.shape)} u8")
+    b18_events = per_frame(cuda_ms(lambda: gm.planes_composite(*planes), 20))
     results["B18"] = dict(
-        err=0, ms=per_frame(cuda_ms(lambda: gm.planes_composite(*planes), 20)),
+        err=0, ms=per_frame(graph_ms(lambda: gm.planes_composite(*planes),
+                                     20)),
         plain_ms=per_frame(cuda_ms(lambda: gm.planes_composite_plain(
             *planes), 3)),
         bytes=(sum(p.shape[0] * p.shape[1] * p.shape[2] for p in planes)
                + nbytes(comp)) / n, library_ms=None)
+    log(f"B18: {results['B18']['ms']:.4f} ms/frame by graph, {b18_events:.4f}"
+        f" by events (parent: {PARENT_MS['B18']:.4f} by events)")
+    b18_edges(dev, SEED + 205)
     kept["planes"], kept["scalars"], kept["comp"] = planes, sc, comp
 
     # B15 on that composite: each scheme and both.
@@ -3386,8 +3526,9 @@ def readback_phase(dev, results: dict, kept: dict):
     for vertical, MED and both schemes on the HLG and F16 pixels; B16
     two-phase on each scheme's host plan and fused on the same paddings
     (fit) and on tight ones (no fit), the native host unpack of each
-    two-phase blob = the device pixels; B17's widths and pack on the HLG
-    pixels, its host unpack = the pixels; B21's widths and pack on the
+    two-phase blob = the device pixels; B17's widths, order and pack on
+    the HLG pixels and at its edges (b17_check, b17_edges), its host
+    unpack = the pixels; B21's widths and pack on the
     10-bit planar pixels, unpack_plane_host = the plane. B15 and B16 at
     each width also at the edges (rice_edge_checks), with B16's order
     and emit timed apart and B15's two parts (rice_parts)."""
@@ -3476,41 +3617,37 @@ def readback_phase(dev, results: dict, kept: dict):
         rice_parts(x, f"B15 {bits}-bit", results[f"B15/{bits}"]["ms"] * n, n)
         rice_edge_checks(dev, bits, SEED + 211 + bits)
 
-    # B17 on the HLG pixels.
+    # B17 on the HLG pixels: kernels = plain, the order alone = the stable
+    # sort with the host's counts; then the edges.
     x = pix["hdr_hlg"]
-    zs, bc = packio.rct_widths(x)
-    zp, bp = packio.rct_widths_plain(x)
-    require(torch.equal(zs, zp) and torch.equal(bc, bp),
-            "B17 widths differ from the plain version")
-    bm = bc.cpu().numpy()
-    counts = np.bincount(packio.FINE_RANK[bm.reshape(-1)], minlength=9)
-    npads = tuple(packio._pow2_pad(max(int(c), 1), floor=32)
-                  for c in counts[1:])
-    offs = np.cumsum(counts[:8]).astype(np.int32)
-    blob = packio.rct_pack(zs, bc, offs, npads)
-    require(torch.equal(blob, packio.rct_pack_plain(zs, bc, offs, npads)),
-            "B17 pack differs from the plain version")
-    out = packio._host_unpack_rct(blob.cpu().numpy().view(np.uint32), bm,
-                                  npads, n, H, W)
-    require(np.array_equal(out, x.cpu().numpy().view(np.uint32)),
-            "B17 host unpack != device pixels")
-    log(f"B17 rct_widths + rct_pack: kernels = plain, host unpack = device "
-        f"pixels; blob {blob.numel() * 4 / 1e6:.2f} MB for "
-        f"{nbytes(x) / 1e6:.1f} MB raw ({bm.size} segments)")
+    zs, bc, offs, npads, blob, counts, _ = b17_check(x, "4080x3072")
+    log(f"B17 rct_widths + rct_pack: kernels = plain, order totals = host "
+        f"counts {counts.tolist()}, host unpack = device pixels; blob "
+        f"{blob.numel() * 4 / 1e6:.2f} MB for {nbytes(x) / 1e6:.1f} MB raw "
+        f"({bc.numel()} segments)")
+    b17_edges(dev, SEED + 212)
     results["B17a"] = dict(
         err=0, library_ms=None,
         ms=per_frame(cuda_ms(lambda: packio.rct_widths(x), 20)),
         plain_ms=per_frame(cuda_ms(lambda: packio.rct_widths_plain(x), 2)),
         bytes=nbytes(x, zs, bc) / n)
+    b17b = lambda: packio.rct_pack(zs, bc, offs, npads)  # noqa: E731
+    sidx = torch.empty(bc.numel(), dtype=torch.int32, device=dev)
+    order = lambda: packio._rct_order(bc, sidx)  # noqa: E731
     results["B17b"] = dict(
-        err=0, library_ms=None,
-        ms=per_frame(cuda_ms(lambda: packio.rct_pack(zs, bc, offs, npads),
-                             20)),
+        err=0, library_ms=None, ms=per_frame(cuda_ms(b17b, 20)),
         plain_ms=per_frame(cuda_ms(lambda: packio.rct_pack_plain(
             zs, bc, offs, npads), 2)),
         bytes=nbytes(zs, bc, blob) / n)
-    log_breakdown(f"B17 pack (batch of {n})",
-                  lambda: packio.rct_pack(zs, bc, offs, npads), 10,
+    order_ms = per_frame(cuda_ms(order, 20))
+    graph = per_frame(graph_ms(b17b, 20))
+    order_graph = per_frame(graph_ms(order, 20))
+    log(f"B17b: {results['B17b']['ms']:.4f} ms/frame by events ({graph:.4f}"
+        f" by graph): order (count, scan, place) {order_ms:.4f} "
+        f"({order_graph:.4f}), pack {results['B17b']['ms'] - order_ms:.4f} "
+        f"({graph - order_graph:.4f}) (parent: "
+        f"{PARENT_MS['B17b']:.4f} by events)")
+    log_breakdown(f"B17 pack (batch of {n})", b17b, 10,
                   results["B17b"]["ms"] * n)
 
     # B21 on the 10-bit planar pixels, one (3 * n * H, W) plane.

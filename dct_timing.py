@@ -5,12 +5,14 @@ and B22 (the Huffman decode, dense and log emission), B12-dec (B4 then
 B5), B19 (the restart-less Huffman encode), B3 and B12-enc (the
 restart-interval Huffman encode), B6 / B11 (the gain-map apply), B1 /
 B9 / B10b (the encode front ends) and B15 / B16 (Rice pass 1 and the
-Rice pack of the packed readbacks), B7 (the SDR output) and B13 (the
-effect chain).
+Rice pack of the packed readbacks), B7 (the SDR output), B13 (the
+effect chain), B17b (the RCT fine-width pack) and B18 (the planes
+composite).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
     python3 dct_timing.py _verify/other --only B7,B13   # those two alone
+    python3 dct_timing.py _verify/other --only B17b,B18 # with B15/B16's checks
 
 Both trees' kernels are built from their own sources (each into its own
 git-ignored _build directory) and called through their own wrappers on
@@ -28,9 +30,11 @@ B9 with chip_smoke.py's BT.709 SDR rendition, HLG), a tonemapped
 chip_smoke.py's readback inputs (a
 4080x3072 batch of 4 decoded to the u8 planes composite, to HLG
 RGBA1010102 and to F16: B15 and B16 at 8, 10 and 16 bits), B5's
-planes of the batch (B7) and chip_smoke.py's B13 frame: a 4000x3000
+planes of the batch (B7), chip_smoke.py's B13 frame: a 4000x3000
 YUV420 image and its 1000x750 gain map (each single effect of its B13
-phase, and the converter's chain on both).
+phase, and the converter's chain on both), and the readback inputs
+again (B18 on the batch's u8 planes, B17b on this tree's pass 1 of the
+HLG pixels).
 
 Checks: B2 of both trees bitwise equal to the plain version; B5 of both
 trees bitwise equal to each other, with their off-count against the
@@ -41,10 +45,10 @@ bitwise equal; B1 (HLG, PQ), B9 and B10b of both trees bitwise equal;
 B15's residuals and maps (both schemes), B16's orders,
 two-phase blobs (each scheme on its host plan) and fused buffers (fit
 and no fit) of both trees bitwise equal, and equal to the plain
-versions; B17's widths and pack of both trees bitwise equal; each
-tree's packed fetch of the composite, the HLG and the F16 pixels = the
-source; B7 and B13 (each single effect, the chain) of both trees
-bitwise equal.
+versions; each tree's packed fetch of the composite, the HLG and the
+F16 pixels = the source; B7 and B13 (each single effect, the chain) of
+both trees bitwise equal; B17b and B18 of both trees bitwise equal, and
+equal to the plain versions.
 
 Times, ms per frame, in turns (other, this, this, other): B2, B5, B4,
 B22 and B12-dec by CUDA-graph replay and by CUDA events, B20 (B1 + B2)
@@ -59,7 +63,11 @@ with each tree's device ms by kernel, and the three packed fetches
 (B15 + B16 + D2H + native unpack) by the host clock, synchronized; B7
 by CUDA events and by CUDA graph, each B13 single effect by CUDA graph,
 the B13 chain (frame + map) by CUDA graph and launched one by one (CUDA
-events), in turns. Prints the card's name and power limit and, last,
+events), in turns; B17b and B18 by CUDA events and by CUDA graph, in
+turns, with each tree's device ms by kernel (B17b's order and pack
+apart). `--only B17b,B18` runs B15's and B16's checks at the three
+widths (B17b's order runs on B16's kernels), then B17b and B18.
+Prints the card's name and power limit and, last,
 one JSON object of the times.
 """
 
@@ -175,21 +183,28 @@ def sdr_edit_timing(cs, trees: dict, dev, smi: str):
     return times
 
 
-def rice_timing(cs, trees: dict, dev, smi: str):
-    """B15 and B16 of both trees on chip_smoke.py's readback inputs:
-    bitwise checks, then times in turns and device ms by kernel. ->
-    (times, by_kernel)."""
-    import torch
-
+def rice_inputs(cs, dev):
+    """chip_smoke.py's readback inputs: the u8 planes of a decoded
+    4080x3072 batch of 4 and {bits: source} of the three readbacks (the
+    planes composite, HLG RGBA1010102 and F16 pixels)."""
     from libultrahdr_dev_tpu_torch.ops import gainmap as gm
-    from libultrahdr_dev_tpu_torch.parallel import packio
 
-    n = cs.SERVE_FRAMES
-    y_np, uv_np = cs.synth_p010(n, cs.H, cs.W, cs.SEED + 200)
+    y_np, uv_np = cs.synth_p010(cs.SERVE_FRAMES, cs.H, cs.W, cs.SEED + 200)
     planes, sc = cs._decoded_planes(dev, y_np, uv_np)
     pix = cs._decoded_pixels(dev, {"planes": planes, "scalars": sc})
-    arms = {8: gm.planes_composite(*planes), 10: pix["hdr_hlg"],
-            16: pix["hdr_linear"]}
+    return planes, {8: gm.planes_composite(*planes), 10: pix["hdr_hlg"],
+                    16: pix["hdr_linear"]}
+
+
+def rice_checks(cs, trees: dict, dev, arms: dict) -> dict:
+    """B15's residuals and maps and B16's orders, two-phase blobs (each
+    scheme on its host plan) and fused buffers (fit and no fit) of both
+    trees at each width of `arms`: bitwise equal to each other and to the
+    plain versions. -> {bits: the MED two-phase pack's arguments}."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
     both = (False, True)
     packs = {}
     for bits, x in arms.items():
@@ -221,7 +236,7 @@ def rice_timing(cs, trees: dict, dev, smi: str):
                              packio.rice_fused_plain(x, med, *pads))
                     cs.require(torch.equal(*fused), f"{name}: B16 {bits}-"
                                f"bit fused differs from the plain version")
-            a, b = packs[(bits, med)]
+            a, b = packs.pop((bits, med))
             cs.require(torch.equal(a, b), f"B16 {bits}-bit orders differ "
                        f"between the trees")
             if med:
@@ -229,20 +244,75 @@ def rice_timing(cs, trees: dict, dev, smi: str):
         print(f"B15/B16 {bits}-bit of both trees bitwise equal (and = "
               f"plain): residuals, maps, orders, two-phase and fused "
               f"blobs ({mg.shape[1]} segments)", flush=True)
+    return packs
 
-    # B17 shares the order helpers B16 left: both trees' must agree.
+
+def pack_timing(cs, trees: dict, dev, smi: str, planes, arms: dict):
+    """B17b (the fine-width pack of the HLG pixels, on this tree's pass
+    1) and B18 (the planes composite) of both trees: bitwise equal to
+    each other and to the plain versions, then times in turns (other,
+    this, this, other) by CUDA events and by CUDA graph, and each tree's
+    device ms by kernel (B17b's order and pack apart). -> (times,
+    by_kernel)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n = cs.SERVE_FRAMES
+    comps = [m["gainmap"].planes_composite(*planes)
+             for m in trees.values()]
+    cs.require(all(torch.equal(c, arms[8]) for c in comps)
+               and torch.equal(arms[8], gm.planes_composite_plain(*planes)),
+               "B18 differs between the trees or from the plain version")
     x = arms[10]
-    rct = []
+    zs, bc = packio.rct_widths(x)
+    counts = np.bincount(packio.FINE_RANK[bc.cpu().numpy().reshape(-1)],
+                         minlength=9)
+    npads = tuple(packio._pow2_pad(max(int(c), 1), floor=32)
+                  for c in counts[1:])
+    offs = np.cumsum(counts[:8]).astype(np.int32)
+    ref = packio.rct_pack_plain(zs, bc, offs, npads)
     for name, m in trees.items():
-        zs, bc = m["packio"].rct_widths(x)
-        counts = np.bincount(packio.FINE_RANK[bc.cpu().numpy().reshape(-1)],
-                             minlength=9)
-        npads = tuple(packio._pow2_pad(max(int(c), 1), floor=32)
-                      for c in counts[1:])
-        offs = np.cumsum(counts[:8]).astype(np.int32)
-        rct.append((zs, bc, m["packio"].rct_pack(zs, bc, offs, npads)))
-    cs.require(all(map(torch.equal, *rct)), "B17 differs between the trees")
-    print("B17 widths and pack of both trees bitwise equal", flush=True)
+        cs.require(torch.equal(m["packio"].rct_pack(zs, bc, offs, npads),
+                               ref), f"{name}: B17b differs from the plain "
+                   f"version")
+    print(f"B17b and B18 of both trees bitwise equal (and = plain; "
+          f"{bc.numel()} segments, rank counts {counts.tolist()})",
+          flush=True)
+    runs = {name: {"B17b": lambda m=m: m["packio"].rct_pack(zs, bc, offs,
+                                                            npads),
+                   "B18": lambda m=m: m["gainmap"].planes_composite(
+                       *planes)} for name, m in trees.items()}
+    times = {}
+    for turn, name in enumerate(("other", "this", "this", "other")):
+        t = {}
+        for k, fn in runs[name].items():
+            t[f"{k}_events"] = cs.cuda_ms(fn, 20) / n
+            t[f"{k}_graph"] = cs.graph_ms(fn, 20) / n
+        print(f"turn {turn} {name}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()) + f" ms/frame ({smi})",
+            flush=True)
+        times.setdefault(name, []).append(t)
+    by_kernel = {}
+    for name in trees:
+        for k, fn in runs[name].items():
+            by = {kk: v / n for kk, v in cs.device_ms_by_kernel(fn, 10)
+                  .items()}
+            by_kernel.setdefault(name, {})[k] = by
+            print(f"{name} {k}: device ms/frame by kernel "
+                  f"{ {kk: round(v, 4) for kk, v in by.items()} } ({smi})",
+                  flush=True)
+    return times, by_kernel
+
+
+def rice_timing(cs, trees: dict, dev, smi: str, arms: dict, packs: dict):
+    """B15 and B16 of both trees on chip_smoke.py's readback inputs
+    (`arms`, checked by rice_checks, whose `packs` B16 takes): times in
+    turns and device ms by kernel, and the three packed fetches. ->
+    (times, by_kernel)."""
+    both = (False, True)
+    n = cs.SERVE_FRAMES
 
     def b15(m, bits):
         return m["packio"].rice_stats(arms[bits], both)
@@ -296,7 +366,7 @@ def main(argv) -> int:
     only = argv[3].split(",") if len(argv) == 4 and argv[2] == "--only" \
         else None
     if len(argv) != (4 if only else 2) or not torch.cuda.is_available() \
-            or not set(only or ()) <= {"B7", "B13"}:
+            or not set(only or ()) <= {"B7", "B13", "B17b", "B18"}:
         print(__doc__, file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -314,8 +384,23 @@ def main(argv) -> int:
     load_other(argv[1])
     trees = {"other": modules("uhdr_other"), "this": modules(PKG)}
     if only:
-        print(json.dumps({"device": smi, "times": sdr_edit_timing(
-            cs, trees, dev, smi)}))
+        times, by_kernel = {}, {}
+        parts = []
+        if {"B7", "B13"} & set(only):
+            parts.append((sdr_edit_timing(cs, trees, dev, smi), {}))
+        if {"B17b", "B18"} & set(only):
+            planes, arms = rice_inputs(cs, dev)
+            rice_checks(cs, trees, dev, arms)
+            parts.append(pack_timing(cs, trees, dev, smi, planes, arms))
+        for ts, by in parts:
+            for name, runs in ts.items():
+                old = times.setdefault(name, [{} for _ in runs])
+                for t, r in zip(old, runs):
+                    t.update(r)
+            for name, b in by.items():
+                by_kernel.setdefault(name, {}).update(b)
+        print(json.dumps({"device": smi, "times": times,
+                          "by_kernel": by_kernel}))
         return 0
 
     frames = cs.FRAMES
@@ -524,12 +609,15 @@ def main(argv) -> int:
             print(f"{name} {what}: device ms/frame by kernel "
                   f"{ {k: round(v, 4) for k, v in by.items()} } ({smi})",
                   flush=True)
-    rice_times, rice_by = rice_timing(cs, trees, dev, smi)
-    for name, ts in rice_times.items():
-        for t, r in zip(times[name], ts):
-            t.update(r)
-    for name, by in rice_by.items():
-        by_kernel[name].update(by)
+    planes, arms = rice_inputs(cs, dev)
+    packs = rice_checks(cs, trees, dev, arms)
+    for ts, by in (rice_timing(cs, trees, dev, smi, arms, packs),
+                   pack_timing(cs, trees, dev, smi, planes, arms)):
+        for name, runs in ts.items():
+            for t, r in zip(times[name], runs):
+                t.update(r)
+        for name, b in by.items():
+            by_kernel[name].update(b)
     for name, ts in sdr_edit_timing(cs, trees, dev, smi).items():
         for t, r in zip(times[name], ts):
             t.update(r)

@@ -116,15 +116,17 @@ SIGNATURES = {
     # (host), unary pads (host), pad bytes, their count, scratch, stream
     "uhdr_rice_order": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                         _I, _P, _P],
-    # int32 scratch of uhdr_rice_order for nseg segments
+    # int32 scratch of the tiled order (B16, B17) for nseg segments
     "uhdr_rice_order_scratch": [_I],
     # zs, kmap, sidx_rem, sidx_un, offs, nseg, nk, start, nw, woff (host),
     # blob, stream
     "uhdr_rice_emit": [_P] * 5 + [_I, _I] + [_P] * 5,
     # src, nh, w, nsegw, zs, bc, stream
     "uhdr_rct_widths": [_P, _L, _I, _I, _P, _P, _P],
-    # zs, bc, nseg, sidx, npads (host), offs (host), blob, stream
-    "uhdr_rct_pack": [_P, _P, _I, _P, _P, _P, _P, _P],
+    # bc, nseg, sidx, totals (or null), scratch, stream
+    "uhdr_rct_order": [_P, _I, _P, _P, _P, _P],
+    # zs, bc, nseg, sidx, scratch, npads (host), offs (host), blob, stream
+    "uhdr_rct_pack": [_P, _P, _I, _P, _P, _P, _P, _P, _P],
     # arr, h, w, nsegw, zs, bc, stream
     "uhdr_plane_widths": [_P, _I, _I, _I, _P, _P, _P],
     # zs, gidx, n2, n5, n10, blob, stream

@@ -367,9 +367,6 @@ __device__ __forceinline__ int lut_index(float x, int n) {
 struct Plane {
   const uint8_t* p;
   long long batch_stride, row_stride;
-  __device__ __forceinline__ uint8_t at(int b, int y, int x) const {
-    return p[b * batch_stride + y * row_stride + x];
-  }
   __device__ __forceinline__ const uint8_t* row(int b, int y) const {
     return p + b * batch_stride + y * row_stride;
   }

@@ -23,8 +23,17 @@
 // Bound: bytes, for all of them; none does more than a few dozen integer
 // operations per sample. What each design does about it:
 //
-// - B0 and B18 are one streaming pass, one thread per 4 output samples
-//   (B0) or per output byte (B18), coalesced reads and writes.
+// - B0 is one streaming pass, one thread per 4 output samples, coalesced
+//   reads and writes.
+// - B18 gives a CTA one output row and a thread 16 bytes of it. Each
+//   row's part (Y, U|V or gain map) and source row pointers are resolved
+//   once a row, not once a byte; the loads are 16 bytes where the source
+//   is 16-byte aligned (Y rows of a 4080-wide frame), two 8-byte loads
+//   where it is 8-byte aligned (V, which starts at column cw = 2040 of
+//   the U|V row), else aligned words joined by funnel shifts (a strided
+//   view at any offset); the stores are 16 bytes where wc is a multiple
+//   of 16. Only the chunk that crosses a part's last column or U|V's seam
+//   takes a byte path; chunks past a part's last column repeat it.
 // - B14 gives each thread one column of one 32-row delta group: it walks
 //   the group's 32 rows, reads each row's segment index (the same for a
 //   warp: a broadcast) and one u32 word of that segment's bucket
@@ -61,10 +70,17 @@
 //   a unary row takes its terminator positions from a warp scan of q + 1;
 //   then a coalesced store of the row's words.
 // - B17 is B15's earlier load (one warp per 64-sample segment, the
-//   maximum by __reduce_max_sync), a one-CTA counting order over the 9
-//   width ranks (count_ranks / place_ranks), and a warp-per-row emit.
-// - B21 is B17's design on one 10-bit plane with 256-sample segments; the
-//   host's gather index replaces the order.
+//   maximum by __reduce_max_sync), then B16's tiled order with one family
+//   of 9 width ranks (FineRanks: 9 x tiles counts scanned; nothing runs
+//   as one CTA over the segments), then a pack that gives a warp 16 rows
+//   of one bucket: their places and segments resolved by the lanes
+//   together, their 128-byte rows loaded together and staged in shared
+//   memory, and each lane building whole words (the slots summed, as JAX
+//   sums them) that the warp stores coalesced; no atomics.
+// - B21 is B17's first design on one 10-bit plane with 256-sample
+//   segments (a CTA a segment for the widths; a warp an output row and
+//   shared-memory atomics for the pack); the host's gather index replaces
+//   the order.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -515,123 +531,125 @@ stats_kernel(const void* __restrict__ src, int w, int nsegw, long long nrows,
 }
 
 // ---------------------------------------------------------------------------
-// B17's stable (rank, index) order by counting: one CTA of 1024 threads, a
-// warp per contiguous range of the `n` items. Per-warp rank counts
-// (__match_any_sync groups the lanes of one rank), an exclusive scan over
-// warps, then each item's place. JAX computes the same order with
-// jnp.sort of (rank << 22) | index. RankFn(i, fam) gives item i's rank in
-// family fam (or -1 for none); a family's places start at base[] of its
-// first rank and run through its ranks in order.
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxRanks = 25;  // 17 remainder ranks + 8 unary ranks
-
-template <class RankFn>
-__device__ void count_ranks(int n, int nfam, const RankFn& rank_of,
-                            int (*cnt)[kMaxRanks], int nranks) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned lt = (1u << lane) - 1u;
-  const int per = (n + 31) / 32;
-  const int lo = warp * per, hi = min(lo + per, n);
-  if (lane < nranks) cnt[warp][lane] = 0;
-  __syncwarp();
-  for (int i0 = lo; i0 < hi; i0 += 32) {
-    const int i = i0 + lane;
-    for (int f = 0; f < nfam; ++f) {
-      const int rk = i < hi ? rank_of(i, f) : -1;
-      const unsigned mr = __match_any_sync(0xffffffffu, rk);
-      if (rk >= 0 && (mr & lt) == 0) cnt[warp][rk] += __popc(mr);
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < nranks) {
-    int run = 0;
-    for (int w = 0; w < 32; ++w) {
-      const int c = cnt[w][threadIdx.x];
-      cnt[w][threadIdx.x] = run;
-      run += c;
-    }
-    cnt[32][threadIdx.x] = run;  // the rank's total
-  }
-  __syncthreads();
-}
-
-template <class RankFn, class PlaceFn>
-__device__ void place_ranks(int n, int nfam, const RankFn& rank_of,
-                            int (*cnt)[kMaxRanks], const int* base,
-                            const PlaceFn& place) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned lt = (1u << lane) - 1u;
-  const int per = (n + 31) / 32;
-  const int lo = warp * per, hi = min(lo + per, n);
-  for (int i0 = lo; i0 < hi; i0 += 32) {
-    const int i = i0 + lane;
-    for (int f = 0; f < nfam; ++f) {
-      const int rk = i < hi ? rank_of(i, f) : -1;
-      const unsigned mr = __match_any_sync(0xffffffffu, rk);
-      if (rk >= 0) place(f, base[rk] + cnt[warp][rk] + __popc(mr & lt), i);
-      __syncwarp();
-      if (rk >= 0 && (mr & lt) == 0) cnt[warp][rk] += __popc(mr);
-      __syncwarp();
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B16 order: ranks of the remainder family (k = 0..nk-1, the all-zero
-// class last: nk + 1 ranks) and of the unary family (word-count class,
-// all-zero last: 8 ranks, numbered after the remainder ranks) -> each
-// segment's place in the stable (rank, index) order of both families.
-// nk = 10 for 8- and 10-bit samples (zero code 15), 16 for 16-bit ones
-// (zero code 31).
+// The stable (rank, index) order of B16 and B17: each segment's place when
+// the segments of each rank family are sorted by (rank, index), which is
+// what JAX's jnp.sort of (rank << 22) | index computes. A rank set R
+// gives R::kFams families, family f holding ranks [R::first(f),
+// R::first(f + 1)), and R(i, f), segment i's rank in family f:
+//
+// - RiceRanks<NK> (B16): the remainder family (k = 0..nk-1, the all-zero
+//   class last: nk + 1 ranks) and the unary family (word-count class,
+//   all-zero last: 8 ranks, numbered after the remainder ranks). nk = 10
+//   for 8- and 10-bit samples (zero code 15), 16 for 16-bit ones (zero
+//   code 31).
+// - FineRanks (B17): one family of 9 width ranks.
 //
 // A counting sort over tiles of kOrderTile segments, in three launches:
 // order_count_kernel counts each tile's ranks (a CTA a tile, a warp per
 // 256 segments, __match_any_sync groups the lanes of one rank) into
 // tcnt[rank][tile]; order_scan_kernel turns those counts into each
 // tile's first place per rank by one exclusive scan over (rank, tile)
-// per family (scan.cuh's block_scan_array over 25 x tiles counts) and
-// writes the offsets, the fused head and its pad bytes;
+// per family (scan.cuh's block_scan_array over at most 25 x tiles
+// counts), then hands each rank's first place and total to R::finish
+// (B16: the offsets, the fused head and its pad bytes; B17: the totals);
 // order_place_kernel counts its tile again per warp and puts each segment
 // at its tile's base + its stable place inside the tile.
 // ---------------------------------------------------------------------------
+
+constexpr int kMaxRanks = 25;     // 17 remainder ranks + 8 unary ranks
+constexpr int kOrderTile = 2048;  // segments a CTA: 8 warps x 256
 
 struct RicePads {
   int rem[16];  // pow2-padded rows of each remainder bucket (k < nk)
   int un[7];    // ... of each unary class
 };
 
-constexpr int kOrderTile = 2048;  // segments a CTA: 8 warps x 256
-
 template <int NK>
-__device__ __forceinline__ int rice_rank(const uint8_t* __restrict__ kmap,
-                                         const uint8_t* __restrict__ uwmap,
-                                         int i, int fam) {
-  constexpr int zero_code = NK == 16 ? 31 : kZero;
-  constexpr int nrem = NK + 1;
-  const int kc = kmap[i];
-  if (fam == 0) return kc == zero_code ? NK : kc;
-  if (kc == zero_code) return nrem + 7;
-  const int uw = uwmap[i];
-  int c = 0;
-  while (c < 7 && kUcls[c] < uw) ++c;  // searchsorted, left side
-  return nrem + c;
-}
+struct RiceRanks {
+  static constexpr int kFams = 2, kRanks = NK + 9;
+  __device__ static constexpr int first(int f) {
+    return f == 0 ? 0 : (f == 1 ? NK + 1 : NK + 9);
+  }
+  // What the scan writes: offs (nk + 7, or null), the fused head (nk +
+  // 11 words, or null: fit flag against pads, med, the rank totals) and
+  // npad_bytes zero bytes at pad_bytes.
+  struct Out {
+    int32_t* offs;
+    uint32_t* head;
+    int med;
+    RicePads pads;
+    uint8_t* pad_bytes;
+    int npad_bytes;
+  };
+  const uint8_t* kmap;
+  const uint8_t* uwmap;
+
+  __device__ __forceinline__ int operator()(int i, int fam) const {
+    constexpr int zero_code = NK == 16 ? 31 : kZero;
+    constexpr int nrem = NK + 1;
+    const int kc = kmap[i];
+    if (fam == 0) return kc == zero_code ? NK : kc;
+    if (kc == zero_code) return nrem + 7;
+    const int uw = uwmap[i];
+    int c = 0;
+    while (c < 7 && kUcls[c] < uw) ++c;  // searchsorted, left side
+    return nrem + c;
+  }
+
+  // Every thread of the scan's CTA; base[r] / tot[r]: rank r's first
+  // place in its family's order and its count.
+  __device__ static void finish(const Out& o, const int* base,
+                                const int* tot) {
+    constexpr int nrem = NK + 1;
+    const int r = threadIdx.x;
+    if (o.offs && r < NK) o.offs[r] = base[r];
+    if (o.offs && r >= nrem && r < nrem + 7) o.offs[NK + r - nrem] = base[r];
+    if (o.head && threadIdx.x == 0) {
+      bool fit = true;
+      for (int k = 0; k < NK; ++k) fit = fit && tot[k] <= o.pads.rem[k];
+      for (int c = 0; c < 7; ++c) fit = fit && tot[nrem + c] <= o.pads.un[c];
+      o.head[0] = fit ? 1u : 0u;
+      o.head[1] = (uint32_t)o.med;
+      for (int k = 0; k < kRanks; ++k) o.head[2 + k] = (uint32_t)tot[k];
+    }
+    for (int e = threadIdx.x; e < o.npad_bytes; e += blockDim.x)
+      o.pad_bytes[e] = 0;
+  }
+};
+
+struct FineRanks {
+  static constexpr int kFams = 1, kRanks = 9;
+  __device__ static constexpr int first(int f) { return f ? kRanks : 0; }
+  struct Out {
+    int32_t* totals;  // each rank's count (9), or null
+  };
+  const uint8_t* bc;
+
+  // Width code {0,1,2,3,4,5,6,8,10} -> rank 0..8 (JAX: code - (code > 6)
+  // - (code > 8)).
+  __device__ __forceinline__ int operator()(int i, int) const {
+    const int code = bc[i];
+    return code - (code > 6) - (code > 8);
+  }
+
+  __device__ static void finish(const Out& o, const int*, const int* tot) {
+    if (o.totals && threadIdx.x < kRanks)
+      o.totals[threadIdx.x] = tot[threadIdx.x];
+  }
+};
 
 // The calling warp's rank counts over segments [lo, min(lo + 256, nseg))
-// of both families, added into cnt[rank] (the warp's own row).
-template <int NK>
-__device__ __forceinline__ void warp_rank_counts(
-    const uint8_t* __restrict__ kmap, const uint8_t* __restrict__ uwmap,
-    int lo, int nseg, int* cnt) {
+// of every family, added into cnt[rank] (the warp's own row).
+template <class R>
+__device__ __forceinline__ void warp_rank_counts(const R& rank_of, int lo,
+                                                 int nseg, int* cnt) {
   const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
   const int hi = min(lo + 256, nseg);
   for (int i0 = lo; i0 < lo + 256; i0 += 32) {
     const int i = i0 + lane;
-    for (int f = 0; f < 2; ++f) {
-      const int rk = i < hi ? rice_rank<NK>(kmap, uwmap, i, f) : -1;
+    for (int f = 0; f < R::kFams; ++f) {
+      const int rk = i < hi ? rank_of(i, f) : -1;
       const unsigned mr = __match_any_sync(0xffffffffu, rk);
       if (rk >= 0 && (mr & lt) == 0) cnt[rk] += __popc(mr);
       __syncwarp();
@@ -639,83 +657,67 @@ __device__ __forceinline__ void warp_rank_counts(
   }
 }
 
-template <int NK>
+template <class R>
 __global__ void __launch_bounds__(256)
-order_count_kernel(const uint8_t* __restrict__ kmap,
-                   const uint8_t* __restrict__ uwmap, int nseg,
-                   int* __restrict__ tcnt, int ntiles) {
+order_count_kernel(R rank_of, int nseg, int* __restrict__ tcnt, int ntiles) {
   __shared__ int cnt[8][kMaxRanks];
-  constexpr int nranks = NK + 9;
   const int warp = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < 8 * kMaxRanks; i += blockDim.x)
     cnt[i / kMaxRanks][i % kMaxRanks] = 0;
   __syncthreads();
-  warp_rank_counts<NK>(kmap, uwmap, blockIdx.x * kOrderTile + warp * 256,
-                       nseg, cnt[warp]);
+  warp_rank_counts(rank_of, blockIdx.x * kOrderTile + warp * 256, nseg,
+                   cnt[warp]);
   __syncthreads();
-  if (threadIdx.x < nranks) {
+  if (threadIdx.x < R::kRanks) {
     int c = 0;
     for (int w = 0; w < 8; ++w) c += cnt[w][threadIdx.x];
     tcnt[threadIdx.x * ntiles + blockIdx.x] = c;
   }
 }
 
-template <int NK>
+template <class R>
 __global__ void __launch_bounds__(1024)
-order_scan_kernel(int* __restrict__ tcnt, int ntiles, int32_t* offs,
-                  uint32_t* head, int med, RicePads pads, uint8_t* pad_bytes,
-                  int npad_bytes) {
+order_scan_kernel(int* __restrict__ tcnt, int ntiles, typename R::Out out) {
   __shared__ int warp_sums[32];
-  __shared__ int tot[kMaxRanks];
-  constexpr int nrem = NK + 1, nranks = NK + 9;
-  int* fam[2] = {tcnt, tcnt + nrem * ntiles};
-  int ftot[2];
-  for (int f = 0; f < 2; ++f) {
-    int* t = fam[f];
+  __shared__ int base[kMaxRanks], tot[kMaxRanks];
+  int ftot[R::kFams];
+#pragma unroll
+  for (int f = 0; f < R::kFams; ++f) {
+    int* t = tcnt + R::first(f) * ntiles;
     ftot[f] = uhdr_scan::block_scan_array(
-        (f ? 8 : nrem) * ntiles, 0, 0, warp_sums,
+        (R::first(f + 1) - R::first(f)) * ntiles, 0, 0, warp_sums,
         [&](int i) { return t[i]; }, [&](int i, int v) { t[i] = v; });
   }
   __syncthreads();
   const int r = threadIdx.x;
-  if (r < nranks) {
-    const int f = r < nrem ? 0 : 1;
-    const int base = tcnt[r * ntiles];
-    const bool last = r == (f ? nranks : nrem) - 1;
-    tot[r] = (last ? ftot[f] : tcnt[(r + 1) * ntiles]) - base;
-    if (offs && r < NK) offs[r] = base;
-    if (offs && f && r < nrem + 7) offs[NK + r - nrem] = base;
+  if (r < R::kRanks) {
+    int f = 0, ft = ftot[0];
+#pragma unroll
+    for (int g = 1; g < R::kFams; ++g)
+      if (r >= R::first(g)) f = g, ft = ftot[g];
+    base[r] = tcnt[r * ntiles];
+    tot[r] = (r + 1 == R::first(f + 1) ? ft : tcnt[(r + 1) * ntiles]) -
+             base[r];
   }
   __syncthreads();
-  if (head && threadIdx.x == 0) {
-    bool fit = true;
-    for (int k = 0; k < NK; ++k) fit = fit && tot[k] <= pads.rem[k];
-    for (int c = 0; c < 7; ++c) fit = fit && tot[nrem + c] <= pads.un[c];
-    head[0] = fit ? 1u : 0u;
-    head[1] = (uint32_t)med;
-    for (int k = 0; k < nranks; ++k) head[2 + k] = (uint32_t)tot[k];
-  }
-  for (int e = threadIdx.x; e < npad_bytes; e += blockDim.x) pad_bytes[e] = 0;
+  R::finish(out, base, tot);
 }
 
-template <int NK>
+template <class R>
 __global__ void __launch_bounds__(256)
-order_place_kernel(const uint8_t* __restrict__ kmap,
-                   const uint8_t* __restrict__ uwmap, int nseg,
-                   const int* __restrict__ tcnt, int ntiles,
-                   int32_t* __restrict__ sidx_rem,
-                   int32_t* __restrict__ sidx_un) {
+order_place_kernel(R rank_of, int nseg, const int* __restrict__ tcnt,
+                   int ntiles, int32_t* __restrict__ sidx0,
+                   int32_t* __restrict__ sidx1) {
   __shared__ int cnt[8][kMaxRanks];
-  constexpr int nranks = NK + 9;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned lt = (1u << lane) - 1u;
   for (int i = threadIdx.x; i < 8 * kMaxRanks; i += blockDim.x)
     cnt[i / kMaxRanks][i % kMaxRanks] = 0;
   __syncthreads();
   const int lo = blockIdx.x * kOrderTile + warp * 256;
-  warp_rank_counts<NK>(kmap, uwmap, lo, nseg, cnt[warp]);
+  warp_rank_counts(rank_of, lo, nseg, cnt[warp]);
   __syncthreads();
-  if (threadIdx.x < nranks) {
+  if (threadIdx.x < R::kRanks) {
     int run = tcnt[threadIdx.x * ntiles + blockIdx.x];
     for (int w = 0; w < 8; ++w) {
       const int c = cnt[w][threadIdx.x];
@@ -728,10 +730,10 @@ order_place_kernel(const uint8_t* __restrict__ kmap,
   int* mine = cnt[warp];
   for (int i0 = lo; i0 < lo + 256; i0 += 32) {
     const int i = i0 + lane;
-    for (int f = 0; f < 2; ++f) {
-      const int rk = i < hi ? rice_rank<NK>(kmap, uwmap, i, f) : -1;
+    for (int f = 0; f < R::kFams; ++f) {
+      const int rk = i < hi ? rank_of(i, f) : -1;
       const unsigned mr = __match_any_sync(0xffffffffu, rk);
-      if (rk >= 0) (f ? sidx_un : sidx_rem)[mine[rk] + __popc(mr & lt)] = i;
+      if (rk >= 0) (f ? sidx1 : sidx0)[mine[rk] + __popc(mr & lt)] = i;
       __syncwarp();
       if (rk >= 0 && (mr & lt) == 0) mine[rk] += __popc(mr);
       __syncwarp();
@@ -854,13 +856,12 @@ emit_kernel(const uint16_t* __restrict__ zs, const uint8_t* __restrict__ kmap,
 // stacked (G, R-G, B-G) planes, two samples a lane: zigzag vertical
 // deltas mod 1024 (32-row groups) into zs and the segment's width code,
 // the least of {1,2,3,4,5,6,8,10} that holds its largest delta (0 for an
-// all-zero segment). Order (rct_order_kernel): the stable (rank, index)
-// order of the segments, rank = place of the width in {0,1,2,3,4,5,6,8,
-// 10}. Pack (fine_pack_kernel): one warp per output row of the 8 width
-// buckets, the row's segment at place offs[bucket] + row of the order
-// (segment 0 past the end); sample j in word j % nw at shift
-// (j / nw) * width, summed as JAX sums the slots (unmasked: a padding
-// row's wider samples carry, as in JAX).
+// all-zero segment). Order: B16's tiled count / scan / place with
+// FineRanks (rank = place of the width in {0,1,2,3,4,5,6,8,10}). Pack
+// (fine_pack_kernel): the 8 width buckets, row r of bucket b packing the
+// segment at place offs[b] + r of the order (segment 0 past the end);
+// sample j in word j % nw at shift (j / nw) * width, summed as JAX sums
+// the slots (unmasked: a padding row's wider samples carry, as in JAX).
 // ---------------------------------------------------------------------------
 
 constexpr int kLF = 64;
@@ -897,59 +898,86 @@ rct_widths_kernel(PixSrc src, int nsegw, long long nseg,
   }
 }
 
-// Width code {0,1,2,3,4,5,6,8,10} -> rank 0..8 (JAX: code - (code > 6)
-// - (code > 8)).
-__device__ __forceinline__ int fine_rank(int code) {
-  return code - (code > 6) - (code > 8);
-}
-
-__global__ void __launch_bounds__(1024)
-rct_order_kernel(const uint8_t* __restrict__ bc, int nseg,
-                 int32_t* __restrict__ sidx) {
-  __shared__ int cnt[33][kMaxRanks];
-  __shared__ int base[kMaxRanks];
-  auto rank_of = [&](int i, int) { return fine_rank(bc[i]); };
-  count_ranks(nseg, 1, rank_of, cnt, 9);
-  if (threadIdx.x == 0) {
-    int b = 0;
-    for (int r = 0; r < 9; ++r) base[r] = b, b += cnt[32][r];
-  }
-  __syncthreads();
-  place_ranks(nseg, 1, rank_of, cnt, base,
-              [&](int, int pos, int i) { sidx[pos] = i; });
-}
+// The pack: a warp per kPackRows output rows of one bucket (every
+// bucket's pow2 padding is a multiple of kPackRows; a shorter last tile
+// is masked). Lane j resolves row j (its place offs[b] + r, the segment
+// there: sidx, or segment 0 past nseg) with one coalesced load of sidx;
+// the warp then issues the rows' 128-byte loads together (8 lanes a row,
+// 16 bytes a lane) and stages them in shared memory, 33 words a row so
+// that rows start in different banks. Each lane then builds whole output
+// words from the staged rows, one (row, word) pair at a time, and the
+// warp stores the tile's words, which are contiguous in the blob,
+// coalesced. No atomics: a word is one lane's sum.
+constexpr int kPackRows = 16;          // output rows a pack warp
+constexpr int kStage = kLF / 2 + 1;    // u32 words of a staged row
 
 struct FineRows {
-  int start[9];         // first row of each bucket; start[8] = all rows
+  int tile[9];          // first warp tile of each bucket; tile[8] = all
+  int rows[8];          // padded rows of each bucket
   int offs[8];          // first place of each bucket in the order
   long long woff[8];    // first word of each bucket in the blob
 };
+
+// Words of rows [0, nrows) of a tile at width BW: word i of a row is the
+// sum over slots m of z[i + m nw] << (m BW), mod 2^32 (JAX sums the
+// slots; a padding row's wider samples carry into the next slot, as in
+// JAX, so no mask and no OR).
+template <int BW>
+__device__ __forceinline__ void fine_words(const uint32_t* __restrict__ st,
+                                           int nrows, int lane,
+                                           uint32_t* __restrict__ out) {
+  constexpr int slots = 32 / BW, nw = (kLF + slots - 1) / slots;
+  for (int p = lane; p < nrows * nw; p += 32) {
+    const int r = p / nw, i = p - r * nw;
+    const uint16_t* z = (const uint16_t*)(st + r * kStage);
+    uint32_t word = 0;
+#pragma unroll
+    for (int m = 0; m < slots; ++m)
+      if (i + m * nw < kLF) word += (uint32_t)z[i + m * nw] << (m * BW);
+    out[p] = word;
+  }
+}
 
 __global__ void __launch_bounds__(256)
 fine_pack_kernel(const uint16_t* __restrict__ zs,
                  const int32_t* __restrict__ sidx, int nseg, FineRows rows,
                  uint32_t* __restrict__ blob) {
-  __shared__ uint32_t words[8][22];
+  __shared__ uint32_t stage[8][kPackRows * kStage];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int R = blockIdx.x * 8 + warp;
-  if (R >= rows.start[8]) return;
+  const int t = blockIdx.x * 8 + warp;
+  if (t >= rows.tile[8]) return;
   int b = 0;
-  while (R >= rows.start[b + 1]) ++b;
-  const int r = R - rows.start[b];
-  const int bw = kFine[b];
-  const int nw = (kLF + 32 / bw - 1) / (32 / bw);
-  uint32_t* sw = words[warp];
-  if (lane < nw) sw[lane] = 0u;
-  const int pos = rows.offs[b] + r;
-  const int idx = pos < nseg ? sidx[pos] : 0;
-  const uint32_t pair = ((const uint32_t*)zs)[(long long)idx * (kLF / 2) + lane];
-  __syncwarp();
-  for (int e = 0; e < 2; ++e) {
-    const int j = lane * 2 + e;
-    atomicAdd(&sw[j % nw], ((pair >> (16 * e)) & 0xFFFFu) << ((j / nw) * bw));
+  while (t >= rows.tile[b + 1]) ++b;
+  const int r0 = (t - rows.tile[b]) * kPackRows;
+  const int nrows = min(kPackRows, rows.rows[b] - r0);
+  const int pos = rows.offs[b] + r0 + lane;
+  const int idx = lane < nrows && pos < nseg ? sidx[pos] : 0;
+  uint4 raw[kPackRows / 4];
+#pragma unroll
+  for (int k = 0; k < kPackRows / 4; ++k) {
+    const int ik = __shfl_sync(0xffffffffu, idx, 4 * k + (lane >> 3));
+    raw[k] = ((const uint4*)(zs + (long long)ik * kLF))[lane & 7];
+  }
+  uint32_t* st = stage[warp];
+#pragma unroll
+  for (int k = 0; k < kPackRows / 4; ++k) {
+    uint32_t* d = st + (4 * k + (lane >> 3)) * kStage + 4 * (lane & 7);
+    d[0] = raw[k].x, d[1] = raw[k].y, d[2] = raw[k].z, d[3] = raw[k].w;
   }
   __syncwarp();
-  if (lane < nw) blob[rows.woff[b] + (long long)r * nw + lane] = sw[lane];
+  const int slots = 32 / kFine[b];
+  uint32_t* out = blob + rows.woff[b] +
+                  (long long)r0 * ((kLF + slots - 1) / slots);
+  switch (b) {
+    case 0: fine_words<1>(st, nrows, lane, out); break;
+    case 1: fine_words<2>(st, nrows, lane, out); break;
+    case 2: fine_words<3>(st, nrows, lane, out); break;
+    case 3: fine_words<4>(st, nrows, lane, out); break;
+    case 4: fine_words<5>(st, nrows, lane, out); break;
+    case 5: fine_words<6>(st, nrows, lane, out); break;
+    case 6: fine_words<8>(st, nrows, lane, out); break;
+    default: fine_words<10>(st, nrows, lane, out); break;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1021,40 +1049,118 @@ plane_pack_kernel(const uint16_t* __restrict__ zs,
 // ---------------------------------------------------------------------------
 // B18: the u8 composite [Y | U|V side by side | gain map], each part
 // edge-padded to wc columns, rows padded to `rows` by repeating the last.
+// A CTA per output row, a thread per 16-byte chunk of it: the row's part
+// and source rows are resolved once (the same for the whole CTA), then
+// each thread loads its 16 bytes (one 16-byte load where the source is
+// 16-byte aligned, two 8-byte loads where it is 8-byte aligned, else five
+// aligned words and funnel shifts; a byte path only for the chunk that
+// crosses the part's last column or U|V's seam) and stores them with one
+// 16-byte store where the output row is aligned (wc a multiple of 16),
+// else four words or single bytes.
 // ---------------------------------------------------------------------------
 
-__global__ void composite_kernel(Plane yp, Plane up, Plane vp, Plane gp,
-                                 int h, int w, int ch, int cw, int gh, int gw,
-                                 int rows, int wc, uint8_t* __restrict__ out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y, b = blockIdx.z;
-  if (x >= wc) return;
-  uint8_t v;
-  if (r < h) {
-    v = yp.at(b, r, min(x, w - 1));
-  } else if (r < h + ch) {
-    const int rr = r - h;
-    v = x < cw ? up.at(b, rr, x) : vp.at(b, rr, min(x - cw, cw - 1));
+// 16 bytes of source row p from column c, columns past `last` repeating
+// column `last` (edge padding): byte e of the chunk in bits 8 (e & 3) of
+// v[e >> 2].
+__device__ __forceinline__ void load_chunk(const uint8_t* p, int c, int last,
+                                           uint32_t (&v)[4]) {
+  if (c + 15 <= last) {
+    const size_t a = (size_t)(p + c);
+    if ((a & 15) == 0) {
+      const uint4 t = __ldg((const uint4*)a);
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else if ((a & 7) == 0) {
+      const uint2 t0 = __ldg((const uint2*)a), t1 = __ldg((const uint2*)a + 1);
+      v[0] = t0.x, v[1] = t0.y, v[2] = t1.x, v[3] = t1.y;
+    } else {
+      // The aligned words that hold the chunk; the fifth only when the
+      // chunk starts mid-word (it then holds a byte of the chunk).
+      const uint32_t* wp = (const uint32_t*)(a & ~(size_t)3);
+      const int sh = 8 * (int)(a & 3);
+      uint32_t x[5];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[k] = __ldg(wp + k);
+      x[4] = sh ? __ldg(wp + 4) : 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = __funnelshift_r(x[k], x[k + 1], sh);
+    }
+  } else if (c >= last) {
+    const uint32_t e = (uint32_t)__ldg(p + last) * 0x01010101u;
+    v[0] = v[1] = v[2] = v[3] = e;
   } else {
-    v = gp.at(b, min(r - h - ch, gh - 1), min(x, gw - 1));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = 0u;
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      v[e >> 2] |= (uint32_t)__ldg(p + min(c + e, last)) << (8 * (e & 3));
   }
-  out[((long long)b * rows + r) * wc + x] = v;
+}
+
+// n (<= 16) bytes of v at d: one 16-byte store where d is aligned, four
+// words where it is word-aligned, else single bytes.
+__device__ __forceinline__ void store_chunk(uint8_t* d, const uint32_t (&v)[4],
+                                            int n) {
+  if (n == 16 && ((size_t)d & 15) == 0) {
+    *(uint4*)d = make_uint4(v[0], v[1], v[2], v[3]);
+  } else if (n == 16 && ((size_t)d & 3) == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) ((uint32_t*)d)[q] = v[q];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (e < n) d[e] = (uint8_t)(v[e >> 2] >> (8 * (e & 3)));
+  }
+}
+
+__global__ void __launch_bounds__(256)
+composite_kernel(Plane yp, Plane up, Plane vp, Plane gp, int h, int w,
+                 int ch, int cw, int gh, int gw, int rows, int wc,
+                 uint8_t* __restrict__ out) {
+  const int R = blockIdx.x, b = R / rows, r = R - b * rows;
+  const uint8_t* s0;            // Y, U or the gain map row
+  const uint8_t* s1 = nullptr;  // V, beside U
+  int last;                     // the last column of each
+  if (r < h) {
+    s0 = yp.row(b, r), last = w - 1;
+  } else if (r < h + ch) {
+    s0 = up.row(b, r - h), s1 = vp.row(b, r - h), last = cw - 1;
+  } else {
+    s0 = gp.row(b, min(r - h - ch, gh - 1)), last = gw - 1;
+  }
+  uint8_t* o = out + (long long)R * wc;
+  for (int x0 = 16 * threadIdx.x; x0 < wc; x0 += 16 * blockDim.x) {
+    uint32_t v[4];
+    if (!s1 || x0 + 16 <= cw) {
+      load_chunk(s0, x0, last, v);
+    } else if (x0 >= cw) {
+      load_chunk(s1, x0 - cw, last, v);
+    } else {  // U's last columns, then V's first
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = 0u;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int x = x0 + e;
+        const uint32_t t = x < cw ? s0[x] : s1[min(x - cw, last)];
+        v[e >> 2] |= t << (8 * (e & 3));
+      }
+    }
+    store_chunk(o + x0, v, min(16, wc - x0));
+  }
 }
 
 inline int blocks(long long n, int per) { return (int)((n + per - 1) / per); }
 
-// B16's order: count, scan, place (tcnt: kMaxRanks x ntiles scratch).
-template <int NK>
-void launch_order(const uint8_t* kmap, const uint8_t* uwmap, int nseg,
-                  int ntiles, int* tcnt, int32_t* sidx_rem, int32_t* sidx_un,
-                  int32_t* offs, uint32_t* head, int med, RicePads pads,
-                  uint8_t* pad, int npad, cudaStream_t st) {
-  order_count_kernel<NK><<<ntiles, 256, 0, st>>>(kmap, uwmap, nseg, tcnt,
-                                                   ntiles);
-  order_scan_kernel<NK><<<1, 1024, 0, st>>>(tcnt, ntiles, offs, head, med,
-                                             pads, pad, npad);
-  order_place_kernel<NK><<<ntiles, 256, 0, st>>>(kmap, uwmap, nseg, tcnt,
-                                                   ntiles, sidx_rem, sidx_un);
+// The tiled order of B16 and B17: count, scan, place (tcnt: kMaxRanks x
+// ntiles scratch; sidx1 only for a second family).
+template <class R>
+void launch_order(const R& rank_of, const typename R::Out& out, int nseg,
+                  int* tcnt, int32_t* sidx0, int32_t* sidx1,
+                  cudaStream_t st) {
+  const int ntiles = (nseg + kOrderTile - 1) / kOrderTile;
+  order_count_kernel<R><<<ntiles, 256, 0, st>>>(rank_of, nseg, tcnt, ntiles);
+  order_scan_kernel<R><<<1, 1024, 0, st>>>(tcnt, ntiles, out);
+  order_place_kernel<R><<<ntiles, 256, 0, st>>>(rank_of, nseg, tcnt, ntiles,
+                                                sidx0, sidx1);
 }
 
 }  // namespace
@@ -1135,15 +1241,24 @@ int uhdr_rice_order(const void* kmap, const void* uwmap, int nseg, int nk,
   RicePads pads;
   for (int j = 0; j < 16; ++j) pads.rem[j] = j < nk ? rem_pads[j] : 0;
   for (int c = 0; c < 7; ++c) pads.un[c] = un_pads[c];
-  const int ntiles = (nseg + kOrderTile - 1) / kOrderTile;
-  (nk == 16 ? launch_order<16> : launch_order<10>)(
-      (const uint8_t*)kmap, (const uint8_t*)uwmap, nseg, ntiles,
-      (int*)scratch, (int32_t*)sidx_rem, (int32_t*)sidx_un, (int32_t*)offs,
-      (uint32_t*)head, med, pads, (uint8_t*)pad, npad, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nk == 16)
+    launch_order(RiceRanks<16>{(const uint8_t*)kmap, (const uint8_t*)uwmap},
+                 RiceRanks<16>::Out{(int32_t*)offs, (uint32_t*)head, med,
+                                    pads, (uint8_t*)pad, npad},
+                 nseg, (int*)scratch, (int32_t*)sidx_rem, (int32_t*)sidx_un,
+                 st);
+  else
+    launch_order(RiceRanks<10>{(const uint8_t*)kmap, (const uint8_t*)uwmap},
+                 RiceRanks<10>::Out{(int32_t*)offs, (uint32_t*)head, med,
+                                    pads, (uint8_t*)pad, npad},
+                 nseg, (int*)scratch, (int32_t*)sidx_rem, (int32_t*)sidx_un,
+                 st);
   return (int)cudaGetLastError();
 }
 
-// int32 scratch of uhdr_rice_order for nseg segments: tile rank counts.
+// int32 scratch of the tiled order (uhdr_rice_order, uhdr_rct_order,
+// uhdr_rct_pack) for nseg segments: tile rank counts.
 int uhdr_rice_order_scratch(int nseg) {
   return kMaxRanks * ((nseg + kOrderTile - 1) / kOrderTile);
 }
@@ -1179,28 +1294,43 @@ int uhdr_rct_widths(const void* src, long long nh, int w, int nsegw,
   return (int)cudaGetLastError();
 }
 
-// B17 pack. zs, bc: pass 1's; sidx: nseg int32 scratch; npads, offs (8
-// each): the buckets' padded rows and first places (host ints); blob:
-// the u32 words of the 8 buckets.
+// B17 order. bc: nseg u8 width codes; sidx: nseg int32 out (each
+// segment's place in the stable width-rank order); totals: 9 int32 out
+// (each rank's count), or null; scratch: uhdr_rice_order_scratch(nseg)
+// int32.
+int uhdr_rct_order(const void* bc, int nseg, void* sidx, void* totals,
+                   void* scratch, void* stream) {
+  launch_order(FineRanks{(const uint8_t*)bc}, FineRanks::Out{(int32_t*)totals},
+               nseg, (int*)scratch, (int32_t*)sidx, nullptr,
+               (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// B17 pack: the order, then the buckets. zs, bc: pass 1's; sidx: nseg
+// int32 scratch; scratch: uhdr_rice_order_scratch(nseg) int32; npads,
+// offs (8 each): the buckets' padded rows and first places (host ints);
+// blob: the u32 words of the 8 buckets.
 int uhdr_rct_pack(const void* zs, const void* bc, int nseg, void* sidx,
-                  const int* npads, const int* offs, void* blob,
-                  void* stream) {
+                  void* scratch, const int* npads, const int* offs,
+                  void* blob, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   FineRows rows;
-  rows.start[0] = 0;
+  rows.tile[0] = 0;
   long long woff = 0;
   for (int b = 0; b < 8; ++b) {
     const int slots = 32 / (b < 6 ? b + 1 : (b == 6 ? 8 : 10));
-    rows.start[b + 1] = rows.start[b] + npads[b];
+    rows.tile[b + 1] = rows.tile[b] + (npads[b] + kPackRows - 1) / kPackRows;
+    rows.rows[b] = npads[b];
     rows.offs[b] = offs[b];
     rows.woff[b] = woff;
     woff += (long long)npads[b] * ((kLF + slots - 1) / slots);
   }
-  rct_order_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bc, nseg, (int32_t*)sidx);
-  fine_pack_kernel<<<blocks(rows.start[8], 8), 256, 0,
-                     (cudaStream_t)stream>>>(
-      (const uint16_t*)zs, (const int32_t*)sidx, nseg, rows,
-      (uint32_t*)blob);
+  launch_order(FineRanks{(const uint8_t*)bc}, FineRanks::Out{nullptr}, nseg,
+               (int*)scratch, (int32_t*)sidx, nullptr, st);
+  if (rows.tile[8] > 0)
+    fine_pack_kernel<<<blocks(rows.tile[8], 8), 256, 0, st>>>(
+        (const uint16_t*)zs, (const int32_t*)sidx, nseg, rows,
+        (uint32_t*)blob);
   return (int)cudaGetLastError();
 }
 
@@ -1235,8 +1365,12 @@ int uhdr_planes_composite(const void* y, const void* u, const void* v,
                           int gh, int gw, int rows, int wc, void* stream) {
   Plane yp{(const uint8_t*)y, ysb, ysr}, up{(const uint8_t*)u, usb, usr};
   Plane vp{(const uint8_t*)v, vsb, vsr}, gp{(const uint8_t*)g, gsb, gsr};
-  dim3 grid(blocks(wc, 256), rows, n);
-  composite_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  const long long total = (long long)n * rows;
+  const int chunks = (wc + 15) / 16;
+  const int threads = chunks < 256 ? (chunks + 31) / 32 * 32 : 256;
+  if (total == 0 || wc == 0) return 0;
+  if (total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  composite_kernel<<<(unsigned)total, threads, 0, (cudaStream_t)stream>>>(
       yp, up, vp, gp, h, w, ch, cw, gh, gw, rows, wc, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Block-wide exclusive scans for the port's kernels: warp shuffles, then
 // one shared slot per warp. B4's and B22's DC carry (huff_decode.cu)
 // scans a frame's lane DC sums with them, B19 (huff_encode.cu) its tile
-// bit counts and each tile's block lengths; B3, B16 and B17 can take
-// them up for their one-CTA scans.
+// bit counts and each tile's block lengths, and the tiled order of B16
+// and B17 (packio.cu) its (rank, tile) counts.
 //
 // Requirements: blockDim.x a multiple of 32 (at most 1024), and every
 // thread of the block calls each helper (they hold __syncthreads).

@@ -1519,9 +1519,25 @@ def rct_pack_plain(zs, bc, offs, npads):
 rct_pack_plain.calls = 0
 
 
+def _rct_order(bc, sidx, totals=None):
+    """B17's order alone (uhdr_rct_order: B16's tiled count, scan and
+    place kernels over the 9 width ranks): each segment's place in the
+    stable (rank, index) order into sidx (nseg,) int32 and, with
+    `totals` (9,) int32, each rank's count. Counts no launch of
+    rct_pack: chip_smoke.py checks and times the order with it."""
+    lib = build.get_lib()
+    nseg = bc.numel()
+    scratch = torch.empty(lib.uhdr_rice_order_scratch(nseg),
+                          dtype=torch.int32, device=bc.device)
+    build.check(lib.uhdr_rct_order(
+        bc.data_ptr(), nseg, sidx.data_ptr(),
+        None if totals is None else totals.data_ptr(), scratch.data_ptr(),
+        build.stream_of(bc)), "uhdr_rct_order")
+
+
 def rct_pack(zs, bc, offs, npads):
     """B17 pass-2 wrapper: the plain version on the CPU, on CUDA tensors
-    uhdr_rct_pack (the counting order, then the bucket emit); same
+    uhdr_rct_pack (the tiled counting order, then the bucket pack); same
     arguments and result as rct_pack_plain."""
     if not zs.is_cuda:
         return rct_pack_plain(zs, bc, offs, npads)
@@ -1535,14 +1551,17 @@ def rct_pack(zs, bc, offs, npads):
         raise ValueError("expected 8 bucket offsets and paddings")
     words = sum(npads[j] * _wps(bw, LF) for j, bw in enumerate(FINE_WIDTHS))
     blob = torch.empty(words, dtype=torch.int32, device=zs.device)
-    sidx = torch.empty(nseg, dtype=torch.int32, device=zs.device)
+    lib = build.get_lib()
+    # One allocation for the order's places and its tile counts.
+    scratch = torch.empty(nseg + lib.uhdr_rice_order_scratch(nseg),
+                          dtype=torch.int32, device=zs.device)
     npads_c = np.asarray(npads, np.int32)
     offs_c = np.asarray(offs, np.int32)
-    lib = build.get_lib()
     rct_pack.launches += 1
     build.check(lib.uhdr_rct_pack(
-        zs.data_ptr(), bc.data_ptr(), nseg, sidx.data_ptr(), _ptr(npads_c),
-        _ptr(offs_c), blob.data_ptr(), build.stream_of(zs)), "uhdr_rct_pack")
+        zs.data_ptr(), bc.data_ptr(), nseg, scratch.data_ptr(),
+        scratch[nseg:].data_ptr(), _ptr(npads_c), _ptr(offs_c),
+        blob.data_ptr(), build.stream_of(zs)), "uhdr_rct_pack")
     return blob
 
 

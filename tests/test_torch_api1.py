@@ -29,6 +29,7 @@ from libultrahdr_dev_tpu_torch.ops import gainmap as tgm
 from libultrahdr_dev_tpu_torch.parallel import batched
 
 from test_torch_jpegr import synth_p010
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 64, 96  # 16-aligned; a 16x24 gain map
 # The configurations of the chip run: (SDR gamut, HDR gamut, transfer).

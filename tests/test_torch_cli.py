@@ -18,6 +18,7 @@ from libultrahdr_dev_tpu_torch.parallel import link
 from libultrahdr_dev_tpu_torch.types import ColorTransfer, PixelFormat
 
 import test_torch_jax_native  # noqa: F401  (the JAX native library, built once)
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 96, 128
 # (-o transfer, -O format) of the decodes compared.

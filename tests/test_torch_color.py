@@ -15,6 +15,7 @@ import torch
 
 from libultrahdr_dev_tpu.ops import color as jc
 from libultrahdr_dev_tpu_torch.ops import color as tc
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 N = 20000
 

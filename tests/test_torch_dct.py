@@ -16,6 +16,7 @@ import torch
 from libultrahdr_dev_tpu.jpeg import dct as jdct, tables
 from libultrahdr_dev_tpu.parallel import sharding
 from libultrahdr_dev_tpu_torch.jpeg import dct as tdct
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 96, 128
 

@@ -32,6 +32,7 @@ from libultrahdr_dev_tpu_torch.parallel import batched
 
 import test_torch_jax_native  # noqa: F401  (loads the JAX native codec)
 from test_torch_jpegr import synth_p010
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 64, 128
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

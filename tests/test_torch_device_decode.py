@@ -24,6 +24,7 @@ from libultrahdr_dev_tpu_torch.jpeg import device_entropy as tde, tables
 from libultrahdr_dev_tpu_torch.parallel import batched
 
 import test_torch_jax_native  # noqa: F401  (loads the JAX native codec)
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 GOLDEN_NAMES = sorted(n for n in os.listdir(GOLDENS) if n.startswith("enc0"))

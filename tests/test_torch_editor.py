@@ -17,6 +17,7 @@ from libultrahdr_dev_tpu.types import (PixelFormat as JPixelFormat,
                                        UhdrError as JUhdrError)
 from libultrahdr_dev_tpu_torch import PixelFormat, RawImage, UhdrError
 from libultrahdr_dev_tpu_torch.ops import editor as te
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def _planes(fmt: str, h: int, w: int, seed: int) -> dict:

@@ -23,6 +23,7 @@ from libultrahdr_dev_tpu.types import (ColorGamut as JGamut,
                                        RawImage as JRawImage)
 from libultrahdr_dev_tpu_torch.jpeg import codec, device_entropy as tde
 from libultrahdr_dev_tpu_torch.parallel import batched
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 112, 144                # 63 MCUs: the last interval holds 3
 MX, MY = W // 16, H // 16

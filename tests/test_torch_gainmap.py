@@ -14,6 +14,7 @@ import torch
 
 from libultrahdr_dev_tpu.ops import gainmap as jgm
 from libultrahdr_dev_tpu_torch.ops import gainmap as tgm
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 128, 192  # 16-aligned frame, 32x48 gain map
 

@@ -34,6 +34,7 @@ from libultrahdr_dev_tpu_torch.ops import gainmap as tgm
 
 from test_torch_api1 import _p010, jax_raw, port_raw, sdr_from_hdr
 from test_torch_jpegr import synth_p010
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 72, 104  # neither 16-aligned; an 18x26 gain map
 EXIF = b"Exif\x00\x00MM\x00\x2a\x00\x00\x00\x08\x00\x00"

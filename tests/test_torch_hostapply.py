@@ -18,6 +18,7 @@ from libultrahdr_dev_tpu_torch.ops import gainmap as gm
 from libultrahdr_dev_tpu_torch.parallel import batched, link, packio
 
 import test_torch_jax_native  # noqa: F401  (the JAX native library, built once)
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 128, 256
 BOOST = 1000 / 203

@@ -21,6 +21,7 @@ from libultrahdr_dev_tpu_torch.jpeg import codec as tcodec
 from libultrahdr_dev_tpu_torch.jpeg import device_decode as dd
 
 import test_torch_jax_native  # noqa: F401  (loads the JAX native codec)
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def _planes(kind: str, h: int, w: int, seed: int) -> dict:

@@ -30,6 +30,7 @@ from libultrahdr_dev_tpu_torch.api import HDR_IMG
 from libultrahdr_dev_tpu_torch.interop import (metadata_from_jax,
                                                to_torch_qtables)
 from libultrahdr_dev_tpu_torch.parallel import batched
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 H, W = 112, 144  # 16-aligned; the 28x36 gain map is not 8-aligned

@@ -14,6 +14,7 @@ from libultrahdr_dev_tpu.ops import gainmap as jgm
 from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
 from libultrahdr_dev_tpu_torch.ops import color
 from libultrahdr_dev_tpu_torch.ops import gainmap as tgm
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 
 @pytest.mark.parametrize("fmt,scalars", [

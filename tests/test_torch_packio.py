@@ -15,6 +15,7 @@ from libultrahdr_dev_tpu_torch.parallel import link, packio
 from libultrahdr_dev_tpu_torch.utils import counters
 
 import test_torch_jax_native  # noqa: F401  (the JAX native library, built once)
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def p010_content(n, h, w, seed=0, noise=False):

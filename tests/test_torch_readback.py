@@ -1,11 +1,14 @@
 """The port's packed pixel readbacks (libultrahdr_dev_tpu_torch/
 parallel/packio.py, link.py) against the JAX package's (parallel/
 packio.py, sharding.py), on the CPU, where each kernel runs its plain
-version: Rice pass 1 (B15) and the Rice pack (B16) at 10 and 16 bits,
-two-phase and fused, the fetches of both pixel formats and schemes, the
-RCT fine-width pack (B17), the device pack of a 10-bit plane (B21), the
-native unpacks against their numpy forms, and fetch_pixels_packed.
-Every comparison is exact."""
+version: the RCT fine-width pack (B17), the device pack of a 10-bit
+plane (B21) and fetch_pixels_packed; and the inputs and the per-test
+plan reset of test_torch_readback_b15.py (Rice pass 1 at 10 and 16
+bits), test_torch_readback_b16.py (the Rice pack, two-phase and fused)
+and test_torch_readback_fetch{,16}.py (the fetches over rounds, the
+native unpacks). The tests are split by kernel so that pytest-xdist's
+--dist loadfile spreads their JAX compiles over its workers. Every
+comparison is exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +21,7 @@ from libultrahdr_dev_tpu_torch.parallel import link, packio
 from libultrahdr_dev_tpu_torch.types import PixelFormat
 
 import test_torch_jax_native  # noqa: F401  (the JAX native library, built once)
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def _smooth(rng, shape, amp, hi):
@@ -86,74 +90,10 @@ def fresh_plans(monkeypatch):
 SHAPES = [(2, 64, 200), (1, 40, 300), (2, 32, 512)]
 
 
-# ---------------------------------------------------------------------------
-# B15 and B16 at 10 and 16 bits.
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("bits", [10, 16])
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("med", [False, True])
-def test_b15_equals_jax_pass1(bits, shape, med):
-    x, t = _src(bits, *shape, seed=1)
-    (zs,), maps = packio.rice_stats(t, (med,))
-    jzs, jmaps = jpackio._pass1_widths_fn(shape, bits, med)(jnp.asarray(x))
-    assert np.array_equal(zs.numpy().view(np.uint16), np.asarray(jzs))
-    assert np.array_equal(maps.numpy(), np.asarray(jmaps))
-
-
-@pytest.mark.parametrize("bits", [10, 16])
-@pytest.mark.parametrize("shape", SHAPES[:2])
-def test_b15_both_schemes_equal_jax(bits, shape):
-    x, t = _src(bits, *shape, seed=2)
-    (zv, zm), maps = packio.rice_stats(t, (False, True))
-    jzv, jzm, jmaps = jpackio._pass1_both_fn(shape, bits)(jnp.asarray(x))
-    assert np.array_equal(zv.numpy().view(np.uint16), np.asarray(jzv))
-    assert np.array_equal(zm.numpy().view(np.uint16), np.asarray(jzm))
-    assert np.array_equal(maps.numpy(), np.asarray(jmaps))
-
-
 def _plan(bits, t, med):
     (zs,), kuw = packio.rice_stats(t, (med,))
     km = kuw.numpy()
     return zs, kuw, packio._rice_host_plan(km[0], km[1], 10**12, bits)
-
-
-@pytest.mark.parametrize("bits", [10, 16])
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("med", [False, True])
-def test_b16_blob_equals_jax(bits, shape, med):
-    x, t = _src(bits, *shape, seed=3)
-    zs, kuw, plan = _plan(bits, t, med)
-    rc, uc, rp, up, offs, est = plan
-    want_plan = jpackio._rice_host_plan(kuw[0].numpy(), kuw[1].numpy(),
-                                        *_kset(bits), 10**12)
-    assert [np.array_equal(a, b) for a, b in zip(plan, want_plan)] == [
-        True] * 6
-    got = packio.rice_pack(zs, kuw, offs, rp, up)
-    want = jpackio._rice_devpack_fn(zs.shape[0], rp, up, *_kset(bits))(
-        jnp.asarray(zs.numpy().view(np.uint16)), jnp.asarray(kuw.numpy()),
-        offs)
-    assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
-
-
-@pytest.mark.parametrize("bits", [10, 16])
-@pytest.mark.parametrize("med", [False, True])
-@pytest.mark.parametrize("tight", [False, True])
-def test_b16_fused_equals_jax(bits, med, tight):
-    """The fused buffer, on the exact plan and on one too tight for this
-    batch (fit flag 0), as JAX's _fused_fetch_fn."""
-    shape = (2, 64, 200)
-    x, t = _src(bits, *shape, seed=4)
-    _, _, plan = _plan(bits, t, med)
-    rp, up = plan[2], plan[3]
-    if tight:
-        rp = tuple(max(32, r // 4) for r in rp)
-    got = packio.rice_fused(t, med, rp, up)
-    want = jpackio._fused_fetch_fn(shape, bits, med, rp, up)(jnp.asarray(x))
-    assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
-    hl = packio._head_len(len(rp))
-    assert int(got[packio._fused_blob_words(rp, up)]) == int(not tight)
-    assert hl == jpackio._fused_head_len(_kset(bits)[0])
 
 
 def _edge_src(bits, n, h, w, content, seed=0):
@@ -179,97 +119,22 @@ EDGE_CONTENT = [(10, "zero"), (10, "noise"), (16, "zero"), (16, "noise"),
                 (16, "k15")]
 
 
-@pytest.mark.parametrize("bits,content", EDGE_CONTENT)
-def test_b15_edge_content_equals_jax(bits, content):
-    """w = 200 < 256 (one partial segment a row), on the shape whose JAX
-    pass 1 the tests above compile."""
-    shape = SHAPES[0]
-    x, t = _edge_src(bits, *shape, content, seed=5)
-    (zv, zm), maps = packio.rice_stats(t, (False, True))
-    jzv, jzm, jmaps = jpackio._pass1_both_fn(shape, bits)(jnp.asarray(x))
-    assert np.array_equal(zv.numpy().view(np.uint16), np.asarray(jzv))
-    assert np.array_equal(zm.numpy().view(np.uint16), np.asarray(jzm))
-    assert np.array_equal(maps.numpy(), np.asarray(jmaps))
-    codes = set(maps.numpy()[[0, 2]].ravel().tolist())
-    if content == "zero":
-        assert codes == {_kset(bits)[1]}
-    if content == "k15":
-        assert 15 in codes
-
-
-@pytest.mark.parametrize("bits,content", EDGE_CONTENT)
-@pytest.mark.parametrize("med", [False, True])
-def test_b16_edge_content_fused_equals_jax(bits, content, med):
-    """The fused buffer of the edge content on the static paddings that
-    test_b16_fused_equals_jax compiles (the seed-4 plan, and its tight
-    form), so no new JAX compile."""
-    shape = (2, 64, 200)
-    _, base = _src(bits, *shape, seed=4)
-    plan = _plan(bits, base, med)[2]
-    x, t = _edge_src(bits, *shape, content, seed=6)
-    for rp in (plan[2], tuple(max(32, r // 4) for r in plan[2])):
-        got = packio.rice_fused(t, med, rp, plan[3])
-        want = jpackio._fused_fetch_fn(shape, bits, med, rp, plan[3])(
-            jnp.asarray(x))
-        assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
-
-
 FETCHES = {10: ("fetch_rgba1010102_rice", "fetch_rgba1010102_med",
                 "fetch_rgba1010102_auto"),
            16: ("fetch_rgba_f16_rice", "fetch_rgba_f16_med",
                 "fetch_rgba_f16_auto")}
 
 
-@pytest.mark.parametrize("bits", [10, 16])
-@pytest.mark.parametrize("scheme", [0, 1, 2])
-def test_rice_fetches_equal_jax_over_rounds(bits, scheme):
-    """Three fetches of one shape (two-phase, then fused on the cached
-    plan): the pixels come back bitwise and the bytes are JAX's."""
-    name = FETCHES[bits][scheme]
-    x, t = _src(bits, 2, 128, 600, seed=5)
-    for _ in range(3):
-        got, nbytes = getattr(packio, name)(t)
-        want, jbytes = getattr(jpackio, name)(jnp.asarray(x))
-        assert got is not None and np.array_equal(got, x)
-        assert np.array_equal(got, want)
-        if scheme < 2:   # auto may re-pick on timing once speeds are seen
-            assert nbytes == jbytes
-    assert packio.LAST_FETCH_STAGES["mode"] == "fused"
-
-
-@pytest.mark.parametrize("bits", [10, 16])
-def test_rice_fetch_declines_noise_as_jax(bits):
-    x, t = _src(bits, 2, 64, 200, seed=6, noise=True)
-    got = getattr(packio, FETCHES[bits][2])(t)
-    want = getattr(jpackio, FETCHES[bits][2])(jnp.asarray(x))
-    assert got[0] is None and want[0] is None and got[1] == want[1] > 0
-
-
-@pytest.mark.parametrize("bits", [10, 16])
-@pytest.mark.parametrize("med", [False, True])
-@pytest.mark.parametrize("threads", ["1", "4"])
-def test_native_unpack_equals_numpy(bits, med, threads, monkeypatch):
-    """uhdr_{rice,med}{,16}_unpack, serial and threaded, against the
-    numpy tails (_rct_tail_numpy, _rct16_tail_numpy, _med10/16)."""
-    monkeypatch.setenv("UHDR_UNPACK_THREADS", threads)
-    n, h, w = 2, 40, 300
-    x, t = _src(bits, n, h, w, seed=7)
-    zs, kuw, plan = _plan(bits, t, med)
-    rc, uc, rp, up, offs, _ = plan
-    blob = packio.rice_pack(zs, kuw, offs, rp, up).numpy().view(np.uint32)
-    km = kuw.numpy()
-    native = packio._host_unpack_rice(blob, km[0], km[1], rp, up, n, h, w,
-                                      med, bits)
-    ref = packio._host_unpack_rice_numpy(blob, km[0], km[1], rc, uc, rp, up,
-                                         n, h, w, med, bits)
-    assert np.array_equal(native, x) and np.array_equal(ref, x)
-
-
 # ---------------------------------------------------------------------------
 # B17: the RCT fine-width pack.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", SHAPES)
+#: 9,216 segments: five tiles of the order's 2,048 in the kernel, the
+#: last a half, with padding rows that take wider segments (they carry).
+B17_TILED = (2, 96, 1000)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [B17_TILED])
 def test_b17_equals_jax(shape):
     x, t = _src(10, *shape, seed=8)
     zs, bc = packio.rct_widths(t)
@@ -281,6 +146,9 @@ def test_b17_equals_jax(shape):
     npads = tuple(packio._pow2_pad(max(int(c), 1), floor=32)
                   for c in counts[1:])
     offs = np.cumsum(counts[:8]).astype(np.int32)
+    if shape == B17_TILED:
+        assert any(c < p and o + c < flat.size
+                   for c, p, o in zip(counts[1:], npads, offs))
     got = packio.rct_pack(zs, bc, offs, npads)
     want = jpackio._rct_devpack_fn(flat.size, npads)(jzs, jbc, offs)
     assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))

@@ -18,6 +18,7 @@ from libultrahdr_dev_tpu.jpeg import device_entropy as jde
 from libultrahdr_dev_tpu_torch.jpeg import codec, device_entropy as tde
 
 from test_torch_entropy import GBH, GBW, KINDS, MX, MY, NM, _planes
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 NOISE = "noise"   # q=100 noise: every block far past 608 bits
 EDGES = "edges"   # the unit sequence's edge cases, within NOISE's +-2000

@@ -25,6 +25,7 @@ from libultrahdr_dev_tpu_torch.jpeg import device_entropy as tde
 import test_torch_jax_native  # noqa: F401  (loads the JAX native codec)
 from test_torch_entropy import MX, MY, NM, _blocks
 from test_torch_jpeg_codec import KINDS, _planes
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 44, 61   # 4:2:0 -> 3 x 4 MCUs, 4:4:4 -> 6 x 8
 

@@ -31,6 +31,7 @@ from libultrahdr_dev_tpu_torch.parallel import batched
 from test_torch_api1 import H, W, _raws
 from test_torch_gainmap import _planes
 from test_torch_jpegr import channel_diff
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 

@@ -24,6 +24,7 @@ from libultrahdr_dev_tpu_torch import serving
 from libultrahdr_dev_tpu_torch.parallel import batched, link, packio
 
 import test_torch_jax_native  # noqa: F401  (the JAX native library, built once)
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "libultrahdr_dev_tpu_torch")

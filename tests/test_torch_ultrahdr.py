@@ -42,6 +42,7 @@ from libultrahdr_dev_tpu_torch.parallel import batched
 import test_torch_jax_native  # noqa: F401  (loads the JAX native codec)
 from test_torch_api1 import sdr_from_hdr
 from test_torch_jpegr import synth_p010
+import test_torch_threads  # noqa: F401  (caps torch's threads)
 
 H, W = 72, 104
 C, M, R, Z = je.CropEffect, je.MirrorEffect, je.RotateEffect, je.ResizeEffect
