@@ -70,7 +70,10 @@ batch: kernel = plain, finalized scans = the host coder's; B12-enc
 (encode_jpeg's restart intervals) on gray, 4:2:0, 4:2:2 and 4:4:4 at r in
 {1, 4, 17, 86, 300} (the last two longer than a B3 tile): kernel = plain
 = the host coder with RSTn markers; B0 and B14 (the P010
-upload: dense on uniform noise, segment-packed on bench content), B18
+upload: dense on uniform noise, segment-packed on bench content; B14
+timed by CUDA graph and events, and at its edges: all zero, noise, a
+partial segment of width 250, the y/uv split at group 2, three frames
+of width 1000, content mixing zero segments and all three buckets), B18
 (the planes composite of a decoded batch of 4, timed by CUDA graph and
 events; and its edges: odd widths, h + ch + gh not a multiple of 3,
 strided views at odd offsets, batches of 1 and 4), B15 and B16 (Rice
@@ -78,10 +81,11 @@ pass 1 and pack over that composite, vertical and MED, two-phase and
 fused), bitwise; B15 and B16 at 10 and 16 bits (both schemes, two-phase
 and fused), B17 and B21 on a decoded batch of 4, bitwise, each host
 unpack = the device pixels (B17's order alone = the stable sort, its
-rank totals = the host's counts, timed apart from the pack; and its
-edges: all zero, noise, segment counts off the order's tile, several
-tiles, padding rows that carry); the main-path windows (API-0 round trip, handoff,
-goldens, the log-emission window: the API-0 blob decodes, the handoff
+rank totals = the host's counts, timed apart from the pack; B17's
+widths pass timed by CUDA graph and events; and its edges: all zero,
+noise, segment counts off the order's tile, several tiles, padding
+rows that carry, a width of 1001 over 37 rows); the main-path windows
+(API-0 round trip, handoff, goldens, the log-emission window: the API-0 blob decodes, the handoff
 decode and decode_jpeg at 4000x3000 with the emission default set to
 "log", each output = the dense route's, B22 launched and B4 not; API-1
 encode + HDR decode, SDR decode, use_luts decode, general routes,
@@ -158,6 +162,11 @@ PARENT_MS = {"B7": 0.0712, "B13 crop 3600x2248": 0.0378,
 # ... and of B17b and B18 (ms per frame of the batch of 4, CUDA events;
 # the parent tree's last run of this script, same card and limit).
 PARENT_MS.update({"B17b": 0.4284, "B18": 0.0650})
+# ... and of B14 and B17a (ms per frame of the batch of 4, CUDA events,
+# the parent tree's last run of this script, same card and limit; this
+# run logs its events time beside them, while the kernels line's `ms` of
+# these two is by CUDA graph).
+PARENT_MS.update({"B14": 0.0392, "B17a": 0.1869})
 
 # Operations per sample, counted from the kernels' sources (the branch a
 # sample usually takes): float32 operations (a fused multiply-add 2;
@@ -3244,15 +3253,18 @@ def b18_edges(dev, seed: int):
 #: buckets hold only padding rows), uniform noise (one bucket holds
 #: nearly all), nseg not a multiple of the order's 2048-segment tile
 #: (one tile; 30 segments; a last tile of one segment), several tiles,
-#: and the carry case (narrow buckets whose padding rows take width-10
-#: segments, whose slots carry into their neighbours).
+#: the carry case (narrow buckets whose padding rows take width-10
+#: segments, whose slots carry into their neighbours), and a width that
+#: is not a multiple of 8 with nh % 32 != 0 (the widths pass's clamped
+#: loads, its planes' groups starting at different rows).
 B17_EDGES = (("all zero", 1, 40, 600, "zero"),
              ("noise", 1, 37, 600, "noise"),
              ("one tile", 1, 37, 600, "smooth"),
              ("nseg 30", 2, 5, 64, "smooth"),
              ("nseg 2049", 1, 683, 64, "smooth"),
              ("several tiles", 2, 96, 1000, "smooth"),
-             ("carry", 2, 40, 640, "carry"))
+             ("carry", 2, 40, 640, "carry"),
+             ("w 1001", 1, 37, 1001, "smooth"))
 
 
 def b17_check(x, label: str):
@@ -3324,6 +3336,99 @@ def b17_edges(dev, seed: int):
     require(carried, "no B17 edge input put wider segments in padding rows")
 
 
+#: (label, n, h, w, kind) of the B14 edge inputs, each packed by the
+#: host's segment pack directly (seg mode whatever the content): every
+#: segment all zero (every perm entry 0), full-range noise (every segment
+#: in the 10-bit bucket), one partial segment of a width that is not a
+#: multiple of 8, the y/uv split inside a launch at group 2, three frames
+#: of a width that is no multiple of 256, and bench content with bands
+#: of small noise (groups that mix zero segments and all three buckets).
+B14_EDGES = (("all zero", 2, 128, 512, "zero"),
+             ("noise", 2, 64, 512, "noise"),
+             ("w 250", 1, 64, 250, "bench"),
+             ("split at group 2", 1, 64, 4080, "bench"),
+             ("3 frames, w 1000", 3, 128, 1000, "bench"),
+             ("mixed buckets", 2, 128, 4080, "mixed"))
+
+
+def b14_input(n: int, h: int, w: int, kind: str, seed: int):
+    """P010 frames (y (n, h, w), uv (n, h/2, w) uint16) of a B14_EDGES
+    kind; "mixed": bench content whose first quarter of luma rows carries
+    noise in {0, 1} (2-bit segments) and second quarter noise in 0..7
+    (5-bit segments)."""
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        return (np.zeros((n, h, w), np.uint16),
+                np.zeros((n, h // 2, w), np.uint16))
+    if kind == "noise":
+        return (rng.integers(0, 1024, (n, h, w)).astype(np.uint16) << 6,
+                rng.integers(0, 1024, (n, h // 2, w)).astype(np.uint16) << 6)
+    y, uv = synth_p010(n, h, w, seed)
+    if kind == "mixed":
+        for rows, top in ((slice(0, h // 4), 2), (slice(h // 4, h // 2), 8)):
+            y[:, rows] += rng.integers(0, top, y[:, rows].shape).astype(
+                np.uint16) << 6
+    return y, uv
+
+
+def b14_pack(y, uv):
+    """The host's segment pack of the P010 frames (y, uv): the tall plane
+    of y's and uv's 10-bit codes, packed in seg mode whatever the
+    content."""
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n, h, w = y.shape
+    return packio.pack_plane_host(np.concatenate(
+        [(y >> 6).reshape(n * h, w), (uv >> 6).reshape(n * h // 2, w)]))
+
+
+def b14_check(dev, packed, y, uv, label: str, unpacks=None):
+    """B14 on `packed`, the segment pack of (y, uv): plain = the input and
+    each of `unpacks` ({name: unpack_plane_device}, by default this
+    tree's) = plain, bitwise. -> (blob on the device, plan, the counts of
+    zero segments and of each bucket's segments)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n, h, _ = y.shape
+    blob = torch.from_numpy(packed.to_blob().view(np.int32)).to(dev)
+    ref = packio.unpack_plane_device_plain(blob, packed.plan, n, h)
+    require(np.array_equal(ref[0].cpu().numpy().view(np.uint16), y)
+            and np.array_equal(ref[1].cpu().numpy().view(np.uint16), uv),
+            f"plain B14 {label} does not rebuild the input")
+    for name, unpack in (unpacks or {"this tree": packio.unpack_plane_device
+                                     }).items():
+        got = unpack(blob, packed.plan, n, h)
+        require(all(map(torch.equal, got, ref)), f"{name}: B14 {label} "
+                f"differs from its plain version")
+    n2, n5 = packed.plan[3:5]
+    perm = packed.perm
+    kinds = (int((perm == 0).sum()), int(((perm > 0) & (perm <= n2)).sum()),
+             int(((perm > n2) & (perm <= n2 + n5)).sum()),
+             int((perm > n2 + n5).sum()))
+    return blob, packed.plan, kinds
+
+
+def b14_edges(dev, seed: int):
+    """b14_check on B14_EDGES; the all-zero plane must give only zero
+    segments, the noise only 10-bit ones, and the mixed content all four
+    kinds."""
+    for i, (label, n, h, w, kind) in enumerate(B14_EDGES):
+        y, uv = b14_input(n, h, w, kind, seed + i)
+        _, plan, kinds = b14_check(dev, b14_pack(y, uv), y, uv, label)
+        nseg = sum(kinds)
+        if kind == "zero":
+            require(kinds[0] == nseg, "B14 all zero: a nonzero segment")
+        if kind == "noise":
+            require(kinds[3] == nseg, "B14 noise: a segment below 10 bits")
+        if kind == "mixed":
+            require(min(kinds) > 0, f"B14 mixed: zero/2/5/10-bit segments "
+                    f"{kinds}")
+        log(f"B14 edge {label} ({n}x{h}x{w}, {plan[0]} rows, "
+            f"zero/2/5/10-bit segments {kinds}): kernel = plain = input")
+
+
 def packio_phase(dev, results: dict, kept: dict):
     """B0, B14, B18, B15 and B16 against their plain versions at the
     serving loop's shapes (4080x3072, batch SERVE_FRAMES), bitwise: the
@@ -3346,29 +3451,29 @@ def packio_phase(dev, results: dict, kept: dict):
     def per_frame(ms):
         return ms / n
 
-    # B14: the segment-packed upload of bench content.
+    # B14: the segment-packed upload of bench content (the serving loop's
+    # pack, seg mode), then its edges.
     y_np, uv_np = synth_p010(n, H, W, SEED + 200)
     pre = link.pack_p010_batch_host(y_np, uv_np)
     require(pre[0] == "seg", f"bench content packed {pre[0]}, not seg")
-    _, packed, blob, *_ = pre
-    blob_dev = torch.from_numpy(blob.view(np.int32)).to(dev)
-    got = packio.unpack_plane_device(blob_dev, packed.plan, n, H)
-    ref = packio.unpack_plane_device_plain(blob_dev, packed.plan, n, H)
-    require(all(map(torch.equal, got, ref)), "B14 differs from its plain "
-            "version")
-    require(np.array_equal(got[0].cpu().numpy().view(np.uint16), y_np)
-            and np.array_equal(got[1].cpu().numpy().view(np.uint16), uv_np),
-            "B14 does not rebuild the uploaded planes")
-    plan = packed.plan
-    log(f"B14 p010_seg_unpack: kernel = plain = input ({blob.nbytes / 1e6:.2f}"
-        f" MB blob for {(y_np.nbytes + uv_np.nbytes) / 1e6:.1f} MB of u16, "
-        f"{plan[3]}/{plan[4]}/{plan[5]} rows in the 2/5/10-bit buckets)")
+    blob14, plan14, kinds = b14_check(dev, pre[1], y_np, uv_np, "4080x3072")
+    log(f"B14 p010_seg_unpack: kernel = plain = input "
+        f"({nbytes(blob14) / 1e6:.2f} MB blob for "
+        f"{(y_np.nbytes + uv_np.nbytes) / 1e6:.1f} MB of u16, "
+        f"{plan14[3]}/{plan14[4]}/{plan14[5]} rows in the 2/5/10-bit "
+        f"buckets, zero/2/5/10-bit segments {kinds})")
+    b14_edges(dev, SEED + 206)
+    b14 = lambda: packio.unpack_plane_device(blob14, plan14, n, H)  # noqa
+    b14_events = per_frame(cuda_ms(b14, 20))
     results["B14"] = dict(
-        err=0, ms=per_frame(cuda_ms(lambda: packio.unpack_plane_device(
-            blob_dev, plan, n, H), 20)),
+        err=0, ms=per_frame(graph_ms(b14, 20)),
         plain_ms=per_frame(cuda_ms(lambda: packio.unpack_plane_device_plain(
-            blob_dev, plan, n, H), 3)),
-        bytes=(blob.nbytes + nbytes(*got)) / n, library_ms=None)
+            blob14, plan14, n, H), 3)),
+        bytes=(nbytes(blob14) + y_np.nbytes + uv_np.nbytes) / n,
+        library_ms=None)
+    log(f"B14: {b14_events:.4f} ms/frame by events (parent: "
+        f"{PARENT_MS['B14']:.4f} by events), {results['B14']['ms']:.4f} by "
+        f"graph (the kernels line's ms)")
 
     # B0: the dense upload of uniform noise.
     ny, nuv = dense_p010(n, H, W, SEED + 201)
@@ -3481,8 +3586,7 @@ def packio_phase(dev, results: dict, kept: dict):
     # it.
     for label, fn, key in (
             ("B0", lambda: packio.unpack_p010_dense(*parts), "B0"),
-            ("B14", lambda: packio.unpack_plane_device(
-                blob_dev, packed.plan, n, H), "B14"),
+            ("B14", b14, "B14"),
             ("B18", lambda: gm.planes_composite(*planes), "B18"),
             ("B15 both schemes", lambda: packio.rice_stats(
                 comp, (False, True)), "B15")):
@@ -3626,11 +3730,15 @@ def readback_phase(dev, results: dict, kept: dict):
         f"{blob.numel() * 4 / 1e6:.2f} MB for {nbytes(x) / 1e6:.1f} MB raw "
         f"({bc.numel()} segments)")
     b17_edges(dev, SEED + 212)
+    b17a = lambda: packio.rct_widths(x)  # noqa: E731
+    b17a_events = per_frame(cuda_ms(b17a, 20))
     results["B17a"] = dict(
-        err=0, library_ms=None,
-        ms=per_frame(cuda_ms(lambda: packio.rct_widths(x), 20)),
+        err=0, library_ms=None, ms=per_frame(graph_ms(b17a, 20)),
         plain_ms=per_frame(cuda_ms(lambda: packio.rct_widths_plain(x), 2)),
         bytes=nbytes(x, zs, bc) / n)
+    log(f"B17a: {b17a_events:.4f} ms/frame by events (parent: "
+        f"{PARENT_MS['B17a']:.4f} by events), {results['B17a']['ms']:.4f} by "
+        f"graph (the kernels line's ms)")
     b17b = lambda: packio.rct_pack(zs, bc, offs, npads)  # noqa: E731
     sidx = torch.empty(bc.numel(), dtype=torch.int32, device=dev)
     order = lambda: packio._rct_order(bc, sidx)  # noqa: E731

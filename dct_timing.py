@@ -6,13 +6,15 @@ B5), B19 (the restart-less Huffman encode), B3 and B12-enc (the
 restart-interval Huffman encode), B6 / B11 (the gain-map apply), B1 /
 B9 / B10b (the encode front ends) and B15 / B16 (Rice pass 1 and the
 Rice pack of the packed readbacks), B7 (the SDR output), B13 (the
-effect chain), B17b (the RCT fine-width pack) and B18 (the planes
-composite).
+effect chain), B17b (the RCT fine-width pack), B18 (the planes
+composite), B14 (the segment-packed upload) and B17a (the RCT widths
+pass).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
     python3 dct_timing.py _verify/other --only B7,B13   # those two alone
     python3 dct_timing.py _verify/other --only B17b,B18 # with B15/B16's checks
+    python3 dct_timing.py _verify/other --only B14,B17a
 
 Both trees' kernels are built from their own sources (each into its own
 git-ignored _build directory) and called through their own wrappers on
@@ -67,6 +69,13 @@ events), in turns; B17b and B18 by CUDA events and by CUDA graph, in
 turns, with each tree's device ms by kernel (B17b's order and pack
 apart). `--only B17b,B18` runs B15's and B16's checks at the three
 widths (B17b's order runs on B16's kernels), then B17b and B18.
+`--only B14,B17a` checks B14 on chip_smoke.py's bench upload (4080x3072,
+batch of 4), on full-range noise at that size and on its B14_EDGES
+inputs, and B17a on the HLG pixels and its B17_EDGES inputs: both trees
+bitwise equal to the plain versions; prints a fill_ of B14's output and
+a copy_ of B17a's residuals by CUDA graph (the card's rates for those
+bytes); then times B14 (bench, noise) and B17a in turns by CUDA events
+and by CUDA graph, with each tree's device ms by kernel.
 Prints the card's name and power limit and, last,
 one JSON object of the times.
 """
@@ -284,6 +293,13 @@ def pack_timing(cs, trees: dict, dev, smi: str, planes, arms: dict):
                                                             npads),
                    "B18": lambda m=m: m["gainmap"].planes_composite(
                        *planes)} for name, m in trees.items()}
+    return turns(cs, runs, n, smi)
+
+
+def turns(cs, runs: dict, n: int, smi: str):
+    """runs[tree][kernel] (a call on a batch of n frames) timed in turns
+    (other, this, this, other) by CUDA events and by CUDA graph, ms per
+    frame, then each tree's device ms by kernel. -> (times, by_kernel)."""
     times = {}
     for turn, name in enumerate(("other", "this", "this", "other")):
         t = {}
@@ -295,7 +311,7 @@ def pack_timing(cs, trees: dict, dev, smi: str, planes, arms: dict):
             flush=True)
         times.setdefault(name, []).append(t)
     by_kernel = {}
-    for name in trees:
+    for name in runs:
         for k, fn in runs[name].items():
             by = {kk: v / n for kk, v in cs.device_ms_by_kernel(fn, 10)
                   .items()}
@@ -304,6 +320,67 @@ def pack_timing(cs, trees: dict, dev, smi: str, planes, arms: dict):
                   f"{ {kk: round(v, 4) for kk, v in by.items()} } ({smi})",
                   flush=True)
     return times, by_kernel
+
+
+def upload_widths_timing(cs, trees: dict, dev, smi: str, arms: dict):
+    """B14 (the segment-packed upload of chip_smoke.py's bench content,
+    4080x3072 batch of 4, full-range noise at that size (every segment in
+    the 10-bit bucket), then its B14_EDGES inputs) and B17a (the widths
+    pass of the HLG pixels, then its B17_EDGES inputs) of both trees:
+    bitwise equal to the plain versions, so to each other. Then, by CUDA
+    graph, the card's rates for the same bytes: a fill_ of B14's output
+    and a copy of B17a's residuals; then times in turns. -> (times,
+    by_kernel)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n = cs.SERVE_FRAMES
+    b14_in = [("4080x3072", cs.synth_p010(n, cs.H, cs.W, cs.SEED + 200)),
+              ("noise 4080x3072", cs.b14_input(n, cs.H, cs.W, "noise",
+                                               cs.SEED + 207))]
+    b14_in += [(label, cs.b14_input(en, h, w, kind, cs.SEED + 206 + i))
+               for i, (label, en, h, w, kind) in enumerate(cs.B14_EDGES)]
+    unpacks = {name: m["packio"].unpack_plane_device
+               for name, m in trees.items()}
+    blobs = {label: cs.b14_check(dev, cs.b14_pack(y, uv), y, uv, label,
+                                 unpacks)[:2]
+             for label, (y, uv) in b14_in}
+    rng = np.random.default_rng(cs.SEED + 212)
+    b17_in = [("4080x3072", arms[10])]
+    b17_in += [(label, torch.from_numpy(cs._rice_edge_batch(
+        10, en, h, w, kind, rng)).to(dev))
+        for label, en, h, w, kind in cs.B17_EDGES]
+    for label, x in b17_in:
+        zp, bp = packio.rct_widths_plain(x)
+        for name, m in trees.items():
+            zs, bc = m["packio"].rct_widths(x)
+            cs.require(torch.equal(zs, zp) and torch.equal(bc, bp),
+                       f"{name}: B17a {label} differs from the plain "
+                       f"version")
+    print(f"B14 and B17a of both trees bitwise equal to the plain versions "
+          f"at 4080x3072 (batch of {n}; B14 on bench content and on noise) "
+          f"and on {len(b14_in) - 2} and {len(b17_in) - 1} edge inputs",
+          flush=True)
+    y, uv = b14_in[0][1]
+    out = torch.empty(2 * (y.size + uv.size), dtype=torch.uint8, device=dev)
+    zs = packio.rct_widths(arms[10])[0]
+    zs2 = torch.empty_like(zs)
+    print(f"fill_ of B14's {out.numel() / 1e6:.1f} MB output "
+          f"{cs.graph_ms(lambda: out.fill_(1), 20) / n:.4f}, copy_ of "
+          f"B17a's {zs.numel() * 2 / 1e6:.1f} MB residuals "
+          f"{cs.graph_ms(lambda: zs2.copy_(zs), 20) / n:.4f} ms/frame by "
+          f"graph ({smi})", flush=True)
+
+    def b14(m, label):
+        blob, plan = blobs[label]
+        return lambda: m["packio"].unpack_plane_device(blob, plan, n, cs.H)
+
+    runs = {name: {"B14": b14(m, "4080x3072"),
+                   "B14_noise": b14(m, "noise 4080x3072"),
+                   "B17a": lambda m=m: m["packio"].rct_widths(arms[10])}
+            for name, m in trees.items()}
+    return turns(cs, runs, n, smi)
 
 
 def rice_timing(cs, trees: dict, dev, smi: str, arms: dict, packs: dict):
@@ -366,7 +443,8 @@ def main(argv) -> int:
     only = argv[3].split(",") if len(argv) == 4 and argv[2] == "--only" \
         else None
     if len(argv) != (4 if only else 2) or not torch.cuda.is_available() \
-            or not set(only or ()) <= {"B7", "B13", "B17b", "B18"}:
+            or not set(only or ()) <= {"B7", "B13", "B14", "B17a", "B17b",
+                                       "B18"}:
         print(__doc__, file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -388,10 +466,13 @@ def main(argv) -> int:
         parts = []
         if {"B7", "B13"} & set(only):
             parts.append((sdr_edit_timing(cs, trees, dev, smi), {}))
-        if {"B17b", "B18"} & set(only):
+        if {"B14", "B17a", "B17b", "B18"} & set(only):
             planes, arms = rice_inputs(cs, dev)
+        if {"B17b", "B18"} & set(only):
             rice_checks(cs, trees, dev, arms)
             parts.append(pack_timing(cs, trees, dev, smi, planes, arms))
+        if {"B14", "B17a"} & set(only):
+            parts.append(upload_widths_timing(cs, trees, dev, smi, arms))
         for ts, by in parts:
             for name, runs in ts.items():
                 old = times.setdefault(name, [{} for _ in runs])

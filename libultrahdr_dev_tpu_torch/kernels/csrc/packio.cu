@@ -34,13 +34,15 @@
 //   view at any offset); the stores are 16 bytes where wc is a multiple
 //   of 16. Only the chunk that crosses a part's last column or U|V's seam
 //   takes a byte path; chunks past a part's last column repeat it.
-// - B14 gives each thread one column of one 32-row delta group: it walks
-//   the group's 32 rows, reads each row's segment index (the same for a
-//   warp: a broadcast) and one u32 word of that segment's bucket
-//   (neighbouring threads read neighbouring words), and keeps the running
-//   sum in a register, so the cumulative sum costs no extra pass and the
-//   tall (n*h*3/2, w) plane is never stored: each row goes straight to
-//   the y or uv output, << 6.
+// - B14 gives a warp one 256-column segment of one 32-row delta group.
+//   Lane i reads row i's perm entry and resolves its bucket and first
+//   word once; the warp stages the 32 rows' bucket words in shared memory
+//   (coalesced, every load issued before the sums start, so no load
+//   chain sits in the running sum), and each lane owns eight consecutive
+//   columns whose word indices and shifts are computed once a thread: no
+//   division a sample. The running sums stay in registers, so the tall
+//   (n*h*3/2, w) plane is never stored: each row goes straight to the y
+//   or uv output, << 6, one 16-byte store a lane. 32-bit blob offsets.
 // - B15 gives a warp one 256-column span of a run of 32 source rows,
 //   eight consecutive samples a lane (16-byte loads where the row is
 //   aligned; 8-byte at bits 8). It walks down the rows keeping the row
@@ -69,11 +71,15 @@
 //   staged in shared memory and each lane builds whole words (no atomics),
 //   a unary row takes its terminator positions from a warp scan of q + 1;
 //   then a coalesced store of the row's words.
-// - B17 is B15's earlier load (one warp per 64-sample segment, the
-//   maximum by __reduce_max_sync), then B16's tiled order with one family
-//   of 9 width ranks (FineRanks: 9 x tiles counts scanned; nothing runs
-//   as one CTA over the segments), then a pack that gives a warp 16 rows
-//   of one bucket: their places and segments resolved by the lanes
+// - B17's widths pass is B15's walk over the RGBA1010102 pixels (a warp a
+//   256-column span of a run of rows, each pixel loaded once a row and
+//   decoded once into its three planes, the row above in registers, each
+//   plane's own place in its group) with 64-sample segments: a lane's 8
+//   residuals go out in one 16-byte store and a segment's maximum takes
+//   three xor shuffles over its 8 lanes. Then B16's tiled order with one
+//   family of 9 width ranks (FineRanks: 9 x tiles counts scanned; nothing
+//   runs as one CTA over the segments), then a pack that gives a warp 16
+//   rows of one bucket: their places and segments resolved by the lanes
 //   together, their 128-byte rows loaded together and staged in shared
 //   memory, and each lane building whole words (the slots summed, as JAX
 //   sums them) that the warp stores coalesced; no atomics.
@@ -137,42 +143,125 @@ __global__ void dense_kernel(DensePlane y, DensePlane uv) {
 struct SegPlan {
   int rows, w, nsegw, yrows;
   int n2, n5;
-  long long off5, off10, offperm;
+  uint32_t off5, off10, offperm;  // the blob is < 2^31 words
 };
 
-__global__ void seg_kernel(const uint32_t* __restrict__ blob, SegPlan p,
-                           uint16_t* __restrict__ y,
-                           uint16_t* __restrict__ uv) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= p.w) return;
-  const int s = x >> 8, j = x & (kL - 1);
+constexpr int kSegWarps = 4;    // warps a B14 CTA
+constexpr int kSegStage = 88;   // u32 words of a staged row (>= 86, even)
+constexpr int kSegBatch = 8;    // rows whose words a lane loads together
+
+// Unzigzag z, add it to the running sum, and return the MSB-aligned
+// 10-bit sample of the sum.
+__device__ __forceinline__ uint32_t seg_step(int& acc, uint32_t z) {
+  acc += (int)(z >> 1) ^ -(int)(z & 1u);
+  return (uint32_t)(acc & 1023) << 6;
+}
+
+// A warp per (32-row group, 256-column segment). Lane i reads the perm
+// entry of the group's row i and resolves its bucket and first word once;
+// the warp then stages the 32 rows' bucket words in shared memory with
+// coalesced loads, all issued before the running sums start. Lane l owns
+// the segment's columns j = 8 l .. 8 l + 7, whose word indices and
+// shifts are computed once a thread (bucket 2: words 8 (l & 1) .. + 7,
+// two 16-byte shared loads, at shift 2 (l >> 1)). Each row is then a
+// warp-uniform branch on its bucket, at most eight shared loads, the
+// sums and one 16-byte store a lane where the output row allows it.
+__global__ void __launch_bounds__(kSegWarps * 32)
+seg_kernel(const uint32_t* __restrict__ blob, SegPlan p,
+           uint16_t* __restrict__ y, uint16_t* __restrict__ uv) {
+  __shared__ __align__(16) uint32_t stage[kSegWarps][kG * kSegStage];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wid = blockIdx.x * kSegWarps + warp;
+  if (wid >= (p.rows / kG) * p.nsegw) return;
+  const int g = wid / p.nsegw, s = wid - g * p.nsegw;
+  // Lane i: row i's bucket (0 zero, 1: 2 bits, 2: 5 bits, 3: 10 bits)
+  // and its first word in the blob.
   const int32_t* perm = (const int32_t*)(blob + p.offperm);
-  int acc = 0;
-  for (int i = 0; i < kG; ++i) {
-    const int r = blockIdx.y * kG + i;
-    int row = perm[(long long)r * p.nsegw + s];
-    uint32_t z = 0;
-    if (row > 0) {
-      row -= 1;
-      int bw, nw;
-      long long base;
-      if (row < p.n2) {
-        bw = 2, nw = 16, base = 0;
-      } else if ((row -= p.n2) < p.n5) {
-        bw = 5, nw = 43, base = p.off5;
-      } else {
-        row -= p.n5;
-        bw = 10, nw = 86, base = p.off10;
-      }
-      uint32_t word = blob[base + (long long)row * nw + j % nw];
-      z = (word >> ((j / nw) * bw)) & ((1u << bw) - 1u);
+  const int pr = perm[(g * kG + lane) * p.nsegw + s] - 1;
+  int bk = 0;
+  uint32_t base = 0;
+  if (pr >= 0) {
+    if (pr < p.n2) {
+      bk = 1, base = (uint32_t)pr * 16u;
+    } else if (pr - p.n2 < p.n5) {
+      bk = 2, base = p.off5 + (uint32_t)(pr - p.n2) * 43u;
+    } else {
+      bk = 3, base = p.off10 + (uint32_t)(pr - p.n2 - p.n5) * 86u;
     }
-    acc += (int)(z >> 1) ^ -(int)(z & 1u);
-    const uint16_t v = (uint16_t)((acc & 1023) << 6);
-    if (r < p.yrows)
-      y[(long long)r * p.w + x] = v;
-    else
-      uv[(long long)(r - p.yrows) * p.w + x] = v;
+  }
+  const int nwl = bk == 1 ? 16 : (bk == 2 ? 43 : (bk == 3 ? 86 : 0));
+  uint32_t* st = stage[warp];
+  // Stage kSegBatch rows at a time: their (up to 3) words a lane loaded
+  // together, then stored.
+#pragma unroll
+  for (int r0 = 0; r0 < kG; r0 += kSegBatch) {
+    uint32_t v[kSegBatch][3];
+    int nw[kSegBatch];
+#pragma unroll
+    for (int i = 0; i < kSegBatch; ++i) {
+      nw[i] = __shfl_sync(0xffffffffu, nwl, r0 + i);
+      const uint32_t o = __shfl_sync(0xffffffffu, base, r0 + i);
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        v[i][t] = lane + 32 * t < nw[i] ? __ldg(blob + o + lane + 32 * t)
+                                        : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kSegBatch; ++i)
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        if (lane + 32 * t < nw[i])
+          st[(r0 + i) * kSegStage + lane + 32 * t] = v[i][t];
+  }
+  __syncwarp();
+  // The lane's word index and shift of each of its eight columns, per
+  // bucket (bucket 2: eight consecutive words at one shift).
+  const int w2 = 8 * (lane & 1), s2 = 2 * (lane >> 1);
+  int w5[8], s5[8], w10[8], s10[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int j = 8 * lane + e;
+    w5[e] = j % 43, s5[e] = j / 43 * 5;
+    w10[e] = j % 86, s10[e] = j / 86 * 10;
+  }
+  const int x0 = s * kL + 8 * lane;
+  const bool ypart = g * kG < p.yrows;
+  uint16_t* out = ypart ? y + (size_t)g * kG * p.w
+                        : uv + (size_t)(g * kG - p.yrows) * p.w;
+  int acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int i = 0; i < kG; ++i, out += p.w) {
+    const int b = __shfl_sync(0xffffffffu, bk, i);
+    const uint32_t* row = st + i * kSegStage;
+    uint32_t z[8];
+    if (b == 1) {
+      const uint4 t0 = *(const uint4*)(row + w2);
+      const uint4 t1 = *(const uint4*)(row + w2 + 4);
+      const uint32_t wd[8] = {t0.x, t0.y, t0.z, t0.w,
+                              t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) z[e] = (wd[e] >> s2) & 3u;
+    } else if (b == 2) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) z[e] = (row[w5[e]] >> s5[e]) & 31u;
+    } else if (b == 3) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) z[e] = (row[w10[e]] >> s10[e]) & 1023u;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) z[e] = 0u;
+    }
+    uint32_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = seg_step(acc[e], z[e]);
+    if (((size_t)(out + x0) & 15) == 0 && x0 + 8 <= p.w) {
+      *(uint4*)(out + x0) =
+          make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
+                     v[4] | (v[5] << 16), v[6] | (v[7] << 16));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (x0 + e < p.w) out[x0 + e] = (uint16_t)v[e];
+    }
   }
 }
 
@@ -195,31 +284,6 @@ __global__ void seg_kernel(const uint32_t* __restrict__ blob, SegPlan p,
 // same of the row before. Delta groups reset by stacked row, so each
 // plane keeps its own place in its 32-row group.
 // ---------------------------------------------------------------------------
-
-struct PixSrc {
-  const void* p;
-  long long nh;  // rows of one stacked plane (n * h)
-  int w;
-};
-
-// Stacked-plane sample (row r, column x) of BITS-bit samples (8: the
-// composite, 10: RGBA1010102 words, 16: F16 halves); x is already
-// clamped. B17's load.
-template <int BITS>
-__device__ __forceinline__ int pix_at(const PixSrc& s, long long r, int x) {
-  if (BITS == 8) return ((const uint8_t*)s.p)[r * s.w + x];
-  const int plane = (int)(r / s.nh);
-  const long long o = (r - plane * s.nh) * s.w + x;
-  int rr, gg, bb;
-  if (BITS == 10) {
-    const uint32_t v = ((const uint32_t*)s.p)[o];
-    rr = v & 1023, gg = (v >> 10) & 1023, bb = (v >> 20) & 1023;
-  } else {
-    const uint2 v = ((const uint2*)s.p)[o];
-    rr = v.x & 0xFFFF, gg = v.x >> 16, bb = v.y & 0xFFFF;
-  }
-  return plane == 0 ? gg : ((plane == 1 ? rr : bb) - gg) & ((1 << BITS) - 1);
-}
 
 __device__ __forceinline__ int zigzag_bits(int d, int bits) {
   const int mask = (1 << bits) - 1, half = 1 << (bits - 1);
@@ -329,6 +393,48 @@ __device__ __forceinline__ void decode_row(const RawRow<BITS>& rr,
                   &c[NP > 1 ? 1 : 0][e], &c[NP - 1][e]);
     decor<BITS>(rr.left[0], rr.left[BITS == 16 ? 1 : 0], &l[0],
                 &l[NP > 1 ? 1 : 0], &l[NP - 1]);
+  }
+}
+
+// A warp's start on source row r0 of nrows (B15, B17): each plane's place
+// in its 32-row delta group (gpos; plane p of source row r is stacked
+// row p * nrows + r) and, where a plane's first row does not start a
+// group, the stacked row above it in up (its left neighbour in ucl, 0
+// without a column left of the span): the source row before, or, at
+// r0 = 0 (where plane 0 starts a group), the last row of the plane
+// before.
+template <int BITS, int NP>
+__device__ __forceinline__ void rows_above(
+    const void* __restrict__ src, long long r0, long long nrows, int w,
+    int x0, bool left, bool has_left, int lane, int (&gpos)[NP],
+    int (&up)[NP][8], int (&ucl)[NP]) {
+  bool need_up = false;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    gpos[p] = (int)((p * nrows + r0) & (kG - 1));
+    need_up = need_up || gpos[p] != 0;
+  }
+  if (need_up) {
+    RawRow<BITS> pr;
+    load_row<BITS>(src, r0 > 0 ? r0 - 1 : nrows - 1, w, x0, left, pr);
+    int pc[NP][8], pl[NP];
+    decode_row<BITS, NP>(pr, pc, pl);
+    const bool same = r0 > 0;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int q = p > 0 ? p - 1 : 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) up[p][e] = same ? pc[p][e] : pc[q][e];
+      const int cl = __shfl_up_sync(0xffffffffu, up[p][7], 1);
+      ucl[p] = lane == 0 ? (has_left ? (same ? pl[p] : pl[q]) : 0) : cl;
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) up[p][e] = 0;
+      ucl[p] = 0;
+    }
   }
 }
 
@@ -478,37 +584,8 @@ stats_kernel(const void* __restrict__ src, int w, int nsegw, long long nrows,
   const bool left = lane == 0 && s > 0;  // column x0 - 1 < w
   // Every loop over planes is unrolled, so these stay in registers.
   int gpos[NP], up[NP][8], ucl[NP];
-  bool need_up = false;
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    gpos[p] = (int)((p * nrows + r0) % kG);
-    need_up = need_up || gpos[p] != 0;
-  }
-  if (need_up) {
-    // The stacked row above each plane's first: the source row before,
-    // or, at r0 = 0 (where plane 0 starts a group), the last row of the
-    // plane before.
-    RawRow<BITS> pr;
-    load_row<BITS>(src, r0 > 0 ? r0 - 1 : nrows - 1, w, x0, left, pr);
-    int pc[NP][8], pl[NP];
-    decode_row<BITS, NP>(pr, pc, pl);
-    const bool same = r0 > 0;
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int q = p > 0 ? p - 1 : 0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) up[p][e] = same ? pc[p][e] : pc[q][e];
-      const int cl = __shfl_up_sync(0xffffffffu, up[p][7], 1);
-      ucl[p] = lane == 0 ? (s > 0 ? (same ? pl[p] : pl[q]) : 0) : cl;
-    }
-  } else {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) up[p][e] = 0;
-      ucl[p] = 0;
-    }
-  }
+  rows_above<BITS, NP>(src, r0, nrows, w, x0, left, s > 0, lane, gpos, up,
+                       ucl);
   RawRow<BITS> nx;
   load_row<BITS>(src, r0, w, x0, left, nx);
   for (long long r = r0; r < r1; ++r) {
@@ -852,11 +929,11 @@ emit_kernel(const uint16_t* __restrict__ zs, const uint8_t* __restrict__ kmap,
 
 // ---------------------------------------------------------------------------
 // B17: the RCT fine-width readback of an (n, h, w) u32 RGBA1010102 batch.
-// Pass 1 (rct_widths_kernel): one warp per 64-sample segment of the
-// stacked (G, R-G, B-G) planes, two samples a lane: zigzag vertical
-// deltas mod 1024 (32-row groups) into zs and the segment's width code,
-// the least of {1,2,3,4,5,6,8,10} that holds its largest delta (0 for an
-// all-zero segment). Order: B16's tiled count / scan / place with
+// Pass 1 (rct_widths_kernel): zigzag vertical deltas mod 1024 of the
+// stacked (G, R-G, B-G) planes (32-row groups, columns edge-padded to
+// nsegw * 64) into zs and each 64-sample segment's width code, the least
+// of {1,2,3,4,5,6,8,10} that holds its largest delta (0 for an all-zero
+// segment). Order: B16's tiled count / scan / place with
 // FineRanks (rank = place of the width in {0,1,2,3,4,5,6,8,10}). Pack
 // (fine_pack_kernel): the 8 width buckets, row r of bucket b packing the
 // segment at place offs[b] + r of the order (segment 0 past the end);
@@ -867,34 +944,63 @@ emit_kernel(const uint16_t* __restrict__ zs, const uint8_t* __restrict__ kmap,
 constexpr int kLF = 64;
 __constant__ int kFine[8] = {1, 2, 3, 4, 5, 6, 8, 10};
 
+// Source rows a B17 widths warp walks: at 16, twice the warps of 32 fill
+// the card's last wave better, for 1/16 more loads of the row above.
+constexpr int kFineRun = 16;
+
+// Pass 1 as B15's walk (stats_kernel) without the left neighbour: a warp
+// per 256-column span (four segments, 8 lanes each, 8 samples a lane) of
+// a run of kFineRun source rows; each pixel loaded once a row and decoded
+// once into its three planes, the row above kept in registers.
 __global__ void __launch_bounds__(256)
-rct_widths_kernel(PixSrc src, int nsegw, long long nseg,
-                  uint16_t* __restrict__ zs, uint8_t* __restrict__ bc) {
+rct_widths_kernel(const uint32_t* __restrict__ src, int w, int nsegw,
+                  int nspan, long long nrows, uint16_t* __restrict__ zs,
+                  uint8_t* __restrict__ bc) {
   const int lane = threadIdx.x & 31;
-  const long long q = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (q >= nseg) return;
-  const long long r = q / nsegw;
-  const bool gstart = r % kG == 0;
-  int zmax = 0;
-  uint32_t pair = 0;
-  for (int e = 0; e < 2; ++e) {
-    const int x = min((int)(q % nsegw) * kLF + lane * 2 + e, src.w - 1);
-    const int cur = pix_at<10>(src, r, x);
-    const int up = gstart ? 0 : pix_at<10>(src, r - 1, x);
-    const int z = zigzag_bits((cur - up) & 1023, 10);
-    zmax = max(zmax, z);
-    pair |= (uint32_t)z << (16 * e);
-  }
-  ((uint32_t*)zs)[q * (kLF / 2) + lane] = pair;
-  zmax = __reduce_max_sync(0xffffffffu, zmax);
-  if (lane == 0) {
-    int code = 0;
-    if (zmax > 0) {
-      int c = 0;
-      while (zmax > (1 << kFine[c]) - 1) ++c;
-      code = kFine[c];
+  const int wid = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int run = wid / nspan, s = wid - run * nspan;
+  const long long r0 = (long long)run * kFineRun;
+  if (r0 >= nrows) return;
+  const long long r1 = min(r0 + kFineRun, nrows);
+  const int x0 = s * kL + lane * 8;
+  const int seg = s * 4 + (lane >> 3);
+  // Lanes past the last segment only join the shuffles.
+  const bool live = seg < nsegw;
+  int gpos[3], up[3][8], ucl[3];
+  rows_above<10, 3>(src, r0, nrows, w, x0, false, false, lane, gpos, up,
+                    ucl);
+  RawRow<10> nx;
+  load_row<10>(src, r0, w, x0, false, nx);
+  for (long long r = r0; r < r1; ++r) {
+    int c[3][8], cl[3];
+    decode_row<10, 3>(nx, c, cl);
+    if (r + 1 < r1) load_row<10>(src, r + 1, w, x0, false, nx);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      int z[8], zmax = 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        z[e] = zigzag_bits((c[p][e] - (gpos[p] ? up[p][e] : 0)) & 1023, 10);
+        zmax = max(zmax, z[e]);
+        up[p][e] = c[p][e];
+      }
+      gpos[p] = (gpos[p] + 1) & (kG - 1);
+      const long long q = (p * nrows + r) * nsegw + seg;
+      if (live)
+        *(uint4*)(zs + q * kLF + (lane & 7) * 8) = make_uint4(
+            (uint32_t)z[0] | ((uint32_t)z[1] << 16),
+            (uint32_t)z[2] | ((uint32_t)z[3] << 16),
+            (uint32_t)z[4] | ((uint32_t)z[5] << 16),
+            (uint32_t)z[6] | ((uint32_t)z[7] << 16));
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        zmax = max(zmax, __shfl_xor_sync(0xffffffffu, zmax, o));
+      // The least of {1,2,3,4,5,6,8,10} bits that holds zmax, 0 for 0.
+      const int code = (zmax > 0) + (zmax > 1) + (zmax > 3) + (zmax > 7) +
+                       (zmax > 15) + (zmax > 31) + 2 * (zmax > 63) +
+                       2 * (zmax > 255);
+      if (live && (lane & 7) == 0) bc[q] = (uint8_t)code;
     }
-    bc[q] = (uint8_t)code;
   }
 }
 
@@ -1186,11 +1292,16 @@ int uhdr_p010_dense_unpack(const void* yhi, const void* ylo, const void* uhi,
 int uhdr_p010_seg_unpack(const void* blob, int rows, int w, int nsegw,
                          int yrows, int n2, int n5, int n10, void* y,
                          void* uv, void* stream) {
-  SegPlan p{rows, w, nsegw, yrows, n2, n5,
-            (long long)n2 * 16, (long long)n2 * 16 + (long long)n5 * 43,
-            (long long)n2 * 16 + (long long)n5 * 43 + (long long)n10 * 86};
-  dim3 grid(blocks(w, 256), rows / kG);
-  seg_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  const long long off5 = (long long)n2 * 16;
+  const long long off10 = off5 + (long long)n5 * 43;
+  const long long offperm = off10 + (long long)n10 * 86;
+  if (offperm + (long long)rows * nsegw >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;  // word offsets are 32-bit
+  if (rows == 0 || w == 0) return 0;
+  SegPlan p{rows, w, nsegw, yrows, n2, n5, (uint32_t)off5, (uint32_t)off10,
+            (uint32_t)offperm};
+  seg_kernel<<<blocks((long long)rows / kG * nsegw, kSegWarps),
+               kSegWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)blob, p, (uint16_t*)y, (uint16_t*)uv);
   return (int)cudaGetLastError();
 }
@@ -1287,10 +1398,13 @@ int uhdr_rice_emit(const void* zs, const void* kmap, const void* sidx_rem,
 // u16; bc: 3 * nh * nsegw u8.
 int uhdr_rct_widths(const void* src, long long nh, int w, int nsegw,
                     void* zs, void* bc, void* stream) {
-  const long long nseg = 3 * nh * nsegw;
-  PixSrc s{src, nh, w};
-  rct_widths_kernel<<<blocks(nseg, 8), 256, 0, (cudaStream_t)stream>>>(
-      s, nsegw, nseg, (uint16_t*)zs, (uint8_t*)bc);
+  const int nspan = (nsegw + 3) / 4;
+  const long long warps = (nh + kFineRun - 1) / kFineRun * nspan;
+  if (warps == 0) return 0;
+  if (warps >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  rct_widths_kernel<<<blocks(warps, 8), 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)src, w, nsegw, nspan, nh, (uint16_t*)zs,
+      (uint8_t*)bc);
   return (int)cudaGetLastError();
 }
 

@@ -85,10 +85,19 @@ def test_pack_plane_host_blob_equals_jax(form, shape, noise):
 
 
 @pytest.mark.parametrize("shape,noise", [((2, 128, 512), False),
-                                         ((2, 128, 288), True)])
+                                         ((2, 128, 288), True),
+                                         ((1, 64, 250), False),
+                                         ((2, 128, 512), "zero")])
 def test_plain_b14_equals_jax_and_the_input(shape, noise):
+    """B14's plain version = JAX's unpack = the input: band-limited and
+    noise content, one partial segment of a width that is no multiple of
+    8, and an all-zero plane (every perm entry 0)."""
     n, h, w = shape
-    y, uv = p010_content(n, h, w, seed=3, noise=noise)
+    if noise == "zero":
+        y = np.zeros((n, h, w), np.uint16)
+        uv = np.zeros((n, h // 2, w), np.uint16)
+    else:
+        y, uv = p010_content(n, h, w, seed=3, noise=noise)
     big = np.concatenate([(y >> 6).reshape(n * h, w),
                           (uv >> 6).reshape(n * h // 2, w)])
     pk = packio.pack_plane_host(big)
