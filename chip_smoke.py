@@ -114,6 +114,7 @@ reports them, a JSON line {"kernels": [...]}, and as the last line
 
 from __future__ import annotations
 
+import ctypes.util
 import gzip
 import json
 import math
@@ -167,6 +168,9 @@ PARENT_MS.update({"B17b": 0.4284, "B18": 0.0650})
 # run logs its events time beside them, while the kernels line's `ms` of
 # these two is by CUDA graph).
 PARENT_MS.update({"B14": 0.0392, "B17a": 0.1869})
+# ... and of B21a (ms per frame of the batch of 4, CUDA events, the parent
+# tree's last run of this script, same card and limit).
+PARENT_MS.update({"B21a": 0.1489})
 
 # Operations per sample, counted from the kernels' sources (the branch a
 # sample usually takes): float32 operations (a fused multiply-add 2;
@@ -553,15 +557,18 @@ def kernel_phases(dev, results: dict):
     gmap, yb, ub, vb = got
 
     # B2: int16 bitwise equal (both compute JAX's kron form, the dots'
-    # pairwise float32 tree over exact row sums).
+    # pairwise float32 tree over exact row sums), by the quotient and by
+    # the reciprocal (the main path's form); timed by the reciprocal.
     qs = [torch.from_numpy(q.reshape(64)).to(dev)
           for q in batched.quant_tables(95)]
     planes = ((yb, qs[0]), (ub, qs[1]), (vb, qs[1]), (gmap, qs[2]))
     coefs, worst, n_off, n_all = [], 0, 0, 0
     for p, q in planes:
-        c = dct.fdct_quant(p, q)
-        w_, o_ = int_diff(c, dct.fdct_quant_plain(p, q))
-        worst, n_off, n_all = max(worst, w_), n_off + o_, n_all + c.numel()
+        for recip in (False, True):
+            c = dct.fdct_quant(p, q, recip)
+            w_, o_ = int_diff(c, dct.fdct_quant_plain(p, q, recip))
+            worst, n_off = max(worst, w_), n_off + o_
+            n_all += c.numel()
         coefs.append(c)
     log(f"B2 fdct_quant: max |diff| {worst} on {n_off} of {n_all} "
         f"coefficients")
@@ -577,9 +584,9 @@ def kernel_phases(dev, results: dict):
     # multiply-adds a block); the CUDA cores the float32 epilogue, 24
     # operations a coefficient (21 tree adds, 2 term adds, the divide).
     results["B2"] = dict(
-        err=worst, **_timed("B2", lambda: [dct.fdct_quant(p, q)
+        err=worst, **_timed("B2", lambda: [dct.fdct_quant(p, q, True)
                                            for p, q in planes]),
-        plain_ms=cuda_ms(lambda: [dct.fdct_quant_plain(p, q)
+        plain_ms=cuda_ms(lambda: [dct.fdct_quant_plain(p, q, True)
                                   for p, q in planes], 3) / FRAMES,
         bytes=nbytes(yb, ub, vb, gmap, *coefs) / FRAMES,
         tc_flops=24576.0 * n_blocks, flops=24.0 * 64 * n_blocks,
@@ -765,16 +772,32 @@ def _kind_plane(kind: str, seed: int):
     return np.clip(np.round(p), 0, 255).astype(np.uint8)
 
 
+#: tests/test_torch_dct.py's TIE_BLOCK: zigzag 39 is exactly -45.5, so
+#: -6.5 against luma q95's 7.
+B2_TIE_BLOCK = np.array(
+    [[204, 184, 152, 203, 155, 20, 163, 189],
+     [182, 140, 60, 195, 64, 193, 61, 93],
+     [197, 43, 30, 100, 187, 32, 50, 31],
+     [206, 155, 173, 59, 85, 159, 198, 146],
+     [156, 174, 142, 138, 41, 24, 72, 64],
+     [201, 162, 197, 175, 74, 187, 190, 130],
+     [103, 55, 34, 190, 70, 45, 154, 84],
+     [173, 60, 174, 134, 150, 187, 150, 163]], np.uint8)
+
+
 def b2_premise_phase(dev):
     """B2's premise on the card: each row sum of its bf16 tensor-core
     mma (a k = 8 product with a zero accumulator) is the exact sum,
     bitwise, on two adversarial rows (dct.kron_adversarial_rows) of
     every (term, row, output column) triple, the block's other rows
     drawn from the seed, and on a plane of sharp-edged blocks; then B2
-    = plain bitwise on those blocks, on the 1,179,648 blocks of
-    tests/test_torch_dct.py::test_fdct_quant_bitwise_as_jax (regenerated
-    from its seeds) and on the dense HLG V plane of
-    test_fdct_dense_v_plane_near_tie_as_jax (coefficient 1342 is 156)."""
+    = plain bitwise, in both quantisation forms (the quotient, and the
+    reciprocal the encode path takes), on those blocks, on the 1,179,648
+    blocks of tests/test_torch_dct.py::test_fdct_quant_bitwise_as_jax
+    (regenerated from its seeds), on the dense HLG V plane of
+    test_fdct_dense_v_plane_near_tie_as_jax (coefficient 1342 is 156)
+    and on B2_TIE_BLOCK (zigzag 39 is -6 by the quotient, -7 by the
+    reciprocal)."""
     import torch
 
     from libultrahdr_dev_tpu_torch.jpeg import dct, tables
@@ -828,9 +851,10 @@ def b2_premise_phase(dev):
     for p in planes:
         pt = torch.from_numpy(np.ascontiguousarray(p)).to(dev)
         for q in qts:
-            c = dct.fdct_quant(pt, q)
-            n_off += int((c != dct.fdct_quant_plain(pt, q)).sum())
-            n_blocks += c.shape[1]
+            for recip in (False, True):
+                c = dct.fdct_quant(pt, q, recip)
+                n_off += int((c != dct.fdct_quant_plain(pt, q, recip)).sum())
+                n_blocks += c.shape[1]
     # The dense HLG noise frame at quality 100: V block 20's zigzag 62
     # is a near-tie (155.4999963) that JAX rounds to 156.
     rng = np.random.default_rng(3)
@@ -842,12 +866,20 @@ def b2_premise_phase(dev):
     qc = torch.from_numpy(batched.quant_tables(100)[1].reshape(64)).to(dev)
     c = dct.fdct_quant(v, qc)
     n_off += int((c != dct.fdct_quant_plain(v, qc)).sum())
-    n_blocks += c.shape[1]
+    cr = dct.fdct_quant(v, qc, True)
+    n_off += int((cr != dct.fdct_quant_plain(v, qc, True)).sum())
+    n_blocks += 2 * c.shape[1]
+    tie = torch.from_numpy(B2_TIE_BLOCK[None]).to(dev)
+    ql = torch.from_numpy(batched.quant_tables(95)[0].reshape(64)).to(dev)
+    ties = [int(dct.fdct_quant(tie, ql, r)[0, 0, 39]) for r in (False, True)]
     log(f"B2 premise: kernel = plain on {n_blocks} blocks ({n_off} "
         f"coefficients off), the dense V plane's coefficient 1342 "
-        f"{int(c.reshape(-1)[1342])}")
+        f"{int(c.reshape(-1)[1342])} (reciprocal form "
+        f"{int(cr.reshape(-1)[1342])}), the tie block's zigzag 39 {ties[0]} "
+        f"by the quotient and {ties[1]} by the reciprocal")
     require(n_off == 0, "B2 differs from the plain version")
     require(int(c.reshape(-1)[1342]) == 156, "B2 misses the V near-tie")
+    require(ties == [-6, -7], "B2 misses the exact tie of either form")
 
 
 def _f32_bits(x: float) -> int:
@@ -3336,6 +3368,67 @@ def b17_edges(dev, seed: int):
     require(carried, "no B17 edge input put wider segments in padding rows")
 
 
+#: (label, h, w, kind) of the B21a edge planes, at card size: rows that
+#: are not 16-byte aligned with a partial last segment (w 1001), less
+#: than one segment (w 200), a partial last group (h 37, h 12291), an
+#: all-zero plane (every width code 0) and full-range 10-bit noise (every
+#: width code 10).
+B21_EDGES = (("w 1001", 12288, 1001, "smooth"),
+             ("w 200", 12288, 200, "smooth"),
+             ("h 37", 37, 4080, "smooth"),
+             ("h 12291", 12291, 4080, "smooth"),
+             ("all zero", 12288, 4080, "zero"),
+             ("noise", 12288, 4080, "noise"))
+
+
+def b21_edge_plane(h: int, w: int, kind: str, seed: int) -> np.ndarray:
+    """An (h, w) int16 plane of 10-bit codes: 16-row bands with small
+    noise, all zero, or full-range noise."""
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        return np.zeros((h, w), np.int16)
+    if kind == "noise":
+        return rng.integers(0, 1024, (h, w)).astype(np.int16)
+    base = np.kron(rng.integers(0, 1024, (h // 16 + 1, w // 64 + 1)),
+                   np.ones((16, 64), np.int64))[:h, :w]
+    # Noise below 1, 2 or 6 by 256-column segment: rows of width codes
+    # 0, 2 and 5 beside the 10-bit rows where a band or a group starts.
+    amp = np.array([1, 2, 6])[np.arange(w) // 256 % 3]
+    noise = (rng.random((h, w)) * amp).astype(np.int64)
+    return ((base + noise) % 1024).astype(np.int16)
+
+
+def b21_check(plane, label: str):
+    """B21a on the (h, w) int16 plane, through plane_widths, bitwise
+    against the plain version. -> (zs, bc)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    zp, bp = packio.plane_widths_plain(plane)
+    zs, bc = packio.plane_widths(plane)
+    require(torch.equal(zs, zp) and torch.equal(bc, bp),
+            f"B21a {label} differs from the plain version")
+    return zs, bc
+
+
+def b21_edges(dev, seed: int):
+    """b21_check on B21_EDGES; the all-zero plane must give width code 0
+    everywhere, the noise code 10."""
+    import torch
+
+    for i, (label, h, w, kind) in enumerate(B21_EDGES):
+        plane = torch.from_numpy(b21_edge_plane(h, w, kind, seed + i)).to(dev)
+        bc = b21_check(plane, label)[1]
+        codes = sorted(torch.unique(bc).tolist())
+        if kind == "zero":
+            require(codes == [0], f"B21a all zero: codes {codes}")
+        if kind == "noise":
+            require(codes == [10], f"B21a noise: codes {codes}")
+        log(f"B21a edge {label} ({h}x{w}, {bc.numel()} segments, width "
+            f"codes {codes}): kernel = plain")
+
+
 #: (label, n, h, w, kind) of the B14 edge inputs, each packed by the
 #: host's segment pack directly (seg mode whatever the content): every
 #: segment all zero (every perm entry 0), full-range noise (every segment
@@ -3758,12 +3851,11 @@ def readback_phase(dev, results: dict, kept: dict):
     log_breakdown(f"B17 pack (batch of {n})", b17b, 10,
                   results["B17b"]["ms"] * n)
 
-    # B21 on the 10-bit planar pixels, one (3 * n * H, W) plane.
+    # B21 on the 10-bit planar pixels, one (3 * n * H, W) plane, then
+    # B21a's edges.
     plane = pix["hdr_linear_rgb_10bit"].reshape(-1, W)
-    zs, bc = packio.plane_widths(plane)
-    zp, bp = packio.plane_widths_plain(plane)
-    require(torch.equal(zs, zp) and torch.equal(bc, bp),
-            "B21 widths differ from the plain version")
+    zs, bc = b21_check(plane, f"{W}x{H}")
+    b21_edges(dev, SEED + 213)
     _, gidx = packio._plane_plan(bc.cpu().numpy().reshape(-1))
     sizes = tuple(g.size for g in gidx)
     gd = torch.from_numpy(np.concatenate(gidx)).to(dev)
@@ -3777,12 +3869,15 @@ def readback_phase(dev, results: dict, kept: dict):
     log(f"B21 plane_widths + plane_pack: kernels = plain, unpack = device "
         f"plane; blob {blob.numel() * 4 / 1e6:.2f} MB for "
         f"{nbytes(plane) / 1e6:.1f} MB raw (buckets {sizes})")
+    b21a = lambda: packio.plane_widths(plane)  # noqa: E731
     results["B21a"] = dict(
-        err=0, library_ms=None,
-        ms=per_frame(cuda_ms(lambda: packio.plane_widths(plane), 20)),
+        err=0, library_ms=None, ms=per_frame(cuda_ms(b21a, 20)),
         plain_ms=per_frame(cuda_ms(lambda: packio.plane_widths_plain(plane),
                                    2)),
         bytes=nbytes(plane, zs, bc) / n)
+    log(f"B21a: {results['B21a']['ms']:.4f} ms/frame by events (parent: "
+        f"{PARENT_MS['B21a']:.4f} by events), "
+        f"{per_frame(graph_ms(b21a, 20)):.4f} by graph")
     results["B21b"] = dict(
         err=0, library_ms=None,
         ms=per_frame(cuda_ms(lambda: packio.plane_pack(zs, gd, sizes), 20)),
@@ -3939,6 +4034,267 @@ def main_path_readback(dev, smi: str, kept: dict):
     return c
 
 
+def main_path_capi(dev, smi: str):
+    """The C-style API (capi.py) and the batched apply in one window, every
+    launch counter zeroed just before and read just after: one 4080x3072
+    frame through uhdr_create_encoder / uhdr_encode and back through
+    uhdr_create_decoder / uhdr_decode to F16, then batched_apply_gainmap
+    (B6) over a decoded batch of FRAMES to HLG. Each is held bitwise
+    against the direct calls: UhdrEncoder / UhdrDecoder, and
+    ops.gainmap.apply_gainmap with the batch's scalars."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer,
+                                           PixelFormat, RawImage, UhdrDecoder,
+                                           UhdrEncoder, capi)
+    from libultrahdr_dev_tpu_torch.api import HDR_IMG
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    y_np, uv_np = synth_p010(FRAMES, H, W, SEED + 40)
+    raw = RawImage(fmt=PixelFormat.P010, width=W, height=H,
+                   gamut=ColorGamut.BT2100, transfer=ColorTransfer.HLG,
+                   planes={"y": y_np[0], "uv": uv_np[0]})
+    planes, sc = _decoded_planes(dev, y_np, uv_np)
+    ok = "UHDR_CODEC_OK"
+
+    reset_counts()
+    t0 = time.perf_counter()
+    enc = capi.uhdr_create_encoder(dev)
+    st = [capi.uhdr_enc_set_raw_image(enc, raw, HDR_IMG),
+          capi.uhdr_encode(enc)]
+    stream = capi.uhdr_get_encoded_stream(enc)
+    dec = capi.uhdr_create_decoder(dev)
+    st += [capi.uhdr_dec_set_image(dec, stream.data), capi.uhdr_decode(dec)]
+    img = capi.uhdr_get_decoded_image(dec)
+    out = batched.batched_apply_gainmap(
+        *planes, batched.api0_metadata("hlg"), "hdr_hlg", 1000 / 203,
+        device=dev)
+    c = read_counts(f"C-style API window ({time.perf_counter() - t0:.2f} "
+                    f"s)", ("B1", "B2", "B3", "B4", "B5", "B6"))
+    require(all(x["error_code"] == ok for x in st),
+            f"C-style calls failed: {st}")
+    require(capi.is_uhdr_image(stream.data) == 1, "capi: not a JPEG/R")
+    direct = UhdrEncoder(dev)
+    direct.set_raw_image(raw, HDR_IMG)
+    want = direct.encode().data
+    require(stream.data == want, "capi stream != UhdrEncoder's")
+    ddec = UhdrDecoder(dev)
+    ddec.set_image(want)
+    require(np.array_equal(img.planes["rgba"],
+                           ddec.decode().planes["rgba"]),
+            "capi decode != UhdrDecoder's")
+    ref = gm.apply_gainmap(*planes, torch.from_numpy(sc).to(dev), "hdr_hlg")
+    require(out.device.type == "cuda" and torch.equal(out, ref),
+            "batched_apply_gainmap != apply_gainmap")
+    log(f"C-style API window: {len(want)} bytes = UhdrEncoder's, decode = "
+        f"UhdrDecoder's; batched_apply_gainmap over {FRAMES} frames = "
+        f"apply_gainmap ({W}x{H}, {smi})")
+    return c
+
+
+#: The 8K frame of the HEIF window's grid case (JAX test_heifr.py).
+HEIF_GRID = (8192, 4320)
+
+
+def _plain_shims():
+    """(module, name) of the plain versions the HEIF window's wrappers
+    would call on a CPU tensor."""
+    from libultrahdr_dev_tpu_torch.ops import editor, gainmap as gm
+
+    return [(gm, "tonemap_p010_plain"), (gm, "generate_gainmap_plain"),
+            (gm, "apply_gainmap_plain"), (gm, "yuv420_to_rgba8888_plain"),
+            (editor, "_plain_planes")]
+
+
+def counting(targets):
+    """Replace each (module, name) by a shim counting its calls in the
+    returned dict; -> (calls, restore)."""
+    calls, saved = {}, []
+    for mod, name in targets:
+        real = getattr(mod, name)
+
+        def shim(*a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, shim)
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+    return calls, restore
+
+
+def main_path_heif(dev, smi: str):
+    """The converter's HEIC / AVIF arms (heifr.py, ultrahdr.py) in one
+    window, every launch counter zeroed just before and read just after,
+    the plain versions of their kernels counted: a 4080x3072 API-0 frame
+    to HEIC_R and AVIF_R (B10a, B10b), each decoded to HLG, SDR and F16
+    (B6, B7); a 4000x3000 JPEG/R (decoded by B12: B4 + B5) converted to
+    AVIF_R through the converter's chain (B13) and to 10-bit HEIC (B6 at
+    HLG); and the 8192x4320 grid case to HEIC_R, decoded to SDR. With
+    libheif the frames go through HeifR.encode_api0 and HeifR.decode,
+    whose device stages and libheif's stages HeifR records apart
+    (heifr.STAGES). Where libheif is absent, those entry points raise, so
+    the coded-image layer is skipped (logged): HeifR's device stages run
+    on the un-coded planes, timed synchronized under the same names, and
+    the converter's calls must raise UNSUPPORTED_FEATURE after their
+    device work. -> (launches, stage ms)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer, JpegR,
+                                           OutputFormat, PixelFormat,
+                                           RawImage, UhdrError, UltraHdr,
+                                           UltraHdrConfig)
+    from libultrahdr_dev_tpu_torch.container import isobmff as iso
+    from libultrahdr_dev_tpu_torch.heifr import STAGES, HeifR, heif_available
+    from libultrahdr_dev_tpu_torch.ultrahdr import sniff_format
+    from libultrahdr_dev_tpu_torch.utils.profiler import StageTimes
+
+    have = heif_available()
+    if not have:
+        log("HEIF window: libheif absent, its coded-image layer skipped: "
+            "HeifR's entry points raise without it, so its device stages "
+            "(_api0_planes, _reconstruct) run on un-coded planes, and the "
+            "converter's HEIF outputs must raise UNSUPPORTED_FEATURE")
+
+    def p010(n_w, n_h, y, uv):
+        return RawImage(fmt=PixelFormat.P010, width=n_w, height=n_h,
+                        gamut=ColorGamut.BT2100, transfer=ColorTransfer.HLG,
+                        planes={"y": y, "uv": uv})
+
+    y_np, uv_np = synth_p010(1, H, W, SEED + 90)
+    frame = p010(W, H, y_np[0], uv_np[0])
+    gy, guv = synth_p010(1, GH, GW, SEED + 91)
+    jr_blob = JpegR(dev).encode_api0(p010(GW, GH, gy[0], guv[0]),
+                                     ColorTransfer.HLG, 95, exif=EXIF)
+    kw, kh = HEIF_GRID
+    ramp = np.linspace(64, 940, kw, dtype=np.float32).astype(np.uint16)
+    grid = p010(kw, kh, np.broadcast_to(ramp, (kh, kw)).copy() << 6,
+                np.full((kh // 2, kw), 512 << 6, np.uint16))
+    stages: dict = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.setdefault(label, []).append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def spans(hr, what):
+        """The stages hr recorded (heifr.STAGES), each a call, then a
+        fresh StageTimes."""
+        for name, tot in hr.times.totals.items():
+            stages.setdefault(f"{what} {name}", []).append(tot * 1e3)
+        hr.times = StageTimes()
+
+    fmts = (OutputFormat.HDR_HLG, OutputFormat.SDR, OutputFormat.HDR_LINEAR)
+    reset_counts()
+    calls, restore = counting(_plain_shims())
+    t0 = time.perf_counter()
+    try:
+        decoded = {}
+        for codec in ("heic", "avif"):
+            hr = HeifR(codec, dev, times=StageTimes())
+            if have:
+                blob = hr.encode_api0(frame, ColorTransfer.HLG, 95)
+                spans(hr, f"{codec.upper()}_R encode_api0:")
+                require(sniff_format(blob) == codec, f"{codec}: bad brand")
+                for fmt in fmts:
+                    decoded[codec, fmt] = hr.decode(
+                        blob, fmt, 1000 / 203).image.planes["rgba"]
+                    spans(hr, f"{codec.upper()}_R decode {fmt.name}:")
+                continue
+            # No libheif: HeifR's device stages on un-coded planes.
+            y8, u8, v8, gmap, md = timed(
+                f"{codec.upper()}_R {STAGES[0]}",
+                lambda: hr._api0_planes(frame, ColorTransfer.HLG))
+            for fmt in fmts:
+                decoded[codec, fmt] = timed(
+                    f"{codec.upper()}_R decode {fmt.name}: {STAGES[3]}",
+                    lambda: hr._reconstruct(y8, u8, v8, gmap, md, fmt,
+                                            1000 / 203).planes["rgba"])
+        session = UltraHdr(dev).add_image(jr_blob)
+        outs = {}
+        for name, cfg in (
+                ("avif_r", UltraHdrConfig("avif_r",
+                                          effects=converter_chain())),
+                ("heic_10bit", UltraHdrConfig(
+                    "heic_10bit", transfer=ColorTransfer.HLG,
+                    max_display_boost=4.9))):
+            if have:
+                outs[name] = timed(f"converter {name} (device + libheif)",
+                                   lambda: session.convert(cfg))
+                continue
+            try:
+                session.convert(cfg)
+                require(False, f"converter {name} did not raise without "
+                        f"libheif")
+            except UhdrError as e:
+                require(e.code == "UHDR_CODEC_UNSUPPORTED_FEATURE",
+                        f"converter {name}: {e}")
+        hr = HeifR("heic", dev, times=StageTimes())
+        if have:
+            gblob = hr.encode_api0(grid, ColorTransfer.HLG, 30)
+            spans(hr, "8K HEIC_R encode_api0:")
+            res = hr.decode(gblob, OutputFormat.SDR, 1000 / 203)
+            spans(hr, "8K HEIC_R decode SDR:")
+            grid_sdr, gmap8 = res.image.planes["rgba"], res.gainmap
+        else:
+            gplanes = timed(f"8K HEIC_R {STAGES[0]}",
+                            lambda: hr._api0_planes(grid, ColorTransfer.HLG))
+            gmap8 = gplanes[3]
+            grid_sdr = timed(f"8K HEIC_R decode SDR: {STAGES[3]}",
+                             lambda: hr._reconstruct(
+                                 *gplanes, OutputFormat.SDR,
+                                 1000 / 203).planes["rgba"])
+    finally:
+        restore()
+    c = read_counts(f"HEIF window ({time.perf_counter() - t0:.2f} s, "
+                    f"libheif {'present' if have else 'absent'})",
+                    ("B10a", "B10b", "B6", "B7", "B13", "B4", "B5", "B12"))
+    log(f"HEIF window: plain-version calls {calls}")
+    require(not calls, f"plain versions ran in the HEIF window: {calls}")
+
+    for codec in ("heic", "avif"):
+        hlg = decoded[codec, OutputFormat.HDR_HLG]
+        sdr = decoded[codec, OutputFormat.SDR]
+        f16 = decoded[codec, OutputFormat.HDR_LINEAR].view(np.float16)
+        require(hlg.shape == (H, W) and bool(((hlg >> 30) == 3).all()),
+                f"{codec}: bad HLG decode")
+        require(sdr.shape == (H, W) and bool(((sdr >> 24) == 255).all()),
+                f"{codec}: bad SDR decode")
+        require(f16.shape == (H, W, 4) and bool(np.isfinite(f16).all()),
+                f"{codec}: bad F16 decode")
+        med, n = _median_log2(f16, y_np[0], uv_np[0], "bt2100", "hlg",
+                              "bt2100")
+        src = "coded" if have else "un-coded planes"
+        log(f"HEIF window {codec.upper()}_R: median |log2(decoded/input "
+            f"luminance)| {med:.4f} over {n} pixels ({src})")
+        require(med <= 0.1, f"{codec}: luminance round trip off")
+    if have:
+        cw, ch = CONV_SIZE
+        res = HeifR("avif", dev).decode(outs["avif_r"], OutputFormat.HDR_HLG)
+        require((res.width, res.height) == (cw, ch) and
+                res.gainmap.shape == (ch // 4, cw // 4),
+                "converter avif_r: bad geometry")
+        require(sniff_format(outs["heic_10bit"]) == "heic",
+                "converter heic_10bit: bad brand")
+        hp = iso.parse_heif(gblob)
+        require(any(it.item_type == "grid" for it in hp.items.values()),
+                "8K HEIC_R: no grid item")
+        require(gmap8.shape == (kh // 4, kw // 4), "8K: bad gain map")
+    require(grid_sdr.shape == (kh, kw), "8K: bad SDR decode")
+    log(f"HEIF window: API-0 {W}x{H} to HEIC_R and AVIF_R, decoded to HLG, "
+        f"SDR, F16; converter {GW}x{GH} JPEG/R to AVIF_R (chain) and 10-bit "
+        f"HEIC; {kw}x{kh} grid: all checks held ({smi})")
+    return c, stages
+
+
 def main_path_cli(dev, smi: str):
     """The command-line tool (python -m libultrahdr_dev_tpu_torch.cli) on
     one GW x GH P010 frame: encode (API-0 on the general route), then
@@ -4032,6 +4388,38 @@ def stage_times_readback(dev, smi: str, kept: dict):
             f"ms/frame, .cpu() {a / n:.3f} / {a2 / n:.3f} ms/frame, pinned "
             f"copy {pin / n:.3f} ms/frame, {nbytes(x) / n / 1e6:.1f} MB/frame "
             f"raw ({W}x{H}, batch {n}, {smi})")
+    planar_readback_parts(plane, n, smi)
+
+
+def planar_readback_parts(plane, n: int, smi: str, reps: int = 3):
+    """The 10-bit planar plane's readback, pack_plane_device then
+    unpack_plane_host, with a StageTimes each run: their parts
+    (packio.PLANE_PACK_STAGES), the median over `reps` warm runs, ms a
+    frame of the batch of n, one log line a part. The unpacked plane
+    must equal the device's."""
+    from libultrahdr_dev_tpu_torch.parallel import packio
+    from libultrahdr_dev_tpu_torch.utils.profiler import StageTimes
+
+    times = {k: [] for k in packio.PLANE_PACK_STAGES}
+    for rep in range(reps + 1):
+        st = StageTimes()
+        out = packio.unpack_plane_host(
+            packio.pack_plane_device(plane, times=st), times=st)
+        require(sorted(st.totals) == sorted(times),
+                f"planar readback recorded {sorted(st.totals)}")
+        if rep:
+            for k in times:
+                times[k].append(st.totals[k] * 1e3)
+    require(np.array_equal(out, plane.cpu().numpy().view(np.uint16)),
+            "planar readback by part != the device plane")
+    total = 0.0
+    for k in packio.PLANE_PACK_STAGES:
+        ms = float(np.median(times[k])) / n
+        total += ms
+        log(f"stage readback 10-bit planar plane part {k}: {ms:.3f} "
+            f"ms/frame (median of {reps}; {W}x{H}, batch {n}, {smi})")
+    log(f"stage readback 10-bit planar plane parts together: {total:.3f} "
+        f"ms/frame")
 
 
 def stage_times_serving(dev, smi: str, kept: dict):
@@ -4239,6 +4627,8 @@ def main() -> int:
     log(f"device: {name}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
+    log(f"find_library: heif {ctypes.util.find_library('heif')}, avif "
+        f"{ctypes.util.find_library('avif')}")
 
     t0 = time.perf_counter()
     build.build(verbose=True)
@@ -4309,9 +4699,17 @@ def main() -> int:
     t = time.perf_counter()
     launches7 = main_path_cli(dev, smi)
     log(f"phase main path CLI: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches9 = main_path_capi(dev, smi)
+    log(f"phase main path C-style API + batched apply: "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches10, heif_stages = main_path_heif(dev, smi)
+    log(f"phase main path HEIF: {time.perf_counter() - t:.1f} s")
     launches = {k: sum(c[k] for c in (launches, launches1, launches2,
                                       launches3, launches4, launches5,
-                                      launches6, launches7, launches8))
+                                      launches6, launches7, launches8,
+                                      launches9, launches10))
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
     launches["B19"] += launches.pop("B19g")
@@ -4320,6 +4718,9 @@ def main() -> int:
     stage_times_converter(dev, smi, conv)
     stage_times_serving(dev, smi, kept)
     stage_times_readback(dev, smi, kept)
+    for label, ms in heif_stages.items():
+        log(f"stage heif {label}: {float(np.median(ms)):.3f} ms (median of "
+            f"{len(ms)}; {smi})")
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

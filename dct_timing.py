@@ -7,14 +7,15 @@ restart-interval Huffman encode), B6 / B11 (the gain-map apply), B1 /
 B9 / B10b (the encode front ends) and B15 / B16 (Rice pass 1 and the
 Rice pack of the packed readbacks), B7 (the SDR output), B13 (the
 effect chain), B17b (the RCT fine-width pack), B18 (the planes
-composite), B14 (the segment-packed upload) and B17a (the RCT widths
-pass).
+composite), B14 (the segment-packed upload), B17a (the RCT widths
+pass) and B21a (the widths pass of a 10-bit plane).
 
     git archive <commit> | tar -x -C _verify/other
     python3 dct_timing.py _verify/other
     python3 dct_timing.py _verify/other --only B7,B13   # those two alone
     python3 dct_timing.py _verify/other --only B17b,B18 # with B15/B16's checks
     python3 dct_timing.py _verify/other --only B14,B17a
+    python3 dct_timing.py _verify/other --only B21a
 
 Both trees' kernels are built from their own sources (each into its own
 git-ignored _build directory) and called through their own wrappers on
@@ -76,6 +77,13 @@ bitwise equal to the plain versions; prints a fill_ of B14's output and
 a copy_ of B17a's residuals by CUDA graph (the card's rates for those
 bytes); then times B14 (bench, noise) and B17a in turns by CUDA events
 and by CUDA graph, with each tree's device ms by kernel.
+`--only B21a` checks B21a (the widths pass of a 10-bit plane) on the
+readback batch decoded to 10-bit planar and on chip_smoke.py's
+B21_EDGES planes, both trees (and this tree's kernel at each row run)
+bitwise equal to the plain version; prints a copy_ of B21a's residuals
+by CUDA graph; then times B21a in turns by CUDA events and by CUDA
+graph with each tree's device ms by kernel, and this tree's kernel at
+each row run in turns.
 Prints the card's name and power limit and, last,
 one JSON object of the times.
 """
@@ -194,15 +202,17 @@ def sdr_edit_timing(cs, trees: dict, dev, smi: str):
 
 def rice_inputs(cs, dev):
     """chip_smoke.py's readback inputs: the u8 planes of a decoded
-    4080x3072 batch of 4 and {bits: source} of the three readbacks (the
-    planes composite, HLG RGBA1010102 and F16 pixels)."""
+    4080x3072 batch of 4, {bits: source} of the three readbacks (the
+    planes composite, HLG RGBA1010102 and F16 pixels) and the batch's
+    10-bit planar codes as one (3 * 4 * 3072, 4080) plane."""
     from libultrahdr_dev_tpu_torch.ops import gainmap as gm
 
     y_np, uv_np = cs.synth_p010(cs.SERVE_FRAMES, cs.H, cs.W, cs.SEED + 200)
     planes, sc = cs._decoded_planes(dev, y_np, uv_np)
     pix = cs._decoded_pixels(dev, {"planes": planes, "scalars": sc})
     return planes, {8: gm.planes_composite(*planes), 10: pix["hdr_hlg"],
-                    16: pix["hdr_linear"]}
+                    16: pix["hdr_linear"]}, \
+        pix["hdr_linear_rgb_10bit"].reshape(-1, cs.W)
 
 
 def rice_checks(cs, trees: dict, dev, arms: dict) -> dict:
@@ -383,6 +393,44 @@ def upload_widths_timing(cs, trees: dict, dev, smi: str, arms: dict):
     return turns(cs, runs, n, smi)
 
 
+def plane_widths_timing(cs, trees: dict, dev, smi: str, plane):
+    """B21a (the widths pass of a 10-bit plane) of both trees on
+    chip_smoke.py's readback batch decoded to 10-bit planar (`plane`:
+    4080x3072, batch of 4, one (36864, 4080) plane) and on its B21_EDGES
+    planes: bitwise equal to the plain version, so to each other. Then, by CUDA
+    graph, a copy_ of B21a's residuals (the card's rate for about the
+    same bytes); then times in turns (other, this, this, other) by CUDA
+    events and by CUDA graph with each tree's device ms by kernel.
+    -> (times, by_kernel)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import packio
+
+    n = cs.SERVE_FRAMES
+    ins = [(f"{cs.W}x{cs.H}", plane)]
+    ins += [(label, torch.from_numpy(cs.b21_edge_plane(
+        h, w, kind, cs.SEED + 213 + i)).to(dev))
+        for i, (label, h, w, kind) in enumerate(cs.B21_EDGES)]
+    for label, x in ins:
+        zp, bp = packio.plane_widths_plain(x)
+        for name, m in trees.items():
+            zs, bc = m["packio"].plane_widths(x)
+            cs.require(torch.equal(zs, zp) and torch.equal(bc, bp),
+                       f"{name}: B21a {label} differs from the plain "
+                       f"version")
+    print(f"B21a of both trees bitwise equal to the plain version at {cs.W}x{cs.H} (batch of "
+          f"{n}, {plane.shape[0]}x{plane.shape[1]}) and on "
+          f"{len(ins) - 1} edge planes", flush=True)
+    zs = packio.plane_widths(plane)[0]
+    zs2 = torch.empty_like(zs)
+    print(f"copy_ of B21a's {zs.numel() * 2 / 1e6:.1f} MB residuals "
+          f"{cs.graph_ms(lambda: zs2.copy_(zs), 20) / n:.4f} ms/frame by "
+          f"graph ({smi})", flush=True)
+    runs = {name: {"B21a": lambda m=m: m["packio"].plane_widths(plane)}
+            for name, m in trees.items()}
+    return turns(cs, runs, n, smi)
+
+
 def rice_timing(cs, trees: dict, dev, smi: str, arms: dict, packs: dict):
     """B15 and B16 of both trees on chip_smoke.py's readback inputs
     (`arms`, checked by rice_checks, whose `packs` B16 takes): times in
@@ -444,7 +492,7 @@ def main(argv) -> int:
         else None
     if len(argv) != (4 if only else 2) or not torch.cuda.is_available() \
             or not set(only or ()) <= {"B7", "B13", "B14", "B17a", "B17b",
-                                       "B18"}:
+                                       "B18", "B21a"}:
         print(__doc__, file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -466,13 +514,15 @@ def main(argv) -> int:
         parts = []
         if {"B7", "B13"} & set(only):
             parts.append((sdr_edit_timing(cs, trees, dev, smi), {}))
-        if {"B14", "B17a", "B17b", "B18"} & set(only):
-            planes, arms = rice_inputs(cs, dev)
+        if {"B14", "B17a", "B17b", "B18", "B21a"} & set(only):
+            planes, arms, plane10 = rice_inputs(cs, dev)
         if {"B17b", "B18"} & set(only):
             rice_checks(cs, trees, dev, arms)
             parts.append(pack_timing(cs, trees, dev, smi, planes, arms))
         if {"B14", "B17a"} & set(only):
             parts.append(upload_widths_timing(cs, trees, dev, smi, arms))
+        if "B21a" in only:
+            parts.append(plane_widths_timing(cs, trees, dev, smi, plane10))
         for ts, by in parts:
             for name, runs in ts.items():
                 old = times.setdefault(name, [{} for _ in runs])
@@ -690,7 +740,7 @@ def main(argv) -> int:
             print(f"{name} {what}: device ms/frame by kernel "
                   f"{ {k: round(v, 4) for k, v in by.items()} } ({smi})",
                   flush=True)
-    planes, arms = rice_inputs(cs, dev)
+    planes, arms, _ = rice_inputs(cs, dev)
     packs = rice_checks(cs, trees, dev, arms)
     for ts, by in (rice_timing(cs, trees, dev, smi, arms, packs),
                    pack_timing(cs, trees, dev, smi, planes, arms)):

@@ -9,8 +9,9 @@ frame size; a JPEG/R decodes to HDR pixels (F16 linear, HLG or PQ
 RGBA1010102, computed or through the transfer tables) or to SDR
 RGBA8888 or to 10-bit planar linear RGB, with its gain-map plane; plain
 JPEGs encode and decode (jpeg.codec.encode_jpeg / decode_jpeg); the
-UltraHdr converter session edits a JPEG/R, JPEG or raw planes (crop,
-mirror, rotate, resize) into a JPEG/R, a JPEG or raw pixels. Hand-written CUDA kernels (kernels/csrc) run its device
+UltraHdr converter session edits a JPEG/R, JPEG, HEIC or AVIF or raw
+planes (crop, mirror, rotate, resize) into a JPEG/R, a JPEG, a gain-map
+HEIC/AVIF (HeifR), an 8-bit or 10-bit HEIC/AVIF or raw pixels. Hand-written CUDA kernels (kernels/csrc) run its device
 work on an NVIDIA H100; on a CPU device each runs its plain PyTorch
 version:
 
@@ -51,14 +52,20 @@ CUDA device unless the caller passes device="cpu". Public surface:
     add_raw, add_gainmap, convert to "jpeg" / "jpeg_r", convert_to_raw),
     with the effects of ops.editor (CropEffect, MirrorEffect,
     RotateEffect, ResizeEffect)
+  - capi — the C-style uhdr_* calls and is_uhdr_image over api.py
+  - heifr.HeifR — gain-map HEIC/AVIF (its own tmap container, coded
+    images through the system libheif), encode API-0/1/x, SDR, decode
   - jpeg.codec — encode_jpeg, decode_jpeg
   - parallel.batched — batched_encode_api0 / batched_encode_api1 /
     batched_encode_device_stage / batched_decode /
-    batched_decode_from_handoff over a leading batch dimension on one
-    device
+    batched_decode_from_handoff / batched_apply_gainmap over a leading
+    batch dimension on one device
+  - utils.profiler — Profiler, StageTimes, device_trace (torch.profiler,
+    a Chrome trace) and annotate
 """
 
 from .api import UhdrDecoder, UhdrEncoder, is_uhdr_image  # noqa: F401
+from .heifr import HeifR  # noqa: F401
 from .jpegr import JpegR  # noqa: F401
 from .ops.editor import (CropEffect, MirrorEffect, ResizeEffect,  # noqa: F401
                          RotateEffect)

@@ -11,7 +11,12 @@ in ``.launches``.
 B2 computes JAX's kron form bit for bit: the three bf16 terms of
 kron(D, D) (columns in zigzag order, ``KRON_ZIG``) times the bf16
 samples, each dot the pairwise float32 tree over the block's 8 exact
-row sums, then (d0 + d1) + d2, / q, rounded half to even. On the card
+row sums, then (d0 + d1) + d2, / q, rounded half to even. JAX's encode
+programs (parallel/sharding.py:_gainmap_and_coefs) hold their quant
+tables as constants, and XLA divides by a constant as a product with
+its float32 reciprocal; ``recip=True`` takes that form, which differs
+from the quotient on exact ties (-45.5 / 7 rounds to -6, -45.5 *
+RN(1/7) to -7). On the card
 each row sum is one bf16 ``mma.sync`` on the tensor cores with a zero
 accumulator (``kron_mma_fragments`` lays the terms out as its B
 operands); it is exact because no row sum of any input spans 24 bits
@@ -147,8 +152,8 @@ def _tree8(r: torch.Tensor) -> torch.Tensor:
     return ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
 
 
-def fdct_quant_plain(plane_u8: torch.Tensor,
-                     q_natural: torch.Tensor) -> torch.Tensor:
+def fdct_quant_plain(plane_u8: torch.Tensor, q_natural: torch.Tensor,
+                     recip: bool = False) -> torch.Tensor:
     """(n, h, w) uint8 planes -> (n, bh*bw, 64) int16 quantized
     coefficients in zigzag order. The plane is edge-padded to multiples
     of 8; q_natural is the (64,) int32 quant table in natural order.
@@ -158,7 +163,8 @@ def fdct_quant_plain(plane_u8: torch.Tensor,
     block (8 products) sums exactly in float32 in any order (an 8-bit
     sample times a bf16 term has 16 significant bits, and a row's sum
     stays within 24), so the row sums are exact and only the tree over
-    the 8 rows rounds; then (d0 + d1) + d2, / q, rounded half to even."""
+    the 8 rows rounds; then (d0 + d1) + d2, / q (with recip, times the
+    float32 1 / q), rounded half to even."""
     n, h, w = plane_u8.shape
     bh, bw = blocks_dims(h, w)
     dev = plane_u8.device
@@ -174,15 +180,17 @@ def fdct_quant_plain(plane_u8: torch.Tensor,
     c = ((d[0] + d[1]) + d[2]).reshape(n, bh * bw, 64)
     q = q_natural.to(device=dev, dtype=torch.float32).reshape(64)
     q_zig = q[torch.from_numpy(ZIG).to(dev)]
+    if recip:
+        return torch.round(c * (1.0 / q_zig)).to(torch.int16)
     return torch.round(c / q_zig).to(torch.int16)
 
 
-def fdct_quant(plane_u8: torch.Tensor,
-               q_natural: torch.Tensor) -> torch.Tensor:
+def fdct_quant(plane_u8: torch.Tensor, q_natural: torch.Tensor,
+               recip: bool = False) -> torch.Tensor:
     """B2 wrapper: the plain version on the CPU, the CUDA kernel on a
     CUDA tensor. Same signature and result as fdct_quant_plain."""
     if not plane_u8.is_cuda:
-        return fdct_quant_plain(plane_u8, q_natural)
+        return fdct_quant_plain(plane_u8, q_natural, recip)
     n, h, w = plane_u8.shape
     build.require(plane_u8, "plane", torch.uint8)
     build.require(q_natural, "q_natural", torch.int32, (64,))
@@ -194,7 +202,8 @@ def fdct_quant(plane_u8: torch.Tensor,
     fdct_quant.launches += 1
     build.check(lib.uhdr_fdct_quant(
         plane_u8.data_ptr(), q_natural.data_ptr(), frags.data_ptr(),
-        out.data_ptr(), n, h, w, *_tables(), build.stream_of(plane_u8)),
+        out.data_ptr(), n, h, w, int(recip), *_tables(),
+        build.stream_of(plane_u8)),
         "uhdr_fdct_quant")
     return out
 

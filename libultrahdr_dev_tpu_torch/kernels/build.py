@@ -60,8 +60,8 @@ SIGNATURES = {
     "uhdr_generate_gainmap": [_P] * 6 + [_I] * 3 + [_P] * 5,
     # y, u, v, y out, u out, v out, n, h, w, matrix (host), stream
     "uhdr_convert_yuv": [_P] * 6 + [_I] * 3 + [_P] * 2,
-    # plane, q, kron B fragments, out, n, h, w, d, inv_zig, stream
-    "uhdr_fdct_quant": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # plane, q, kron B fragments, out, n, h, w, recip, d, inv_zig, stream
+    "uhdr_fdct_quant": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # tiles, kron B fragments, out, n_tiles, stream
     "uhdr_mma_row_sums": [_P, _P, _P, _I, _P],
     # coefs, q, out, n, bh, bw, d, inv_zig, stream

@@ -45,7 +45,12 @@
 // taken from c * (1 / q) wherever that cannot round differently from
 // the IEEE quotient, and from the IEEE division itself near a tie
 // (quantize). The result equals the JAX value and the plain version
-// bit for bit.
+// bit for bit. JAX's encode programs (parallel/sharding.py:
+// _gainmap_and_coefs) quantise by tables that are constants of the
+// program, and XLA rewrites c / q there as c * RN(1 / q); with `recip`
+// the kernel takes that product alone, so it matches those programs on
+// exact ties as well (a coefficient of -45.5 against q = 7 gives -7
+// there and -6 by the IEEE quotient).
 //
 // B5 design: a thread per 8x8 block, a warp per 32 horizontally
 // adjacent blocks (4 KB of contiguous coefficients, read with 16-byte
@@ -141,10 +146,12 @@ __device__ __forceinline__ void load_rows(uint32_t (&v)[8],
 // a word. y = c * RN(1 / q) is within |c / q| * 1.5 * 2^-23 (< |y| *
 // 2^-22.4) of the IEEE quotient, so the two round to the same integer
 // unless y lies within |y| * 2^-20 of a half-integer; then (rarely) the
-// division itself decides. One branch for the four.
+// division itself decides. One branch for the four. With recip, y
+// itself is rounded: round(c * RN(1 / q)), XLA's form for a constant q.
 __device__ __forceinline__ void quantize(uint32_t& v0, uint32_t& v1,
                                          const float (&c)[4], float q0,
-                                         float q1, float rq0, float rq1) {
+                                         float q1, float rq0, float rq1,
+                                         bool recip) {
   float y[4] = {c[0] * rq0, c[1] * rq1, c[2] * rq0, c[3] * rq1};
   uint32_t u[4];
   bool near = false;
@@ -155,7 +162,7 @@ __device__ __forceinline__ void quantize(uint32_t& v0, uint32_t& v1,
     near |= !(gap > fabsf(y[i]) * 0x1p-20f);
     u[i] = __float_as_uint(t);
   }
-  if (near) {
+  if (near && !recip) {
     u[0] = (uint32_t)__float2int_rn(c[0] / q0);
     u[1] = (uint32_t)__float2int_rn(c[1] / q1);
     u[2] = (uint32_t)__float2int_rn(c[2] / q0);
@@ -195,7 +202,7 @@ fdct_quant_kernel(const uint8_t* __restrict__ plane,
                   const int32_t* __restrict__ q,
                   const uint4* __restrict__ frags,
                   int16_t* __restrict__ out, int n, int h, int w, int bh,
-                  int bw, Tables tab) {
+                  int bw, int recip, Tables tab) {
   __shared__ uint4 bf[kFragVecs];
   __shared__ float qz[64], rqz[64];
   // Per warp: the tile's 8 x 128 samples, then (over them) its int16
@@ -263,7 +270,7 @@ fdct_quant_kernel(const uint8_t* __restrict__ plane,
       }
       int o = j * 8 + 2 * tq;
       uint32_t v0, v1;
-      quantize(v0, v1, c, qz[o], qz[o + 1], rqz[o], rqz[o + 1]);
+      quantize(v0, v1, c, qz[o], qz[o + 1], rqz[o], rqz[o + 1], recip);
       *reinterpret_cast<uint32_t*>(st + g * kOutStride + o) = v0;
       *reinterpret_cast<uint32_t*>(st + (g + 8) * kOutStride + o) = v1;
     }
@@ -464,8 +471,8 @@ extern "C" {
 // (n, bh*bw, 64) int16 zigzag, bh = ceil(h/8), bw = ceil(w/8); d,
 // inv_zig: host tables.
 int uhdr_fdct_quant(const void* plane, const void* q, const void* frags,
-                    void* out, int n, int h, int w, const float* d,
-                    const int* inv_zig, void* stream) {
+                    void* out, int n, int h, int w, int recip,
+                    const float* d, const int* inv_zig, void* stream) {
   int bh = (h + 7) / 8, bw = (w + 7) / 8;
   long long tiles = (long long)n * bh * ((bw + kFTile - 1) / kFTile);
   if (tiles == 0) return (int)cudaSuccess;
@@ -479,7 +486,7 @@ int uhdr_fdct_quant(const void* plane, const void* q, const void* frags,
   if (ctas > (long long)sms * kFCtasPerSm) ctas = (long long)sms * kFCtasPerSm;
   fdct_quant_kernel<<<(unsigned)ctas, kFThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)plane, (const int32_t*)q, (const uint4*)frags,
-      (int16_t*)out, n, h, w, bh, bw, make_tables(d, inv_zig));
+      (int16_t*)out, n, h, w, bh, bw, recip, make_tables(d, inv_zig));
   return (int)cudaGetLastError();
 }
 

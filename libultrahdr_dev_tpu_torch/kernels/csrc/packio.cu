@@ -83,10 +83,16 @@
 //   together, their 128-byte rows loaded together and staged in shared
 //   memory, and each lane building whole words (the slots summed, as JAX
 //   sums them) that the warp stores coalesced; no atomics.
-// - B21 is B17's first design on one 10-bit plane with 256-sample
-//   segments (a CTA a segment for the widths; a warp an output row and
-//   shared-memory atomics for the pack); the host's gather index replaces
-//   the order.
+// - B21's widths pass is B17a's walk on one u16 plane: a warp owns one
+//   256-column segment over one 32-row group, eight consecutive columns a
+//   lane (one 16-byte load a row where the row is aligned, clamped
+//   scalar loads otherwise), the row above in registers, and none loaded
+//   for the group's first row, whose row above counts as 0. (32-row
+//   runs beat 16-row runs on the H100; PERF.md keeps both times.) A lane's 8 residuals
+//   go out in one 16-byte store and the segment's maximum is one
+//   __reduce_max_sync; no shared memory, no barrier, no division a
+//   sample. B21's pack keeps its first design (a warp an output row and
+//   shared-memory atomics); the host's gather index replaces the order.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -1088,33 +1094,66 @@ fine_pack_kernel(const uint16_t* __restrict__ zs,
 
 // ---------------------------------------------------------------------------
 // B21: the device pack of a 10-bit (H, W) plane for readback, the inverse
-// of B14's layout. Widths (plane_widths_kernel): one CTA per 256-sample
-// segment, one thread per sample: the zigzag vertical delta mod 1024
-// (32-row groups) into zs, columns edge-padded, and the segment's width
-// code in {0, 2, 5, 10}. Pack (plane_pack_kernel): one warp per output
-// row of the three buckets; the host's gather index names the row's
-// segment (JAX uploads the same); sample j in word j % nw at shift
-// (j / nw) * width, the slots summed as JAX sums them.
+// of B14's layout. Widths (plane_widths_kernel): a warp per (32-row
+// group, 256-column segment), lane i owning columns 8i..8i+7 of the
+// segment: each row's zigzag vertical delta mod 1024 (the group's first
+// row against 0, so no warp loads a row above; columns at or past w
+// repeat column w - 1) into zs with one 16-byte store a lane, and the
+// segment's width code in {0, 2, 5, 10} from one __reduce_max_sync. Pack (plane_pack_kernel): one warp per output row of
+// the three buckets; the host's gather index names the row's segment
+// (JAX uploads the same); sample j in word j % nw at shift (j / nw) *
+// width, the slots summed as JAX sums them.
 // ---------------------------------------------------------------------------
 
+// Columns x0..x0+7 of a u16 row, clamped to w - 1: one 16-byte load where
+// the eight columns lie inside an aligned row, else one load a column.
+__device__ __forceinline__ void load_plane8(const uint16_t* __restrict__ p,
+                                            int w, int x0, int (&v)[8]) {
+  if (x0 + 8 <= w && ((size_t)(p + x0) & 15) == 0) {
+    const uint4 t = __ldg((const uint4*)(p + x0));
+    const uint32_t q[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = (q[e >> 1] >> (16 * (e & 1))) & 0xFFFF;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __ldg(p + min(x0 + e, w - 1));
+  }
+}
+
 __global__ void __launch_bounds__(256)
-plane_widths_kernel(const uint16_t* __restrict__ arr, int w, int nsegw,
-                    uint16_t* __restrict__ zs, uint8_t* __restrict__ bc) {
-  __shared__ int wmax[8];
-  const long long q = blockIdx.x;
-  const long long r = q / nsegw;
-  const int x = min((int)(q % nsegw) * kL + (int)threadIdx.x, w - 1);
-  const int cur = arr[r * w + x];
-  const int up = r % kG == 0 ? 0 : arr[(r - 1) * w + x];
-  const int z = zigzag_bits((cur - up) & 1023, 10);
-  zs[q * kL + threadIdx.x] = (uint16_t)z;
-  const int m = __reduce_max_sync(0xffffffffu, z);
-  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int zmax = 0;
-    for (int i = 0; i < 8; ++i) zmax = max(zmax, wmax[i]);
-    bc[q] = (uint8_t)(zmax > 31 ? 10 : zmax > 3 ? 5 : zmax > 0 ? 2 : 0);
+plane_widths_kernel(const uint16_t* __restrict__ arr, int h, int w,
+                    int nsegw, uint16_t* __restrict__ zs,
+                    uint8_t* __restrict__ bc) {
+  const int lane = threadIdx.x & 31;
+  const int wid = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int grp = wid / nsegw, seg = wid - grp * nsegw;
+  const int r0 = grp * kG;
+  if (r0 >= h) return;
+  const int r1 = min(r0 + kG, h);
+  const int x0 = seg * kL + lane * 8;
+  int up[8], nx[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) up[e] = 0;
+  load_plane8(arr + (long long)r0 * w, w, x0, nx);
+  for (int r = r0; r < r1; ++r) {
+    int c[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) c[e] = nx[e];
+    if (r + 1 < r1) load_plane8(arr + (long long)(r + 1) * w, w, x0, nx);
+    uint32_t z[8], zmax = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      z[e] = (uint32_t)zigzag_bits((c[e] - up[e]) & 1023, 10);
+      zmax = max(zmax, z[e]);
+      up[e] = c[e];
+    }
+    const long long q = (long long)r * nsegw + seg;
+    *(uint4*)(zs + q * kL + lane * 8) =
+        make_uint4(z[0] | (z[1] << 16), z[2] | (z[3] << 16),
+                   z[4] | (z[5] << 16), z[6] | (z[7] << 16));
+    const uint32_t m = __reduce_max_sync(0xffffffffu, zmax);
+    if (lane == 0)
+      bc[q] = (uint8_t)(m > 31 ? 10 : m > 3 ? 5 : m > 0 ? 2 : 0);
   }
 }
 
@@ -1452,9 +1491,11 @@ int uhdr_rct_pack(const void* zs, const void* bc, int nseg, void* sidx,
 // h * nsegw u8.
 int uhdr_plane_widths(const void* arr, int h, int w, int nsegw, void* zs,
                       void* bc, void* stream) {
-  plane_widths_kernel<<<(unsigned)((long long)h * nsegw), 256, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint16_t*)arr, w, nsegw, (uint16_t*)zs, (uint8_t*)bc);
+  const long long warps = (long long)((h + kG - 1) / kG) * nsegw;
+  if (warps == 0) return 0;
+  if (warps >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  plane_widths_kernel<<<blocks(warps, 8), 256, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)arr, h, w, nsegw, (uint16_t*)zs, (uint8_t*)bc);
   return (int)cudaGetLastError();
 }
 

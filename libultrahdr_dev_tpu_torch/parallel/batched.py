@@ -42,6 +42,8 @@ chip_smoke.py) can time them apart:
 - the packed upload: ``batched_encode_api0(..., device_input=(y, uv))``
   encodes P010 batches already on the device (parallel/link.py
   upload_p010_batch: B14, or B0).
+- apply: ``batched_apply_gainmap`` runs B6 over a batch of decoded
+  planes and gain maps with one metadata.
 
 Entry points run on the CUDA device unless the caller passes another
 device; on a CPU device every kernel runs its plain PyTorch version.
@@ -91,12 +93,14 @@ def p010_to_device(plane_u16: np.ndarray, device) -> torch.Tensor:
 
 
 def _coefs(front, quality: int):
-    """B2 over a front end's (gain map, y, u, v) planes."""
+    """B2 over a front end's (gain map, y, u, v) planes, quantised by the
+    reciprocals of the tables as the JAX encode program quantises
+    (its tables are constants there; jpeg/dct.py)."""
     gmap, yb, ub, vb = front
     ql, qc, qg = (torch.from_numpy(q.reshape(64)).to(yb.device)
                   for q in quant_tables(quality))
-    return (fdct_quant(yb, ql), fdct_quant(ub, qc), fdct_quant(vb, qc),
-            fdct_quant(gmap, qg))
+    return tuple(fdct_quant(p, q, recip=True) for p, q in
+                 ((yb, ql), (ub, qc), (vb, qc), (gmap, qg)))
 
 
 def encode_coefs_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
@@ -720,3 +724,31 @@ def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
     if output_format == "planes":
         return planes_composite(*planes)
     return apply_gainmap(*planes, sd, output_format, use_luts)
+
+
+# ---------------------------------------------------------------------------
+# Apply over a raw batch.
+# ---------------------------------------------------------------------------
+
+def batched_apply_gainmap(y8_batch, u8_batch, v8_batch, gmap_batch,
+                          metadata: GainMapMetadata, output_format: str,
+                          max_display_boost: float,
+                          device="cuda") -> torch.Tensor:
+    """B6 over a leading batch dimension (JAX sharding.py:1351
+    batched_apply_gainmap, on one device instead of a mesh): uint8
+    planes Y (n, h, w), U/V (n, h/2, w/2) and gain maps (n, mh, mw),
+    numpy arrays (uploaded in one transfer) or tensors (moved to
+    `device`), with one metadata and display boost for the batch ->
+    the HDR pixels of ops/gainmap.py:apply_gainmap on `device`."""
+    dev = resolve_device(device)
+    planes = (y8_batch, u8_batch, v8_batch, gmap_batch)
+    if all(isinstance(p, torch.Tensor) for p in planes):
+        planes = [p.to(dev) for p in planes]
+    else:
+        planes = _upload([np.ascontiguousarray(
+            p.cpu().numpy() if isinstance(p, torch.Tensor) else p, np.uint8)
+            for p in planes], dev)
+    n = planes[0].shape[0]
+    sc = torch.from_numpy(np.tile(apply_scalars(
+        metadata, max_display_boost), (n, 1))).to(dev)
+    return apply_gainmap(*planes, sc, output_format)

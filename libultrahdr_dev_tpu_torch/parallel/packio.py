@@ -87,6 +87,7 @@ import torch
 from ..jpeg import native
 from ..kernels import build
 from ..utils import counters
+from ..utils.profiler import StageTimes, stage_of
 from ..utils.workers import worker_count
 
 L = 256      # samples per segment (upload pack)
@@ -259,22 +260,25 @@ def pack_plane_host_numpy(arr: np.ndarray) -> PackedPlane:
     return PackedPlane(plan, buckets, perm)
 
 
-def unpack_plane_host(packed: PackedPlane) -> np.ndarray:
-    """Numpy inverse of the pack: the (H, W) u16 plane."""
+def unpack_plane_host(packed: PackedPlane,
+                      times: StageTimes | None = None) -> np.ndarray:
+    """Numpy inverse of the pack: the (H, W) u16 plane. Where `times` is
+    given, the unpack is recorded in it as PLANE_PACK_STAGES[-1]."""
     h, w, wp, n2, n5, n10 = packed.plan
-    rows = [np.zeros((1, L), np.uint16)]
-    for bw in WIDTHS:
-        words = np.asarray(packed.buckets[bw])
-        mask = np.uint32((1 << bw) - 1)
-        parts = [((words >> np.uint32(s * bw)) & mask).astype(np.uint16)
-                 for s in range(_slots(bw))]
-        rows.append(np.concatenate(parts, axis=1)[:, :L])
-    allrows = np.concatenate(rows, axis=0)
-    z = allrows[packed.perm].reshape(h, wp).astype(np.int32)
-    ds = (z >> 1) ^ -(z & 1)
-    g = ds.reshape(h // G, G, wp)
-    np.cumsum(g, axis=1, out=g)
-    return (g.reshape(h, wp) & 1023).astype(np.uint16)[:, :w]
+    with stage_of(times, PLANE_PACK_STAGES[-1]):
+        rows = [np.zeros((1, L), np.uint16)]
+        for bw in WIDTHS:
+            words = np.asarray(packed.buckets[bw])
+            mask = np.uint32((1 << bw) - 1)
+            parts = [((words >> np.uint32(s * bw)) & mask).astype(np.uint16)
+                     for s in range(_slots(bw))]
+            rows.append(np.concatenate(parts, axis=1)[:, :L])
+        allrows = np.concatenate(rows, axis=0)
+        z = allrows[packed.perm].reshape(h, wp).astype(np.int32)
+        ds = (z >> 1) ^ -(z & 1)
+        g = ds.reshape(h // G, G, wp)
+        np.cumsum(g, axis=1, out=g)
+        return (g.reshape(h, wp) & 1023).astype(np.uint16)[:, :w]
 
 
 # ---------------------------------------------------------------------------
@@ -1727,6 +1731,13 @@ def plane_pack(zs, gidx, sizes):
 plane_pack.launches = 0
 
 
+#: The parts of a plane readback that pack_plane_device and
+#: unpack_plane_host record where they are given a StageTimes.
+PLANE_PACK_STAGES = ("B21a", "D2H of the width codes", "_plane_plan",
+                     "gidx upload + B21b + D2H of the blob",
+                     "unpack_plane_host")
+
+
 def _plane_plan(flat_b: np.ndarray):
     """The host plan of B21's pack from the width codes: the perm that
     unpack_plane_host reads (0 for an all-zero segment, else the 1-based
@@ -1745,7 +1756,8 @@ def _plane_plan(flat_b: np.ndarray):
     return perm, gidx
 
 
-def pack_plane_device(arr: torch.Tensor, max_bytes=None):
+def pack_plane_device(arr: torch.Tensor, max_bytes=None,
+                      times: StageTimes | None = None):
     """Pack a device-resident (H, W) int16 plane of 10-bit values for
     readback (JAX packio.py:326): pass 1 (B21) gives deltas and width
     codes on the device, the host reads the width map and builds the
@@ -1753,23 +1765,30 @@ def pack_plane_device(arr: torch.Tensor, max_bytes=None):
     bucket words come to the host. Returns a PackedPlane of host numpy
     arrays (unpack_plane_host inverts it), or None when the estimated
     packed size exceeds max_bytes (the caller copies raw). H must be a
-    multiple of G."""
+    multiple of G. Where `times` is given, the parts PLANE_PACK_STAGES
+    name are recorded in it, the first ending synchronized."""
     h, w = int(arr.shape[0]), int(arr.shape[1])
     if h % G:
         raise ValueError(f"H={h} not a multiple of {G}")
-    zs, bdev = plane_widths(arr)
-    flat_b = _to_host(bdev).reshape(-1)
+    with stage_of(times, PLANE_PACK_STAGES[0]):
+        zs, bdev = plane_widths(arr)
+        if times is not None and arr.is_cuda:
+            torch.cuda.synchronize(arr.device)
+    with stage_of(times, PLANE_PACK_STAGES[1]):
+        flat_b = _to_host(bdev).reshape(-1)
     if max_bytes is not None:
         est = sum(_pow2_pad(max(int((flat_b == bw).sum()), 1))
                   * _words_per_seg(bw) * 4 for bw in WIDTHS)
         if est > max_bytes:
             return None
-    perm, gidx = _plane_plan(flat_b)
-    sizes = tuple(g.size for g in gidx)
-    plan = (h, w, -(-w // L) * L) + sizes
-    gidx_dev = torch.from_numpy(np.concatenate(gidx)).to(arr.device)
-    blob = _to_host(plane_pack(zs, gidx_dev, sizes))
-    offs = _blob_offsets(plan)
-    buckets = {bw: blob[offs[i]:offs[i + 1]].reshape(
-        sizes[i], _words_per_seg(bw)) for i, bw in enumerate(WIDTHS)}
+    with stage_of(times, PLANE_PACK_STAGES[2]):
+        perm, gidx = _plane_plan(flat_b)
+    with stage_of(times, PLANE_PACK_STAGES[3]):
+        sizes = tuple(g.size for g in gidx)
+        plan = (h, w, -(-w // L) * L) + sizes
+        gidx_dev = torch.from_numpy(np.concatenate(gidx)).to(arr.device)
+        blob = _to_host(plane_pack(zs, gidx_dev, sizes))
+        offs = _blob_offsets(plan)
+        buckets = {bw: blob[offs[i]:offs[i + 1]].reshape(
+            sizes[i], _words_per_seg(bw)) for i, bw in enumerate(WIDTHS)}
     return PackedPlane(plan, buckets, perm)

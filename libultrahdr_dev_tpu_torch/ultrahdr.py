@@ -22,9 +22,14 @@ convert_to_raw, as the JAX session reads them, and uploaded once per
 call; API-1 and API-2 without effects take the session's SDR as the
 JAX JpegR takes it, on the host.
 
-HEIC / AVIF input and output (the JAX package's HeifR arms) raise
-UHDR_CODEC_UNSUPPORTED_FEATURE: they are queued in ROADMAP.md Queue A
-("The converter's HEIF/AVIF arms").
+HEIC / AVIF input and output run through HeifR (heifr.py: the
+gain-map container by container/isobmff.py, coded images by the system
+libheif, 10-bit AVIF by libavif), its pixel math on the session's
+device: B10a / B10b for the gain-map encodes, B6 for the 10-bit outputs
+(then the host's BT.2020 YUV for 10-bit AVIF, as in the JAX package),
+B7 where a decode wants SDR pixels. Without libheif those arms raise
+UHDR_CODEC_UNSUPPORTED_FEATURE, as the reference does without its codec
+plugins.
 """
 
 from __future__ import annotations
@@ -42,10 +47,6 @@ from .jpegr import _OUT, JpegR, upload_frame
 from .ops import editor, gainmap as gm
 from .types import (ColorGamut, ColorTransfer, GainMapMetadata,
                     OutputFormat, PixelFormat, RawImage, err)
-
-_HEIF_QUEUED = ("is queued in ROADMAP.md Queue A, \"The converter's "
-                "HEIF/AVIF arms\"")
-
 
 def sniff_format(data: bytes) -> str:
     """JPEG / JPEG_R / HEIF container sniffing (ultrahdr.cpp:69-129)."""
@@ -79,6 +80,32 @@ class UltraHdrConfig:
     # passthrough outputs, ultrahdr.cpp:1296-1441); None derives the
     # layout from output_format.
     output_pixel_format: PixelFormat | None = None
+
+
+def _rgb10_to_bt2020_yuv420(planes):
+    """(3,H,W) 10-bit OETF-encoded RGB -> narrow-range BT.2020
+    YCbCr 4:2:0 10-bit ((H,W) y, (H/2,W/2) cb/cr), on the host as in
+    the JAX package (ultrahdr.py:67). Narrow-range constants match the
+    P010 conventions the ingest side assumes (gainmapmath.cpp:583-601:
+    (y-64)/876, (uv-512)/896)."""
+    r, g, b = (planes.astype(np.float32) / 1023.0)
+    y = 0.2627 * r + 0.6780 * g + 0.0593 * b
+    u = (b - y) / 1.8814
+    v = (r - y) / 1.4746
+    h, w = y.shape
+    if h % 2 or w % 2:  # pad to even for the 2x2 chroma mean
+        y = np.pad(y, ((0, h % 2), (0, w % 2)), mode="edge")
+        u = np.pad(u, ((0, h % 2), (0, w % 2)), mode="edge")
+        v = np.pad(v, ((0, h % 2), (0, w % 2)), mode="edge")
+    yq = np.clip(np.round(64 + 876 * y[:h, :w]), 0, 1023)
+    uq = np.clip(np.round(
+        512 + 896 * u.reshape(-1, 2, u.shape[1] // 2, 2).mean((1, 3))),
+        0, 1023)
+    vq = np.clip(np.round(
+        512 + 896 * v.reshape(-1, 2, v.shape[1] // 2, 2).mean((1, 3))),
+        0, 1023)
+    return (yq.astype(np.uint16), uq.astype(np.uint16),
+            vq.astype(np.uint16))
 
 
 def _host_image(img: RawImage) -> RawImage:
@@ -127,9 +154,72 @@ class UltraHdr:
                 self.exif = pinfo.exif
             return self
         if kind in ("heic", "avif"):
-            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
-                      f"{kind} input {_HEIF_QUEUED}")
+            return self._add_heif(data)
         raise err("UHDR_CODEC_INVALID_PARAM", "unrecognized image format")
+
+    def _add_heif(self, data: bytes):
+        """HEIF/AVIF ingest (ultrahdr.cpp:631-743, JAX ultrahdr.py:133):
+        gain-map containers populate SDR + gain map + metadata (host
+        planes from libheif; no device work until a convert); plain HEIFs
+        populate the SDR rendition, or the raw HDR slot as P010 for a
+        10-bit primary."""
+        from .container import isobmff as iso, libheif as lh
+        from .heifr import HeifR
+
+        hp = iso.parse_heif(data)
+        tmaps = [i for i, it in hp.items.items()
+                 if it.item_type == "tmap"]
+        if tmaps:
+            refs = hp.refs.get(("dimg", tmaps[0]))
+            if not refs or len(refs) < 2:
+                raise err("UHDR_CODEC_ERROR", "tmap item lacks dimg refs")
+            root_type = hp.items[refs[0]].item_type
+            if root_type == "grid":
+                kids = hp.refs.get(("dimg", refs[0]), [])
+                root_type = (hp.items[kids[0]].item_type if kids
+                             else "hvc1")
+            hr = HeifR("avif" if root_type == "av01" else "heic",
+                       self.device)
+            hr._require_codec()
+            (y8, u8, v8), gmap, metadata, exif = hr._decode_coded(data)
+            self.sdr_raw = RawImage(
+                fmt=PixelFormat.YUV420, width=y8.shape[1],
+                height=y8.shape[0], gamut=ColorGamut.UNSPECIFIED,
+                transfer=ColorTransfer.SRGB,
+                planes={"y": y8, "u": u8, "v": v8})
+            self.gainmap_raw = np.asarray(gmap)
+            self.metadata = metadata
+            if exif is not None:
+                self.exif = exif
+            return self
+        # Plain HEIF: 8-bit primary is the SDR rendition, a 10-bit one
+        # populates the raw HDR slot as P010 (ultrahdr.cpp:661-692:
+        # luma_bits_per_pixel 10 -> hdr_raw, 8 -> sdr_raw).
+        if not lh.available():
+            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
+                      "heif input requires the libheif shared library")
+        planes, depth, heif_exif = lh.decode_primary_full(
+            data, monochrome=False)
+        if heif_exif is not None:
+            self.exif = heif_exif
+        y, u, v = planes
+        h, w = y.shape
+        if depth > 8:
+            shift = 16 - depth  # P010: 10-bit MSB-aligned u16
+            uv = np.empty((u.shape[0], u.shape[1] * 2), np.uint16)
+            uv[:, 0::2] = u.astype(np.uint16) << shift
+            uv[:, 1::2] = v.astype(np.uint16) << shift
+            self.hdr_raw = RawImage(
+                fmt=PixelFormat.P010, width=w, height=h,
+                gamut=ColorGamut.BT2100,
+                transfer=ColorTransfer.UNSPECIFIED,
+                planes={"y": y.astype(np.uint16) << shift, "uv": uv})
+            return self
+        self.sdr_raw = RawImage(
+            fmt=PixelFormat.YUV420, width=w, height=h,
+            gamut=ColorGamut.UNSPECIFIED, transfer=ColorTransfer.SRGB,
+            planes={"y": y, "u": u, "v": v})
+        return self
 
     def add_raw(self, img: RawImage):
         if img.fmt == PixelFormat.P010:
@@ -242,12 +332,109 @@ class UltraHdr:
             return self._convert_to_jpeg(config)
         if config.output_codec == "jpeg_r":
             return self._convert_to_jpegr(config)
-        if config.output_codec in ("heic", "heic_r", "heic_10bit", "avif",
-                                   "avif_r", "avif_10bit"):
-            raise err("UHDR_CODEC_UNSUPPORTED_FEATURE",
-                      f"{config.output_codec} output {_HEIF_QUEUED}")
+        if config.output_codec in ("heic_r", "avif_r"):
+            return self._convert_to_heifr(
+                config, config.output_codec[:4])
+        if config.output_codec in ("heic", "avif"):
+            return self._convert_to_heif_sdr(config,
+                                             config.output_codec)
+        if config.output_codec in ("heic_10bit", "avif_10bit"):
+            return self._convert_to_heif10(
+                config, config.output_codec.split("_")[0])
         raise err("UHDR_CODEC_INVALID_PARAM",
                   f"unknown output codec {config.output_codec}")
+
+    def _convert_to_heif_sdr(self, config: UltraHdrConfig,
+                             codec: str) -> bytes:
+        """Plain 8-bit SDR HEIC/AVIF output — ULTRAHDR_CODEC_HEIC/AVIF
+        (ultrahdr.cpp:1181-1206): tone map (B10a) / decode the SDR
+        rendition, apply effects (B13), encode heif-only with EXIF
+        attached (heifr.cpp:271-279)."""
+        from .heifr import HeifR
+
+        self._maybe_tonemap_raw_hdr()
+        self._maybe_decode_jpeg_sdr()
+        if self.sdr_raw is None:
+            raise err("UHDR_CODEC_INVALID_OPERATION",
+                      "no SDR rendition available")
+        sdr = editor.apply_effects(self._sdr_dev(), config.effects)
+        return HeifR(codec, self.device).encode_sdr(
+            sdr, quality=config.quality, exif=self.exif)
+
+    def _convert_to_heifr(self, config: UltraHdrConfig,
+                          codec: str) -> bytes:
+        """Gain-map HEIC/AVIF output (ultrahdr.cpp:1049-1180), same
+        priority chain as jpeg_r minus the compressed-passthrough
+        cases (JAX ultrahdr.py:287-337)."""
+        from .heifr import HeifR
+
+        hr = HeifR(codec, self.device)
+
+        def apix():
+            sdr, gmap = self._edited(config.effects)
+            return hr.encode_apix(sdr, gmap, self.metadata,
+                                  quality=config.quality, exif=self.exif)
+
+        # Raw SDR + raw gain map + metadata (API-x), effects applied.
+        if (self.sdr_raw is not None and self.gainmap_raw is not None
+                and self.metadata is not None):
+            return apix()
+        if self.hdr_raw is not None and self.sdr_raw is not None:
+            if not config.effects:
+                return hr.encode_api1(self.hdr_raw, self.sdr_raw,
+                                      config.transfer,
+                                      quality=config.quality,
+                                      exif=self.exif)
+        if self.hdr_raw is not None and not config.effects:
+            return hr.encode_api0(self.hdr_raw, config.transfer,
+                                  quality=config.quality,
+                                  exif=self.exif)
+        if self.hdr_raw is not None or (
+                self.sdr_jpeg is not None and self.gainmap_raw is not None
+                and self.metadata is not None):
+            # Effects (or decoded-JPEG source): generate/reuse the gain
+            # map, apply chain, encode API-x.
+            self._maybe_decode_jpeg_sdr()
+            self._maybe_tonemap_raw_hdr()
+            self._ensure_gainmap(config)
+            return apix()
+        raise err("UHDR_CODEC_INVALID_OPERATION",
+                  f"insufficient inputs for {codec}_r conversion")
+
+    def _convert_to_heif10(self, config: UltraHdrConfig,
+                           codec: str) -> bytes:
+        """10-bit HEIC/AVIF output: reconstruct HDR as 10-bit RGB
+        planes (B6 at HLG or PQ, as the JAX package does) and encode
+        4:4:4 10-bit with CICP signaling (ultrahdr.cpp:1207-1287)."""
+        from .container import libheif as lh
+
+        raw = self.convert_to_raw(UltraHdrConfig(
+            output_format=(OutputFormat.HDR_HLG
+                           if config.transfer == ColorTransfer.HLG
+                           else OutputFormat.HDR_PQ),
+            # carry the caller's color config: _ensure_gainmap reads
+            # hdr_tf off the config it is given, and the inner
+            # config's default (HLG) would mis-linearize PQ input when
+            # the gain map has not been generated yet
+            transfer=config.transfer,
+            gamut=config.gamut,
+            effects=config.effects,
+            max_display_boost=config.max_display_boost))
+        packed = np.asarray(raw.planes["rgba"])  # RGBA1010102 u32
+        planes = np.stack([(packed >> s10) & 0x3FF
+                           for s10 in (0, 10, 20)]).astype(np.uint16)
+        if codec == "avif":
+            # libheif's aom plugin mis-selects AV1 profile 2 for any
+            # 10-bit encode (libaom assertion -> process abort), so
+            # 10-bit AVIF goes through libavif directly as BT.2020
+            # narrow-range YCbCr 4:2:0 (AV1 Main profile).
+            from .container import libavif as la
+            return la.encode_yuv(
+                _rgb10_to_bt2020_yuv420(planes), 10, config.quality,
+                transfer=config.transfer.value, exif=self.exif)
+        return lh.encode_rgb10(planes, codec, config.quality,
+                               transfer=config.transfer.value,
+                               exif=self.exif)
 
     def _sdr_or_raise(self):
         self._maybe_decode_jpeg_sdr()

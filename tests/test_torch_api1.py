@@ -77,7 +77,7 @@ def test_b9_plain_matches_jax(sdr_gamut, hdr_gamut, tf):
     gmap, yb, ub, vb = front
     ql, qc, qg = (torch.from_numpy(q.reshape(64))
                   for q in batched.quant_tables(95))
-    got = [dct.fdct_quant(p, q) for p, q in
+    got = [dct.fdct_quant(p, q, recip=True) for p, q in
            ((yb, ql), (ub, qc), (vb, qc), (gmap, qg))]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[0].numpy(),

@@ -75,6 +75,58 @@ def test_fdct_edge_padding_matches_sharding():
     _assert_equal_but_ties(got, want, _exact_fdct(plane, q))
 
 
+#: An 8x8 luma block (u8) whose zigzag coefficient 39 is exactly -45.5:
+#: against q = 7 (luma, quality 95) the quotient -6.5 rounds to -6, and
+#: the product with the float32 1/7 to -7.
+TIE_BLOCK = np.array(
+    [[204, 184, 152, 203, 155, 20, 163, 189],
+     [182, 140, 60, 195, 64, 193, 61, 93],
+     [197, 43, 30, 100, 187, 32, 50, 31],
+     [206, 155, 173, 59, 85, 159, 198, 146],
+     [156, 174, 142, 138, 41, 24, 72, 64],
+     [201, 162, 197, 175, 74, 187, 190, 130],
+     [103, 55, 34, 190, 70, 45, 154, 84],
+     [173, 60, 174, 134, 150, 187, 150, 163]], np.uint8)
+
+
+def _program_fdct(plane, q):
+    """sharding._fdct_zigzag as the JAX encode program runs it: the
+    quant table a constant of the jitted program."""
+    return np.asarray(jax.jit(lambda p: sharding._fdct_zigzag(p, q))(plane))
+
+
+def test_fdct_exact_tie_follows_each_jax_form():
+    """The quotient form (the codec's fdct_quant, q an argument) and the
+    reciprocal form (the encode program, q a constant) part on an exact
+    tie; the port's B2 gives each JAX form's value."""
+    q = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, 95)
+    assert q.reshape(64)[tables.ZIGZAG[39]] == 7
+    assert _exact_fdct(TIE_BLOCK, q)[0, 39] == pytest.approx(-6.5, abs=1e-9)
+    x, qt = torch.from_numpy(TIE_BLOCK)[None], torch.from_numpy(q.reshape(64))
+    quot = tdct.fdct_quant(x, qt)[0].numpy()
+    prod = tdct.fdct_quant(x, qt, recip=True)[0].numpy()
+    assert (quot[0, 39], prod[0, 39]) == (-6, -7)
+    np.testing.assert_array_equal(quot, np.asarray(jdct.fdct_quant(
+        TIE_BLOCK, q)))
+    np.testing.assert_array_equal(prod, _program_fdct(TIE_BLOCK, q))
+
+
+@pytest.mark.parametrize("table,quality", [("luma", 95), ("chroma", 95),
+                                           ("luma", 85)])
+def test_fdct_recip_bitwise_as_the_encode_program(table, quality):
+    """recip=True equals the JAX encode program's coefficients bit for
+    bit, on block-smooth content full of DC ties and on the tie block."""
+    base = (tables.STD_LUMINANCE_QUANT if table == "luma"
+            else tables.STD_CHROMINANCE_QUANT)
+    q = tables.scale_quant_table(base, quality)
+    plane = _plane(H, W, seed=quality + 1)
+    plane[8:16, 16:24] = TIE_BLOCK
+    want = _program_fdct(plane, q)
+    got = tdct.fdct_quant(torch.from_numpy(plane)[None],
+                          torch.from_numpy(q.reshape(64)), recip=True)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+
+
 @pytest.mark.parametrize("quality", [95, 50])
 def test_dequant_idct_matches_jax(quality):
     q = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, quality)

@@ -6,6 +6,7 @@ the batch upload in seg and dense modes (B0), Rice pass 1 (B15) and the
 Rice pack (B16) at 8 bits, two-phase and fused, and the planar readback
 fetch. Every comparison is exact."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -452,3 +453,46 @@ def test_fused_fetch_use_count_under_thread_stress():
     assert not any(t.is_alive() for t in threads) and not errors
     assert packio._PLAN_CACHE[((2, 64, 1024), 8)]["uses"] == (
         n_threads * per_thread)
+
+
+# ---------------------------------------------------------------------------
+# B21's widths pass (plane_widths) at its edges: rows that are not 16-byte
+# aligned with a partial last segment, less than one segment, a partial
+# last group, an all-zero plane and full-range 10-bit noise.
+# ---------------------------------------------------------------------------
+
+B21_EDGES = {"w 1001": (64, 1001, "smooth"), "w 200": (32, 200, "smooth"),
+             "h 37": (37, 512, "smooth"), "all zero": (64, 512, "zero"),
+             "noise": (64, 768, "noise")}
+
+
+def b21_edge_plane(h, w, kind, seed):
+    """An (h, w) uint16 plane of 10-bit codes: 16-row bands with small
+    noise, all zero, or full-range noise."""
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        return np.zeros((h, w), np.uint16)
+    if kind == "noise":
+        return rng.integers(0, 1024, (h, w)).astype(np.uint16)
+    base = np.kron(rng.integers(0, 1024, (h // 16 + 1, w // 64 + 1)),
+                   np.ones((16, 64), np.int64))[:h, :w]
+    # Noise below 1, 2 or 6 by 256-column segment: rows of width codes
+    # 0, 2 and 5 beside the 10-bit rows where a band or a group starts.
+    amp = np.array([1, 2, 6])[np.arange(w) // 256 % 3]
+    noise = (rng.random((h, w)) * amp).astype(np.int64)
+    return ((base + noise) % 1024).astype(np.uint16)
+
+
+@pytest.mark.parametrize("case", list(B21_EDGES))
+def test_plain_b21a_edges_equal_jax(case):
+    h, w, kind = B21_EDGES[case]
+    a = b21_edge_plane(h, w, kind, seed=21)
+    zs, bc = packio.plane_widths(torch.from_numpy(a.view(np.int16)))
+    jzs, jbc = jpackio._widths_fn((h, w))(jnp.asarray(a))
+    assert np.array_equal(zs.numpy().view(np.uint16), np.asarray(jzs))
+    assert np.array_equal(bc.numpy(), np.asarray(jbc))
+    codes = set(np.unique(bc.numpy()).tolist())
+    if kind == "zero":
+        assert codes == {0}
+    if kind == "noise":
+        assert codes == {10}

@@ -199,6 +199,21 @@ def test_b21_pack_plane_device_equals_jax(shape, noise):
     assert np.array_equal(packio.unpack_plane_host(got), a)
 
 
+def test_b21_plane_readback_records_its_stages():
+    """Given a StageTimes, pack_plane_device and unpack_plane_host name
+    each part of the readback once (PLANE_PACK_STAGES), and the plane
+    comes back the same."""
+    from libultrahdr_dev_tpu_torch.utils.profiler import StageTimes
+
+    a = _plane(64, 300, seed=12, noise=False)
+    st = StageTimes()
+    got = packio.unpack_plane_host(packio.pack_plane_device(
+        torch.from_numpy(a.view(np.int16)), times=st), times=st)
+    assert np.array_equal(got, a)
+    assert sorted(st.counts) == sorted(packio.PLANE_PACK_STAGES)
+    assert set(st.counts.values()) == {1}
+
+
 def test_b21_declines_over_max_bytes_as_jax():
     a = _plane(64, 256, seed=11, noise=True)
     t = torch.from_numpy(a.view(np.int16))

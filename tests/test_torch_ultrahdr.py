@@ -4,8 +4,11 @@ kernel B13, JPEG / JPEG/R encode, raw outputs through B6 / B7), the
 decoded gain-map plane (JpegRDecodeResult.gainmap,
 UhdrDecoder.get_gain_map_image) and the 10-bit planar decode, on CPU
 tensors, against the JAX package on the same numpy inputs. Mirrors
-tests/test_ultrahdr.py's TestSniff, TestFlows and TestRawOutputs (the
-cases without HEIF).
+tests/test_ultrahdr.py's TestSniff, TestFlows and TestRawOutputs, and
+its HEIF flows (TestHeifFlows, the HEIF cases of TestCodecRouting,
+TestHeifExif, test_heif10_pq_transfer_reaches_gainmap) with the planes
+handed to libheif / libavif and the files held against the JAX
+session's.
 
 Bars: convert("jpeg") and convert("jpeg_r") bytes identical to the JAX
 session's, with and without effects, for every ingest the priority chain
@@ -388,22 +391,6 @@ def test_error_codes_match_jax():
             effects=_port_effects(bad)))) == "UHDR_CODEC_INVALID_PARAM"
 
 
-@pytest.mark.parametrize("codec", ["heic", "heic_r", "heic_10bit", "avif",
-                                   "avif_r", "avif_10bit"])
-def test_heif_requests_raise_unsupported(codec):
-    """HEIC / AVIF outputs and inputs are queued (ROADMAP Queue A, "The
-    converter's HEIF/AVIF arms")."""
-    _, ts = _ingest("p010")
-    with pytest.raises(UhdrError,
-                       match="UNSUPPORTED_FEATURE.*HEIF/AVIF arms"):
-        ts.convert(UltraHdrConfig(output_codec=codec))
-    brand = b"avif" if codec.startswith("avif") else b"heic"
-    with pytest.raises(UhdrError,
-                       match="UNSUPPORTED_FEATURE.*HEIF/AVIF arms"):
-        UltraHdr("cpu").add_image(b"\x00\x00\x00\x18ftyp" + brand
-                                  + b"\x00" * 64)
-
-
 def test_planes_stay_on_the_session_device():
     """A JPEG/R ingest keeps its decoded planes as tensors on the
     session's device through effects; the raw outputs are numpy."""
@@ -440,3 +427,339 @@ def test_caller_planes_read_on_each_convert():
         np.testing.assert_array_equal(raw.planes["y"], planes["y"])
         planes["y"][:] = 255 - planes["y"]
     assert sizes == [13152, 13158]
+
+
+
+# ---------------------------------------------------------------------------
+# HEIC / AVIF (the converter's HeifR arms), as tests/test_ultrahdr.py's
+# HEIF tests on its 64x96 P010 frame. Every output is held against the
+# JAX session's: the planes handed to the encoders (libheif's
+# encode_image and encode_rgb10, libavif's encode_yuv) and the file.
+# Inputs the JAX tests read from the reference's fixtures (not mounted)
+# are files the JAX session writes here.
+# ---------------------------------------------------------------------------
+
+from libultrahdr_dev_tpu.container import (isobmff as jiso,  # noqa: E402
+                                           libavif as jla, libheif as jlh)
+from libultrahdr_dev_tpu.container import jfif as jjfif  # noqa: E402
+from libultrahdr_dev_tpu_torch.container import (  # noqa: E402
+    isobmff as iso, libavif as la, libheif as lh)
+from libultrahdr_dev_tpu_torch.heifr import heif_available  # noqa: E402
+
+needs_heif = pytest.mark.skipif(not heif_available(),
+                                reason="libheif not installed")
+HEIF_CODECS = ["heic", "heic_r", "heic_10bit", "avif", "avif_r",
+               "avif_10bit"]
+EXIF = b"Exif\x00\x00MM\x00*\x00\x00\x00\x08" + bytes(range(64))
+
+
+def _heif_p010(transfer="HLG"):
+    """tests/test_ultrahdr.py's p010(): 64x96 luma noise, neutral
+    chroma, as (JAX, port) RawImages."""
+    rng = np.random.default_rng(2)
+    y = (rng.integers(64, 940, (64, 96)).astype(np.uint16)) << 6
+    uv = np.full((32, 96), 512 << 6, np.uint16)
+    kw = dict(width=96, height=64, planes={"y": y, "uv": uv})
+    return (JRawImage(fmt=JPixelFormat.P010, gamut=JGamut.BT2100,
+                      transfer=JTransfer[transfer], **kw),
+            RawImage(fmt=PixelFormat.P010, gamut=ColorGamut.BT2100,
+                     transfer=ColorTransfer[transfer], **kw))
+
+
+@pytest.fixture
+def encoders(monkeypatch):
+    """The arguments each package hands to its image encoders:
+    {"port": [...], "jax": [...]}, one (function, planes' shapes and
+    bytes, other arguments) a call."""
+    calls = {"port": [], "jax": []}
+    for key, mods in (("port", (lh, la)), ("jax", (jlh, jla))):
+        for mod, names in zip(mods, (("encode_image", "encode_rgb10"),
+                                     ("encode_yuv",))):
+            for name in names:
+                real = getattr(mod, name)
+
+                def record(planes, *a, _real=real, _key=key, _name=name,
+                           **kw):
+                    calls[_key].append((_name, tuple(
+                        (np.asarray(p).shape, np.asarray(p).tobytes())
+                        for p in planes), a, tuple(sorted(kw.items()))))
+                    return _real(planes, *a, **kw)
+
+                monkeypatch.setattr(mod, name, record)
+    return calls
+
+
+def _heif_sessions(*inputs):
+    """(JAX session, port session) fed the same inputs: ("p010", tf),
+    ("blob", bytes) or ("exif", bytes)."""
+    js, ts = ju.UltraHdr(), UltraHdr("cpu")
+    for kind, value in inputs:
+        if kind == "p010":
+            jr, tr = _heif_p010(value)
+            js.add_raw(jr)
+            ts.add_raw(tr)
+        elif kind == "blob":
+            js.add_image(value)
+            ts.add_image(value)
+        else:
+            js.exif = ts.exif = value
+    return js, ts
+
+
+def _same_encodes(calls):
+    """The encoder calls of both sessions agree: the same functions and
+    arguments, 8-bit planes bitwise; the 10-bit arm's planes (B6's HLG or
+    PQ codes, then the host's YUV for AVIF) within B6's bar, 1 code with
+    >= 99.9% of samples exact. -> whether every plane is bitwise."""
+    assert calls["port"] and len(calls["port"]) == len(calls["jax"])
+    exact = True
+    for (name, planes, a, kw), (jname, jplanes, ja, jkw) in zip(
+            calls["port"], calls["jax"]):
+        assert (name, a, kw) == (jname, ja, jkw)
+        for (shape, data), (jshape, jdata) in zip(planes, jplanes):
+            assert shape == jshape
+            if name == "encode_image":
+                assert data == jdata
+                continue
+            d = np.abs(np.frombuffer(data, np.uint16).astype(np.int64)
+                       - np.frombuffer(jdata, np.uint16))
+            assert int(d.max()) <= 1 and float((d == 0).mean()) >= 0.999
+            exact = exact and data == jdata
+    return exact
+
+
+def _convert_as_jax(js, ts, encoders, codec, effects=(), **kw):
+    """convert() of both sessions: the port's file, held against the
+    JAX session's, as are the planes each handed to the encoders; the
+    files are byte-identical where the planes are."""
+    want = js.convert(ju.UltraHdrConfig(output_codec=codec,
+                                        effects=list(effects), **{
+        k: (JTransfer[v.name] if k == "transfer" else v)
+        for k, v in kw.items()}))
+    got = ts.convert(UltraHdrConfig(output_codec=codec,
+                                    effects=_port_effects(effects), **kw))
+    if _same_encodes(encoders):
+        assert got == want
+    encoders["port"].clear()
+    encoders["jax"].clear()
+    return got
+
+
+def test_heif_brands():
+    assert tu.sniff_format(b"\x00\x00\x00\x18ftypheic"
+                           + b"\x00" * 8) == "heic"
+    assert tu.sniff_format(b"\x00\x00\x00\x18ftypavif"
+                           + b"\x00" * 8) == "avif"
+    assert tu.sniff_format(b"garbage") == "unknown"
+
+
+def test_garbage_heif_rejected():
+    blob = b"\x00\x00\x00\x18ftypheic" + b"\x00" * 64
+    with pytest.raises(JUhdrError) as want:
+        ju.UltraHdr().add_image(blob)
+    with pytest.raises(UhdrError) as got:
+        UltraHdr("cpu").add_image(blob)
+    assert got.value.code == want.value.code
+
+
+@needs_heif
+@pytest.mark.parametrize("codec", HEIF_CODECS)
+def test_each_heif_codec_converts(codec, encoders):
+    """Each of the six HEIC / AVIF outputs converts, to the JAX
+    session's file."""
+    js, ts = _heif_sessions(("p010", "HLG"))
+    out = _convert_as_jax(js, ts, encoders, codec,
+                          transfer=ColorTransfer.HLG, max_display_boost=4.9)
+    assert tu.sniff_format(out) == codec[:4]
+
+
+def test_missing_libheif_raises_unsupported(monkeypatch):
+    """Without libheif every HEIF output and a gain-map HEIF input raise
+    UHDR_CODEC_UNSUPPORTED_FEATURE (a missing host library, not a device
+    fallback)."""
+    blob = jheifr_blob("heic")
+    monkeypatch.setattr(lh, "available", lambda: False)
+    ts = _heif_sessions(("p010", "HLG"))[1]
+    for codec in ("heic", "heic_r", "avif_r"):
+        with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
+            ts.convert(UltraHdrConfig(output_codec=codec))
+    with pytest.raises(UhdrError, match="UNSUPPORTED_FEATURE"):
+        UltraHdr("cpu").add_image(blob)
+
+
+_HEIF_BLOBS: dict = {}
+
+
+def jheifr_blob(codec: str) -> bytes:
+    """A gain-map HEIC / AVIF of the JAX session (p010(), HLG)."""
+    if codec not in _HEIF_BLOBS:
+        _HEIF_BLOBS[codec] = ju.UltraHdr().add_raw(_heif_p010()[0]).convert(
+            ju.UltraHdrConfig(output_codec=codec + "_r",
+                              transfer=JTransfer.HLG))
+    return _HEIF_BLOBS[codec]
+
+
+@needs_heif
+class TestHeifFlows:
+    """HEIC_R/AVIF_R converter flows (ultrahdr.cpp:1049-1287)."""
+
+    def test_flow_p010_to_avifr_and_back(self, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"))
+        blob = _convert_as_jax(js, ts, encoders, "avif_r",
+                               transfer=ColorTransfer.HLG)
+        js2, ts2 = _heif_sessions(("blob", blob))
+        assert ts2.gainmap_raw is not None and ts2.metadata is not None
+        assert np.array_equal(ts2.gainmap_raw, js2.gainmap_raw)
+        assert ts2.metadata == metadata_from_jax(js2.metadata)
+        out = ts2.convert(UltraHdrConfig(output_codec="jpeg_r"))
+        assert out == js2.convert(ju.UltraHdrConfig(output_codec="jpeg_r"))
+        assert tu.sniff_format(out) == "jpeg_r"
+
+    def test_flow_heicr_to_jpegr(self):
+        """The JAX test reads the reference's sample_heicr.heic; here a
+        HEIC_R of the JAX session."""
+        js, ts = _heif_sessions(("blob", jheifr_blob("heic")))
+        blob = ts.convert(UltraHdrConfig(output_codec="jpeg_r"))
+        assert blob == js.convert(ju.UltraHdrConfig(output_codec="jpeg_r"))
+        res = JpegR("cpu").get_info(blob)
+        assert (res.width, res.height) == (96, 64)
+
+    def test_flow_p010_to_10bit_heic(self, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"))
+        blob = _convert_as_jax(js, ts, encoders, "heic_10bit",
+                               transfer=ColorTransfer.HLG,
+                               max_display_boost=4.9)
+        assert tu.sniff_format(blob) == "heic"
+
+    def test_flow_avifr_with_effects(self, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"))
+        blob = _convert_as_jax(js, ts, encoders, "avif_r",
+                               [je.MirrorEffect("vertical")],
+                               transfer=ColorTransfer.HLG)
+        assert tu.sniff_format(blob) == "avif"
+
+    def test_flow_10bit_avif_to_jpegr(self):
+        """10-bit HEIF primary -> hdr_raw P010 -> JPEG/R; the JAX test
+        reads the reference's avif_yuv_420_10bit.avif, here the JAX
+        session's 10-bit AVIF. The P010 planes and the JPEG/R equal the
+        JAX session's. The content puts an exact tie in the base's luma
+        (block 58, zigzag 39: -45.5 against q = 7), which the JAX
+        program quantises by the reciprocal of its constant table to -7
+        (ROADMAP Queue C item 5)."""
+        src = ju.UltraHdr().add_raw(_heif_p010()[0]).convert(
+            ju.UltraHdrConfig(output_codec="avif_10bit",
+                              transfer=JTransfer.HLG, max_display_boost=4.9))
+        js, ts = _heif_sessions(("blob", src))
+        assert ts.hdr_raw is not None and ts.hdr_raw.fmt == PixelFormat.P010
+        assert (ts.hdr_raw.width, ts.hdr_raw.height) == (96, 64)
+        for k in ("y", "uv"):
+            assert np.array_equal(ts.hdr_raw.planes[k], js.hdr_raw.planes[k])
+        blob = ts.convert(UltraHdrConfig(output_codec="jpeg_r",
+                                         transfer=ColorTransfer.HLG))
+        want = js.convert(ju.UltraHdrConfig(output_codec="jpeg_r",
+                                            transfer=JTransfer.HLG))
+        assert tu.sniff_format(blob) == "jpeg_r"
+        assert blob == want
+
+    def test_flow_heicr_to_avifr(self, encoders):
+        """testFlow4 analog: HEIC_R gain-map container in -> re-encoded
+        gain-map container out."""
+        src = jheifr_blob("heic")
+        for calls in encoders.values():  # the source's own encodes
+            calls.clear()
+        js, ts = _heif_sessions(("blob", src))
+        blob = _convert_as_jax(js, ts, encoders, "avif_r")
+        assert tu.sniff_format(blob) == "avif"
+        ts2 = UltraHdr("cpu").add_image(blob)
+        assert ts2.gainmap_raw is not None
+        assert ts2.metadata.max_content_boost == pytest.approx(
+            ts.metadata.max_content_boost, rel=1e-4)
+
+
+@needs_heif
+def test_heif10_pq_transfer_reaches_gainmap(encoders):
+    """_convert_to_heif10 must carry the caller's transfer into
+    gain-map generation: PQ input implies a 10000/203 max boost in the
+    session metadata, not HLG's 1000/203."""
+    js, ts = _heif_sessions(("p010", "PQ"))
+    blob = _convert_as_jax(js, ts, encoders, "heic_10bit",
+                           transfer=ColorTransfer.PQ, max_display_boost=49.3)
+    assert tu.sniff_format(blob) == "heic"
+    assert ts.metadata.max_content_boost == pytest.approx(10000 / 203,
+                                                          rel=1e-6)
+
+
+@needs_heif
+class TestHeifCodecRouting:
+    """The HEIF cases of tests/test_ultrahdr.py's TestCodecRouting."""
+
+    @pytest.mark.parametrize("codec", ["heic", "avif"])
+    def test_sdr_heif_is_8bit_no_gainmap(self, codec, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"))
+        out = _convert_as_jax(js, ts, encoders, codec,
+                              transfer=ColorTransfer.HLG)
+        hp = iso.parse_heif(out)
+        assert not any(it.item_type == "tmap" for it in hp.items.values())
+        planes, depth = lh.decode_primary_depth(out, monochrome=False)
+        assert depth == 8
+        assert planes[0].shape == (64, 96)
+
+    @pytest.mark.parametrize("codec", ["heic", "avif"])
+    def test_10bit_heif_is_10bit(self, codec, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"))
+        out = _convert_as_jax(js, ts, encoders, codec + "_10bit",
+                              transfer=ColorTransfer.HLG,
+                              max_display_boost=4.9)
+        _, depth = lh.decode_primary_depth(out, monochrome=False)
+        assert depth == 10
+
+    @pytest.mark.parametrize("codec", ["heic", "avif"])
+    def test_gainmap_heif_has_tmap(self, codec, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"))
+        out = _convert_as_jax(js, ts, encoders, codec + "_r",
+                              transfer=ColorTransfer.HLG)
+        hp = iso.parse_heif(out)
+        assert any(it.item_type == "tmap" for it in hp.items.values())
+        assert hp.items.keys() == jiso.parse_heif(out).items.keys()
+
+
+@needs_heif
+class TestHeifExif:
+    def test_exif_survives_jpegr_heicr_jpegr(self, encoders):
+        """EXIF round trip JPEG_R -> HEIC_R -> JPEG_R byte-identically
+        (heifr.cpp:266-268 encode; heifr.cpp:324-331 decode)."""
+        jr_blob = jjpegr.JpegR().encode_api0(_heif_p010()[0], JTransfer.HLG,
+                                             quality=95, exif=EXIF)
+        js, ts = _heif_sessions(("blob", jr_blob))
+        assert ts.exif == EXIF
+        heic_blob = _convert_as_jax(js, ts, encoders, "heic_r")
+        js2, ts2 = _heif_sessions(("blob", heic_blob))
+        assert ts2.exif == EXIF
+        jr_out = ts2.convert(UltraHdrConfig(output_codec="jpeg_r"))
+        assert jr_out == js2.convert(ju.UltraHdrConfig(output_codec="jpeg_r"))
+        assert jjfif.parse_jpeg_info(jr_out).exif == EXIF
+
+    def test_exif_on_sdr_heif_output(self, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"), ("exif", EXIF))
+        out = _convert_as_jax(js, ts, encoders, "heic")
+        assert lh.extract_exif(out) == EXIF
+
+    def test_exif_on_10bit_heif_output(self, encoders):
+        js, ts = _heif_sessions(("p010", "HLG"), ("exif", EXIF))
+        out = _convert_as_jax(js, ts, encoders, "heic_10bit",
+                              transfer=ColorTransfer.HLG,
+                              max_display_boost=4.9)
+        assert lh.extract_exif(out) == EXIF
+
+    def test_plain_heif_ingest_reads_exif(self):
+        rng = np.random.default_rng(5)
+        planes = (rng.integers(0, 255, (64, 96), dtype=np.uint8),
+                  np.full((32, 48), 128, np.uint8),
+                  np.full((32, 48), 128, np.uint8))
+        blob = lh.encode_image(planes, "heic", 90, exif=EXIF)
+        assert blob == jlh.encode_image(planes, "heic", 90, exif=EXIF)
+        js, ts = _heif_sessions(("blob", blob))
+        assert ts.exif == EXIF
+        assert ts.sdr_raw is not None
+        for k in ("y", "u", "v"):
+            assert np.array_equal(ts.sdr_raw.planes[k], js.sdr_raw.planes[k])
