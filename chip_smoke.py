@@ -95,11 +95,16 @@ apply within 1 code / ULP of the device apply, no plain-version call;
 the readback window: --no-hostapply, three HLG and two F16 rounds, the
 fine-width arm and pack_plane_device, every fetched batch = the
 device's; the CLI window: a 4000x3000 encode decoded to RGBA1010102 and
-F16, each file = the unpacked decode), each with every launch counter
-zeroed just before and read just after (each window's kernels launched;
-no host Huffman call in any window: the general routes and the converter
-code each JPEG they generate with B19); stage times (the decode stages
-under both emissions among them).
+F16, each file = the unpacked decode; the off-path window: arithmetic
+encode and decode, a JPEG/R with an arithmetic primary, the committed
+progressive fixture (tests/fixtures_torch) against its sidecar's grids
+digest, and a multi-scan baseline file, at 4000x3000), each with every
+launch counter zeroed just before and read just after (each window's
+kernels launched; no host Huffman call in any window but the off-path
+one, whose host entropy calls are counted against what its formats
+need: the general routes and the converter code each JPEG they generate
+with B19); stage times (the decode stages under both emissions and the
+off-path formats' host and device stages among them).
 
 Under UHDR_DECODE_EMIT=log every decode runs B22, and each window's
 need of B4 is read as a need of B22.
@@ -121,6 +126,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -4110,12 +4116,13 @@ def _plain_shims():
 def counting(targets):
     """Replace each (module, name) by a shim counting its calls in the
     returned dict; -> (calls, restore)."""
-    calls, saved = {}, []
+    calls, saved, lock = {}, [], threading.Lock()
     for mod, name in targets:
         real = getattr(mod, name)
 
         def shim(*a, _real=real, _name=name, **kw):
-            calls[_name] = calls.get(_name, 0) + 1
+            with lock:   # the progressive scans run on several threads
+                calls[_name] = calls.get(_name, 0) + 1
             return _real(*a, **kw)
 
         saved.append((mod, name, real))
@@ -4293,6 +4300,303 @@ def main_path_heif(dev, smi: str):
         f"SDR, F16; converter {GW}x{GH} JPEG/R to AVIF_R (chain) and 10-bit "
         f"HEIC; {kw}x{kh} grid: all checks held ({smi})")
     return c, stages
+
+
+# The off-path window: the committed progressive fixture, the arithmetic
+# encode's restart interval (MCUs), its quality and the repeats of each
+# of its stage lines.
+OFFPATH_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "fixtures_torch",
+                               "prog_4000x3000_420.jpg")
+OFFPATH_RESTART, OFFPATH_Q, OFFPATH_REPS = 4, 90, 3
+# Kernels of the device route's Huffman coding, none of which the
+# off-path formats may reach.
+HUFFMAN_DEVICE_KERNELS = ("B3", "B3g", "B3w", "B3gw", "B4", "B22", "B12",
+                          "B12e", "B19", "B19g")
+
+
+def grids_sha256(grids) -> str:
+    """tests/fixtures_torch/prog_fixture.py's digest: each grid's int16
+    little-endian bytes in C order, in frame order, through sha256."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for g in grids:
+        h.update(np.ascontiguousarray(g, "<i2").tobytes())
+    return h.hexdigest()
+
+
+def build_multiscan(planes: dict, quality: int, dev) -> bytes:
+    """A 3-scan (Y)(Cb)(Cr) non-interleaved baseline 4:2:0 JPEG of
+    `planes` (tests/test_jpeg.py's _build_multiscan): the port's
+    markers, B2 on each plane at its own size and the host Huffman coder
+    (codec.entropy_encode), one call a scan."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.jpeg import codec, dct, tables
+
+    h, w = planes["y"].shape
+    ql = tables.scale_quant_table(tables.STD_LUMINANCE_QUANT, quality)
+    qc = tables.scale_quant_table(tables.STD_CHROMINANCE_QUANT, quality)
+    out = bytearray(b"\xff\xd8")
+    out += codec._jfif_app0()
+    out += codec._marker(0xDB, codec._dqt(0, ql))
+    out += codec._marker(0xDB, codec._dqt(1, qc))
+    out += codec._marker(0xC0, codec._sof0(
+        w, h, [(1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1)]))
+    luma = ((tables.DC_LUMA_BITS, tables.DC_LUMA_VALS),
+            (tables.AC_LUMA_BITS, tables.AC_LUMA_VALS))
+    chroma = ((tables.DC_CHROMA_BITS, tables.DC_CHROMA_VALS),
+              (tables.AC_CHROMA_BITS, tables.AC_CHROMA_VALS))
+    for tid, (dc_t, ac_t) in enumerate((luma, chroma)):
+        out += codec._marker(0xC4, codec._dht(0, tid, *dc_t))
+        out += codec._marker(0xC4, codec._dht(1, tid, *ac_t))
+    for key, q, cid, tid, (dc_t, ac_t) in (
+            ("y", ql, 1, 0, luma), ("u", qc, 2, 1, chroma),
+            ("v", qc, 3, 1, chroma)):
+        zz = dct.fdct_quant(
+            torch.from_numpy(np.ascontiguousarray(planes[key]))[None].to(dev),
+            torch.from_numpy(q.reshape(64).astype(np.int32)).to(dev))
+        zz = zz[0].cpu().numpy()
+        out += codec._marker(0xDA, bytes([1, cid, (tid << 4) | tid, 0, 63,
+                                          0]))
+        dc_tabs, ac_tabs = [None] * 4, [None] * 4
+        dc_tabs[tid], ac_tabs[tid] = dc_t, ac_t
+        out += codec.entropy_encode(zz, np.zeros(zz.shape[0], np.uint8),
+                                    [tid], [tid], dc_tabs, ac_tabs, 0, 1)
+    return bytes(out + b"\xff\xd9")
+
+
+def main_path_offpath(dev, smi: str):
+    """The off-path JPEG formats (jpeg/codec.py: progressive, arithmetic
+    and multi-scan baseline decode, arithmetic encode) through the entry
+    points a user calls, at GW x GH 4:2:0, in one window with every
+    launch counter and the host entropy calls zeroed just before and read
+    just after: (a) encode_jpeg(arithmetic=True) of a seeded SDR frame
+    without and with a restart interval (B2, then the QM coder on the
+    host); (b) decode_jpeg of both (host QM decode, then B5); (c) a
+    JPEG/R muxed by JpegR.encode_api4 from the arithmetic base and a
+    gain map, decoded to HLG, F16 and SDR (B5, B6, B7); (d) the committed
+    progressive fixture: its grids at 1 scan thread and at the default
+    count, decode_jpeg, and a JPEG/R with it as primary decoded to HLG
+    and SDR; (e) a multi-scan baseline file built from per-component
+    scans (B2 a plane, host Huffman a scan) and decoded. The device
+    route's Huffman kernels must not launch; the host calls each part
+    needs are counted and must be exactly those. Checks: arithmetic
+    bytes = the plain route's (device="cpu"), its grids = the Huffman
+    file's, its planes and JPEG/R pixels = the Huffman file's, bitwise;
+    the fixture's grids = its sidecar's digest (the JAX package's), its
+    planes = plain B5 on the card (B5's tolerance), its SDR = B7 of its
+    planes; the multi-scan planes = the single-scan file's.
+    -> (launches, stage ms)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch import JpegR, OutputFormat
+    from libultrahdr_dev_tpu_torch.jpeg import arith, codec, dct
+    from libultrahdr_dev_tpu_torch.ops import gainmap as gm
+    from libultrahdr_dev_tpu_torch.parallel import batched
+
+    def grids(res):
+        return [c[0] for c in res.comps]
+
+    def same_grids(a, b):
+        return len(a) == len(b) and all(
+            x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+
+    # Inputs, made before the window: a seeded HDR frame's SDR rendition
+    # (the planes), its gain map (B10b, coded by B19) and the Huffman-
+    # coded references (B2, B19, decoded on the device route).
+    y_np, uv_np = synth_p010(1, GH, GW, SEED + 95)
+    sdr = sdr_rendition(y_np, uv_np, "bt709", dev)
+    planes = dict(zip("yuv", (p[0] for p in sdr)))
+    gmap_t, md = gm.generate_gainmap(
+        *(torch.from_numpy(p).to(dev) for p in sdr),
+        *(batched.p010_to_device(a, dev) for a in (y_np, uv_np)),
+        sdr_gamut="bt709", hdr_gamut="bt2100", hdr_tf="hlg")
+    gm_jpeg = codec.encode_jpeg({"y": gmap_t[0]}, 85, device=dev)
+    rst = (0, OFFPATH_RESTART)
+    huff = codec.encode_jpeg(planes, OFFPATH_Q, device=dev)
+    huff_grids = grids(codec.decode_jpeg_coefs(huff))
+    huff_planes = codec.decode_jpeg(huff, dev).planes
+    jr = JpegR(dev)
+    fmts = (OutputFormat.HDR_HLG, OutputFormat.HDR_LINEAR, OutputFormat.SDR)
+    huff_jr = jr.encode_api4(huff, gm_jpeg, md)
+    huff_out = {f: jr.decode(huff_jr, f).image.planes["rgba"] for f in fmts}
+    fixture = open(OFFPATH_FIXTURE, "rb").read()
+    side = json.load(open(OFFPATH_FIXTURE[:-4] + ".json"))
+    n_scans = fixture.count(b"\xff\xda")
+    scan_env = os.environ.get("UHDR_SCAN_THREADS")
+
+    def scan_threads(n):
+        if n is None:
+            os.environ.pop("UHDR_SCAN_THREADS", None)
+        else:
+            os.environ["UHDR_SCAN_THREADS"] = str(n)
+
+    reset_counts()
+    calls, restore = counting([(arith, "encode_seq_scan"),
+                               (arith, "decode_seq_scan"),
+                               (codec, "_run_scan")])
+    t0 = time.perf_counter()
+    try:
+        # (a) arithmetic encode, (b) its decode
+        arith_jpg = {r: codec.encode_jpeg(planes, OFFPATH_Q,
+                                          restart_interval=r,
+                                          arithmetic=True, device=dev)
+                     for r in rst}
+        arith_grids = {r: grids(codec.decode_jpeg_coefs(b))
+                       for r, b in arith_jpg.items()}
+        arith_planes = {r: codec.decode_jpeg(b, dev).planes
+                        for r, b in arith_jpg.items()}
+        # (c) a JPEG/R with the arithmetic primary
+        arith_jr = jr.encode_api4(arith_jpg[0], gm_jpeg, md)
+        arith_out = {f: jr.decode(arith_jr, f).image.planes["rgba"]
+                     for f in fmts}
+        # (d) the progressive fixture
+        digests = {}
+        for n in (1, None):
+            scan_threads(n)
+            fx_coefs = codec.decode_jpeg_coefs(fixture)
+            digests[n] = grids_sha256(grids(fx_coefs))
+        scan_threads(scan_env)
+        fx = codec.decode_jpeg(fixture, dev)
+        fx_jr = jr.encode_api4(fixture, gm_jpeg, md)
+        fx_out = {f: jr.decode(fx_jr, f).image.planes["rgba"]
+                  for f in (OutputFormat.HDR_HLG, OutputFormat.SDR)}
+        # (e) multi-scan baseline
+        multi = build_multiscan(planes, OFFPATH_Q, dev)
+        multi_planes = codec.decode_jpeg(multi, dev).planes
+    finally:
+        restore()
+        scan_threads(scan_env)
+    t_win = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    host = {"entropy_encode": codec.entropy_encode.calls,
+            "entropy_decode": codec.entropy_decode.calls,
+            "encode_seq_scan": calls.get("encode_seq_scan", 0),
+            "decode_seq_scan": calls.get("decode_seq_scan", 0),
+            "progressive scans": calls.get("_run_scan", 0)}
+    # Host calls by design: 2 arithmetic encodes; 7 arithmetic decodes
+    # (2 grids, 2 planes, 3 JPEG/R outputs); the fixture's scans 5 times
+    # (2 grids, its planes, 2 JPEG/R outputs); Huffman decodes of the
+    # gain map in 3 HDR outputs whose primary took the host route and of
+    # the 3 multi-scan scans; 3 Huffman encodes (the multi-scan scans).
+    want = {"entropy_encode": 3, "entropy_decode": 6, "encode_seq_scan": 2,
+            "decode_seq_scan": 7, "progressive scans": 5 * n_scans}
+    log(f"off-path window ({t_win:.2f} s): kernel launches {launches}, "
+        f"host entropy calls {host} (expected {want}; {n_scans} scans in "
+        f"the progressive fixture)")
+    require(all(launches[k] > 0 for k in ("B2", "B5", "B6", "B7")),
+            f"off-path window: a kernel of the path never launched: "
+            f"{launches}")
+    require(all(launches[k] == 0 for k in HUFFMAN_DEVICE_KERNELS),
+            f"off-path window: the device route's Huffman kernels ran: "
+            f"{launches}")
+    require(host == want, f"off-path window: host entropy calls {host}, "
+            f"expected {want}")
+
+    # (a)
+    for r in rst:
+        require(arith_jpg[r][:400].find(b"\xff\xc9") > 0 and
+                (b"\xff\xdd" in arith_jpg[r]) == bool(r),
+                f"arithmetic encode r={r}: no SOF9 / DRI")
+        plain = codec.encode_jpeg(planes, OFFPATH_Q, restart_interval=r,
+                                  arithmetic=True, device="cpu")
+        require(plain == arith_jpg[r],
+                f"arithmetic encode r={r}: bytes differ from the plain "
+                f"route's")
+        require(same_grids(arith_grids[r], huff_grids),
+                f"arithmetic encode r={r}: grids differ from the Huffman "
+                f"file's")
+        # (b)
+        require(all(map(torch.equal, arith_planes[r], huff_planes)),
+                f"arithmetic decode r={r}: planes differ from the Huffman "
+                f"file's")
+    # (c)
+    for f in fmts:
+        require(np.array_equal(arith_out[f], huff_out[f]),
+                f"JPEG/R with arithmetic primary: {f.name} differs from the "
+                f"Huffman-based JPEG/R's")
+    # (d)
+    require(digests[1] == digests[None] == side["sha256"],
+            f"progressive fixture: grids digest {digests}, sidecar "
+            f"{side['sha256']}")
+    up = [torch.from_numpy(g.reshape(1, -1, 64)).to(dev)
+          for g in grids(fx_coefs)]
+    worst = n_off = n_all = 0
+    for k, (g, q, ch, cw, _) in enumerate(fx_coefs.comps):
+        qt = torch.from_numpy(q.reshape(1, 64).astype(np.int32)).to(dev)
+        want_p = dct.dequant_idct_plain(up[k], qt, g.shape[0], g.shape[1])
+        w_, o_ = int_diff(fx.planes[k], want_p[0, :ch, :cw])
+        worst, n_off, n_all = max(worst, w_), n_off + o_, n_all + ch * cw
+    log(f"progressive fixture: B5 against plain B5 on the card: max |diff| "
+        f"{worst} on {n_off} of {n_all} pixels")
+    require(worst <= 1 and n_off <= 1e-4 * n_all,
+            "progressive fixture: B5 planes disagree with the plain version")
+    hlg = fx_out[OutputFormat.HDR_HLG]
+    require(hlg.shape == (GH, GW) and bool(((hlg >> 30) == 3).all()),
+            "progressive fixture JPEG/R: bad HLG decode")
+    b7 = gm.yuv420_to_rgba8888(*(p[None] for p in fx.planes))[0]
+    require(np.array_equal(fx_out[OutputFormat.SDR],
+                           b7.cpu().numpy().view(np.uint32)),
+            "progressive fixture JPEG/R: SDR differs from B7 of its planes")
+    # (e)
+    require(multi.count(b"\xff\xda") == 3 and
+            all(map(torch.equal, multi_planes, huff_planes)),
+            "multi-scan baseline: planes differ from the single-scan file's")
+    log(f"off-path window: arithmetic encode r 0 and {OFFPATH_RESTART} "
+        f"({[len(b) for b in arith_jpg.values()]} bytes; Huffman "
+        f"{len(huff)}), its decode, the JPEG/R with it as primary, the "
+        f"progressive fixture ({len(fixture)} bytes, {n_scans} scans) and "
+        f"the multi-scan file at {GW}x{GH}: all checks held ({smi})")
+
+    # Stage lines, after the window (timing launches count nowhere).
+    stages: dict = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        out = None
+        for _ in range(OFFPATH_REPS):
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stages.setdefault(label, []).append(
+                (time.perf_counter() - t) * 1e3)
+        return out
+
+    try:
+        scan_threads(1)
+        timed("host entropy decode progressive fixture, 1 scan thread",
+              lambda: codec.decode_jpeg_coefs(fixture))
+        scan_threads(None)
+        timed(f"host entropy decode progressive fixture, "
+              f"{codec._scan_threads()} scan threads (default)",
+              lambda: codec.decode_jpeg_coefs(fixture))
+    finally:
+        scan_threads(scan_env)
+    timed("host entropy decode arithmetic (SOF9)",
+          lambda: codec.decode_jpeg_coefs(arith_jpg[0]))
+    timed("host entropy decode multi-scan baseline (3 scans)",
+          lambda: codec.decode_jpeg_coefs(multi))
+    timed("upload + B5, progressive fixture",
+          lambda: codec.coefs_to_planes(fx_coefs, dev))
+    c = timed("arithmetic encode: padding + B2 (jpeg_coefs)",
+              lambda: codec.jpeg_coefs(planes, OFFPATH_Q, device=dev))
+    host_blocks = timed("arithmetic encode: D2H (coefs_to_host)",
+                        lambda: codec.coefs_to_host(c))
+    mcu = timed("arithmetic encode: MCU interleave (host)",
+                lambda: codec.interleave_coefs(c, host_blocks))
+    timed("arithmetic encode: QM coding (host)",
+          lambda: codec.arith_scan(mcu[0], mcu[1], False, 0, mcu[2]))
+    for name, blob in (("arithmetic", arith_jr), ("progressive", fx_jr)):
+        frame = timed(f"JPEG/R ({name} primary) decode HLG: host stage",
+                      lambda: batched.decode_host_stage([blob], "hdr_hlg"))
+        timed(f"JPEG/R ({name} primary) decode HLG: device stage (upload, "
+              f"B5, B6)",
+              lambda: batched.decode_device_stage(frame, "hdr_hlg",
+                                                  float("inf"), dev))
+    return launches, stages
 
 
 def main_path_cli(dev, smi: str):
@@ -4706,10 +5010,13 @@ def main() -> int:
     t = time.perf_counter()
     launches10, heif_stages = main_path_heif(dev, smi)
     log(f"phase main path HEIF: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches11, offpath_stages = main_path_offpath(dev, smi)
+    log(f"phase main path off-path formats: {time.perf_counter() - t:.1f} s")
     launches = {k: sum(c[k] for c in (launches, launches1, launches2,
                                       launches3, launches4, launches5,
                                       launches6, launches7, launches8,
-                                      launches9, launches10))
+                                      launches9, launches10, launches11))
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
     launches["B19"] += launches.pop("B19g")
@@ -4721,6 +5028,9 @@ def main() -> int:
     for label, ms in heif_stages.items():
         log(f"stage heif {label}: {float(np.median(ms)):.3f} ms (median of "
             f"{len(ms)}; {smi})")
+    for label, ms in offpath_stages.items():
+        log(f"stage offpath {label}: {float(np.median(ms)):.3f} ms (median "
+            f"of {len(ms)}; {GW}x{GH}; {smi})")
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

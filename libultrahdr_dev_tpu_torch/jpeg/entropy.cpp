@@ -2,8 +2,10 @@
 //
 // A copy of the JAX package's jpeg/native/entropy.cpp, cut to what the
 // port runs: the restart-interval encoder and decoder of its host
-// route, and the lengths-only scan that splits a restart-less stream
-// into lanes for the device decoder (jpeg/device_decode.py). It fills
+// route, the lengths-only scan that splits a restart-less stream into
+// lanes for the device decoder (jpeg/device_decode.py), and the four
+// progressive scan decoders (uhdr_prog_*) that jpeg/codec.py's
+// multi-scan decode runs scan by scan. It fills
 // the role libjpeg-turbo's entropy coder plays for the reference
 // (lib/src/jpegencoderhelper.cpp:226 jpeg_write_raw_data,
 // lib/src/jpegdecoderhelper.cpp:422 jpeg_read_raw_data).
@@ -74,14 +76,18 @@ inline int bit_length(int v) {
 }
 
 struct HuffDecTable {
-  // T.81 F.2.2.3 MINCODE/MAXCODE/VALPTR decode, plus a 12-bit fast LUT.
+  // T.81 F.2.2.3 MINCODE/MAXCODE/VALPTR decode, plus 8- and 12-bit
+  // fast LUTs.
   int32_t mincode[17];
   int32_t maxcode[18];
   int32_t valptr[17];
   uint8_t vals[256];
-  // fast path: next 12 bits -> (symbol | (len << 8)) or 0xFFFF.
+  // progressive scans' path: next 8 bits -> (symbol | (len << 8)) or
+  // 0xFFFF.
+  uint16_t lut[256];
+  // baseline path: next 12 bits -> (symbol | (len << 8)) or 0xFFFF.
   // Annex-K AC tables put many common run/size symbols at 9-12 bits,
-  // so an 8-bit window would miss often on dense (high-quality) scans.
+  // so the 8-bit window misses often on dense (high-quality) scans.
   uint16_t lut12[4096];
 };
 
@@ -103,6 +109,20 @@ void build_dec_table(const uint8_t* bits17, const uint8_t* vals256,
     code <<= 1;
   }
   t->maxcode[17] = 0x7FFFFFFF;
+  for (int i = 0; i < 256; ++i) t->lut[i] = 0xFFFF;
+  // Fill fast LUT for codes of length <= 8.
+  code = 0; k = 0;
+  for (int len = 1; len <= 8; ++len) {
+    for (int i = 0; i < bits17[len]; ++i) {
+      uint8_t sym = vals256[k++];
+      int shift = 8 - len;
+      int base = code << shift;
+      for (int j = 0; j < (1 << shift); ++j)
+        t->lut[base + j] = (uint16_t)(sym | (len << 8));
+      ++code;
+    }
+    code <<= 1;
+  }
   for (int i = 0; i < 4096; ++i) t->lut12[i] = 0xFFFF;
   code = 0; k = 0;
   for (int len = 1; len <= 12; ++len) {
@@ -116,6 +136,108 @@ void build_dec_table(const uint8_t* bits17, const uint8_t* vals256,
     }
     code <<= 1;
   }
+}
+
+// Bit reader and Huffman decode of the progressive scan decoders
+// (uhdr_prog_*).
+struct BitReader {
+  const uint8_t* data;
+  long len;
+  long pos = 0;
+  uint64_t acc = 0;
+  int nbits = 0;
+  bool error = false;
+  bool hit_marker = false;
+
+  // Refill up to >= 25 bits if possible.
+  inline void refill() {
+    // Fast path: pull 4 bytes at once when none is 0xFF (the common
+    // case; stuffed/marker bytes take the byte loop below).
+    while (nbits <= 32 && pos + 4 <= len) {
+      uint32_t w;
+      __builtin_memcpy(&w, data + pos, 4);
+      uint32_t x = ~w;  // a 0xFF byte becomes 0x00
+      if ((((x - 0x01010101u) & ~x) & 0x80808080u) != 0) break;
+      acc = (acc << 32) | __builtin_bswap32(w);
+      nbits += 32;
+      pos += 4;
+    }
+    while (nbits <= 56 && pos < len) {
+      uint8_t b = data[pos];
+      if (b == 0xFF) {
+        if (pos + 1 < len && data[pos + 1] == 0x00) {
+          acc = (acc << 8) | 0xFF;
+          nbits += 8;
+          pos += 2;
+          continue;
+        }
+        // real marker: stop feeding, pad with zeros
+        hit_marker = true;
+        break;
+      }
+      acc = (acc << 8) | b;
+      nbits += 8;
+      ++pos;
+    }
+  }
+
+  inline uint32_t peek(int n) {
+    if (nbits < n) refill();
+    if (nbits < n) {
+      // pad with zero bits (stream may legally end mid-code at EOB)
+      return (uint32_t)((acc << (n - nbits)) & ((1u << n) - 1));
+    }
+    return (uint32_t)((acc >> (nbits - n)) & ((1u << n) - 1));
+  }
+
+  inline void skip(int n) {
+    if (nbits < n) refill();
+    if (nbits < n) { nbits = 0; error = true; return; }
+    nbits -= n;
+  }
+
+  inline uint32_t get(int n) {
+    uint32_t v = peek(n);
+    skip(n);
+    return v;
+  }
+
+  // Align to byte boundary and consume an RSTn marker if present
+  // (any number of 0xFF fill bytes may precede it, T.81 B.1.1.2).
+  inline bool sync_restart() {
+    nbits = 0;
+    acc = 0;
+    while (pos + 1 < len && data[pos] == 0xFF && data[pos + 1] == 0xFF)
+      ++pos;  // fill byte
+    if (pos + 1 < len && data[pos] == 0xFF &&
+        data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7) {
+      pos += 2;
+      hit_marker = false;
+      return true;
+    }
+    return false;
+  }
+};
+
+
+inline int decode_huff(BitReader& br, const HuffDecTable& t) {
+  uint32_t look = br.peek(8);
+  uint16_t hit = t.lut[look];
+  if (hit != 0xFFFF) {
+    br.skip(hit >> 8);
+    return hit & 0xFF;
+  }
+  // slow path: lengths 9..16
+  int code = (int)br.peek(16);
+  for (int len = 9; len <= 16; ++len) {
+    int c = code >> (16 - len);
+    if (c <= t.maxcode[len]) {
+      br.skip(len);
+      return t.vals[t.valptr[len] + (c - t.mincode[len])];
+    }
+  }
+  br.error = true;
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -549,6 +671,175 @@ long uhdr_huff_scan_offsets(const uint8_t* data, long len, long n_mcus,
   long avail = flat_len * 8;
   if (used > avail || used + 8 <= avail) return -1;
   return flat_len;
+}
+
+
+// ---------------------------------------------------------------------------
+// Progressive JPEG scan decoding (T.81 Annex G.2). Each scan refines a
+// persistent coefficient buffer; Python orchestrates the scan sequence
+// and owns the per-component grids.
+// ---------------------------------------------------------------------------
+
+// DC scan, first pass (Ah == 0): diffs scaled by 1 << Al.
+// blocks are in scan order (interleaved MCU order when ncomp > 1).
+long uhdr_prog_dc_first(const uint8_t* data, long len, long nblocks,
+                        const uint8_t* comp_ids, int ncomp,
+                        const uint8_t* dc_sel, const uint8_t* dc_bits,
+                        const uint8_t* dc_vals, int al,
+                        int restart_interval, int mcu_blocks,
+                        int16_t* coefs /* (nblocks, 64) zigzag */) {
+  HuffDecTable dct[4];
+  for (int i = 0; i < 4; ++i)
+    build_dec_table(dc_bits + i * 17, dc_vals + i * 256, &dct[i]);
+  BitReader br{data, len};
+  int pred[4] = {0, 0, 0, 0};
+  long mcu_count = 0;
+  for (long b = 0; b < nblocks; ++b) {
+    if (restart_interval && mcu_blocks && b % mcu_blocks == 0 &&
+        mcu_count && mcu_count % restart_interval == 0) {
+      br.sync_restart();
+      pred[0] = pred[1] = pred[2] = pred[3] = 0;
+    }
+    if (mcu_blocks && b % mcu_blocks == 0) ++mcu_count;
+    int c = comp_ids[b];
+    int size = decode_huff(br, dct[dc_sel[c]]);
+    if (br.error) return -(b + 1);
+    int diff = size ? extend((int)br.get(size), size) : 0;
+    pred[c] += diff;
+    coefs[b * 64] = (int16_t)(pred[c] << al);
+  }
+  return 0;
+}
+
+// DC refinement (Ah > 0): one appended bit per block.
+long uhdr_prog_dc_refine(const uint8_t* data, long len, long nblocks,
+                         int al, int restart_interval, int mcu_blocks,
+                         int16_t* coefs) {
+  BitReader br{data, len};
+  long mcu_count = 0;
+  for (long b = 0; b < nblocks; ++b) {
+    if (restart_interval && mcu_blocks && b % mcu_blocks == 0 &&
+        mcu_count && mcu_count % restart_interval == 0)
+      br.sync_restart();
+    if (mcu_blocks && b % mcu_blocks == 0) ++mcu_count;
+    if (br.get(1)) coefs[b * 64] |= (int16_t)(1 << al);
+    if (br.error) return -(b + 1);
+  }
+  return 0;
+}
+
+// AC scan, first pass (Ah == 0): run-length with EOB runs, single
+// component, spectral band [ss, se], values scaled by 1 << Al.
+long uhdr_prog_ac_first(const uint8_t* data, long len, long nblocks,
+                        const uint8_t* ac_bits, const uint8_t* ac_vals,
+                        int ss, int se, int al, int restart_interval,
+                        int16_t* coefs) {
+  HuffDecTable act;
+  build_dec_table(ac_bits, ac_vals, &act);
+  BitReader br{data, len};
+  long eobrun = 0;
+  for (long b = 0; b < nblocks; ++b) {
+    if (restart_interval && b && b % restart_interval == 0) {
+      br.sync_restart();
+      eobrun = 0;
+    }
+    if (eobrun > 0) {
+      --eobrun;
+      continue;
+    }
+    int16_t* blk = coefs + b * 64;
+    int k = ss;
+    while (k <= se) {
+      int sym = decode_huff(br, act);
+      if (br.error) return -(b + 1);
+      int r = sym >> 4, s = sym & 15;
+      if (s == 0) {
+        if (r == 15) { k += 16; continue; }  // ZRL
+        eobrun = (1l << r) - 1;
+        if (r) eobrun += br.get(r);
+        break;  // EOB for this block
+      }
+      k += r;
+      if (k > se) return -(b + 1);
+      blk[k] = (int16_t)(extend((int)br.get(s), s) << al);
+      ++k;
+    }
+  }
+  return 0;
+}
+
+// AC refinement (Ah > 0): append a bit to already-nonzero
+// coefficients, insert new +-(1 << Al) coefficients (T.81 G.2.2).
+long uhdr_prog_ac_refine(const uint8_t* data, long len, long nblocks,
+                         const uint8_t* ac_bits, const uint8_t* ac_vals,
+                         int ss, int se, int al, int restart_interval,
+                         int16_t* coefs) {
+  HuffDecTable act;
+  build_dec_table(ac_bits, ac_vals, &act);
+  BitReader br{data, len};
+  long eobrun = 0;
+  const int16_t p1 = (int16_t)(1 << al);
+  const int16_t m1 = (int16_t)(-(1 << al));
+
+  for (long b = 0; b < nblocks; ++b) {
+    if (restart_interval && b && b % restart_interval == 0) {
+      br.sync_restart();
+      eobrun = 0;
+    }
+    int16_t* blk = coefs + b * 64;
+    int k = ss;
+    if (eobrun == 0) {
+      while (k <= se) {
+        int sym = decode_huff(br, act);
+        if (br.error) return -(b + 1);
+        int r = sym >> 4, s = sym & 15;
+        int16_t newval = 0;
+        if (s == 0) {
+          if (r != 15) {
+            eobrun = (1l << r);
+            if (r) eobrun += br.get(r);
+            break;
+          }
+          // r == 15: skip 16 zero-history coefficients
+        } else {
+          // s must be 1; the new coefficient is +-1 << al
+          newval = br.get(1) ? p1 : m1;
+        }
+        // advance over r zero-history coefficients, refining nonzero
+        // ones along the way
+        while (k <= se) {
+          if (blk[k]) {
+            if (br.get(1)) {
+              if ((blk[k] & p1) == 0)
+                blk[k] += (int16_t)(blk[k] >= 0 ? p1 : m1);
+            }
+          } else {
+            if (r == 0) break;
+            --r;
+          }
+          ++k;
+        }
+        if (newval && k <= se) blk[k] = newval;
+        ++k;
+        if (br.error) return -(b + 1);
+      }
+    }
+    if (eobrun > 0) {
+      // EOB run: still refine existing nonzero coefficients in band.
+      while (k <= se) {
+        if (blk[k]) {
+          if (br.get(1)) {
+            if ((blk[k] & p1) == 0)
+              blk[k] += (int16_t)(blk[k] >= 0 ? p1 : m1);
+          }
+        }
+        ++k;
+      }
+      --eobrun;
+    }
+    if (br.error) return -(b + 1);
+  }
+  return 0;
 }
 
 }  // extern "C"

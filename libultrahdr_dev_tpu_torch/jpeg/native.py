@@ -5,7 +5,9 @@ compiles each with g++ at first use into the package's git-ignored
 build directory, keyed by a hash of the source and the flags. Nothing
 outside the port's package is read.
 
-- ``jpeg/entropy.cpp``: the host Huffman entropy codec (``get_lib``).
+- ``jpeg/entropy.cpp``: the host Huffman entropy codec and the
+  progressive scan decoders (``get_lib``).
+- ``jpeg/arith.cpp``: the arithmetic (QM) entropy codec (``get_arith``).
 - ``parallel/packio.cpp``: the upload's segment pack and the planes
   readback's Rice unpack (``get_packio``).
 - ``ops/apply.cpp``: the gain-map apply on the host (``get_apply``).
@@ -31,6 +33,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(_HERE)
 SRC = os.path.join(_HERE, "entropy.cpp")
+ARITH_SRC = os.path.join(_HERE, "arith.cpp")
 PACKIO_SRC = os.path.join(_PKG, "parallel", "packio.cpp")
 APPLY_SRC = os.path.join(_PKG, "ops", "apply.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -104,6 +107,48 @@ def _bind_entropy(lib):
         u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
         u8p, u8p, u8p, u8p, u8p, u8p, ctypes.c_int, u8p,
         ctypes.POINTER(ctypes.c_long)]
+    lib.uhdr_prog_dc_first.restype = ctypes.c_long
+    lib.uhdr_prog_dc_first.argtypes = [
+        u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
+        u8p, u8p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        i16p]
+    lib.uhdr_prog_dc_refine.restype = ctypes.c_long
+    lib.uhdr_prog_dc_refine.argtypes = [
+        u8p, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, i16p]
+    for name in ("uhdr_prog_ac_first", "uhdr_prog_ac_refine"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_long
+        fn.argtypes = [
+            u8p, ctypes.c_long, ctypes.c_long, u8p, u8p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            i16p]
+
+
+def _bind_arith(lib):
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    lng, cint = ctypes.c_long, ctypes.c_int
+    lib.uhdr_arith_decode_seq.restype = lng
+    lib.uhdr_arith_decode_seq.argtypes = [
+        u8p, lng, lng, u8p, cint, u8p, u8p, u8p, u8p, u8p, cint, cint,
+        i16p]
+    lib.uhdr_arith_encode_seq.restype = lng
+    lib.uhdr_arith_encode_seq.argtypes = [
+        i16p, lng, u8p, cint, u8p, u8p, u8p, u8p, u8p, cint, cint,
+        u8p, lng]
+    lib.uhdr_arith_prog_dc_first.restype = lng
+    lib.uhdr_arith_prog_dc_first.argtypes = [
+        u8p, lng, lng, u8p, cint, u8p, u8p, u8p, cint, cint, cint, i16p]
+    lib.uhdr_arith_prog_dc_refine.restype = lng
+    lib.uhdr_arith_prog_dc_refine.argtypes = [
+        u8p, lng, lng, cint, cint, cint, i16p]
+    lib.uhdr_arith_prog_ac_first.restype = lng
+    lib.uhdr_arith_prog_ac_first.argtypes = [
+        u8p, lng, lng, cint, cint, cint, cint, cint, i16p]
+    lib.uhdr_arith_prog_ac_refine.restype = lng
+    lib.uhdr_arith_prog_ac_refine.argtypes = [
+        u8p, lng, lng, cint, cint, cint, cint, i16p]
 
 
 def _bind_packio(lib):
@@ -138,10 +183,20 @@ def _bind_apply(lib):
 
 
 def get_lib():
-    """The ctypes library with uhdr_huff_encode, uhdr_huff_decode and
-    uhdr_huff_scan_offsets bound. Builds on first call; raises if the
+    """The ctypes library with uhdr_huff_encode, uhdr_huff_decode,
+    uhdr_huff_scan_offsets and the progressive scan decoders
+    (uhdr_prog_dc_first, uhdr_prog_dc_refine, uhdr_prog_ac_first,
+    uhdr_prog_ac_refine) bound. Builds on first call; raises if the
     build fails."""
     return _load(SRC, _FLAGS, _bind_entropy)
+
+
+def get_arith():
+    """The ctypes library of jpeg/arith.cpp with the seven
+    uhdr_arith_* entry points bound (sequential decode and encode, the
+    four progressive scan decoders). Builds on first call; raises if the
+    build fails."""
+    return _load(ARITH_SRC, _FLAGS, _bind_arith)
 
 
 def get_packio():

@@ -156,8 +156,10 @@ class TestSubsamplingEncodeFuzz:
 
 
 class TestProgressiveFuzz:
-    """Mutations of a real progressive JPEG (a format the port's decoder
-    refuses with UhdrError, ROADMAP Queue A item 4)."""
+    """Mutations and truncations of a real progressive JPEG, which the
+    port's decoder accepts: each run goes through the native progressive
+    scan decoders (jpeg/entropy.cpp uhdr_prog_*) and must raise UhdrError
+    or return a result, never crash."""
 
     def _prog_jpeg(self):
         import io

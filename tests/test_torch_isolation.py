@@ -67,8 +67,9 @@ def test_no_source_imports_jax():
 
 def test_round_trip_from_a_lone_copy_of_the_package(tmp_path):
     """The port's package copied alone (no JAX package beside it, no
-    build from elsewhere) builds its own host codec from its own
-    entropy.cpp and runs an API-0 round trip on the CPU."""
+    build from elsewhere) builds its own host codecs from its own
+    entropy.cpp and arith.cpp and runs an API-0 round trip and an
+    arithmetic-coded JPEG round trip on the CPU."""
     shutil.copytree(PORT, tmp_path / "libultrahdr_dev_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     code = textwrap.dedent("""
@@ -92,6 +93,10 @@ def test_round_trip_from_a_lone_copy_of_the_package(tmp_path):
         from libultrahdr_dev_tpu_torch.parallel import batched
         f = batched.decode_host_huffman(blob)   # builds entropy.cpp
         assert f.grids is not None
+        # The arithmetic codec (builds arith.cpp) and its SOF9 decode.
+        g = (np.arange(32 * 48) % 251).astype(np.uint8).reshape(32, 48)
+        a = codec.encode_jpeg({"y": g}, 90, arithmetic=True, device="cpu")
+        assert codec.decode_jpeg(a, "cpu").planes[0].shape == (32, 48)
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(tmp_path))
@@ -100,8 +105,9 @@ def test_round_trip_from_a_lone_copy_of_the_package(tmp_path):
                          timeout=300, cwd=tmp_path)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    assert list((tmp_path / "libultrahdr_dev_tpu_torch" / "_build").glob(
-        "entropy-*.so"))
+    for stem in ("entropy", "arith"):
+        assert list((tmp_path / "libultrahdr_dev_tpu_torch" / "_build").glob(
+            f"{stem}-*.so"))
 
 
 def test_entry_points_default_to_cuda():

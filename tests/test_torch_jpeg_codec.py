@@ -106,13 +106,16 @@ def test_decode_jpeg_host_route_planes_equal_jax():
 
 
 def test_encode_jpeg_unported_options_raise():
-    """Arithmetic coding still raises; a restart interval, once queued,
-    now encodes (B12-enc's plain version) to the JAX package's bytes."""
+    """The options once queued now encode to the JAX package's bytes:
+    arithmetic coding (SOF9, the QM coder on the host), with and without
+    restart intervals, and a restart interval (B12-enc's plain version);
+    an inconsistent sampling still raises INVALID_PARAM."""
     planes = _planes("420", 16, 16, seed=1)
-    with pytest.raises(UhdrError,
-                       match="UNSUPPORTED_FEATURE.*Off-path formats"):
-        tcodec.encode_jpeg(planes, quality=90, device="cpu",
-                           arithmetic=True)
+    for r in (0, 4):
+        assert tcodec.encode_jpeg(planes, quality=90, device="cpu",
+                                  restart_interval=r, arithmetic=True) == \
+            jcodec.encode_jpeg(planes, quality=90, restart_interval=r,
+                               arithmetic=True)
     assert tcodec.encode_jpeg(planes, quality=90, device="cpu",
                               restart_interval=4) == jcodec.encode_jpeg(
         planes, quality=90, restart_interval=4)
