@@ -98,13 +98,19 @@ device's; the CLI window: a 4000x3000 encode decoded to RGBA1010102 and
 F16, each file = the unpacked decode; the off-path window: arithmetic
 encode and decode, a JPEG/R with an arithmetic primary, the committed
 progressive fixture (tests/fixtures_torch) against its sidecar's grids
-digest, and a multi-scan baseline file, at 4000x3000), each with every
+digest, and a multi-scan baseline file, at 4000x3000; the mesh window:
+the batched entry points at 4080x3072, batch 4, as one-device calls and
+then on default_mesh(), on two shards of cuda:0 and, with two GPUs, on
+cuda:0 and cuda:1, each arm's bytes and pixels the one-device calls',
+its launches the shard count times theirs), each with every
 launch counter zeroed just before and read just after (each window's
 kernels launched; no host Huffman call in any window but the off-path
 one, whose host entropy calls are counted against what its formats
 need: the general routes and the converter code each JPEG they generate
 with B19); stage times (the decode stages under both emissions and the
-off-path formats' host and device stages among them).
+off-path formats' host and device stages and each mesh arm's calls
+among them) and the host cost of the launch guard (kernels/build.py
+launch).
 
 Under UHDR_DECODE_EMIT=log every decode runs B22, and each window's
 need of B4 is read as a need of B22.
@@ -3221,7 +3227,9 @@ def rice_edge_checks(dev, bits: int, seed: int):
             f"vertical {ks[0]}, MED {ks[1]}")
     zc = packio._zero_code(nk)
     t = RICE_ORDER_TILE
-    scratch = build.get_lib().uhdr_rice_order_scratch
+    def scratch(nseg):
+        return build.host_call("uhdr_rice_order_scratch", nseg)
+
     require(scratch(t) < scratch(t + 1), f"{t} is not B16's order tile")
     for nseg in (t - 1, t, t + 1, 3 * t + 517):
         kc = rng.integers(0, nk + 1, nseg)
@@ -4599,6 +4607,293 @@ def main_path_offpath(dev, smi: str):
     return launches, stages
 
 
+MESH_ROUNDS = 2     # serving-loop rounds of each mesh arm
+MESH_KERNELS = ("B1", "B2", "B3", "B3g", "B3w", "B3gw", "B4", "B5", "B6",
+                "B7", "B14", "B15", "B16", "B18", "B19", "B19g")
+
+
+def _sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _mesh_calls(dev, mesh, inputs, label: str, smi: str):
+    """One arm of the mesh window: every batched entry point the window
+    covers, on `mesh` (None: the one-device calls on `dev`), run once
+    untimed, so that the readbacks' plan cache holds this arm's shard
+    shapes, then again in one count window -> (outputs, launches,
+    readback events, fetch modes). Each counted call is timed, device
+    work included, and logged as a stage line of the arm. The readback
+    events are the fused fetch's re-plans (B15 and B16 once more each)
+    and the Rice pack's declines (no B16) of the counted run; the fetch
+    modes are, per shard, the modes of its planes readbacks there."""
+    from libultrahdr_dev_tpu_torch import serving
+    from libultrahdr_dev_tpu_torch.parallel import batched, link
+    from libultrahdr_dev_tpu_torch.utils import counters as events
+
+    y, uv, dy, duv, planes, md = inputs
+    boost = serving.BOOST
+    kw = {"device": dev} if mesh is None else {"mesh": mesh}
+    out, ms, fetch_stats = {}, {}, []
+
+    def timed(name, fn):
+        _sync_all()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _sync_all()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+
+    def calls():
+        fetch_stats.clear()
+        timed("API-0 encode + handoff", lambda: batched.batched_encode_api0(
+            y, uv, return_handoff=True, **kw))
+        blobs, hand = out["API-0 encode + handoff"]
+        for fmt in ("hdr_hlg", "hdr_linear", "sdr"):
+            timed(f"decode {fmt}", lambda: batched.batched_decode(
+                blobs, fmt, boost, **kw))
+        timed("handoff decode hdr_hlg",
+              lambda: batched.batched_decode_from_handoff(
+                  hand, "hdr_hlg", boost, mesh=mesh))
+        timed("batched apply hdr_hlg", lambda: batched.batched_apply_gainmap(
+            *planes, md, "hdr_hlg", boost, **kw))
+        fetch_stats.append({})
+        timed("host-apply decode hdr_hlg",
+              lambda: link.decode_batch_hostapply(
+                  blobs, "hdr_hlg", boost, fetch_stats[0], **kw))
+        timed(f"serving loop ({MESH_ROUNDS} rounds)", lambda: serving.run(
+            len(y), H, W, MESH_ROUNDS, log=lambda m: None, **kw))
+        fetch_stats.extend(out[f"serving loop ({MESH_ROUNDS} rounds)"].stats)
+        timed("dense API-0 encode (q100)",
+              lambda: batched.batched_encode_api0(
+                  dy, duv, quality=100, return_handoff=True, **kw))
+        timed("dense decode hdr_hlg", lambda: batched.batched_decode(
+            out["dense API-0 encode (q100)"][0], "hdr_hlg", boost, **kw))
+
+    calls()
+    _sync_all()
+    reset_counts()
+    ev0 = events.snapshot()
+    t0 = time.perf_counter()
+    calls()
+    _sync_all()
+    c = read_counts(f"mesh {label} ({time.perf_counter() - t0:.1f} s)",
+                    MESH_KERNELS)
+    ev1 = events.snapshot()
+    ev = {k: ev1.get(k, 0) - ev0.get(k, 0)
+          for k in ("fused_fetch_replan", "rice_readback_declined")}
+    modes = []
+    for st in fetch_stats:
+        shards = st["fetch_stages"]
+        shards = shards if isinstance(shards, list) else [shards]
+        modes = modes or [[] for _ in shards]
+        for m, sh in zip(modes, shards):
+            m.append(sh.get("mode", "two_phase"))
+    log(f"mesh {label}: readback events {ev}, planes fetch modes per shard "
+        f"{modes}")
+    for name, v in ms.items():
+        log(f"stage mesh {label} {name}: {v:.3f} ms ({len(y)} frames of "
+            f"{W}x{H}; {smi})")
+    return out, c, ev, modes
+
+
+def _fetches_out(launches: dict, ev: dict) -> dict:
+    """Launch counts with the readbacks' re-plans and declines taken out
+    of B15 and B16: what one pack a fetch launches."""
+    out = dict(launches)
+    out["B15"] -= ev["fused_fetch_replan"]
+    out["B16"] += ev["rice_readback_declined"] - ev["fused_fetch_replan"]
+    return out
+
+
+def _host(x):
+    """An output of the window on the host, for a bitwise comparison."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel.mesh import ShardedBatch
+
+    if isinstance(x, (ShardedBatch, torch.Tensor)):
+        return x.cpu().numpy()
+    return x
+
+
+def _mesh_placed(out, mesh, label: str):
+    """Every sharded output of an arm lies shard for shard on the mesh's
+    devices, and each shard holds its span of the batch."""
+    from libultrahdr_dev_tpu_torch.parallel.mesh import ShardedBatch
+
+    n = out["decode hdr_hlg"].shape[0]
+    for name in ("decode hdr_hlg", "decode hdr_linear", "decode sdr",
+                 "handoff decode hdr_hlg", "batched apply hdr_hlg",
+                 "dense decode hdr_hlg"):
+        b = out[name]
+        require(isinstance(b, ShardedBatch) and b.devices == mesh.devices
+                and all(s.shape[0] == n // len(mesh) for s in b.shards),
+                f"mesh {label}: {name} is not laid over {mesh}")
+    hand = out["API-0 encode + handoff"][1]
+    require(len(hand) == len(mesh) and all(
+        h.streams.base.device == d == h.streams.gm.device
+        for h, d in zip(hand, mesh.devices)),
+        f"mesh {label}: a handoff shard is off its device")
+
+
+def main_path_mesh(dev, smi: str):
+    """The mesh window (parallel/mesh.py and the mesh= arm of the batched
+    entry points) at the serving loop's defaults, 4080x3072, batch
+    SERVE_FRAMES: the API-0 encode with its handoff, batched_decode to
+    HLG, F16 and SDR, the handoff decode, batched_apply_gainmap, the
+    host-apply decode, MESH_ROUNDS serving-loop rounds, and a q100 batch
+    whose frame 1 holds a DENSE_PATCH noise square (encoded and
+    decoded), first as the one-device calls and then on each arm: (a)
+    default_mesh(), (b) two shards on cuda:0, (c) cuda:0 and cuda:1 when
+    there are two GPUs (else one line says it did not run). Each arm's
+    blobs are the one-device blobs byte for byte and its pixels bitwise
+    the one-device pixels; the dense batch is restart-less in every shard
+    with no handoff; in (c) every sharded output lies on its shard's
+    device. The readbacks run as a serving loop runs them, fused on a
+    cached plan: every shard must take the fused fetch at least once in
+    the counted run. Each kernel launches once per shard where the
+    one-device calls launch it once, the readbacks' re-plans and
+    declines of each run taken out of B15 and B16 first (a re-plan
+    launches both once more, a decline launches no B16; which fetch
+    re-plans hangs on the plan cache's history, not on the mesh). ->
+    launches summed over the reference and the arms."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.parallel import batched
+    from libultrahdr_dev_tpu_torch.parallel.mesh import (DeviceMesh,
+                                                         default_mesh)
+    from libultrahdr_dev_tpu_torch.types import GainMapMetadata
+
+    n = SERVE_FRAMES
+    y, uv = synth_p010(n, H, W, SEED + 500)
+    dy, duv = synth_p010(n, H, W, SEED + 501)
+    p = DENSE_PATCH
+    r0, c0 = H // 32 * 16, W // 32 * 16
+    ny, nuv = dense_p010(1, p, p, SEED + 502)
+    dy[1, r0:r0 + p, c0:c0 + p] = ny[0]
+    duv[1, r0 // 2:(r0 + p) // 2, c0:c0 + p] = nuv[0]
+    rng = np.random.default_rng(SEED + 503)
+    planes = tuple(rng.integers(0, 256, s, dtype=np.uint8)
+                   for s in ((n, H, W), (n, H // 2, W // 2),
+                             (n, H // 2, W // 2), (n, H // 4, W // 4)))
+    boost = 1000 / 203
+    md = GainMapMetadata(max_content_boost=boost, min_content_boost=1.0,
+                         hdr_capacity_min=1.0, hdr_capacity_max=boost)
+    inputs = (y, uv, dy, duv, planes, md)
+
+    ref, ref_c, ref_ev, _ = _mesh_calls(dev, None, inputs, "one device",
+                                        smi)
+    require(ref["dense API-0 encode (q100)"][1] is None,
+            "mesh window: the dense batch gave a handoff")
+    arms = [("(a) default_mesh", default_mesh()),
+            ("(b) two shards on cuda:0", DeviceMesh([dev, dev]))]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        arms.append(("(c) cuda:0 + cuda:1",
+                     DeviceMesh([torch.device("cuda", 0),
+                                 torch.device("cuda", 1)])))
+    else:
+        log(f"mesh arm (c) cuda:0 + cuda:1: not run: "
+            f"torch.cuda.device_count() is {count}, it needs 2")
+    total = dict(ref_c)
+    for label, mesh in arms:
+        s = len(mesh)
+        log(f"mesh devices={len(set(mesh.devices))} shards={s} {label}: "
+            f"{[str(d) for d in mesh.devices]}")
+        out, c, ev, modes = _mesh_calls(dev, mesh, inputs, label, smi)
+        for k in total:
+            total[k] += c[k]
+        require(len(modes) == s and all("fused" in m for m in modes),
+                f"mesh {label}: a shard never took the fused readback: "
+                f"{modes}")
+        for name, want in ref.items():
+            got = out[name]
+            if name.startswith("API-0") or name.startswith("dense API-0"):
+                require(got[0] == want[0],
+                        f"mesh {label}: {name} blobs differ from the "
+                        f"one-device blobs")
+            elif name.startswith("serving"):
+                require(got.blobs == want.blobs and np.array_equal(
+                    got.pixels, want.pixels) and np.array_equal(
+                        got.comp, want.comp),
+                    f"mesh {label}: the serving loop differs from the "
+                    f"one-device loop")
+            else:
+                require(np.array_equal(_host(got), _host(want)),
+                        f"mesh {label}: {name} pixels differ from the "
+                        f"one-device pixels")
+        dense, dhand = out["dense API-0 encode (q100)"]
+        require(dhand is None and not any(
+            bytes([0xFF, 0xD0 + k]) in b for b in dense for k in range(8)),
+            f"mesh {label}: the dense batch is not restart-less in every "
+            f"shard")
+        want_c = {k: s * v for k, v in _fetches_out(ref_c, ref_ev).items()}
+        require(_fetches_out(c, ev) == want_c,
+                f"mesh {label}: launches {c} (readback events {ev}) are not "
+                f"{s} x the one-device launches {ref_c} (readback events "
+                f"{ref_ev})")
+        _mesh_placed(out, mesh, label)
+        log(f"mesh {label}: blobs byte-identical, pixels bitwise equal to "
+            f"the one-device calls; dense batch restart-less in all {s} "
+            f"shards; launches {s} x the one-device launches")
+    return total
+
+
+def launch_guard_cost(dev, smi: str, reps: int = 4000):
+    """Host time of kernels/build.py:launch's device guard with the
+    device already current: its current-device check alone, the
+    `torch.cuda.device` enter and exit it takes for a tensor off the
+    current device, then a tiny kernel (pow_probe over 32 floats)
+    launched through build.launch and through its bare ctypes entry
+    point on the same stream, in turns (bare, guarded, guarded, bare),
+    each timed on the host from the first call to the last of `reps`
+    (the queue drained before each run)."""
+    import torch
+
+    from libultrahdr_dev_tpu_torch.kernels import build
+    from libultrahdr_dev_tpu_torch.ops import color
+
+    x = torch.rand(32, device=dev)
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), out.data_ptr(), 32, color._f32(0.5), 1)
+    lib = build.get_lib()
+
+    def check():
+        return x.device.index == torch.cuda.current_device()
+
+    def guard():
+        with torch.cuda.device(x.device):
+            pass
+
+    def guarded():
+        build.launch(x, "uhdr_pow_probe", *args)
+
+    def bare():
+        build.check(lib.uhdr_pow_probe(*args, build.stream_of(x)),
+                    "uhdr_pow_probe")
+
+    def us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / reps * 1e6
+
+    for fn in (check, guard, guarded, bare):
+        us(fn)
+    c = min(us(check) for _ in range(2))
+    g = min(us(guard) for _ in range(2))
+    b1, l1, l2, b2 = us(bare), us(guarded), us(guarded), us(bare)
+    log(f"launch guard: current-device check {c:.3f} us, torch.cuda.device "
+        f"enter + exit {g:.3f} us; pow_probe launch guarded {l1:.3f}, "
+        f"{l2:.3f} us, bare {b1:.3f}, {b2:.3f} us ({reps} calls a run, "
+        f"device current; {smi})")
+
+
 def main_path_cli(dev, smi: str):
     """The command-line tool (python -m libultrahdr_dev_tpu_torch.cli) on
     one GW x GH P010 frame: encode (API-0 on the general route), then
@@ -5013,10 +5308,15 @@ def main() -> int:
     t = time.perf_counter()
     launches11, offpath_stages = main_path_offpath(dev, smi)
     log(f"phase main path off-path formats: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches12 = main_path_mesh(dev, smi)
+    log(f"phase main path mesh: {time.perf_counter() - t:.1f} s")
+    launch_guard_cost(dev, smi)
     launches = {k: sum(c[k] for c in (launches, launches1, launches2,
                                       launches3, launches4, launches5,
                                       launches6, launches7, launches8,
-                                      launches9, launches10, launches11))
+                                      launches9, launches10, launches11,
+                                      launches12))
                 for k in launches}
     launches["B3"] += launches.pop("B3g")
     launches["B19"] += launches.pop("B19g")

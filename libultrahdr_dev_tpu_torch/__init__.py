@@ -59,7 +59,10 @@ CUDA device unless the caller passes device="cpu". Public surface:
   - parallel.batched — batched_encode_api0 / batched_encode_api1 /
     batched_encode_device_stage / batched_decode /
     batched_decode_from_handoff / batched_apply_gainmap over a leading
-    batch dimension on one device
+    batch dimension on one device, or with mesh= over a mesh of them
+  - parallel.mesh — default_mesh (every visible GPU, as the JAX
+    package's sharding.default_mesh) / single_device_mesh / DeviceMesh,
+    and ShardedBatch, a batch's per-device shards
   - utils.profiler — Profiler, StageTimes, device_trace (torch.profiler,
     a Chrome trace) and annotate
 """
@@ -67,6 +70,8 @@ CUDA device unless the caller passes device="cpu". Public surface:
 from .api import UhdrDecoder, UhdrEncoder, is_uhdr_image  # noqa: F401
 from .heifr import HeifR  # noqa: F401
 from .jpegr import JpegR  # noqa: F401
+from .parallel.mesh import (DeviceMesh, ShardedBatch,  # noqa: F401
+                            default_mesh, single_device_mesh)
 from .ops.editor import (CropEffect, MirrorEffect, ResizeEffect,  # noqa: F401
                          RotateEffect)
 from .types import (ColorGamut, ColorTransfer, CompressedImage,  # noqa: F401

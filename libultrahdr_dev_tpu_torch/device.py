@@ -12,12 +12,18 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. A CUDA device (the default)
     must exist: without one the call raises, and nothing runs on the
-    CPU unless the caller asks for it."""
+    CPU unless the caller asks for it. A CUDA device always carries its
+    index: "cuda" is the current device, cuda:<index>, so that what is
+    cached per device (keyed by this) is found again whichever card is
+    current later."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
-                           "device='cpu' to run its plain versions on the "
-                           "CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the GPU; "
+                               "pass device='cpu' to run its plain versions "
+                               "on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

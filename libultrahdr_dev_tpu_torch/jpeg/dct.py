@@ -35,6 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import build
 from .tables import ZIGZAG
 
@@ -125,10 +126,12 @@ _ON_DEVICE: dict = {}
 
 
 def _on(device, name: str, host: np.ndarray) -> torch.Tensor:
-    """A constant table on `device`, uploaded once."""
-    t = _ON_DEVICE.get((device, name))
+    """A constant table on `device`, uploaded once per device (keyed by
+    its index)."""
+    key = (resolve_device(device), name)
+    t = _ON_DEVICE.get(key)
     if t is None:
-        t = _ON_DEVICE[(device, name)] = torch.from_numpy(host).to(device)
+        t = _ON_DEVICE[key] = torch.from_numpy(host).to(key[0])
     return t
 
 
@@ -198,13 +201,10 @@ def fdct_quant(plane_u8: torch.Tensor, q_natural: torch.Tensor,
     out = torch.empty((n, bh * bw, 64), dtype=torch.int16,
                       device=plane_u8.device)
     frags = _on(plane_u8.device, "frags", _FRAGS_C)
-    lib = build.get_lib()
     fdct_quant.launches += 1
-    build.check(lib.uhdr_fdct_quant(
-        plane_u8.data_ptr(), q_natural.data_ptr(), frags.data_ptr(),
-        out.data_ptr(), n, h, w, int(recip), *_tables(),
-        build.stream_of(plane_u8)),
-        "uhdr_fdct_quant")
+    build.launch(plane_u8, "uhdr_fdct_quant", plane_u8.data_ptr(),
+                 q_natural.data_ptr(), frags.data_ptr(), out.data_ptr(), n, h,
+                 w, int(recip), *_tables())
     return out
 
 
@@ -236,9 +236,9 @@ def mma_row_sums(blocks: torch.Tensor) -> torch.Tensor:
     tiles = blocks.reshape(t, 16, 8, 8).permute(0, 2, 1, 3).contiguous()
     out = torch.empty((t, 3, 8, 8, 32, 4), dtype=torch.float32,
                       device=blocks.device)
-    build.check(build.get_lib().uhdr_mma_row_sums(
-        tiles.data_ptr(), _on(blocks.device, "frags", _FRAGS_C).data_ptr(),
-        out.data_ptr(), t, build.stream_of(blocks)), "uhdr_mma_row_sums")
+    build.launch(blocks, "uhdr_mma_row_sums", tiles.data_ptr(),
+                 _on(blocks.device, "frags", _FRAGS_C).data_ptr(),
+                 out.data_ptr(), t)
     # (tile, term, j, row, g, tq, half, k) -> block 8 half + g, column
     # 8 j + 2 tq + k.
     return (out.reshape(t, 3, 8, 8, 8, 4, 2, 2)
@@ -279,11 +279,9 @@ def dequant_idct(coefs: torch.Tensor, q_natural: torch.Tensor, bh: int,
         raise ValueError("coefs: expected a 16-byte aligned tensor")
     out = torch.empty((n, bh * 8, bw * 8), dtype=torch.uint8,
                       device=coefs.device)
-    lib = build.get_lib()
     dequant_idct.launches += 1
-    build.check(lib.uhdr_dequant_idct(
-        coefs.data_ptr(), q_natural.data_ptr(), out.data_ptr(), n, bh, bw,
-        *_tables(), build.stream_of(coefs)), "uhdr_dequant_idct")
+    build.launch(coefs, "uhdr_dequant_idct", coefs.data_ptr(),
+                 q_natural.data_ptr(), out.data_ptr(), n, bh, bw, *_tables())
     return out
 
 

@@ -740,19 +740,17 @@ def decode_rst_chunks(src, frames, lanes, tabs, gray: bool, sampling,
     if (emit_mode or _DEFAULT_EMIT) == "log":
         return _decode_rst_chunks_log(src, frames, lanes, tabs, gray,
                                      sampling, mcus_x, mcus_y)[0]
-    lib = build.get_lib()
     grids, lookups, y, u, v, dcsum, args = _launch_args(
-        lib, src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y)
+        src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y)
     decode_rst_chunks.launches += 1
-    build.check(lib.uhdr_huff_decode(
-        src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
-        tabs.data_ptr(), lookups.data_ptr(), y.data_ptr(), u.data_ptr(),
-        v.data_ptr(), dcsum.data_ptr(), *args, build.stream_of(src)),
-        "uhdr_huff_decode")
+    build.launch(src, "uhdr_huff_decode", src.data_ptr(), frames.data_ptr(),
+                 lanes.data_ptr(), tabs.data_ptr(), lookups.data_ptr(),
+                 y.data_ptr(), u.data_ptr(), v.data_ptr(), dcsum.data_ptr(),
+                 *args)
     return tuple(grids)
 
 
-def _launch_args(lib, src, frames, lanes, tabs, gray, sampling, mcus_x,
+def _launch_args(src, frames, lanes, tabs, gray, sampling, mcus_x,
                  mcus_y):
     """Checked inputs and fresh outputs of a B4 or B22 launch: the
     grids, the per-frame lookup-table scratch, the y, u, v pointers'
@@ -769,8 +767,8 @@ def _launch_args(lib, src, frames, lanes, tabs, gray, sampling, mcus_x,
              for bh, bw in plane_shapes(gray, sampling, mcus_x, mcus_y)]
     y, u, v = grids if not gray else grids * 3
     dcsum = torch.empty((nl, 3), dtype=torch.int32, device=dev)
-    lookups = torch.empty(n * lib.uhdr_huff_lookup_bytes(), dtype=torch.uint8,
-                          device=dev)
+    lookups = torch.empty(n * build.host_call("uhdr_huff_lookup_bytes"),
+                          dtype=torch.uint8, device=dev)
     return (grids, lookups, y, u, v, dcsum,
             (n, nl, int(gray), hs, vs, mcus_x, mcus_y))
 
@@ -784,21 +782,19 @@ def _decode_rst_chunks_log(src, frames, lanes, tabs, gray: bool, sampling,
     each block's first log index (n * blocks int32); pass 2 rebuilds the
     grids from them. Counts ``decode_rst_chunks.log_launches``; raises
     on a build or launch failure."""
-    lib = build.get_lib()
     grids, lookups, y, u, v, dcsum, args = _launch_args(
-        lib, src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y)
+        src, frames, lanes, tabs, gray, sampling, mcus_x, mcus_y)
     blocks = sum(g.shape[0] * g.shape[1] for g in grids)
     dev = src.device
     ent = torch.empty(blocks * 64, dtype=torch.int32, device=dev)
     start = torch.empty(blocks, dtype=torch.int32, device=dev)
     cnt = torch.empty(lanes.shape[0], dtype=torch.int32, device=dev)
     decode_rst_chunks.log_launches += 1
-    build.check(lib.uhdr_huff_decode_log(
-        src.data_ptr(), frames.data_ptr(), lanes.data_ptr(),
-        tabs.data_ptr(), lookups.data_ptr(), ent.data_ptr(),
-        start.data_ptr(), cnt.data_ptr(), y.data_ptr(), u.data_ptr(),
-        v.data_ptr(), dcsum.data_ptr(), *args, build.stream_of(src)),
-        "uhdr_huff_decode_log")
+    build.launch(src, "uhdr_huff_decode_log", src.data_ptr(),
+                 frames.data_ptr(), lanes.data_ptr(), tabs.data_ptr(),
+                 lookups.data_ptr(), ent.data_ptr(), start.data_ptr(),
+                 cnt.data_ptr(), y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                 dcsum.data_ptr(), *args)
     return tuple(grids), cnt
 
 

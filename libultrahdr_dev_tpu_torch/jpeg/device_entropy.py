@@ -255,18 +255,41 @@ def _gray_dc_prev(blocks: torch.Tensor, r_mcus: int | None):
     return prev
 
 
-def _encode(blocks, prev, luma, lane, n_lanes: int, block_cap):
-    """Units of (N, 64) blocks, then their chunks; None when a block is
-    longer than block_cap bits."""
-    vals, lens = _units(blocks.reshape(-1, 64), prev.reshape(-1),
-                        luma.reshape(-1),
-                        _code_tables(blocks.device).to(torch.int64))
-    if block_cap is not None and int(lens.sum(dim=1).max()) > block_cap:
+class _PlainCount:
+    """A plain count pass: a batch's emission units (n frames of nc
+    lanes), packed into their chunks by write(), whose chunk bits come
+    as `bits_dtype` (int32 for B3, as its kernel writes them)."""
+
+    def __init__(self, blocks, prev, luma, lane, n: int, nc: int,
+                 bits_dtype=torch.int64):
+        self.vals, self.lens = _units(
+            blocks.reshape(-1, 64), prev.reshape(-1), luma.reshape(-1),
+            _code_tables(blocks.device).to(torch.int64))
+        self.lane, self.n, self.nc = lane, n, nc
+        self.bits_dtype = bits_dtype
+
+    @property
+    def longest(self) -> int:
+        """Bits of the batch's longest block."""
+        return int(self.lens.sum(dim=1).max()) if self.lens.numel() else 0
+
+    def write(self):
+        """(stream bytes uint8, (n, nc) chunk bits)."""
+        stream, bits = _assemble(self.vals, self.lens, self.lane,
+                                 self.n * self.nc)
+        return stream, bits.reshape(self.n, self.nc).to(self.bits_dtype)
+
+
+def _finish(count, block_cap):
+    """count.write(), or None (nothing written) when a block of the
+    batch is longer than block_cap bits."""
+    if block_cap is not None and count.longest > block_cap:
         return None
-    return _assemble(vals, lens, lane, n_lanes)
+    return count.write()
 
 
-def _ycbcr_plain(yz, uz, vz, mcus_x, mcus_y, sampling, r_mcus, block_cap):
+def _ycbcr_count_plain(yz, uz, vz, mcus_x, mcus_y, sampling, r_mcus,
+                       bits_dtype=torch.int64):
     blocks = _ycbcr_blocks(yz, uz, vz, mcus_x, mcus_y, sampling)
     n, nm, bpm = blocks.shape[:3]
     dev = blocks.device
@@ -277,11 +300,10 @@ def _ycbcr_plain(yz, uz, vz, mcus_x, mcus_y, sampling, r_mcus, block_cap):
     lane = ((torch.arange(n, device=dev)[:, None] * nc + chunk[None, :])
             [..., None].expand(n, nm, bpm).reshape(-1))
     luma = (torch.arange(bpm, device=dev) < bpm - 2).expand(n, nm, bpm)
-    out = _encode(blocks, prev, luma, lane, n * nc, block_cap)
-    return None if out is None else (out[0], out[1].reshape(n, nc))
+    return _PlainCount(blocks, prev, luma, lane, n, nc, bits_dtype)
 
 
-def _gray_plain(gz, r_mcus, block_cap):
+def _gray_count_plain(gz, r_mcus, bits_dtype=torch.int64):
     n, nb = gz.shape[:2]
     dev = gz.device
     blocks = gz.to(torch.int64)
@@ -291,9 +313,17 @@ def _gray_plain(gz, r_mcus, block_cap):
     lane = (torch.arange(n, device=dev)[:, None] * nc
             + chunk[None, :]).reshape(-1)
     luma = torch.ones(n * nb, dtype=torch.bool, device=dev)
-    out = _encode(blocks, _gray_dc_prev(blocks, r_mcus), luma, lane, n * nc,
-                  block_cap)
-    return None if out is None else (out[0], out[1].reshape(n, nc))
+    return _PlainCount(blocks, _gray_dc_prev(blocks, r_mcus), luma, lane, n,
+                       nc, bits_dtype)
+
+
+def _ycbcr_plain(yz, uz, vz, mcus_x, mcus_y, sampling, r_mcus, block_cap):
+    return _finish(_ycbcr_count_plain(yz, uz, vz, mcus_x, mcus_y, sampling,
+                                      r_mcus), block_cap)
+
+
+def _gray_plain(gz, r_mcus, block_cap):
+    return _finish(_gray_count_plain(gz, r_mcus), block_cap)
 
 
 def encode_ycbcr_rst_stream_plain(yz, uz, vz, mcus_x: int, mcus_y: int,
@@ -362,60 +392,102 @@ def rst_tiling(n_mcus: int, r_mcus: int, per_mcu: int):
     return 1, p, nc * p
 
 
-def _launch(wrapper, planes, nc: int, r_mcus: int, geom, block_cap):
-    """B3: count pass + scan, one sync for the total words, the longest
-    block and the write pass's shared words, then the write pass (none,
-    and None returned, when a block passes block_cap)."""
-    y, u, v = planes
-    dev = y.device
-    n, color, hs, vs, _, n_mcus = geom[:6]
-    per_mcu = hs * vs + 2 if color else 1
-    k, p, t = rst_tiling(n_mcus, r_mcus, per_mcu)
-    tabs = _code_tables(dev)
-    bits = torch.empty((n, nc), dtype=torch.int32, device=dev)
-    blen = torch.empty(n * n_mcus * per_mcu, dtype=torch.int32, device=dev)
-    tval = torch.empty(n * t, dtype=torch.int32, device=dev)
-    tbit = torch.empty(n * t, dtype=torch.int64, device=dev)
-    meta = torch.empty(3, dtype=torch.int64, device=dev)
-    lib = build.get_lib()
-    stream = build.stream_of(y)
-    args = (n, nc, r_mcus) + geom[1:] + (k, p, t)
-    build.check(lib.uhdr_huff_encode_count(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        bits.data_ptr(), blen.data_ptr(), tval.data_ptr(), tbit.data_ptr(),
-        meta.data_ptr(), *args, stream), "uhdr_huff_encode_count")
-    wrapper.launches += 1
-    total, longest, max_words = meta.tolist()  # the one sync
-    if block_cap is not None and longest > block_cap:
-        return None
-    alloc = torch.zeros if p > 1 else torch.empty
-    out = alloc(max(total, 1) * 4, dtype=torch.uint8, device=dev)
-    build.check(lib.uhdr_huff_encode_write(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        bits.data_ptr(), blen.data_ptr(), tbit.data_ptr(), out.data_ptr(),
-        *args, max_words, stream), "uhdr_huff_encode_write")
-    wrapper.write_launches += 1
-    return out[:total * 4], bits
+class _RstCount:
+    """B3's count pass on the device, its write pass not yet launched:
+    the count pass + scan (launched at construction), then one sync
+    for the total words, the longest block and the write pass's shared
+    words (the first read of ``longest`` or ``write``)."""
+
+    def __init__(self, wrapper, planes, nc: int, r_mcus: int, geom):
+        y, u, v = planes
+        dev = y.device
+        n, color, hs, vs, _, n_mcus = geom[:6]
+        per_mcu = hs * vs + 2 if color else 1
+        k, p, t = rst_tiling(n_mcus, r_mcus, per_mcu)
+        self.wrapper, self.planes, self.p = wrapper, planes, p
+        self.tabs = _code_tables(dev)
+        self.bits = torch.empty((n, nc), dtype=torch.int32, device=dev)
+        self.blen = torch.empty(n * n_mcus * per_mcu, dtype=torch.int32,
+                                device=dev)
+        tval = torch.empty(n * t, dtype=torch.int32, device=dev)
+        self.tbit = torch.empty(n * t, dtype=torch.int64, device=dev)
+        self.meta = torch.empty(3, dtype=torch.int64, device=dev)
+        self.args = (n, nc, r_mcus) + geom[1:] + (k, p, t)
+        self._host = None
+        build.launch(y, "uhdr_huff_encode_count", y.data_ptr(), u.data_ptr(),
+                     v.data_ptr(), self.tabs.data_ptr(), self.bits.data_ptr(),
+                     self.blen.data_ptr(), tval.data_ptr(),
+                     self.tbit.data_ptr(), self.meta.data_ptr(), *self.args)
+        wrapper.launches += 1
+
+    def _read(self):
+        if self._host is None:
+            self._host = self.meta.tolist()  # the one sync
+        return self._host
+
+    @property
+    def longest(self) -> int:
+        """Bits of the batch's longest block."""
+        return self._read()[1]
+
+    def write(self):
+        """The write pass: (stream bytes uint8, (n, nc) int32 bits)."""
+        total, _, max_words = self._read()
+        y, u, v = self.planes
+        alloc = torch.zeros if self.p > 1 else torch.empty
+        out = alloc(max(total, 1) * 4, dtype=torch.uint8, device=y.device)
+        build.launch(y, "uhdr_huff_encode_write", y.data_ptr(), u.data_ptr(),
+                     v.data_ptr(), self.tabs.data_ptr(), self.bits.data_ptr(),
+                     self.blen.data_ptr(), self.tbit.data_ptr(),
+                     out.data_ptr(), *self.args, max_words)
+        self.wrapper.write_launches += 1
+        return out[:total * 4], self.bits
+
+
+def count_ycbcr_rst(yz, uz, vz, mcus_x: int, mcus_y: int, r_mcus: int,
+                    sampling=(2, 2)):
+    """B3's count pass alone over YCbCr frames (the grids of
+    encode_ycbcr_rst_stream): a pending coding whose ``longest`` is
+    the batch's longest block in bits (on the device, the pass's one
+    sync) and whose ``write()`` runs the write pass -> (stream bytes
+    uint8, (n, nc) int32 chunk bits). A caller that holds several
+    batches (a mesh's shards) reads every count before it writes any,
+    so that one decision over all of them picks the route."""
+    if not yz.is_cuda:
+        return _ycbcr_count_plain(yz, uz, vz, mcus_x, mcus_y, sampling,
+                                  r_mcus, torch.int32)
+    n, nm = yz.shape[0], mcus_x * mcus_y
+    build.require(yz, "yz", torch.int16, (n, sampling[0] * sampling[1] * nm,
+                                          64))
+    build.require(uz, "uz", torch.int16, (n, nm, 64))
+    build.require(vz, "vz", torch.int16, (n, nm, 64))
+    return _RstCount(encode_ycbcr_rst_stream, (yz, uz, vz),
+                     n_chunks(nm, r_mcus), r_mcus,
+                     _geometry(n, tuple(sampling), mcus_x, nm, yz, uz))
+
+
+def count_gray_rst(gz, r_mcus: int):
+    """B3's count pass alone over single-component frames: as
+    count_ycbcr_rst."""
+    if not gz.is_cuda:
+        return _gray_count_plain(gz, r_mcus, torch.int32)
+    n, nb = gz.shape[:2]
+    build.require(gz, "gz", torch.int16, (n, nb, 64))
+    return _RstCount(encode_gray_rst_stream, (gz, gz, gz),
+                     n_chunks(nb, r_mcus), r_mcus,
+                     _geometry(n, None, nb, nb, gz, gz))
 
 
 def encode_ycbcr_rst_stream(yz, uz, vz, mcus_x: int, mcus_y: int,
                             r_mcus: int, sampling=(2, 2),
                             block_cap: int | None = None):
     """B3 (B12-enc for 4:2:2 and 4:4:4) wrapper for YCbCr frames: the
-    plain version on the CPU, the CUDA kernel on CUDA tensors. Same
-    signature and result as encode_ycbcr_rst_stream_plain."""
-    if not yz.is_cuda:
-        return encode_ycbcr_rst_stream_plain(yz, uz, vz, mcus_x, mcus_y,
-                                             r_mcus, sampling, block_cap)
-    n, nm = yz.shape[0], mcus_x * mcus_y
-    build.require(yz, "yz", torch.int16, (n, sampling[0] * sampling[1] * nm,
-                                          64))
-    build.require(uz, "uz", torch.int16, (n, nm, 64))
-    build.require(vz, "vz", torch.int16, (n, nm, 64))
-    return _launch(encode_ycbcr_rst_stream, (yz, uz, vz),
-                   n_chunks(nm, r_mcus), r_mcus,
-                   _geometry(n, tuple(sampling), mcus_x, nm, yz, uz),
-                   block_cap)
+    plain version on the CPU, the CUDA kernel on CUDA tensors: the
+    count pass, its sync, then the write pass (none, and None
+    returned, when a block passes block_cap). Same signature and
+    result as encode_ycbcr_rst_stream_plain."""
+    return _finish(count_ycbcr_rst(yz, uz, vz, mcus_x, mcus_y, r_mcus,
+                                   sampling), block_cap)
 
 
 encode_ycbcr_rst_stream.launches = 0
@@ -426,13 +498,7 @@ def encode_gray_rst_stream(gz, r_mcus: int, block_cap: int | None = None):
     """B3 wrapper for single-component frames: the plain version on
     the CPU, the CUDA kernel on CUDA tensors. Same signature and result
     as encode_gray_rst_stream_plain."""
-    if not gz.is_cuda:
-        return encode_gray_rst_stream_plain(gz, r_mcus, block_cap)
-    n, nb = gz.shape[:2]
-    build.require(gz, "gz", torch.int16, (n, nb, 64))
-    return _launch(encode_gray_rst_stream, (gz, gz, gz),
-                   n_chunks(nb, r_mcus), r_mcus,
-                   _geometry(n, None, nb, nb, gz, gz), block_cap)
+    return _finish(count_gray_rst(gz, r_mcus), block_cap)
 
 
 encode_gray_rst_stream.launches = 0
@@ -454,19 +520,15 @@ def _launch_rl(wrapper, planes, geom):
     tsum = torch.empty(n * ntiles, dtype=torch.int32, device=dev)
     toff = torch.empty(n * ntiles, dtype=torch.int64, device=dev)
     meta = torch.empty(n + 1, dtype=torch.int64, device=dev)
-    lib = build.get_lib()
-    stream = build.stream_of(y)
-    build.check(lib.uhdr_huff_encode_rl_count(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        blen.data_ptr(), tsum.data_ptr(), toff.data_ptr(), meta.data_ptr(),
-        *geom, stream), "uhdr_huff_encode_rl_count")
+    build.launch(y, "uhdr_huff_encode_rl_count", y.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), tabs.data_ptr(), blen.data_ptr(),
+                 tsum.data_ptr(), toff.data_ptr(), meta.data_ptr(), *geom)
     wrapper.launches += 1
     total = int(meta[n])  # the one sync: size the output exactly
     out = torch.zeros(max(total, 1) * 4, dtype=torch.uint8, device=dev)
-    build.check(lib.uhdr_huff_encode_rl_write(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), tabs.data_ptr(),
-        blen.data_ptr(), toff.data_ptr(), out.data_ptr(), *geom, stream),
-        "uhdr_huff_encode_rl_write")
+    build.launch(y, "uhdr_huff_encode_rl_write", y.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), tabs.data_ptr(), blen.data_ptr(),
+                 toff.data_ptr(), out.data_ptr(), *geom)
     return out[:total * 4], meta[:n]
 
 

@@ -227,6 +227,33 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(t, name: str, *args):
+    """Call the C entry point `name` with `args` and the current stream
+    of CUDA tensor `t`'s device, with that device current for the call
+    (the entry points allocate nothing, but size their grids and set
+    kernel attributes on the current device), then raise on an error
+    code. Every kernel launch of the package goes through here, so a
+    tensor on any card launches on its own card. When that card is
+    already current (one GPU, or a caller inside torch.cuda.device)
+    nothing is switched; reading the current device is legal inside
+    CUDA-graph capture."""
+    import torch
+
+    fn = getattr(_lib if _lib is not None else get_lib(), name)
+    if t.device.index == torch.cuda.current_device():
+        rc = fn(*args, stream_of(t))
+    else:
+        with torch.cuda.device(t.device):
+            rc = fn(*args, stream_of(t))
+    check(rc, name)
+
+
+def host_call(name: str, *args) -> int:
+    """The result of a host-only C entry point (a scratch size); it
+    launches nothing and takes no stream."""
+    return getattr(get_lib(), name)(*args)
+
+
 def require(t, name: str, dtype, shape=None):
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
     `shape`, when given)."""

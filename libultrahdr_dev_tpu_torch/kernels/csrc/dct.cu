@@ -476,12 +476,12 @@ int uhdr_fdct_quant(const void* plane, const void* q, const void* frags,
   int bh = (h + 7) / 8, bw = (w + 7) / 8;
   long long tiles = (long long)n * bh * ((bw + kFTile - 1) / kFTile);
   if (tiles == 0) return (int)cudaSuccess;
-  static int sms = 0;   // the SM count, read once (not while capturing)
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  // The current device's SM count (the caller makes the plane's device
+  // current), queried on each call: cards of one host may differ, and
+  // the query is not a stream operation, so it is legal while capturing.
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   long long ctas = (tiles + kFWarps - 1) / kFWarps;
   if (ctas > (long long)sms * kFCtasPerSm) ctas = (long long)sms * kFCtasPerSm;
   fdct_quant_kernel<<<(unsigned)ctas, kFThreads, 0, (cudaStream_t)stream>>>(

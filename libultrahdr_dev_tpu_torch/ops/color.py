@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 SDR_WHITE_NITS = 203.0
 HLG_MAX_NITS = 1000.0
 PQ_MAX_NITS = 10000.0
@@ -378,9 +380,10 @@ def lut_table(name: str) -> np.ndarray:
 
 
 def lut_tensor(name: str, device) -> torch.Tensor:
-    """The table `name` on `device`, uploaded once per device."""
-    dev = torch.device(device)
-    key = (name, str(dev))
+    """The table `name` on `device`, uploaded once per device (keyed by
+    its index)."""
+    dev = resolve_device(device)
+    key = (name, dev)
     if key not in _DEVICE_LUTS:
         _DEVICE_LUTS[key] = torch.from_numpy(lut_table(name)).to(dev)
     return _DEVICE_LUTS[key]

@@ -284,9 +284,7 @@ def edit_planes(planes, plan: _Plan):
                              "with unit column stride")
     if not plan.fits32:
         raise ValueError("edit_planes: resize beyond 32-bit indexing")
-    lib = build.get_lib()
     dev = planes[0].device
-    stream = build.stream_of(planes[0])
     for shapes, ints in plan.launches:
         outs = [torch.empty(sh, dtype=torch.uint8, device=dev)
                 for sh in shapes]
@@ -294,9 +292,9 @@ def edit_planes(planes, plan: _Plan):
                          for p, o in zip(planes, outs)], np.int64)
         if any(o.numel() for o in outs):
             apply_effects.launches += 1
-            build.check(lib.uhdr_edit_planes(
-                ptrs.ctypes.data, ints.ctypes.data, len(planes),
-                (ints.shape[1] - 2) // 7, stream), "uhdr_edit_planes")
+            build.launch(planes[0], "uhdr_edit_planes", ptrs.ctypes.data,
+                         ints.ctypes.data, len(planes),
+                         (ints.shape[1] - 2) // 7)
         planes = outs
     return planes
 

@@ -49,6 +49,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import build
 from ..types import (GAIN_MAP_VERSION, GainMapMetadata,
                      MAP_DIMENSION_SCALE_FACTOR, err)
@@ -263,14 +264,12 @@ def encode_front(y_p010, uv_p010, gamut: str, hdr_tf: str):
     hdr_white, min_b, max_b, log2_min, inv_denom, sat, floor = \
         _gain_params(hdr_tf)
     convert, mvals = _convert_params(gamut)
-    lib = build.get_lib()
     encode_front.launches += 1
-    build.check(lib.uhdr_encode_front(
-        y_p010.data_ptr(), uv_p010.data_ptr(), *(t.data_ptr() for t in out),
-        n, h, w, *_rgb_params(gamut), *color.LUMINANCE[gamut], hdr_white,
-        TF_IDS[hdr_tf], convert, min_b, max_b, log2_min, inv_denom, *mvals,
-        sat, floor, build.stream_of(y_p010)),
-        "uhdr_encode_front")
+    build.launch(
+        y_p010, "uhdr_encode_front", y_p010.data_ptr(), uv_p010.data_ptr(),
+        *(t.data_ptr() for t in out), n, h, w, *_rgb_params(gamut),
+        *color.LUMINANCE[gamut], hdr_white, TF_IDS[hdr_tf], convert, min_b,
+        max_b, log2_min, inv_denom, *mvals, sat, floor)
     return out
 
 
@@ -318,13 +317,12 @@ def encode_front_api1(y_p010, uv_p010, sdr_y, sdr_u, sdr_v,
     out = _front_outputs(n, h, w, y_p010.device)
     fp, ip = _gain_arrays(sdr_gamut, hdr_gamut, hdr_tf, False,
                           *_convert_params(sdr_gamut))
-    lib = build.get_lib()
     encode_front_api1.launches += 1
-    build.check(lib.uhdr_encode_front_api1(
-        y_p010.data_ptr(), uv_p010.data_ptr(), sdr_y.data_ptr(),
-        sdr_u.data_ptr(), sdr_v.data_ptr(), *(t.data_ptr() for t in out), n,
-        h, w, fp.ctypes.data, ip.ctypes.data, build.stream_of(y_p010)),
-        "uhdr_encode_front_api1")
+    build.launch(
+        y_p010, "uhdr_encode_front_api1", y_p010.data_ptr(),
+        uv_p010.data_ptr(), sdr_y.data_ptr(), sdr_u.data_ptr(),
+        sdr_v.data_ptr(), *(t.data_ptr() for t in out), n, h, w,
+        fp.ctypes.data, ip.ctypes.data)
     return out
 
 
@@ -392,12 +390,10 @@ def tonemap_p010(y_p010, uv_p010):
     y8 = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
     u8 = torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=dev)
     v8 = torch.empty_like(u8)
-    lib = build.get_lib()
     tonemap_p010.launches += 1
-    build.check(lib.uhdr_tonemap_p010(
-        y_p010.data_ptr(), uv_p010.data_ptr(), y8.data_ptr(), u8.data_ptr(),
-        v8.data_ptr(), n, h, w, build.stream_of(y_p010)),
-        "uhdr_tonemap_p010")
+    build.launch(y_p010, "uhdr_tonemap_p010", y_p010.data_ptr(),
+                 uv_p010.data_ptr(), y8.data_ptr(), u8.data_ptr(),
+                 v8.data_ptr(), n, h, w)
     return y8, u8, v8
 
 
@@ -457,13 +453,11 @@ def generate_gainmap(sdr_y, sdr_u, sdr_v, hdr_y, hdr_uv, *, sdr_gamut: str,
         srgb = color.lut_tensor("srgb_inv", hdr_y.device).data_ptr()
         if hdr_tf in _INV_LUTS:
             inv = color.lut_tensor(f"{hdr_tf}_inv", hdr_y.device).data_ptr()
-    lib = build.get_lib()
     generate_gainmap.launches += 1
-    build.check(lib.uhdr_generate_gainmap(
-        sdr_y.data_ptr(), sdr_u.data_ptr(), sdr_v.data_ptr(),
-        hdr_y.data_ptr(), hdr_uv.data_ptr(), gmap.data_ptr(), n, h, w,
-        fp.ctypes.data, ip.ctypes.data, srgb, inv, build.stream_of(hdr_y)),
-        "uhdr_generate_gainmap")
+    build.launch(hdr_y, "uhdr_generate_gainmap", sdr_y.data_ptr(),
+                 sdr_u.data_ptr(), sdr_v.data_ptr(), hdr_y.data_ptr(),
+                 hdr_uv.data_ptr(), gmap.data_ptr(), n, h, w, fp.ctypes.data,
+                 ip.ctypes.data, srgb, inv)
     return gmap, gainmap_metadata(hdr_tf)
 
 
@@ -489,12 +483,10 @@ def convert_yuv_encoding(y8, u8, v8, src_gamut: str, dst_gamut: str):
     out = (torch.empty_like(y8), torch.empty_like(u8), torch.empty_like(v8))
     mvals = np.asarray([m[0][1], m[0][2], m[1][1], m[1][2], m[2][1],
                         m[2][2]], np.float32)
-    lib = build.get_lib()
     convert_yuv_encoding.launches += 1
-    build.check(lib.uhdr_convert_yuv(
-        y8.data_ptr(), u8.data_ptr(), v8.data_ptr(),
-        *(t.data_ptr() for t in out), n, h, w, mvals.ctypes.data,
-        build.stream_of(y8)), "uhdr_convert_yuv")
+    build.launch(y8, "uhdr_convert_yuv", y8.data_ptr(), u8.data_ptr(),
+                 v8.data_ptr(), *(t.data_ptr() for t in out), n, h, w,
+                 mvals.ctypes.data)
     return out
 
 
@@ -610,14 +602,15 @@ def srgb_rb_tables(device) -> torch.Tensor:
     (uhdr_srgb_rb_tables): the sRGB inverse OETF of the BT.601 decode's
     red at luma << 8 | V and of its blue at luma << 8 | U, by the
     kernel's own arithmetic, so that B6 computes only green's pow."""
-    key = str(torch.device(device))
+    key = resolve_device(device)
     if key not in _SRGB_RB:
-        if torch.cuda.is_current_stream_capturing():
+        with torch.cuda.device(key):
+            capturing = torch.cuda.is_current_stream_capturing()
+        if capturing:
             raise RuntimeError("apply_gainmap: call it once outside CUDA "
                                "graph capture (it builds its tables)")
-        t = torch.empty((2, 65536), dtype=torch.float32, device=device)
-        build.check(build.get_lib().uhdr_srgb_rb_tables(
-            t.data_ptr(), build.stream_of(t)), "uhdr_srgb_rb_tables")
+        t = torch.empty((2, 65536), dtype=torch.float32, device=key)
+        build.launch(t, "uhdr_srgb_rb_tables", t.data_ptr())
         _SRGB_RB[key] = t
     return _SRGB_RB[key]
 
@@ -653,23 +646,19 @@ def apply_gainmap(y8, u8, v8, gmap, scalars, output_format: str,
     args = (y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), gmap.data_ptr(),
             *strides, scalars.data_ptr(), out.data_ptr(), n, h, w, mh, mw,
             w // mw, fmt)
-    lib = build.get_lib()
     if fmt == 3:
         apply_gainmap.rgb10_launches += 1
     if not use_luts:
         rb = srgb_rb_tables(y8.device)
         apply_gainmap.launches += 1
-        build.check(lib.uhdr_apply_gainmap(*args, rb.data_ptr(),
-                                           build.stream_of(y8)),
-                    "uhdr_apply_gainmap")
+        build.launch(y8, "uhdr_apply_gainmap", *args, rb.data_ptr())
         return out
     srgb = color.lut_tensor("srgb_inv", y8.device)
     oetf = (color.lut_tensor(_OETF_LUTS[output_format], y8.device)
             if output_format in _OETF_LUTS else None)
     apply_gainmap.lut_launches += 1
-    build.check(lib.uhdr_apply_gainmap_lut(
-        *args, srgb.data_ptr(), oetf.data_ptr() if oetf is not None else None,
-        build.stream_of(y8)), "uhdr_apply_gainmap_lut")
+    build.launch(y8, "uhdr_apply_gainmap_lut", *args, srgb.data_ptr(),
+                 oetf.data_ptr() if oetf is not None else None)
     return out
 
 
@@ -689,9 +678,8 @@ def pow_exact_check(p: float, lo_bits: int, hi_bits: int, device):
         raise ValueError("pow_exact_check checks the CUDA kernel: it needs "
                          "a CUDA device")
     counts = torch.zeros(2, dtype=torch.int64, device=device)
-    build.check(build.get_lib().uhdr_pow_check(
-        color._f32(p), lo_bits, hi_bits, counts.data_ptr(),
-        build.stream_of(counts)), "uhdr_pow_check")
+    build.launch(counts, "uhdr_pow_check", color._f32(p), lo_bits, hi_bits,
+                 counts.data_ptr())
     return tuple(int(c) for c in counts.tolist())
 
 
@@ -704,9 +692,8 @@ def pow_probe(x, p: float, exact: bool = True):
         return color.pow_rn(x, p)
     build.require(x, "x", torch.float32)
     out = torch.empty_like(x)
-    build.check(build.get_lib().uhdr_pow_probe(
-        x.data_ptr(), out.data_ptr(), x.numel(), color._f32(p), int(exact),
-        build.stream_of(x)), "uhdr_pow_probe")
+    build.launch(x, "uhdr_pow_probe", x.data_ptr(), out.data_ptr(),
+                 x.numel(), color._f32(p), int(exact))
     return out
 
 
@@ -760,12 +747,10 @@ def planes_composite(y8, u8, v8, gmap):
                for s in _plane_strides(t, name)]
     _, rows, wc = _composite_shape(y8, u8, gmap)
     out = torch.empty((n, rows, wc), dtype=torch.uint8, device=y8.device)
-    lib = build.get_lib()
     planes_composite.launches += 1
-    build.check(lib.uhdr_planes_composite(
-        y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), gmap.data_ptr(),
-        *strides, out.data_ptr(), n, h, w, u8.shape[1], u8.shape[2], gh, gw,
-        rows, wc, build.stream_of(y8)), "uhdr_planes_composite")
+    build.launch(y8, "uhdr_planes_composite", y8.data_ptr(), u8.data_ptr(),
+                 v8.data_ptr(), gmap.data_ptr(), *strides, out.data_ptr(), n,
+                 h, w, u8.shape[1], u8.shape[2], gh, gw, rows, wc)
     return out
 
 
@@ -876,12 +861,9 @@ def yuv420_to_rgba8888(y8, u8, v8):
             >= 1 << 31:
         raise ValueError("yuv420_to_rgba8888: a plane beyond 32-bit offsets")
     out = torch.empty((n, h, w), dtype=torch.int32, device=y8.device)
-    lib = build.get_lib()
     yuv420_to_rgba8888.launches += 1
-    build.check(lib.uhdr_yuv420_to_rgba8888(
-        y8.data_ptr(), u8.data_ptr(), v8.data_ptr(), *strides,
-        out.data_ptr(), n, h, w, build.stream_of(y8)),
-        "uhdr_yuv420_to_rgba8888")
+    build.launch(y8, "uhdr_yuv420_to_rgba8888", y8.data_ptr(), u8.data_ptr(),
+                 v8.data_ptr(), *strides, out.data_ptr(), n, h, w)
     return out
 
 

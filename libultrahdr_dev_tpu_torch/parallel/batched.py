@@ -1,10 +1,12 @@
-"""Batched API-0 / API-1 encode and JPEG/R decode on one device.
+"""Batched API-0 / API-1 encode and JPEG/R decode, on one device or a
+mesh of them.
 
 The port of the encode/decode entry points of
 libultrahdr_dev_tpu/parallel/sharding.py. A batch is a leading
-dimension of same-size frames on one device (no mesh). Each direction
-has a device stage and a host stage, public so that callers (and
-chip_smoke.py) can time them apart:
+dimension of same-size frames on one device, or, with ``mesh=``
+(parallel/mesh.py), cut into contiguous shards, one per mesh device
+(see "The mesh" below). Each direction has a device stage and a host
+stage, public so that callers (and chip_smoke.py) can time them apart:
 
 - encode: ``encode_device_stage`` runs B1 (ops/gainmap.py:encode_front,
   API-0: the HDR frame alone) or ``encode_device_stage_api1`` B9
@@ -45,6 +47,23 @@ chip_smoke.py) can time them apart:
 - apply: ``batched_apply_gainmap`` runs B6 over a batch of decoded
   planes and gain maps with one metadata.
 
+The mesh: every batched entry point takes ``mesh`` (a
+parallel/mesh.py DeviceMesh) and runs one shard loop over it; None, the
+default, is the one-device mesh of `device`, whose one shard's outputs
+come back as they are (a tensor, a DeviceEncodedBatch). Each shard runs
+the device stage on its own device, every shard's device work enqueued
+before any host tail starts; the host tails (stuffing and mux, parse
+and destuff) run on one worker per shard (utils/workers.py caps them).
+Blobs come back as one list in batch order, device pixels as a
+``ShardedBatch``, handoffs as a tuple of one DeviceEncodedBatch per
+shard; ``stats`` sums over the shards. What JAX's
+one sharded program decides for the whole batch is decided for the
+whole batch here too: B3's count passes of every shard are read before
+any write pass runs, so one dense block anywhere writes every shard
+restart-less, and the decode route (device or host Huffman) comes from
+the headers of every blob. The outputs are the one-device call's, bytes
+and pixels.
+
 Entry points run on the CUDA device unless the caller passes another
 device; on a CPU device every kernel runs its plain PyTorch version.
 """
@@ -58,13 +77,15 @@ import torch
 
 from ..container import icc as icc_mod
 from ..container import mux, xmp
-from ..device import resolve_device, upload as _upload
+from ..device import upload as _upload
 from ..jpeg import codec, device_decode as dd, device_entropy as de, tables
 from ..jpeg.dct import dequant_idct, fdct_quant
 from ..ops.gainmap import (apply_gainmap, apply_scalars,  # noqa: F401
                            encode_front, encode_front_api1, gainmap_metadata,
                            planes_composite, yuv420_to_rgba8888)
 from ..types import GainMapMetadata, MAP_COMPRESS_QUALITY, err
+from .mesh import (DeviceMesh, ShardedBatch, check_placed, map_shards,
+                   merge_stats, mesh_for)
 
 RST_INTERVAL = 4  # MCUs per restart marker, as the JAX batched encoder
 
@@ -137,19 +158,28 @@ class DeviceStreams:
     gm_bits: torch.Tensor
 
 
-def _streams(coefs, w: int, h: int) -> DeviceStreams | None:
-    """B3 over a batch's coefficients, the base first; None, with no
-    write pass launched after the flagged count pass, when a block of
-    the batch passes the JAX encoder's buffer (de.BLOCK_BIT_CAP)."""
-    yz, uz, vz, gz = coefs
-    base = de.encode_ycbcr_rst_stream(yz, uz, vz, w // 16, h // 16,
-                                      RST_INTERVAL,
-                                      block_cap=de.BLOCK_BIT_CAP)
-    if base is None:
+def _streams_shards(coefs, w: int, h: int) -> list[DeviceStreams] | None:
+    """B3 over each shard's coefficients, the base images first: every
+    shard's count pass is read before any write pass runs, so that a
+    block of any shard longer than the JAX encoder's buffer
+    (de.BLOCK_BIT_CAP) gives None for the whole batch, with no write
+    pass launched after the flagged count passes."""
+    base = [de.count_ycbcr_rst(yz, uz, vz, w // 16, h // 16, RST_INTERVAL)
+            for yz, uz, vz, _ in coefs]
+    if max(c.longest for c in base) > de.BLOCK_BIT_CAP:
         return None
-    gm = de.encode_gray_rst_stream(gz, RST_INTERVAL,
-                                   block_cap=de.BLOCK_BIT_CAP)
-    return None if gm is None else DeviceStreams(w, h, *base, *gm)
+    base = [c.write() for c in base]
+    gm = [de.count_gray_rst(c[3], RST_INTERVAL) for c in coefs]
+    if max(c.longest for c in gm) > de.BLOCK_BIT_CAP:
+        return None
+    return [DeviceStreams(w, h, *b, *g.write()) for b, g in zip(base, gm)]
+
+
+def _streams(coefs, w: int, h: int) -> DeviceStreams | None:
+    """B3 over a batch's coefficients on one device; None for dense
+    content (_streams_shards)."""
+    out = _streams_shards([coefs], w, h)
+    return None if out is None else out[0]
 
 
 def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
@@ -165,17 +195,22 @@ def encode_device_stage(y_p010: torch.Tensor, uv_p010: torch.Tensor,
 
 def batched_encode_device_stage(y_batch: np.ndarray, uv_batch: np.ndarray,
                                 gamut: str = "bt2100", hdr_tf: str = "hlg",
-                                base_quality: int = 95, device="cuda"):
+                                base_quality: int = 95, device="cuda",
+                                mesh=None):
     """The device stage of API-0 for a batch of same-size P010 frames
     (the JAX sharding.batched_encode_device_stage, kernel B20 there):
     uint16 (n, h, w) and (n, h/2, w) planes, uploaded to `device`,
     through B1 and B2 -> ((y, u, v, gain map) zigzag coefficient
     blocks, each (n, nblocks, 64) int16 on the device; the gain map's
-    metadata)."""
-    dev = resolve_device(device)
-    return (encode_coefs_stage(p010_to_device(y_batch, dev),
-                               p010_to_device(uv_batch, dev), gamut, hdr_tf,
-                               base_quality), api0_metadata(hdr_tf))
+    metadata). With a mesh each shard is uploaded to its device and the
+    four coefficient arrays are ShardedBatches."""
+    one, mesh = mesh is None, mesh_for(mesh, device)
+    coefs = [encode_coefs_stage(p010_to_device(y_batch[sl], d),
+                                p010_to_device(uv_batch[sl], d), gamut, hdr_tf,
+                                base_quality)
+             for sl, d in zip(mesh.shards(len(y_batch)), mesh.devices)]
+    return (coefs[0] if one else tuple(ShardedBatch(c) for c in zip(*coefs)),
+            api0_metadata(hdr_tf))
 
 
 def encode_device_stage_api1(y_p010: torch.Tensor, uv_p010: torch.Tensor,
@@ -284,10 +319,22 @@ def assemble_api0_restartless(coefs, width: int, height: int, gamut: str,
     maps, the streams and bit counts to the host in one copy, then per
     frame the restart-less tail (finalize_stream), headers without DRI,
     ICC and the JPEG/R mux."""
+    return _assemble_restartless(_restartless_streams(coefs, width, height),
+                                 width, height, gamut, hdr_tf, quality)
+
+
+def _restartless_streams(coefs, width: int, height: int):
+    """B19 over a batch's base images and gain maps: (base stream, its
+    (n,) int64 bits, gain-map stream, its bits) on the device."""
     yz, uz, vz, gz = coefs
-    base, base_bits = de.encode_ycbcr_stream(yz, uz, vz, width // 16,
-                                             height // 16)
-    gm, gm_bits = de.encode_gray_stream(gz)
+    return (*de.encode_ycbcr_stream(yz, uz, vz, width // 16, height // 16),
+            *de.encode_gray_stream(gz))
+
+
+def _assemble_restartless(streams, width: int, height: int, gamut: str,
+                          hdr_tf: str, quality: int) -> list[bytes]:
+    """The host stage of assemble_api0_restartless."""
+    base, base_bits, gm, gm_bits = streams
     nb, ng, n = base.numel(), gm.numel(), base_bits.numel()
     host = torch.cat([base, gm, base_bits.view(torch.uint8),
                       gm_bits.view(torch.uint8)]).cpu().numpy()
@@ -312,7 +359,7 @@ def batched_encode_api0(y_batch: np.ndarray | None,
                         uv_batch: np.ndarray | None, gamut: str = "bt2100",
                         hdr_tf: str = "hlg", quality: int = 95, device="cuda",
                         return_handoff: bool = False, device_input=None,
-                        stats=None):
+                        stats=None, mesh=None):
     """API-0 encode of a batch of same-size P010 frames: uint16
     (n, h, w) luma and (n, h/2, w) interleaved CbCr, h and w multiples
     of 16. Returns one JPEG/R blob per frame; with return_handoff, also
@@ -326,27 +373,52 @@ def batched_encode_api0(y_batch: np.ndarray | None,
     runs on that device. Otherwise the host batches are copied as
     uint16 (one copy per plane). stats: a dict that gains h2d_bytes and
     h2d_pack ("u16"; nothing for device_input, whose upload counts its
-    own) and d2h_bytes (the streams' copy to the host)."""
+    own) and d2h_bytes (the streams' copy to the host).
+
+    mesh: the batch is cut into one shard per mesh device (the module's
+    "The mesh"); device_input is then a pair of ShardedBatches laid over
+    the mesh (upload_p010_batch(..., mesh=)), and the handoff a tuple of
+    one DeviceEncodedBatch per shard. Without a mesh the call runs on
+    the one-device mesh of `device` (or of device_input's tensors):
+    each shard's B1, B2 and B3 count pass on its device, the batch's one
+    dense decision, the write passes (or B19 for every shard), then the
+    host tails on a worker a shard."""
+    one = mesh is None
     if device_input is not None:
-        y_dev, uv_dev = device_input
+        if one:
+            device_input = tuple(ShardedBatch([t]) for t in device_input)
+            mesh = DeviceMesh(device_input[0].devices)
+        for t in device_input:
+            check_placed(mesh, t)
+        ys, uvs = (t.shards for t in device_input)
     else:
-        dev = resolve_device(device)
-        y_dev = p010_to_device(y_batch, dev)
-        uv_dev = p010_to_device(uv_batch, dev)
+        mesh = mesh_for(mesh, device)
+        spans = mesh.shards(len(y_batch))
+        ys = [p010_to_device(y_batch[sl], d)
+              for sl, d in zip(spans, mesh.devices)]
+        uvs = [p010_to_device(uv_batch[sl], d)
+               for sl, d in zip(spans, mesh.devices)]
         if stats is not None:
             stats["h2d_bytes"] = (stats.get("h2d_bytes", 0)
                                   + y_batch.nbytes + uv_batch.nbytes)
             stats["h2d_pack"] = "u16"
-    _check_aligned(y_dev.shape)
-    _, h, w = y_dev.shape
-    coefs = encode_coefs_stage(y_dev, uv_dev, gamut, hdr_tf, quality)
-    streams = _streams(coefs, w, h)
+    _check_aligned(ys[0].shape)
+    _, h, w = ys[0].shape
+    coefs = [encode_coefs_stage(y, uv, gamut, hdr_tf, quality)
+             for y, uv in zip(ys, uvs)]
+    streams = _streams_shards(coefs, w, h)
     if streams is None:
-        blobs = assemble_api0_restartless(coefs, w, h, gamut, hdr_tf,
-                                          quality)
+        dense = [_restartless_streams(c, w, h) for c in coefs]
+        blobs = [b for part in map_shards(
+            lambda d: _assemble_restartless(d, w, h, gamut, hdr_tf, quality),
+            dense) for b in part]
         return (blobs, None) if return_handoff else blobs
-    return _finish_encode(streams, gamut, hdr_tf, quality, return_handoff,
-                          stats)
+    shard_stats = [{} for _ in streams]
+    parts = map_shards(lambda i: _finish_encode(
+        streams[i], gamut, hdr_tf, quality, shard_stats[i]),
+        range(len(streams)))
+    merge_stats(stats, shard_stats)
+    return _joined(parts, one, return_handoff)
 
 
 def _check_aligned(shape):
@@ -357,13 +429,24 @@ def _check_aligned(shape):
 
 
 def _finish_encode(streams: DeviceStreams, gamut: str, hdr_tf: str,
-                   quality: int, return_handoff: bool, stats=None):
+                   quality: int, stats=None):
+    """One shard's host tail: (its blobs, its DeviceEncodedBatch)."""
     blobs, base_bits, gm_bits = assemble_api0(streams, gamut, hdr_tf,
                                               quality, stats)
-    if not return_handoff:
-        return blobs
     return blobs, DeviceEncodedBatch(streams, base_bits, gm_bits,
                                      int(quality), api0_metadata(hdr_tf))
+
+
+def _joined(parts, one: bool, return_handoff: bool):
+    """The shards' (blobs, handoff) pairs as an encode returns them: the
+    blobs as one list in batch order and, with return_handoff, the
+    handoffs, a tuple of one a shard where the caller gave a mesh (the
+    one shard's where it did not)."""
+    blobs = [b for part, _ in parts for b in part]
+    if not return_handoff:
+        return blobs
+    hands = tuple(hand for _, hand in parts)
+    return blobs, hands[0] if one else hands
 
 
 def batched_encode_api1(p010_y_batch: np.ndarray, p010_uv_batch: np.ndarray,
@@ -371,32 +454,34 @@ def batched_encode_api1(p010_y_batch: np.ndarray, p010_uv_batch: np.ndarray,
                         sdr_v_batch: np.ndarray, sdr_gamut: str = "bt709",
                         hdr_gamut: str = "bt2100", hdr_tf: str = "hlg",
                         quality: int = 95, device="cuda",
-                        return_handoff: bool = False):
+                        return_handoff: bool = False, mesh=None):
     """API-1 encode of a batch of same-size frames (the JAX
     sharding.batched_encode_api1): P010 as batched_encode_api0 takes it
     and the SDR rendition as uint8 YUV420 planes (n, h, w) and
     (n, h/2, w/2) in `sdr_gamut`'s YUV encoding, h and w multiples of
-    16. All five planes go to the device in one copy. Returns one JPEG/R
-    blob per frame; with return_handoff, also a DeviceEncodedBatch.
-    Raises OverflowError for dense content, as the JAX package does
-    (sharding.py:688-694); JpegR.encode_api1 then takes the general
-    route."""
-    dev = resolve_device(device)
+    16. All five planes go to the device in one copy (a copy a shard
+    with a mesh). Returns one JPEG/R blob per frame; with
+    return_handoff, also a DeviceEncodedBatch (a tuple of one a shard
+    with a mesh). Raises OverflowError for dense content in any frame,
+    as the JAX package does (sharding.py:688-694); JpegR.encode_api1
+    then takes the general route."""
+    one, mesh = mesh is None, mesh_for(mesh, device)
     _check_aligned(p010_y_batch.shape)
-    planes = _upload([np.ascontiguousarray(p010_y_batch, np.uint16)
-                      .view(np.int16),
-                      np.ascontiguousarray(p010_uv_batch, np.uint16)
-                      .view(np.int16)]
-                     + [np.ascontiguousarray(a, np.uint8)
-                        for a in (sdr_y_batch, sdr_u_batch, sdr_v_batch)],
-                     dev)
-    streams = encode_device_stage_api1(*planes, sdr_gamut, hdr_gamut,
-                                       hdr_tf, quality)
+    arrays = ([np.ascontiguousarray(p010_y_batch, np.uint16).view(np.int16),
+               np.ascontiguousarray(p010_uv_batch, np.uint16).view(np.int16)]
+              + [np.ascontiguousarray(a, np.uint8)
+                 for a in (sdr_y_batch, sdr_u_batch, sdr_v_batch)])
+    coefs = [encode_coefs_stage_api1(*_upload([a[sl] for a in arrays], d),
+                                     sdr_gamut, hdr_gamut, hdr_tf, quality)
+             for sl, d in zip(mesh.shards(len(p010_y_batch)), mesh.devices)]
+    _, h, w = p010_y_batch.shape
+    streams = _streams_shards(coefs, w, h)
     if streams is None:
         raise OverflowError("dense content: a block passes the JAX "
                             "encoder's 608-bit buffer")
-    return _finish_encode(streams, sdr_gamut, hdr_tf, quality,
-                          return_handoff)
+    parts = map_shards(lambda st: _finish_encode(st, sdr_gamut, hdr_tf,
+                                                 quality), streams)
+    return _joined(parts, one, return_handoff)
 
 
 # ---------------------------------------------------------------------------
@@ -501,19 +586,26 @@ def decode_host_huffman(blob: bytes, sdr: bool = False) -> HostDecoded:
                        grids=(yg, ug, vg, gg))
 
 
-def decode_host_stage(blobs: list[bytes],
-                      output_format: str = "hdr_linear") -> list[HostDecoded]:
+def decode_host_stage(blobs: list[bytes], output_format: str = "hdr_linear",
+                      mesh=None) -> list[HostDecoded]:
     """Host stage of a batched decode. The route is chosen from the
     headers alone, for the whole batch: the device route when every
     blob suits it (parse and destuff only), else host Huffman. For
     "sdr" output only the base is read: the gain map's headers, XMP and
     stream are never looked at (the JAX SDR branch, jpegr.py:451-464,
-    555-570)."""
+    555-570). With a mesh each shard's blobs are parsed on a worker of
+    their own, and the route is still the whole batch's."""
     sdr = output_format == "sdr"
-    frames = [parse_device_route(b, sdr) for b in blobs]
+    spans = [slice(None)] if mesh is None else mesh.shards(len(blobs))
+
+    def each(fn):
+        return [f for part in map_shards(
+            lambda sl: [fn(b, sdr) for b in blobs[sl]], spans) for f in part]
+
+    frames = each(parse_device_route)
     if all(f is not None for f in frames):
         return frames
-    return [decode_host_huffman(b, sdr) for b in blobs]
+    return each(decode_host_huffman)
 
 
 def _planes(grids, qtables: torch.Tensor, geom):
@@ -554,7 +646,7 @@ def gainmap_plane(frame: HostDecoded, device) -> torch.Tensor:
 def decode_device_stage(frames: list[HostDecoded], output_format: str,
                         max_display_boost: float, device,
                         use_luts: bool = False,
-                        meta_out: dict | None = None) -> torch.Tensor:
+                        meta_out: dict | None = None, mesh=None):
     """Device stage of a batched decode of same-size frames: pixels on
     `device`, (n, h, w, 4) int16 F16 bits for "hdr_linear", (n, h, w)
     int32 RGBA1010102 words for "hdr_hlg" / "hdr_pq", (n, 3, h, w) int16
@@ -568,12 +660,33 @@ def decode_device_stage(frames: list[HostDecoded], output_format: str,
     and B5 over the base and B7. The host route uploads coefficient
     grids instead of streams. `meta_out` (not for "sdr") gains w, h,
     gw, gh and the (n, 4) float32 apply scalars, as JAX's meta_out
-    (sharding.py:1158)."""
+    (sharding.py:1158). With a mesh the frames (one geometry for the
+    whole batch) are cut into one shard per mesh device, each shard's
+    upload and kernels on its device, and the pixels come back as a
+    ShardedBatch (`device` is then not read)."""
+    f0 = frames[0]
+    _check_batch(frames, (f0.width, f0.height) if output_format == "sdr"
+                 else (f0.width, f0.height, f0.gm_width, f0.gm_height))
+    one, mesh = mesh is None, mesh_for(mesh, device)
+    metas, out = [], []
+    for sl, d in zip(mesh.shards(len(frames)), mesh.devices):
+        metas.append({})
+        out.append(_decode_shard(frames[sl], output_format,
+                                 max_display_boost, d, use_luts, metas[-1]))
+    if meta_out is not None and metas[0]:
+        meta_out.update(metas[0], scalars=np.concatenate(
+            [m["scalars"] for m in metas]))
+    return out[0] if one else ShardedBatch(out)
+
+
+def _decode_shard(frames: list[HostDecoded], output_format: str,
+                  max_display_boost: float, device, use_luts: bool,
+                  meta_out: dict) -> torch.Tensor:
+    """decode_device_stage over one shard's frames on `device`."""
     if output_format == "sdr":
         return _decode_device_sdr(frames, device)
     f0 = frames[0]
     geom = (f0.width, f0.height, f0.gm_width, f0.gm_height)
-    _check_batch(frames, geom)
     q = np.stack([np.stack([t.reshape(64) for t in f.qtables])
                   for f in frames]).astype(np.int32)
     scalars = np.stack([apply_scalars(f.metadata, max_display_boost)
@@ -594,9 +707,8 @@ def decode_device_stage(frames: list[HostDecoded], output_format: str,
         *up, qd, sd = _upload([a.reshape(len(frames), -1, 64)
                                for a in arrays] + [q, scalars], device)
         grids = tuple(up)
-    if meta_out is not None:
-        meta_out.update(w=geom[0], h=geom[1], gw=geom[2], gh=geom[3],
-                        scalars=scalars)
+    meta_out.update(w=geom[0], h=geom[1], gw=geom[2], gh=geom[3],
+                    scalars=scalars)
     planes = _planes(grids, qd, geom)
     if output_format == "planes":
         return planes_composite(*planes)
@@ -616,7 +728,6 @@ def _decode_device_sdr(frames: list[HostDecoded], device) -> torch.Tensor:
     one copy, then B4, B5 and B7."""
     f0 = frames[0]
     geom = (f0.width, f0.height)
-    _check_batch(frames, geom)
     q = np.stack([np.stack([t.reshape(64) for t in f.qtables[:2]])
                   for f in frames]).astype(np.int32)
     if f0.streams is not None:
@@ -645,20 +756,23 @@ def _shift(frame_rows: np.ndarray, by: int) -> np.ndarray:
 
 def batched_decode(blobs: list[bytes], output_format: str = "hdr_linear",
                    max_display_boost: float = float("inf"),
-                   device="cuda", use_luts: bool = False) -> torch.Tensor:
+                   device="cuda", use_luts: bool = False, mesh=None):
     """Decode same-size JPEG/R blobs to pixels on `device` (see
-    decode_device_stage for the layout)."""
-    dev = resolve_device(device)
-    return decode_device_stage(decode_host_stage(blobs, output_format),
-                               output_format, max_display_boost, dev,
-                               use_luts)
+    decode_device_stage for the layout); with a mesh, a ShardedBatch of
+    each shard's pixels on its device."""
+    frames = decode_host_stage(blobs, output_format, mesh_for(mesh, device))
+    return decode_device_stage(frames, output_format, max_display_boost,
+                               device, use_luts, mesh=mesh)
 
 
-def handoff_apply_scalars(handoff: DeviceEncodedBatch,
-                          max_display_boost: float) -> np.ndarray:
-    """Apply scalars of a handoff, round-tripped through the XMP writer
-    and parser so they are bit-identical to what a decode of the
-    assembled blob computes (XMP writes boosts as decimal text)."""
+def handoff_apply_scalars(handoff, max_display_boost: float) -> np.ndarray:
+    """Apply scalars of a handoff (a DeviceEncodedBatch, or a mesh's
+    tuple of them, whose shards share one metadata), round-tripped
+    through the XMP writer and parser so they are bit-identical to what
+    a decode of the assembled blob computes (XMP writes boosts as
+    decimal text)."""
+    if not isinstance(handoff, DeviceEncodedBatch):
+        handoff = handoff[0]
     md = xmp.get_metadata_from_xmp(
         xmp.XMP_NAMESPACE.encode() + b"\x00"
         + xmp.generate_xmp_for_secondary_image(handoff.metadata).encode())
@@ -685,17 +799,31 @@ def _handoff_lanes(bits: np.ndarray, specs):
     return rows, lanes, tabs
 
 
-def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
+def batched_decode_from_handoff(handoff,
                                 output_format: str = "hdr_linear",
                                 max_display_boost: float = float("inf"),
-                                use_luts: bool = False) -> torch.Tensor:
+                                use_luts: bool = False, mesh=None):
     """Decode a DeviceEncodedBatch on the encoder's device: bitwise the
     pixels batched_decode gives for the assembled blobs. B4 reads its
     lane windows in place from the encoder's chunk bytes (its handoff
     mode), with the encoder's own tables (Annex K, quant tables scaled
     to the encode quality); the only upload is the small descriptor,
     table and scalar arrays. For "sdr" only the base lanes are decoded,
-    then B5 and B7; "planes" ends in B18 instead of B6."""
+    then B5 and B7; "planes" ends in B18 instead of B6. A mesh's handoff
+    (a tuple of one DeviceEncodedBatch per shard, each on its `mesh`
+    device) decodes shard by shard into a ShardedBatch."""
+    single = isinstance(handoff, DeviceEncodedBatch)
+    hands = (handoff,) if single else tuple(handoff)
+    if mesh is not None and (len(hands) != len(mesh) or any(
+            h.streams.base.device != d for h, d in zip(hands, mesh.devices))):
+        raise ValueError(f"the handoff's shards do not lie on {mesh}")
+    out = [_decode_handoff(h, output_format, max_display_boost, use_luts)
+           for h in hands]
+    return out[0] if single and mesh is None else ShardedBatch(out)
+
+
+def _decode_handoff(handoff: DeviceEncodedBatch, output_format: str,
+                    max_display_boost: float, use_luts: bool) -> torch.Tensor:
     s = handoff.streams
     dev = s.base.device
     n = handoff.base_bits.shape[0]
@@ -733,15 +861,25 @@ def batched_decode_from_handoff(handoff: DeviceEncodedBatch,
 def batched_apply_gainmap(y8_batch, u8_batch, v8_batch, gmap_batch,
                           metadata: GainMapMetadata, output_format: str,
                           max_display_boost: float,
-                          device="cuda") -> torch.Tensor:
+                          device="cuda", mesh=None):
     """B6 over a leading batch dimension (JAX sharding.py:1351
-    batched_apply_gainmap, on one device instead of a mesh): uint8
-    planes Y (n, h, w), U/V (n, h/2, w/2) and gain maps (n, mh, mw),
-    numpy arrays (uploaded in one transfer) or tensors (moved to
-    `device`), with one metadata and display boost for the batch ->
-    the HDR pixels of ops/gainmap.py:apply_gainmap on `device`."""
-    dev = resolve_device(device)
+    batched_apply_gainmap): uint8 planes Y (n, h, w), U/V (n, h/2, w/2)
+    and gain maps (n, mh, mw), numpy arrays (uploaded in one transfer)
+    or tensors (moved to `device`), with one metadata and display boost
+    for the batch -> the HDR pixels of ops/gainmap.py:apply_gainmap on
+    `device`; with a mesh, each shard's planes go to its device and the
+    pixels come back as a ShardedBatch."""
+    one, mesh = mesh is None, mesh_for(mesh, device)
     planes = (y8_batch, u8_batch, v8_batch, gmap_batch)
+    out = [_apply_shard([p[sl] for p in planes], metadata, output_format,
+                        max_display_boost, d)
+           for sl, d in zip(mesh.shards(len(y8_batch)), mesh.devices)]
+    return out[0] if one else ShardedBatch(out)
+
+
+def _apply_shard(planes, metadata: GainMapMetadata, output_format: str,
+                 max_display_boost: float, dev) -> torch.Tensor:
+    """batched_apply_gainmap over one shard's planes on `dev`."""
     if all(isinstance(p, torch.Tensor) for p in planes):
         planes = [p.to(dev) for p in planes]
     else:

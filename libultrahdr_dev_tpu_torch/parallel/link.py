@@ -23,6 +23,10 @@ decode_batch_hostapply).
   B16 at 16 bits), else a raw copy. A pack that would not save 15%
   declines and the raw copy is used, as in JAX; a kernel or unpack that
   fails raises (JAX's ``except Exception`` fallbacks are not ported).
+- A mesh (parallel/mesh.py): the upload packs and copies each shard's
+  frames to its own device (a blob a shard, rebuilt there by B14 or B0)
+  and gives ShardedBatches; every readback takes a ShardedBatch and
+  reads it back shard by shard into one host array.
 - Decode to host pixels with the host apply: the device decodes to the
   u8 planes composite
   (batched.py, output "planes": B4, B5, B18), the planar Rice readback
@@ -45,11 +49,12 @@ import time
 import numpy as np
 import torch
 
-from ..device import resolve_device, upload as _upload
+from ..device import upload as _upload
 from ..jpeg import native
 from ..utils import counters
 from ..utils.log import get_logger
 from . import batched, packio
+from .mesh import ShardedBatch, merge_stats, mesh_for
 
 _HOSTAPPLY_MODES = {"hdr_linear": 0, "hdr_hlg": 1, "hdr_pq": 2}
 
@@ -71,14 +76,21 @@ def pack_p010_host(plane_u16: np.ndarray):
     return hi, np.ascontiguousarray(lob)
 
 
-def pack_p010_batch_host(p010_y_batch, p010_uv_batch):
+def pack_p010_batch_host(p010_y_batch, p010_uv_batch, mesh=None):
     """Host half of the packed upload of uint16 P010 batches y (n, h, w)
     and uv (n, h/2, w): ("seg", PackedPlane, blob, n, h, w) when the
     segment pack of the tall plane pays, else ("dense", (y hi, y lo),
-    (uv hi, uv lo), n, h, w). Pure host work: a caller can overlap it
-    with the previous batch's device work in a thread."""
-    y = np.asarray(p010_y_batch)
-    uv = np.asarray(p010_uv_batch)
+    (uv hi, uv lo), n, h, w); with a mesh, the list of each shard's.
+    Pure host work: a caller can overlap it with the previous batch's
+    device work in a thread."""
+    y, uv = np.asarray(p010_y_batch), np.asarray(p010_uv_batch)
+    if mesh is None:
+        return _pack_shard(y, uv)
+    return [_pack_shard(y[sl], uv[sl]) for sl in mesh.shards(len(y))]
+
+
+def _pack_shard(y: np.ndarray, uv: np.ndarray):
+    """pack_p010_batch_host of one shard's frames."""
     n, h, w = y.shape
     dense_bytes = (y.size + uv.size) * 10 // 8
     if h % 64 == 0 and w % 16 == 0:
@@ -92,17 +104,35 @@ def pack_p010_batch_host(p010_y_batch, p010_uv_batch):
 
 
 def upload_p010_batch(p010_y_batch, p010_uv_batch, stats=None,
-                      prepacked=None, device="cuda"):
+                      prepacked=None, device="cuda", mesh=None):
     """Upload a P010 batch in ONE host-to-device copy and rebuild it on
     `device`: the segment blob through B14, or the dense layout through
     B0. `prepacked` is pack_p010_batch_host's result (else it is packed
     here). Returns (y, uv, h2d_bytes): MSB-aligned int16 batches (n, h,
     w) and (n, h/2, w) on the device. `stats` gains h2d_bytes, h2d_pack
     ("seg" | "dense") and h2d_ms (the enqueue time; the copy itself with
-    UHDR_FETCH_SYNC_STAGES=1)."""
-    dev = resolve_device(device)
-    pre = prepacked if prepacked is not None else \
-        pack_p010_batch_host(p010_y_batch, p010_uv_batch)
+    UHDR_FETCH_SYNC_STAGES=1). With a mesh, one copy and one B14 (or B0)
+    a shard on its device: y and uv are ShardedBatches, and h2d_pack
+    joins the shards' distinct packs with "+"; `prepacked` is then
+    pack_p010_batch_host's list for the mesh."""
+    one, mesh = mesh is None, mesh_for(mesh, device)
+    if prepacked is None:
+        prepacked = pack_p010_batch_host(p010_y_batch, p010_uv_batch, mesh)
+    elif one:
+        prepacked = [prepacked]
+    parts = [{} for _ in prepacked]
+    outs = [_upload_shard(pre, d, st)
+            for pre, d, st in zip(prepacked, mesh.devices, parts)]
+    merge_stats(stats, parts)
+    nbytes = sum(o[2] for o in outs)
+    if one:
+        return outs[0][0], outs[0][1], nbytes
+    return (ShardedBatch(o[0] for o in outs),
+            ShardedBatch(o[1] for o in outs), nbytes)
+
+
+def _upload_shard(pre, dev, stats: dict):
+    """upload_p010_batch of one shard's packed frames to `dev`."""
     t0 = time.perf_counter()
     sync = os.environ.get("UHDR_FETCH_SYNC_STAGES") == "1" \
         and dev.type == "cuda"
@@ -120,11 +150,9 @@ def upload_p010_batch(p010_y_batch, p010_uv_batch, stats=None,
             torch.cuda.synchronize(dev)
         ydev, uvdev = packio.unpack_p010_dense(*parts)
         nbytes = yh.nbytes + yl.nbytes + uh.nbytes + ul.nbytes
-    if stats is not None:
-        stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + nbytes
-        stats["h2d_pack"] = pre[0]
-        stats["h2d_ms"] = stats.get("h2d_ms", 0.0) + round(
-            (time.perf_counter() - t0) * 1e3, 1)
+    stats["h2d_bytes"] = nbytes
+    stats["h2d_pack"] = pre[0]
+    stats["h2d_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
     return ydev, uvdev, nbytes
 
 
@@ -136,6 +164,16 @@ def _raw_copy(out_dev: torch.Tensor) -> np.ndarray:
     a = out_dev.cpu().numpy()
     return a.view({np.dtype(np.int32): np.uint32,
                    np.dtype(np.int16): np.uint16}.get(a.dtype, a.dtype))
+
+
+def _per_shard(fetch, batch: ShardedBatch, stats, *args) -> np.ndarray:
+    """`fetch` over each shard of a ShardedBatch in turn, in the calling
+    thread (its per-thread fetch state is the last shard's), the host
+    arrays joined in batch order and the shards' stats merged."""
+    parts = [{} for _ in batch.shards]
+    out = [fetch(s, st, *args) for s, st in zip(batch.shards, parts)]
+    merge_stats(stats, parts)
+    return out[0] if len(out) == 1 else np.concatenate(out)
 
 
 def _account(stats, nbytes: int, pack: str):
@@ -154,6 +192,8 @@ def fetch_1010102_packed(out_dev: torch.Tensor, stats=None) -> np.ndarray:
     the maps of a declined pack included), d2h_pack and d2h_stages. Alpha
     comes back as the packers' constant 0xC0000000 (ops/color.py
     pack_rgba1010102 writes the same)."""
+    if isinstance(out_dev, ShardedBatch):
+        return _per_shard(fetch_1010102_packed, out_dev, stats)
     out, nbytes = packio.fetch_rgba1010102_auto(out_dev)
     wasted, mode = 0, f"rct-rice-auto({packio.last_fetch()[1]})"
     if out is None:
@@ -174,6 +214,8 @@ def fetch_f16_packed(out_dev: torch.Tensor, stats=None) -> np.ndarray:
     host uint16 halves through the RCT + Rice bit-pattern pack, scheme
     auto-picked, else the raw copy. `stats` as fetch_1010102_packed's.
     Alpha comes back as the packer's constant 0x3C00 (1.0)."""
+    if isinstance(out_dev, ShardedBatch):
+        return _per_shard(fetch_f16_packed, out_dev, stats)
     out, nbytes = packio.fetch_rgba_f16_auto(out_dev)
     wasted, mode = 0, f"rct-rice16-auto({packio.last_fetch()[1]})"
     if out is None:
@@ -198,6 +240,8 @@ def fetch_pixels_packed(arr, stats=None, fmt=None):
     name = getattr(fmt, "value", fmt)
     if name == "rgbaf16":
         name = "rgba_f16"
+    if isinstance(arr, ShardedBatch):
+        return _per_shard(fetch_pixels_packed, arr, stats, fmt)
     if isinstance(arr, np.ndarray):
         if stats is not None:
             stats.setdefault("d2h_bytes", 0)
@@ -277,6 +321,8 @@ def fetch_planes(comp_dev: torch.Tensor, stats=None) -> np.ndarray:
     copy when the pack declines. `stats` gains d2h_bytes (every byte
     that crossed, the map of a declined pack included), d2h_pack and
     fetch_stages."""
+    if isinstance(comp_dev, ShardedBatch):
+        return _per_shard(fetch_planes, comp_dev, stats)
     comp, nbytes = packio.fetch_planes_u8(comp_dev)
     pack = f"planes-rice-auto({packio.last_fetch()[1]})"
     if comp is None:
@@ -292,7 +338,7 @@ def fetch_planes(comp_dev: torch.Tensor, stats=None) -> np.ndarray:
 
 def decode_batch_hostapply(blobs, output_format: str,
                            max_display_boost: float, stats=None,
-                           handoff=None, device="cuda"):
+                           handoff=None, device="cuda", mesh=None):
     """Decode a batch all the way to host pixels through the planes
     readback: the device decodes (B4, B5) and emits the u8 composite
     (B18), the Rice readback brings it over, the host applies the gain
@@ -301,25 +347,30 @@ def decode_batch_hostapply(blobs, output_format: str,
     streams on their device. Returns apply_planes_host's pixels, or None
     where JAX's route does not apply (an output format the host apply
     does not serve, or blobs that need the host Huffman decoder): the
-    caller then decodes on the device (batched.batched_decode)."""
+    caller then decodes on the device (batched.batched_decode). With a
+    mesh, each shard decodes on its device (from its blobs, or from its
+    DeviceEncodedBatch of a mesh encode's tuple) and the composites come
+    back shard by shard; the host apply takes the whole batch."""
     if not hostapply_available(output_format):
         return None
     if handoff is not None:
         comp_dev = batched.batched_decode_from_handoff(
-            handoff, "planes", max_display_boost)
+            handoff, "planes", max_display_boost, mesh=mesh)
         n = int(comp_dev.shape[0])
         scalars = np.broadcast_to(batched.handoff_apply_scalars(
             handoff, max_display_boost), (n, 4))
-        w, h = handoff.streams.width, handoff.streams.height
-        gw, gh = w // 4, h // 4
+        s = (handoff if isinstance(handoff, batched.DeviceEncodedBatch)
+             else handoff[0]).streams
+        w, h, gw, gh = s.width, s.height, s.width // 4, s.height // 4
     else:
-        dev = resolve_device(device)
-        frames = batched.decode_host_stage(blobs, "planes")
+        frames = batched.decode_host_stage(blobs, "planes",
+                                           mesh_for(mesh, device))
         if frames[0].streams is None:
             return None
         meta = {}
         comp_dev = batched.decode_device_stage(
-            frames, "planes", max_display_boost, dev, meta_out=meta)
+            frames, "planes", max_display_boost, device, meta_out=meta,
+            mesh=mesh)
         w, h, gw, gh = meta["w"], meta["h"], meta["gw"], meta["gh"]
         scalars = meta["scalars"]
     return apply_planes_host(fetch_planes(comp_dev, stats), scalars, h, w,

@@ -334,12 +334,9 @@ def unpack_plane_device(blob: torch.Tensor, plan, n: int, h: int):
     build.require(blob, "blob", torch.int32, (_blob_offsets(plan)[4],))
     y = torch.empty((n, h, w), dtype=torch.int16, device=blob.device)
     uv = torch.empty((n, h // 2, w), dtype=torch.int16, device=blob.device)
-    lib = build.get_lib()
     unpack_plane_device.launches += 1
-    build.check(lib.uhdr_p010_seg_unpack(
-        blob.data_ptr(), rows_all, w, wp // L, n * h, n2, n5, n10,
-        y.data_ptr(), uv.data_ptr(), build.stream_of(blob)),
-        "uhdr_p010_seg_unpack")
+    build.launch(blob, "uhdr_p010_seg_unpack", blob.data_ptr(), rows_all, w,
+                 wp // L, n * h, n2, n5, n10, y.data_ptr(), uv.data_ptr())
     return y, uv
 
 
@@ -380,12 +377,11 @@ def unpack_p010_dense(y_hi, y_lo, uv_hi, uv_lo):
                              f"the high bytes 4-byte aligned")
         outs.append(torch.empty(hi.shape, dtype=torch.int16,
                                 device=hi.device))
-    lib = build.get_lib()
     unpack_p010_dense.launches += 1
-    build.check(lib.uhdr_p010_dense_unpack(
-        y_hi.data_ptr(), y_lo.data_ptr(), uv_hi.data_ptr(), uv_lo.data_ptr(),
-        outs[0].data_ptr(), outs[1].data_ptr(), y_lo.numel(), uv_lo.numel(),
-        build.stream_of(y_hi)), "uhdr_p010_dense_unpack")
+    build.launch(y_hi, "uhdr_p010_dense_unpack", y_hi.data_ptr(),
+                 y_lo.data_ptr(), uv_hi.data_ptr(), uv_lo.data_ptr(),
+                 outs[0].data_ptr(), outs[1].data_ptr(), y_lo.numel(),
+                 uv_lo.numel())
     return outs[0], outs[1]
 
 
@@ -590,12 +586,10 @@ def rice_stats(x: torch.Tensor, schemes=(False,), maps=None):
         maps = torch.empty((2 * len(schemes), nseg), dtype=torch.uint8,
                            device=dev)
     build.require(maps, "maps", torch.uint8, (2 * len(schemes), nseg))
-    lib = build.get_lib()
     _count(rice_stats, bits)
-    build.check(lib.uhdr_rice_stats(
-        x.data_ptr(), rows, w, nsegw, mode, bits, rows // 3,
-        zss[0].data_ptr(), zss[-1].data_ptr(), maps.data_ptr(),
-        build.stream_of(x)), "uhdr_rice_stats")
+    build.launch(x, "uhdr_rice_stats", x.data_ptr(), rows, w, nsegw, mode,
+                 bits, rows // 3, zss[0].data_ptr(), zss[-1].data_ptr(),
+                 maps.data_ptr())
     return zss, maps
 
 
@@ -611,10 +605,8 @@ def _rice_residuals(x: torch.Tensor, schemes=(False,)):
     build.require(x, "x", x.dtype)
     zss = tuple(torch.empty((nseg, RL), dtype=torch.int16, device=x.device)
                 for _ in schemes)
-    build.check(build.get_lib().uhdr_rice_stats(
-        x.data_ptr(), rows, w, nsegw, mode, bits, rows // 3,
-        zss[0].data_ptr(), zss[-1].data_ptr(), None, build.stream_of(x)),
-        "uhdr_rice_stats")
+    build.launch(x, "uhdr_rice_stats", x.data_ptr(), rows, w, nsegw, mode,
+                 bits, rows // 3, zss[0].data_ptr(), zss[-1].data_ptr(), None)
     return zss
 
 
@@ -738,25 +730,23 @@ def _rice_order(kuw, sidx, offs=None, head=None, med: bool = False,
         np.zeros(nk, np.int32), np.zeros(len(_RICE_UCLS), np.int32))
     pad_ptr, npad = (pad_bytes.data_ptr(), pad_bytes.numel()) \
         if pad_bytes is not None and pad_bytes.numel() else (None, 0)
-    lib = build.get_lib()
-    scratch = torch.empty(lib.uhdr_rice_order_scratch(nseg),
+    scratch = torch.empty(build.host_call("uhdr_rice_order_scratch", nseg),
                           dtype=torch.int32, device=kuw.device)
-    build.check(lib.uhdr_rice_order(
-        kuw[0].data_ptr(), kuw[1].data_ptr(), nseg, nk, sidx[0].data_ptr(),
-        sidx[1].data_ptr(), None if offs is None else offs.data_ptr(),
+    build.launch(
+        kuw, "uhdr_rice_order", kuw[0].data_ptr(), kuw[1].data_ptr(), nseg,
+        nk, sidx[0].data_ptr(), sidx[1].data_ptr(),
+        None if offs is None else offs.data_ptr(),
         None if head is None else head.data_ptr(), int(med), _ptr(rem_p),
-        _ptr(un_p), pad_ptr, npad, scratch.data_ptr(),
-        build.stream_of(kuw)), "uhdr_rice_order")
+        _ptr(un_p), pad_ptr, npad, scratch.data_ptr())
 
 
 def _rice_emit(zs, kuw, sidx, offs, rem_npads, un_npads, blob):
     """B16's second launch (uhdr_rice_emit): the buckets into blob."""
     start, nw, woff = _bucket_rows(rem_npads, un_npads)
-    build.check(build.get_lib().uhdr_rice_emit(
-        zs.data_ptr(), kuw[0].data_ptr(), sidx[0].data_ptr(),
-        sidx[1].data_ptr(), offs.data_ptr(), zs.shape[0], len(rem_npads),
-        _ptr(start), _ptr(nw), _ptr(woff), blob.data_ptr(),
-        build.stream_of(zs)), "uhdr_rice_emit")
+    build.launch(zs, "uhdr_rice_emit", zs.data_ptr(), kuw[0].data_ptr(),
+                 sidx[0].data_ptr(), sidx[1].data_ptr(), offs.data_ptr(),
+                 zs.shape[0], len(rem_npads), _ptr(start), _ptr(nw),
+                 _ptr(woff), blob.data_ptr())
 
 
 def _check_pack_inputs(zs, kuw):
@@ -1487,11 +1477,9 @@ def rct_widths(x: torch.Tensor):
     build.require(x, "x", torch.int32, (n, h, w))
     zs = torch.empty((rows, nsegw, LF), dtype=torch.int16, device=x.device)
     bc = torch.empty((rows, nsegw), dtype=torch.uint8, device=x.device)
-    lib = build.get_lib()
     rct_widths.launches += 1
-    build.check(lib.uhdr_rct_widths(
-        x.data_ptr(), n * h, w, nsegw, zs.data_ptr(), bc.data_ptr(),
-        build.stream_of(x)), "uhdr_rct_widths")
+    build.launch(x, "uhdr_rct_widths", x.data_ptr(), n * h, w, nsegw,
+                 zs.data_ptr(), bc.data_ptr())
     return zs, bc
 
 
@@ -1529,14 +1517,12 @@ def _rct_order(bc, sidx, totals=None):
     stable (rank, index) order into sidx (nseg,) int32 and, with
     `totals` (9,) int32, each rank's count. Counts no launch of
     rct_pack: chip_smoke.py checks and times the order with it."""
-    lib = build.get_lib()
     nseg = bc.numel()
-    scratch = torch.empty(lib.uhdr_rice_order_scratch(nseg),
+    scratch = torch.empty(build.host_call("uhdr_rice_order_scratch", nseg),
                           dtype=torch.int32, device=bc.device)
-    build.check(lib.uhdr_rct_order(
-        bc.data_ptr(), nseg, sidx.data_ptr(),
-        None if totals is None else totals.data_ptr(), scratch.data_ptr(),
-        build.stream_of(bc)), "uhdr_rct_order")
+    build.launch(bc, "uhdr_rct_order", bc.data_ptr(), nseg, sidx.data_ptr(),
+                 None if totals is None else totals.data_ptr(),
+                 scratch.data_ptr())
 
 
 def rct_pack(zs, bc, offs, npads):
@@ -1555,17 +1541,16 @@ def rct_pack(zs, bc, offs, npads):
         raise ValueError("expected 8 bucket offsets and paddings")
     words = sum(npads[j] * _wps(bw, LF) for j, bw in enumerate(FINE_WIDTHS))
     blob = torch.empty(words, dtype=torch.int32, device=zs.device)
-    lib = build.get_lib()
     # One allocation for the order's places and its tile counts.
-    scratch = torch.empty(nseg + lib.uhdr_rice_order_scratch(nseg),
-                          dtype=torch.int32, device=zs.device)
+    scratch = torch.empty(
+        nseg + build.host_call("uhdr_rice_order_scratch", nseg),
+        dtype=torch.int32, device=zs.device)
     npads_c = np.asarray(npads, np.int32)
     offs_c = np.asarray(offs, np.int32)
     rct_pack.launches += 1
-    build.check(lib.uhdr_rct_pack(
-        zs.data_ptr(), bc.data_ptr(), nseg, scratch.data_ptr(),
-        scratch[nseg:].data_ptr(), _ptr(npads_c), _ptr(offs_c),
-        blob.data_ptr(), build.stream_of(zs)), "uhdr_rct_pack")
+    build.launch(zs, "uhdr_rct_pack", zs.data_ptr(), bc.data_ptr(), nseg,
+                 scratch.data_ptr(), scratch[nseg:].data_ptr(),
+                 _ptr(npads_c), _ptr(offs_c), blob.data_ptr())
     return blob
 
 
@@ -1680,11 +1665,9 @@ def plane_widths(arr: torch.Tensor):
     build.require(arr, "arr", torch.int16)
     zs = torch.empty((h, nsegw, L), dtype=torch.int16, device=arr.device)
     bc = torch.empty((h, nsegw), dtype=torch.uint8, device=arr.device)
-    lib = build.get_lib()
     plane_widths.launches += 1
-    build.check(lib.uhdr_plane_widths(
-        arr.data_ptr(), h, w, nsegw, zs.data_ptr(), bc.data_ptr(),
-        build.stream_of(arr)), "uhdr_plane_widths")
+    build.launch(arr, "uhdr_plane_widths", arr.data_ptr(), h, w, nsegw,
+                 zs.data_ptr(), bc.data_ptr())
     return zs, bc
 
 
@@ -1720,11 +1703,9 @@ def plane_pack(zs, gidx, sizes):
     build.require(gidx, "gidx", torch.int32, (n2 + n5 + n10,))
     blob = torch.empty(n2 * 16 + n5 * 43 + n10 * 86, dtype=torch.int32,
                        device=zs.device)
-    lib = build.get_lib()
     plane_pack.launches += 1
-    build.check(lib.uhdr_plane_pack(
-        zs.data_ptr(), gidx.data_ptr(), n2, n5, n10, blob.data_ptr(),
-        build.stream_of(zs)), "uhdr_plane_pack")
+    build.launch(zs, "uhdr_plane_pack", zs.data_ptr(), gidx.data_ptr(), n2,
+                 n5, n10, blob.data_ptr())
     return blob
 
 

@@ -17,8 +17,11 @@ bench.py times as its headline):
                  fetch_1010102_packed: B15, B16 at 10 bits, else B17;
                  fetch_f16_packed: B15, B16 at 16 bits)
 
-Run on one CUDA GPU with synthetic 4080x3072 frames, batch 4, four
-rounds, HLG output:
+Run with synthetic 4080x3072 frames, batch 4, four rounds, HLG output,
+on every visible CUDA GPU (parallel/mesh.py default_mesh, as the JAX
+loop runs on sharding.default_mesh(); each GPU takes a contiguous shard
+of the batch, which must be a multiple of the GPU count; one GPU takes
+the whole batch as one shard):
 
     python -m libultrahdr_dev_tpu_torch.serving
 
@@ -41,8 +44,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .device import resolve_device
 from .parallel import batched, link
+from .parallel.mesh import default_mesh, mesh_for
 
 BOOST = 1000 / 203   # the loop's display boost (HLG peak over SDR white)
 
@@ -78,22 +81,25 @@ class ServeResult:
 
 
 def run(batch: int = 4, height: int = 3072, width: int = 4080,
-        rounds: int = 4, f16: bool = False, device="cuda", frames=None,
-        log=print, hostapply: bool = True) -> ServeResult:
+        rounds: int = 4, f16: bool = False, device=None, frames=None,
+        log=print, hostapply: bool = True, mesh=None) -> ServeResult:
     """Serve `rounds` rounds of one batch (`frames` = (y, uv) uint16
-    P010 batches, else synth_p010's) on `device`; hostapply=False is
-    --no-hostapply."""
-    dev = resolve_device(device)
+    P010 batches, else synth_p010's) on `mesh`, else on `device` alone,
+    else on default_mesh() (every visible CUDA GPU); the batch must be a
+    multiple of the mesh size. hostapply=False is --no-hostapply."""
+    if mesh is None and device is None:
+        mesh = default_mesh()
     ys, uvs = frames if frames is not None else synth_p010(batch, height,
                                                            width)
     n, h, w = ys.shape
+    mesh_for(mesh, device).shards(n)
     out_fmt = "hdr_linear" if f16 else "hdr_hlg"
     gw, gh = w // 4, h // 4
 
     def pack_and_upload():
         st = {}
-        pre = link.pack_p010_batch_host(ys, uvs)
-        y, uv, _ = link.upload_p010_batch(ys, uvs, st, pre, dev)
+        pre = link.pack_p010_batch_host(ys, uvs, mesh)
+        y, uv, _ = link.upload_p010_batch(ys, uvs, st, pre, device, mesh)
         return y, uv, st
 
     def fetch(comp_dev, scalars, st):
@@ -122,19 +128,19 @@ def run(batch: int = 4, height: int = 3072, width: int = 4080,
                 pk = pack_pool.submit(pack_and_upload)
             blobs, handoff = batched.batched_encode_api0(
                 None, None, device_input=(ydev, uvdev),
-                return_handoff=True, stats=st)
+                return_handoff=True, stats=st, mesh=mesh)
             scalars = None
             if handoff is not None:
                 comp_dev = batched.batched_decode_from_handoff(
-                    handoff, dec_fmt, BOOST)
+                    handoff, dec_fmt, BOOST, mesh=mesh)
                 if hostapply:
                     scalars = np.broadcast_to(batched.handoff_apply_scalars(
                         handoff, BOOST), (n, 4))
             else:   # dense content: restart-less blobs, decoded as blobs
                 meta = {}
+                parsed = batched.decode_host_stage(blobs, dec_fmt, mesh)
                 comp_dev = batched.decode_device_stage(
-                    batched.decode_host_stage(blobs, dec_fmt), dec_fmt,
-                    BOOST, dev, meta_out=meta)
+                    parsed, dec_fmt, BOOST, device, meta_out=meta, mesh=mesh)
                 if hostapply:
                     scalars = meta["scalars"]
             if fetch_fut is not None:
@@ -176,7 +182,7 @@ def main(argv=None) -> int:
                          "decoded planes back and applying on the host")
     args = ap.parse_args(argv)
     run(args.batch, args.height, args.width, args.rounds, args.f16,
-        "cpu" if args.cpu else "cuda", hostapply=not args.no_hostapply)
+        "cpu" if args.cpu else None, hostapply=not args.no_hostapply)
     return 0
 
 

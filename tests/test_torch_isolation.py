@@ -137,3 +137,115 @@ def test_entry_points_default_to_cuda():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _launch_sites():
+    """Across the port's modules (kernels/build.py aside): the uses of
+    the kernels' ctypes handle or of a stream outside the launch helper,
+    and the entry-point names given to build.launch and build.host_call."""
+    import ast
+
+    direct, launched, queried = [], set(), set()
+    for d, _, names in os.walk(PORT):
+        for n in names:
+            path = os.path.join(d, n)
+            if not n.endswith(".py") or path.endswith(
+                    os.path.join("kernels", "build.py")):
+                continue
+            rel = os.path.relpath(path, ROOT)
+            for node in ast.walk(ast.parse(open(path).read())):
+                if (isinstance(node, ast.Attribute)
+                        and isinstance(node.value, ast.Name)
+                        and node.value.id == "build"
+                        and node.attr in ("get_lib", "_lib", "stream_of",
+                                          "check")):
+                    direct.append(f"{rel}:{node.lineno} build.{node.attr}")
+                if (isinstance(node, ast.ImportFrom)
+                        and (node.module or "").endswith("build")
+                        and any(a.name in ("get_lib", "_lib", "stream_of",
+                                           "check") for a in node.names)):
+                    direct.append(f"{rel}:{node.lineno} imports from build")
+                if (isinstance(node, ast.Call)
+                        and isinstance(node.func, ast.Attribute)
+                        and isinstance(node.func.value, ast.Name)
+                        and node.func.value.id == "build"
+                        and node.func.attr in ("launch", "host_call")):
+                    arg = node.args[1 if node.func.attr == "launch" else 0]
+                    assert isinstance(arg, ast.Constant), \
+                        f"{rel}:{node.lineno}: name the entry point literally"
+                    (launched if node.func.attr == "launch"
+                     else queried).add(arg.value)
+    return direct, launched, queried
+
+
+def test_every_launch_goes_through_the_device_guard():
+    """No module of the port calls a C entry point of the kernels except
+    through kernels/build.py:launch (which makes the tensor's device
+    current and passes that device's stream) or, for the two host-only
+    size queries, build.host_call; and every entry point that takes a
+    stream is launched that way somewhere. A launch added later without
+    the guard fails here even where no second GPU could show it."""
+    import ctypes
+
+    from libultrahdr_dev_tpu_torch.kernels import build
+
+    direct, launched, queried = _launch_sites()
+    assert direct == []
+    host_only = {n for n, a in build.SIGNATURES.items()
+                 if not a or a[-1] is not ctypes.c_void_p}
+    assert host_only == {"uhdr_huff_lookup_bytes", "uhdr_rice_order_scratch"}
+    assert queried == host_only
+    assert launched == set(build.SIGNATURES) - host_only
+
+
+def test_launch_makes_the_tensor_device_current(monkeypatch):
+    """build.launch enters the tensor's device (unless it is current),
+    calls the entry point with that device's current stream last, leaves
+    the device, and raises on a non-zero return code."""
+    import contextlib
+    import types
+
+    import pytest
+    import torch
+
+    from libultrahdr_dev_tpu_torch.kernels import build
+
+    events = []
+
+    @contextlib.contextmanager
+    def device(d):
+        events.append(("enter", torch.device(d)))
+        yield
+        events.append(("exit", torch.device(d)))
+
+    def current_stream(d=None):
+        events.append(("stream", d))
+        return types.SimpleNamespace(cuda_stream=77)
+
+    class Lib:
+        rc = 0
+
+        def uhdr_x(self, *args):
+            events.append(("call", args))
+            return self.rc
+
+    lib = Lib()
+    current = [0]
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    monkeypatch.setattr(build, "get_lib", lambda: lib)
+    monkeypatch.setattr(build, "_lib", lib)
+    cuda3 = torch.device("cuda", 3)
+    t = types.SimpleNamespace(device=cuda3)
+    build.launch(t, "uhdr_x", 1, 2.5)
+    assert events == [("enter", cuda3), ("stream", cuda3),
+                      ("call", (1, 2.5, 77)), ("exit", cuda3)]
+    # Its device already current: nothing to switch.
+    events.clear()
+    current[0] = 3
+    build.launch(t, "uhdr_x", 4)
+    assert events == [("stream", cuda3), ("call", (4, 77))]
+    lib.rc = 700
+    with pytest.raises(RuntimeError, match="uhdr_x: CUDA error 700"):
+        build.launch(t, "uhdr_x")
