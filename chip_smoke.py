@@ -5217,6 +5217,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from libultrahdr_dev_tpu_torch.kernels import build
+    from libultrahdr_dev_tpu_torch.utils import profiler
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5230,11 +5231,12 @@ def main() -> int:
         f"{ctypes.util.find_library('avif')}")
 
     t0 = time.perf_counter()
-    build.build(verbose=True)
-    build.get_lib()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
-        f"{build.build_seconds if build.build_seconds is not None else 0:.1f}"
-        f" s)")
+    with profiler.recording():
+        build.build(verbose=True)
+        build.get_lib()
+    nvcc = sum(end - start for n, _, start, end in profiler.recorded()
+               if n == "kernels.build")
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {nvcc:.1f} s)")
 
     results: dict = {}
     phases = [("kernels B1 B2 B5 B6 B11 B7",

@@ -64,7 +64,14 @@ CUDA device unless the caller passes device="cpu". Public surface:
     package's sharding.default_mesh) / single_device_mesh / DeviceMesh,
     and ShardedBatch, a batch's per-device shards
   - utils.profiler — Profiler, StageTimes, device_trace (torch.profiler,
-    a Chrome trace) and annotate
+    a Chrome trace) and span, the program's named regions: off, a span
+    is one shared no-op; inside `with profiler.recording():` or a
+    device_trace each span's (name, thread, start, end) on the
+    perf_counter clock is kept, and profiler.recorded() returns them
+    after; inside a device_trace each span is also a user annotation of
+    the Chrome trace, beside the kernels when opened in Perfetto
+  - utils.counters — process-wide counts (snapshot()): the slower
+    transfer paths, decode_route_host, h2d_bytes, kernels_built
 """
 
 from .api import UhdrDecoder, UhdrEncoder, is_uhdr_image  # noqa: F401

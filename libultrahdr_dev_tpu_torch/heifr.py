@@ -37,7 +37,7 @@ from .jpegr import _OUT, upload_frame
 from .ops import gainmap as gm
 from .types import (ColorGamut, ColorTransfer, GainMapMetadata,
                     OutputFormat, PixelFormat, RawImage, err)
-from .utils.profiler import StageTimes, stage_of
+from .utils.profiler import StageTimes, span
 
 _GAINMAP_QUALITY = 85  # matches kMapCompressQualityDefault usage
 
@@ -148,9 +148,9 @@ class HeifR:
         """Tone map + gain map on the device, then assemble base +
         gain-map HEIF with ISO 21496-1-style metadata."""
         self._require_codec()
-        with stage_of(self.times, STAGES[0]):
+        with span(STAGES[0], self.times):
             y8, u8, v8, gmap, metadata = self._api0_planes(p010, hdr_tf)
-        with stage_of(self.times, STAGES[1]):
+        with span(STAGES[1], self.times):
             return self._encode_gainmap_heif(y8, u8, v8, gmap, metadata,
                                              quality, exif)
 
@@ -320,9 +320,9 @@ class HeifR:
         if max_display_boost < 1.0:
             raise err("UHDR_CODEC_INVALID_PARAM",
                       f"bad max_display_boost {max_display_boost}")
-        with stage_of(self.times, STAGES[2]):
+        with span(STAGES[2], self.times):
             base, gmap, metadata, exif = self._decode_coded(data)
-        with stage_of(self.times, STAGES[3]):
+        with span(STAGES[3], self.times):
             image = self._reconstruct(*base, gmap, metadata, output_format,
                                       max_display_boost)
         return HeifRDecodeResult(image.width, image.height, image, metadata,

@@ -8,8 +8,9 @@ into lanes by a lengths-only host scan (``scan_foreign_stream``) that
 records each lane's start bit, and the lanes' DC sums are carried
 across them after the decode (``dc_carry``).
 
-Host side: ``parse_device_stream`` reads the markers, destuffs the
-entropy segment and finds the lane starts; ``pack_streams`` lays one or
+Host side: ``parse_device_stream`` reads the markers
+(``parse_device_headers``), destuffs the entropy segment and finds the
+lane starts (``destuff_device_stream``); ``pack_streams`` lays one or
 more parsed streams out as the kernel's inputs (one byte buffer plus
 small int32 descriptor arrays), so a batch goes to the device in one
 copy. Device side: ``decode_rst_chunks`` decodes every lane of the
@@ -325,11 +326,39 @@ def _parse_dqt(p: bytes, qtables: dict):
         qtables[tq] = nat.reshape(8, 8)
 
 
+@dataclass
+class StreamHeaders:
+    """What the markers of a device-decodable JPEG say, and its
+    entropy-coded segment as it stands in the file (still stuffed)."""
+
+    width: int
+    height: int
+    gray: bool
+    restart_interval: int
+    qtables: list
+    specs: tuple
+    mcus_x: int
+    mcus_y: int
+    sampling: tuple
+    entropy: bytes
+    icc: bytes | None = None
+    exif: bytes | None = None
+    xmp: bytes | None = None
+
+
 def parse_device_stream(data: bytes) -> DeviceStream | None:
     """Parse a JPEG and return a DeviceStream when its headers and
     entropy segment suit the device decoder (baseline, one scan, 4:2:0,
     4:2:2 or 4:4:4 YCbCr with U and V sharing tables, or grayscale);
     None otherwise, and the caller decodes on the host."""
+    hdr = parse_device_headers(data)
+    return None if hdr is None else destuff_device_stream(hdr)
+
+
+def parse_device_headers(data: bytes) -> StreamHeaders | None:
+    """The marker and table walk of parse_device_stream, up to the
+    entropy segment; None where the headers do not suit the device
+    decoder."""
     try:
         segments, sos_end = jfif.scan_segments(data, 0)
     except UhdrError:
@@ -420,8 +449,20 @@ def parse_device_stream(data: bytes) -> DeviceStream | None:
         return None
 
     eoi = data.find(b"\xff\xd9", sos_end)
-    entropy = data[sos_end:eoi if eoi >= 0 else len(data)]
-    n_mcus = mcus_x * mcus_y
+    return StreamHeaders(
+        width=w, height=h, gray=gray, restart_interval=restart,
+        qtables=[qtables[c[3]] for c in comps], specs=specs, mcus_x=mcus_x,
+        mcus_y=mcus_y, sampling=(hs, vs),
+        entropy=data[sos_end:eoi if eoi >= 0 else len(data)], icc=icc,
+        exif=exif, xmp=xmp_b)
+
+
+def destuff_device_stream(hdr: StreamHeaders) -> DeviceStream | None:
+    """The rest of parse_device_stream: destuff the entropy segment and
+    find its lanes (split_rst_stream, or scan_foreign_stream for a
+    restart-less stream); None where that fails."""
+    entropy, restart, gray = hdr.entropy, hdr.restart_interval, hdr.gray
+    n_mcus = hdr.mcus_x * hdr.mcus_y
     start_bits = None
     if restart > 0:
         try:
@@ -433,17 +474,17 @@ def parse_device_stream(data: bytes) -> DeviceStream | None:
         # Restart-less: one lane per `restart` MCUs, sized for about the
         # lane count of this codec's own restart intervals.
         restart = max(1, -(-n_mcus // 12288))
-        scanned = scan_foreign_stream(entropy, n_mcus, gray, specs,
-                                      restart, sampling=(hs, vs))
+        scanned = scan_foreign_stream(entropy, n_mcus, gray, hdr.specs,
+                                      restart, sampling=hdr.sampling)
         if scanned is None:
             return None
         dest, starts_byte, start_bits, win_len = scanned
     return DeviceStream(
-        width=w, height=h, gray=gray, restart_interval=restart, dest=dest,
-        starts_byte=starts_byte, win_len=win_len,
-        qtables=[qtables[c[3]] for c in comps], specs=specs,
-        mcus_x=mcus_x, mcus_y=mcus_y, start_bits=start_bits,
-        sampling=(hs, vs), icc=icc, exif=exif, xmp=xmp_b)
+        width=hdr.width, height=hdr.height, gray=gray,
+        restart_interval=restart, dest=dest, starts_byte=starts_byte,
+        win_len=win_len, qtables=hdr.qtables, specs=hdr.specs,
+        mcus_x=hdr.mcus_x, mcus_y=hdr.mcus_y, start_bits=start_bits,
+        sampling=hdr.sampling, icc=hdr.icc, exif=hdr.exif, xmp=hdr.xmp)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from ..utils import counters
+from ..utils.profiler import span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -138,7 +140,6 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-build_seconds: float | None = None
 
 
 def _nvcc() -> str:
@@ -176,8 +177,8 @@ def _run(cmds) -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into the build directory (if not yet there)
-    and return the shared object's path."""
-    global build_seconds
+    and return the shared object's path. A build that runs nvcc is a
+    span "kernels.build" and bumps counter "kernels_built"."""
     srcs = _sources()
     so = _so_path(srcs)
     if os.path.exists(so):
@@ -188,12 +189,12 @@ def build(verbose: bool = False) -> str:
             for s in srcs]
     nvcc = _nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
-    t0 = time.perf_counter()
-    log = _run([[nvcc, *FLAGS, *ptxas, "-c", s, "-o", o]
-                for s, o in zip(srcs, objs)])
     tmp = f"{so}.{tag}"
-    _run([[nvcc, ARCH, "-shared", "-o", tmp, *objs]])
-    build_seconds = time.perf_counter() - t0
+    with span("kernels.build"):
+        log = _run([[nvcc, *FLAGS, *ptxas, "-c", s, "-o", o]
+                    for s, o in zip(srcs, objs)])
+        _run([[nvcc, ARCH, "-shared", "-o", tmp, *objs]])
+    counters.bump("kernels_built")
     for o in objs:
         os.remove(o)
     if verbose:

@@ -84,6 +84,8 @@ from ..ops.gainmap import (apply_gainmap, apply_scalars,  # noqa: F401
                            encode_front, encode_front_api1, gainmap_metadata,
                            planes_composite, yuv420_to_rgba8888)
 from ..types import GainMapMetadata, MAP_COMPRESS_QUALITY, err
+from ..utils import counters
+from ..utils.profiler import span
 from .mesh import (DeviceMesh, ShardedBatch, check_placed, map_shards,
                    merge_stats, mesh_for)
 
@@ -536,23 +538,37 @@ def parse_device_route(blob: bytes, sdr: bool = False) -> HostDecoded | None:
     """Host stage of the device route (the JAX _decode_device_path up to
     its launch): split the JPEG/R, parse and destuff both images, or the
     base alone for SDR output. None when an image's headers do not suit
-    the device decoder (a 4:2:0 base and a gray gain map)."""
-    primary, gainmap = mux.extract_primary_and_gainmap(blob)
-    ds = dd.parse_device_stream(primary)
-    if ds is None or ds.gray or ds.sampling != (2, 2):
+    the device decoder (a 4:2:0 base and a gray gain map). Spans: the
+    split "decode.split"; each image's markers and tables, and the gain
+    map's XMP and checks, "decode.headers"; each destuffing
+    "decode.destuff"."""
+    with span("decode.split"):
+        primary, gainmap = mux.extract_primary_and_gainmap(blob)
+    with span("decode.headers"):
+        hb = dd.parse_device_headers(primary)
+    if hb is None or hb.gray or hb.sampling != (2, 2):
+        return None
+    with span("decode.destuff"):
+        ds = dd.destuff_device_stream(hb)
+    if ds is None:
         return None
     if sdr:
         return HostDecoded(ds.width, ds.height, 0, 0,
                            (ds.qtables[0], ds.qtables[1]), None, icc=ds.icc,
                            exif=ds.exif, streams=(ds,))
-    dsg = dd.parse_device_stream(gainmap)
-    if dsg is None or not dsg.gray:
+    with span("decode.headers"):
+        hg = dd.parse_device_headers(gainmap)
+        if hg is None or not hg.gray:
+            return None
+        if hg.xmp is None:
+            raise err("UHDR_CODEC_ERROR", "gain map carries no XMP")
+        metadata = xmp.get_metadata_from_xmp(hg.xmp)
+        _check_geometry(ds.width, ds.height, hg.width, hg.height)
+        check_gainmap_metadata(metadata)
+    with span("decode.destuff"):
+        dsg = dd.destuff_device_stream(hg)
+    if dsg is None:
         return None
-    if dsg.xmp is None:
-        raise err("UHDR_CODEC_ERROR", "gain map carries no XMP")
-    metadata = xmp.get_metadata_from_xmp(dsg.xmp)
-    _check_geometry(ds.width, ds.height, dsg.width, dsg.height)
-    check_gainmap_metadata(metadata)
     return HostDecoded(ds.width, ds.height, dsg.width, dsg.height,
                        (ds.qtables[0], ds.qtables[1], dsg.qtables[0]),
                        metadata, icc=ds.icc, exif=ds.exif,
@@ -594,18 +610,22 @@ def decode_host_stage(blobs: list[bytes], output_format: str = "hdr_linear",
     "sdr" output only the base is read: the gain map's headers, XMP and
     stream are never looked at (the JAX SDR branch, jpegr.py:451-464,
     555-570). With a mesh each shard's blobs are parsed on a worker of
-    their own, and the route is still the whole batch's."""
+    their own, and the route is still the whole batch's. Runs in span
+    "decode.host"; a batch sent to host Huffman adds its frames to
+    counter "decode_route_host"."""
     sdr = output_format == "sdr"
-    spans = [slice(None)] if mesh is None else mesh.shards(len(blobs))
+    shards = [slice(None)] if mesh is None else mesh.shards(len(blobs))
 
     def each(fn):
         return [f for part in map_shards(
-            lambda sl: [fn(b, sdr) for b in blobs[sl]], spans) for f in part]
+            lambda sl: [fn(b, sdr) for b in blobs[sl]], shards) for f in part]
 
-    frames = each(parse_device_route)
-    if all(f is not None for f in frames):
-        return frames
-    return each(decode_host_huffman)
+    with span("decode.host"):
+        frames = each(parse_device_route)
+        if all(f is not None for f in frames):
+            return frames
+        counters.bump("decode_route_host", len(blobs))
+        return each(decode_host_huffman)
 
 
 def _planes(grids, qtables: torch.Tensor, geom):
@@ -682,37 +702,44 @@ def decode_device_stage(frames: list[HostDecoded], output_format: str,
 def _decode_shard(frames: list[HostDecoded], output_format: str,
                   max_display_boost: float, device, use_luts: bool,
                   meta_out: dict) -> torch.Tensor:
-    """decode_device_stage over one shard's frames on `device`."""
-    if output_format == "sdr":
-        return _decode_device_sdr(frames, device)
-    f0 = frames[0]
-    geom = (f0.width, f0.height, f0.gm_width, f0.gm_height)
-    q = np.stack([np.stack([t.reshape(64) for t in f.qtables])
-                  for f in frames]).astype(np.int32)
-    scalars = np.stack([apply_scalars(f.metadata, max_display_boost)
-                        for f in frames])
-    if f0.streams is not None:
-        lb = dd.pack_streams([f.streams[0] for f in frames])
-        lg = dd.pack_streams([f.streams[1] for f in frames])
-        (src, bf, bl, bt, gf, gl, gt, qd, sd) = _upload(
-            [np.concatenate([lb.src, lg.src]), lb.frames, lb.lanes,
-             lb.tables, _shift(lg.frames, lb.src.size), lg.lanes,
-             lg.tables, q, scalars], device)
-        grids = (dd.decode_rst_chunks(src, bf, bl, bt, False, (2, 2),
-                                      lb.mcus_x, lb.mcus_y)
-                 + dd.decode_rst_chunks(src, gf, gl, gt, True, (1, 1),
-                                        lg.mcus_x, lg.mcus_y))
-    else:
-        arrays = [np.stack([f.grids[k] for f in frames]) for k in range(4)]
-        *up, qd, sd = _upload([a.reshape(len(frames), -1, 64)
-                               for a in arrays] + [q, scalars], device)
-        grids = tuple(up)
-    meta_out.update(w=geom[0], h=geom[1], gw=geom[2], gh=geom[3],
-                    scalars=scalars)
-    planes = _planes(grids, qd, geom)
-    if output_format == "planes":
-        return planes_composite(*planes)
-    return apply_gainmap(*planes, sd, output_format, use_luts)
+    """decode_device_stage over one shard's frames on `device`, in span
+    "decode.device_stage": "decode.pack" lays the upload out, "upload"
+    copies it, "decode.launch" enqueues the kernels."""
+    with span("decode.device_stage"):
+        if output_format == "sdr":
+            return _decode_device_sdr(frames, device)
+        f0 = frames[0]
+        geom = (f0.width, f0.height, f0.gm_width, f0.gm_height)
+        with span("decode.pack"):
+            q = np.stack([np.stack([t.reshape(64) for t in f.qtables])
+                          for f in frames]).astype(np.int32)
+            scalars = np.stack([apply_scalars(f.metadata, max_display_boost)
+                                for f in frames])
+            if f0.streams is not None:
+                lb = dd.pack_streams([f.streams[0] for f in frames])
+                lg = dd.pack_streams([f.streams[1] for f in frames])
+                arrays = [np.concatenate([lb.src, lg.src]), lb.frames,
+                          lb.lanes, lb.tables, _shift(lg.frames, lb.src.size),
+                          lg.lanes, lg.tables]
+            else:
+                arrays = [np.stack([f.grids[k] for f in frames])
+                          .reshape(len(frames), -1, 64) for k in range(4)]
+        *up, qd, sd = _upload(arrays + [q, scalars], device)
+        meta_out.update(w=geom[0], h=geom[1], gw=geom[2], gh=geom[3],
+                        scalars=scalars)
+        with span("decode.launch"):
+            if f0.streams is not None:
+                src, bf, bl, bt, gf, gl, gt = up
+                grids = (dd.decode_rst_chunks(src, bf, bl, bt, False, (2, 2),
+                                              lb.mcus_x, lb.mcus_y)
+                         + dd.decode_rst_chunks(src, gf, gl, gt, True, (1, 1),
+                                                lg.mcus_x, lg.mcus_y))
+            else:
+                grids = tuple(up)
+            planes = _planes(grids, qd, geom)
+            if output_format == "planes":
+                return planes_composite(*planes)
+            return apply_gainmap(*planes, sd, output_format, use_luts)
 
 
 def _check_batch(frames, geom):
@@ -725,22 +752,26 @@ def _check_batch(frames, geom):
 def _decode_device_sdr(frames: list[HostDecoded], device) -> torch.Tensor:
     """decode_device_stage for "sdr": the base alone (its streams or
     grids and its two quant tables, whatever else the frames carry) in
-    one copy, then B4, B5 and B7."""
+    one copy, then B4, B5 and B7; spans as _decode_shard's."""
     f0 = frames[0]
     geom = (f0.width, f0.height)
-    q = np.stack([np.stack([t.reshape(64) for t in f.qtables[:2]])
-                  for f in frames]).astype(np.int32)
-    if f0.streams is not None:
-        lb = dd.pack_streams([f.streams[0] for f in frames])
-        src, bf, bl, bt, qd = _upload(
-            [lb.src, lb.frames, lb.lanes, lb.tables, q], device)
-        grids = dd.decode_rst_chunks(src, bf, bl, bt, False, (2, 2),
-                                     lb.mcus_x, lb.mcus_y)
-    else:
-        *grids, qd = _upload([np.stack([f.grids[k] for f in frames])
-                              .reshape(len(frames), -1, 64)
-                              for k in range(3)] + [q], device)
-    return yuv420_to_rgba8888(*_planes(grids, qd, geom + (0, 0)))
+    with span("decode.pack"):
+        q = np.stack([np.stack([t.reshape(64) for t in f.qtables[:2]])
+                      for f in frames]).astype(np.int32)
+        if f0.streams is not None:
+            lb = dd.pack_streams([f.streams[0] for f in frames])
+            arrays = [lb.src, lb.frames, lb.lanes, lb.tables]
+        else:
+            arrays = [np.stack([f.grids[k] for f in frames])
+                      .reshape(len(frames), -1, 64) for k in range(3)]
+    *up, qd = _upload(arrays + [q], device)
+    with span("decode.launch"):
+        if f0.streams is not None:
+            grids = dd.decode_rst_chunks(*up, False, (2, 2), lb.mcus_x,
+                                         lb.mcus_y)
+        else:
+            grids = up
+        return yuv420_to_rgba8888(*_planes(grids, qd, geom + (0, 0)))
 
 
 def _shift(frame_rows: np.ndarray, by: int) -> np.ndarray:

@@ -87,7 +87,7 @@ import torch
 from ..jpeg import native
 from ..kernels import build
 from ..utils import counters
-from ..utils.profiler import StageTimes, stage_of
+from ..utils.profiler import StageTimes, span
 from ..utils.workers import worker_count
 
 L = 256      # samples per segment (upload pack)
@@ -265,7 +265,7 @@ def unpack_plane_host(packed: PackedPlane,
     """Numpy inverse of the pack: the (H, W) u16 plane. Where `times` is
     given, the unpack is recorded in it as PLANE_PACK_STAGES[-1]."""
     h, w, wp, n2, n5, n10 = packed.plan
-    with stage_of(times, PLANE_PACK_STAGES[-1]):
+    with span(PLANE_PACK_STAGES[-1], times):
         rows = [np.zeros((1, L), np.uint16)]
         for bw in WIDTHS:
             words = np.asarray(packed.buckets[bw])
@@ -1751,20 +1751,20 @@ def pack_plane_device(arr: torch.Tensor, max_bytes=None,
     h, w = int(arr.shape[0]), int(arr.shape[1])
     if h % G:
         raise ValueError(f"H={h} not a multiple of {G}")
-    with stage_of(times, PLANE_PACK_STAGES[0]):
+    with span(PLANE_PACK_STAGES[0], times):
         zs, bdev = plane_widths(arr)
         if times is not None and arr.is_cuda:
             torch.cuda.synchronize(arr.device)
-    with stage_of(times, PLANE_PACK_STAGES[1]):
+    with span(PLANE_PACK_STAGES[1], times):
         flat_b = _to_host(bdev).reshape(-1)
     if max_bytes is not None:
         est = sum(_pow2_pad(max(int((flat_b == bw).sum()), 1))
                   * _words_per_seg(bw) * 4 for bw in WIDTHS)
         if est > max_bytes:
             return None
-    with stage_of(times, PLANE_PACK_STAGES[2]):
+    with span(PLANE_PACK_STAGES[2], times):
         perm, gidx = _plane_plan(flat_b)
-    with stage_of(times, PLANE_PACK_STAGES[3]):
+    with span(PLANE_PACK_STAGES[3], times):
         sizes = tuple(g.size for g in gidx)
         plan = (h, w, -(-w // L) * L) + sizes
         gidx_dev = torch.from_numpy(np.concatenate(gidx)).to(arr.device)

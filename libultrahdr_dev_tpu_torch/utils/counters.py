@@ -6,6 +6,12 @@ pack does not pay, the raw readback when the Rice pack declines, the
 re-plan when the fused readback's speculated plan no longer fits. Each
 rule counts its firings here, so a run can say how often it took the
 slower path. A copy of libultrahdr_dev_tpu/utils/counters.py.
+
+Beside them: "decode_route_host", the frames of batched decodes sent to
+host Huffman because some blob of their batch did not suit the device
+decoder (parallel/batched.py decode_host_stage); "h2d_bytes", the bytes
+of every one-copy upload (device.py upload); "kernels_built", the CUDA
+kernel builds that ran nvcc (kernels/build.py build).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The port's profiling utilities (libultrahdr_dev_tpu_torch/utils/
 profiler.py) on the CPU: the host timers copied from the JAX package
 (Profiler, StageTimes) and the torch.profiler hooks (device_trace writes
-a Chrome trace holding the regions annotate names)."""
+a Chrome trace holding the program's spans as user annotations)."""
 
 import json
 import os
@@ -62,14 +62,16 @@ def test_stage_times_count_a_raising_stage():
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with profiler.device_trace(str(tmp_path)) as logdir:
-        with profiler.annotate("uhdr_region"):
+        with profiler.span("uhdr_region"):
             torch.ones(64).add_(1)
     assert logdir == str(tmp_path)
     files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
     assert len(files) == 1
     with open(tmp_path / files[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "uhdr_region" for e in events)
+    assert any(e.get("name") == "uhdr_region"
+               and e.get("cat") == "user_annotation" for e in events)
+    assert [s[0] for s in profiler.recorded()] == ["uhdr_region"]
 
 
 def test_device_trace_default_dir_from_env(tmp_path, monkeypatch):

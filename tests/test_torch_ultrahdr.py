@@ -313,7 +313,7 @@ def test_gain_map_image_matches_jax(route, monkeypatch):
     jdec.decode()
     want = np.asarray(jdec.get_gain_map_image())
     if route == "host":
-        monkeypatch.setattr(batched.dd, "parse_device_stream",
+        monkeypatch.setattr(batched.dd, "parse_device_headers",
                             lambda data: None)
     calls = tcodec.entropy_decode.calls
     dec = UhdrDecoder("cpu").set_image(blob)
