@@ -192,39 +192,31 @@ def bucket_len(n: int) -> int:
 def split_rst_stream(entropy: bytes, n_chunks: int):
     """Destuff an entropy-coded segment with RSTn markers and find its
     intervals: (destuffed bytes, (n_chunks,) int32 start offsets,
-    window length). Raises ValueError when the marker count is not
-    n_chunks - 1."""
+    window length). One native pass (entropy.cpp uhdr_destuff_rst)
+    drops each stuffed zero and each RSTn, keeps every other byte, and
+    notes where each interval starts. Raises ValueError when the marker
+    count is not n_chunks - 1."""
     arr = np.frombuffer(entropy, np.uint8)
     if arr.size == 0:
         raise ValueError("empty entropy segment")
-    # 0xFF bytes are rare (~1%): classify only those.
-    ff = np.flatnonzero(arr == 0xFF)
-    ff = ff[ff + 1 < arr.size]
-    nxt = arr[ff + 1]
-    rst_ff = ff[(nxt >= 0xD0) & (nxt <= 0xD7)]
-    stuff = ff[nxt == 0x00] + 1
-    if rst_ff.size + 1 != n_chunks:
+    out = np.empty(arr.size, np.uint8)
+    # starts[0] stays 0; the pass writes the RSTn offsets after it, and
+    # never more than the buffer holds, whatever the segment carries.
+    starts = np.zeros(n_chunks + 1, np.int64)
+    n_rst = ctypes.c_long()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    n = get_lib().uhdr_destuff_rst(
+        arr.ctypes.data_as(u8p), arr.size, out.ctypes.data_as(u8p),
+        starts[1:].ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+        n_chunks, ctypes.byref(n_rst))
+    if n_rst.value + 1 != n_chunks:
         raise ValueError(f"expected {n_chunks} restart intervals, found "
-                         f"{rst_ff.size + 1}")
-    keep = np.ones(arr.size, bool)
-    keep[rst_ff] = False
-    keep[rst_ff + 1] = False
-    keep[stuff] = False
-    data = arr[keep]
-    # Interval k spans raw [rst_ff[k-1] + 2, rst_ff[k]) minus the
-    # stuffed zeros inside that range.
-    raw_starts = np.concatenate([[0], rst_ff + 2])
-    raw_ends = np.concatenate([rst_ff, [arr.size]])
-    lens = ((raw_ends - raw_starts)
-            - (np.searchsorted(stuff, raw_ends)
-               - np.searchsorted(stuff, raw_starts)))
-    if np.any(lens < 0):
-        raise ValueError("marker structure corrupt")
-    win = bucket_len(int(lens.max()))
-    starts = np.concatenate([[0], np.cumsum(lens)])[:-1]
-    if data.size + win >= 2**31:
+                         f"{n_rst.value + 1}")
+    starts[n_chunks] = n
+    win = bucket_len(int(np.diff(starts).max()))
+    if n + win >= 2**31:
         raise ValueError("entropy segment too large")
-    return data, starts.astype(np.int32), win
+    return out[:n], starts[:n_chunks].astype(np.int32), win
 
 
 def scan_foreign_stream(entropy: bytes, n_mcus: int, gray: bool, specs,

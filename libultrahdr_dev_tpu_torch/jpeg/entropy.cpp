@@ -2,8 +2,9 @@
 //
 // A copy of the JAX package's jpeg/native/entropy.cpp, cut to what the
 // port runs: the restart-interval encoder and decoder of its host
-// route, the lengths-only scan that splits a restart-less stream into
-// lanes for the device decoder (jpeg/device_decode.py), and the four
+// route, the destuffing of a restart-interval stream and the
+// lengths-only scan that splits a restart-less stream into lanes for
+// the device decoder (jpeg/device_decode.py), and the four
 // progressive scan decoders (uhdr_prog_*) that jpeg/codec.py's
 // multi-scan decode runs scan by scan. It fills
 // the role libjpeg-turbo's entropy coder plays for the reference
@@ -18,6 +19,9 @@
 
 #include <cstdint>
 #include <cstring>
+#if defined(__x86_64__)
+#include <immintrin.h>
+#endif
 
 namespace {
 
@@ -361,9 +365,132 @@ inline int extend(int v, int size) {
   return v + (((v - (1 << (size - 1))) >> 31) & ((-1 << size) + 1));
 }
 
+// uhdr_destuff_rst's vector step: for each 8-bit mask of the bytes to
+// keep, their indices in order (then 0x80, which pshufb reads as a
+// zero) and their count.
+struct CompactTable {
+  uint8_t idx[256][8];
+  uint8_t cnt[256];
+};
+
+constexpr CompactTable make_compact_table() {
+  CompactTable t{};
+  for (int m = 0; m < 256; ++m) {
+    int c = 0;
+    for (int k = 0; k < 8; ++k)
+      if (m >> k & 1) t.idx[m][c++] = (uint8_t)k;
+    t.cnt[m] = (uint8_t)c;
+    for (int k = c; k < 8; ++k) t.idx[m][k] = 0x80;
+  }
+  return t;
+}
+
+constexpr CompactTable kCompact = make_compact_table();
+
+#if defined(__x86_64__)
+// The bulk of uhdr_destuff_rst, 16 bytes a step and no branch on the
+// data but the rare RSTn: entropy data at high quality holds a FF in
+// about every 14 bytes, too often for a memchr-and-memcpy walk. A byte
+// is dropped where it is a FF before D0-D7, or a 00 or D0-D7 after a
+// FF (such a byte is never a FF, so the pairs never chain); the kept
+// bytes of each half are packed by one pshufb. Returns where it
+// stopped (the last 16 bytes or fewer are left to the caller), with
+// the output length in *po and the RSTn count in *ps.
+__attribute__((target("ssse3")))
+long destuff_rst_ssse3(const uint8_t* in, long len, uint8_t* out,
+                       long* starts, long max_starts, long* po, long* ps) {
+  const __m128i vff = _mm_set1_epi8((char)0xFF);
+  const __m128i vf8 = _mm_set1_epi8((char)0xF8);
+  const __m128i vd0 = _mm_set1_epi8((char)0xD0);
+  const __m128i vz = _mm_setzero_si128();
+  long o = 0, s = 0, i = 0;
+  unsigned carry = 0;  // 1 where in[i - 1] is a FF
+  for (; i + 17 <= len; i += 16) {
+    __m128i v = _mm_loadu_si128((const __m128i*)(in + i));
+    __m128i v1 = _mm_loadu_si128((const __m128i*)(in + i + 1));
+    unsigned ff = _mm_movemask_epi8(_mm_cmpeq_epi8(v, vff));
+    unsigned z = _mm_movemask_epi8(_mm_cmpeq_epi8(v, vz));
+    unsigned dx = _mm_movemask_epi8(
+        _mm_cmpeq_epi8(_mm_and_si128(v, vf8), vd0));
+    unsigned rst = ff & _mm_movemask_epi8(
+        _mm_cmpeq_epi8(_mm_and_si128(v1, vf8), vd0));
+    unsigned keep = ~(rst | (((ff << 1) | carry) & (z | dx))) & 0xFFFF;
+    carry = ff >> 15;
+    for (; rst; rst &= rst - 1) {
+      unsigned below = keep & ((1u << __builtin_ctz(rst)) - 1);
+      if (s < max_starts)
+        starts[s] = o + kCompact.cnt[below & 0xFF] + kCompact.cnt[below >> 8];
+      ++s;
+    }
+    unsigned m0 = keep & 0xFF, m1 = keep >> 8;
+    _mm_storel_epi64((__m128i*)(out + o), _mm_shuffle_epi8(
+        v, _mm_loadl_epi64((const __m128i*)kCompact.idx[m0])));
+    o += kCompact.cnt[m0];
+    _mm_storel_epi64((__m128i*)(out + o), _mm_shuffle_epi8(
+        _mm_srli_si128(v, 8),
+        _mm_loadl_epi64((const __m128i*)kCompact.idx[m1])));
+    o += kCompact.cnt[m1];
+  }
+  *po = o;
+  *ps = s;
+  return i;
+}
+#endif
+
 }  // namespace
 
 extern "C" {
+
+// Destuff a restart-interval entropy segment for the device decoder
+// (jpeg/device_decode.py split_rst_stream): FF 00 -> FF; FF D0-D7 is
+// dropped and its output offset recorded as the next interval's start;
+// any other FF (a fill byte, a foreign marker, a trailing FF) is kept
+// and the byte after it is classified on its own. Unlike `destuff`
+// above, nothing else is dropped and nothing ends the walk early, so
+// the output is the segment's bytes less its stuffing and RSTn
+// markers. On x86-64 with SSSE3 the vector steps take all but the last
+// 16 bytes or fewer; the memchr walk takes the rest, or the whole
+// segment elsewhere.
+// out:        room for len bytes
+// starts:     room for max_starts offsets; written only below it
+// n_starts:   every RSTn found, written or not
+// Returns the destuffed length.
+long uhdr_destuff_rst(const uint8_t* in, long len, uint8_t* out,
+                      long* starts, long max_starts, long* n_starts) {
+  long o = 0;
+  long s = 0;
+  long i = 0;
+#if defined(__x86_64__)
+  if (__builtin_cpu_supports("ssse3")) {
+    i = destuff_rst_ssse3(in, len, out, starts, max_starts, &o, &s);
+    // A FF that ended the vector steps has had its pair settled there:
+    // skip the 00 or D0-D7 that the step dropped.
+    if (i > 0 && i < len && in[i - 1] == 0xFF &&
+        (in[i] == 0x00 || (in[i] & 0xF8) == 0xD0))
+      ++i;
+  }
+#endif
+  while (i < len) {
+    const uint8_t* ff = (const uint8_t*)memchr(in + i, 0xFF, len - i);
+    long n = ff ? ff - (in + i) : len - i;
+    std::memcpy(out + o, in + i, n);
+    o += n;
+    i += n;
+    if (!ff) break;
+    // in[i] == 0xFF
+    uint8_t m = i + 1 < len ? in[i + 1] : 0xFF;
+    if (m >= 0xD0 && m <= 0xD7) {
+      if (s < max_starts) starts[s] = o;
+      ++s;
+      i += 2;
+    } else {
+      out[o++] = 0xFF;
+      i += m == 0x00 ? 2 : 1;
+    }
+  }
+  *n_starts = s;
+  return o;
+}
 
 // Encode MCU-interleaved zigzag blocks to entropy-coded bytes.
 // blocks:      int16[nblocks][64], zigzag order

@@ -182,6 +182,136 @@ def test_parse_matches_jax(which):
         theirs.tables_key)
 
 
+def _plain_split_rst(entropy: bytes, n_chunks: int):
+    """Plain model of split_rst_stream, in whole-array numpy: every FF
+    is classified by the byte after it, independently of the others."""
+    arr = np.frombuffer(entropy, np.uint8)
+    if arr.size == 0:
+        raise ValueError("empty entropy segment")
+    ff = np.flatnonzero(arr == 0xFF)
+    ff = ff[ff + 1 < arr.size]
+    nxt = arr[ff + 1]
+    rst_ff = ff[(nxt >= 0xD0) & (nxt <= 0xD7)]
+    stuff = ff[nxt == 0x00] + 1
+    if rst_ff.size + 1 != n_chunks:
+        raise ValueError(f"expected {n_chunks} restart intervals, found "
+                         f"{rst_ff.size + 1}")
+    keep = np.ones(arr.size, bool)
+    keep[rst_ff] = False
+    keep[rst_ff + 1] = False
+    keep[stuff] = False
+    data = arr[keep]
+    # Interval k spans raw [rst_ff[k-1] + 2, rst_ff[k]) minus the
+    # stuffed zeros inside that range.
+    raw_starts = np.concatenate([[0], rst_ff + 2])
+    raw_ends = np.concatenate([rst_ff, [arr.size]])
+    lens = ((raw_ends - raw_starts)
+            - (np.searchsorted(stuff, raw_ends)
+               - np.searchsorted(stuff, raw_starts)))
+    win = tdd.bucket_len(int(lens.max()))
+    starts = np.concatenate([[0], np.cumsum(lens)])[:-1]
+    return data, starts.astype(np.int32), win
+
+
+def _rst_count(seg: bytes) -> int:
+    arr = np.frombuffer(seg, np.uint8)
+    nxt = arr[np.flatnonzero(arr[:-1] == 0xFF) + 1]
+    return int(np.count_nonzero((nxt >= 0xD0) & (nxt <= 0xD7)))
+
+
+def _assert_split_equal(seg: bytes):
+    n_chunks = _rst_count(seg) + 1
+    want = _plain_split_rst(seg, n_chunks)
+    got = tdd.split_rst_stream(seg, n_chunks)
+    assert got[0].dtype == np.uint8 and got[1].dtype == np.int32
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2]
+
+
+@pytest.mark.parametrize("which", ["color", "gray", "one_bit",
+                                   "golden_base", "golden_gm"])
+def test_plain_split_model_matches_jax(which):
+    """The plain model against the JAX package's parse: bytes, interval
+    starts and window where the stream has restarts; where it has none
+    (the goldens), the model's one interval holds the bytes that the
+    JAX package's lengths-only scan destuffs, from offset 0."""
+    data = _all_inputs()[which]
+    hdr = tdd.parse_device_headers(data)
+    theirs = jdd.parse_device_stream(data)
+    n_mcus = hdr.mcus_x * hdr.mcus_y
+    r = hdr.restart_interval
+    dest, starts, win = _plain_split_rst(hdr.entropy,
+                                         -(-n_mcus // r) if r else 1)
+    np.testing.assert_array_equal(dest, theirs.dest)
+    if r:
+        np.testing.assert_array_equal(starts, theirs.starts_byte)
+        assert win == theirs.win_len
+    else:
+        assert theirs.start_bits is not None
+        assert starts.tolist() == [0] == theirs.starts_byte[:1].tolist()
+
+
+SPLIT_EDGES = {
+    "ff_ff_00": b"\x12\xff\xff\x00\x34",
+    "ff_ff_rst": b"\x12\xff\xff\xd3\x34\x56",
+    "trailing_ff": b"\x12\x34\xd0\xff",
+    "opens_with_rst": b"\xff\xd0\x12\x34\xff\x00\x56",
+    "rst_back_to_back": b"\x12\xff\xd1\xff\xd2\x34",
+    "foreign_marker": b"\x12\xff\xc4\x34\xff\x00\x56\xff\xd5\x78",
+    "stuffed_at_end": b"\x12\x34\xff\xd6\x56\xff\x00",
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_EDGES))
+def test_split_rst_edges_match_plain(name):
+    _assert_split_equal(SPLIT_EDGES[name])
+
+
+@pytest.mark.parametrize("token", [b"\xff", b"\xff\x00", b"\xff\xff",
+                                   b"\xff\xd3", b"\xff\xc4",
+                                   b"\xff\xff\xd0", b"\xff\xff\x00"])
+def test_split_rst_token_at_every_offset(token):
+    """One token at each offset of a 52-byte segment: across the
+    16-byte steps of the vector pass and its hand-over to the walk."""
+    base = bytes(range(1, 53))
+    for p in range(len(base) + 1):
+        _assert_split_equal(base[:p] + token + base[p:])
+
+
+@pytest.mark.parametrize("seed", range(64))
+def test_split_rst_random_match_plain(seed):
+    """Random bytes with no FF, then FF, FF 00, FF Dx and FF FF put in
+    at random places (so a lone FF may meet a 00 or a Dx of the data),
+    from none to one in every few bytes."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 0xFF, int(rng.integers(1, 4000)), np.uint8)
+    tokens = [b"\xff", b"\xff\x00", b"\xff\xff"] + [
+        bytes([0xFF, 0xD0 + k]) for k in range(8)]
+    cuts = np.sort(rng.integers(0, base.size + 1,
+                                int(rng.integers(0, base.size // 3 + 2))))
+    parts, prev = [], 0
+    for c in cuts:
+        parts += [base[prev:c].tobytes(),
+                  tokens[int(rng.integers(0, len(tokens)))]]
+        prev = c
+    _assert_split_equal(b"".join(parts) + base[prev:].tobytes())
+
+
+@pytest.mark.parametrize("case", ["empty", "one_too_few", "one_too_many",
+                                  "far_too_many"])
+def test_split_rst_rejects_as_plain(case):
+    seg = b"\x12\xff\xd0\x34\xff\x00\xff\xd1\x56"
+    seg, n_chunks = {"empty": (b"", 1),
+                     "one_too_few": (seg, 4),
+                     "one_too_many": (seg, 2),
+                     # 400 markers against a buffer of n_chunks + 1.
+                     "far_too_many": (b"\x12\xff\xd7" * 400, 3)}[case]
+    for split in (_plain_split_rst, tdd.split_rst_stream):
+        with pytest.raises(ValueError):
+            split(seg, n_chunks)
+
+
 # ---------------------------------------------------------------------------
 # B4, plain version.
 # ---------------------------------------------------------------------------
