@@ -440,7 +440,7 @@ def parse_device_headers(data: bytes) -> StreamHeaders | None:
     if any(s is not None and sum(s[0]) == 0 for s in specs):
         return None
 
-    eoi = data.find(b"\xff\xd9", sos_end)
+    eoi = jfif.find_eoi_marker(data, sos_end)
     return StreamHeaders(
         width=w, height=h, gray=gray, restart_interval=restart,
         qtables=[qtables[c[3]] for c in comps], specs=specs, mcus_x=mcus_x,

@@ -4,7 +4,8 @@
 // port runs: the restart-interval encoder and decoder of its host
 // route, the destuffing of a restart-interval stream and the
 // lengths-only scan that splits a restart-less stream into lanes for
-// the device decoder (jpeg/device_decode.py), and the four
+// the device decoder (jpeg/device_decode.py), the search for an
+// image's EOI (container/jfif.py), and the four
 // progressive scan decoders (uhdr_prog_*) that jpeg/codec.py's
 // multi-scan decode runs scan by scan. It fills
 // the role libjpeg-turbo's entropy coder plays for the reference
@@ -490,6 +491,42 @@ long uhdr_destuff_rst(const uint8_t* in, long len, uint8_t* out,
   }
   *n_starts = s;
   return o;
+}
+
+// The first FF D9 (an EOI marker) at or after `from` in data[0, len):
+// its index, or -1. The same as Python's bytes.find(b"\xff\xd9", from)
+// for every from >= 0, a from at or past the end included (container/
+// jfif.py find_eoi_marker). Entropy data at high quality holds a FF in
+// about every 14 bytes, where bytes.find's skip loop stops at each one;
+// on x86-64 (SSE2 is part of the base ISA) each step compares 16 bytes
+// with FF and the 16 after them with D9 and branches only on a match,
+// two steps a loop; the scalar loop takes the last bytes, or all of
+// them elsewhere.
+long uhdr_find_eoi(const uint8_t* data, long len, long from) {
+  long i = from < 0 ? 0 : from;
+#if defined(__x86_64__)
+  const __m128i vff = _mm_set1_epi8((char)0xFF);
+  const __m128i vd9 = _mm_set1_epi8((char)0xD9);
+  auto pairs = [&](long at) {
+    __m128i a = _mm_loadu_si128((const __m128i*)(data + at));
+    __m128i b = _mm_loadu_si128((const __m128i*)(data + at + 1));
+    return _mm_and_si128(_mm_cmpeq_epi8(a, vff), _mm_cmpeq_epi8(b, vd9));
+  };
+  for (; i + 33 <= len; i += 32) {
+    __m128i m0 = pairs(i), m1 = pairs(i + 16);
+    if (_mm_movemask_epi8(_mm_or_si128(m0, m1))) {
+      unsigned m = _mm_movemask_epi8(m0) | _mm_movemask_epi8(m1) << 16;
+      return i + __builtin_ctz(m);
+    }
+  }
+  for (; i + 17 <= len; i += 16) {
+    unsigned m = _mm_movemask_epi8(pairs(i));
+    if (m) return i + __builtin_ctz(m);
+  }
+#endif
+  for (; i + 1 < len; ++i)
+    if (data[i] == 0xFF && data[i + 1] == 0xD9) return i;
+  return -1;
 }
 
 // Encode MCU-interleaved zigzag blocks to entropy-coded bytes.

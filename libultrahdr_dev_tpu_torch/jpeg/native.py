@@ -106,6 +106,9 @@ def _bind_entropy(lib):
     lib.uhdr_destuff_rst.argtypes = [
         u8p, ctypes.c_long, u8p, ctypes.POINTER(ctypes.c_long),
         ctypes.c_long, ctypes.POINTER(ctypes.c_long)]
+    lib.uhdr_find_eoi.restype = ctypes.c_long
+    lib.uhdr_find_eoi.argtypes = [ctypes.c_void_p, ctypes.c_long,
+                                  ctypes.c_long]
     lib.uhdr_huff_scan_offsets.restype = ctypes.c_long
     lib.uhdr_huff_scan_offsets.argtypes = [
         u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
@@ -188,8 +191,8 @@ def _bind_apply(lib):
 
 def get_lib():
     """The ctypes library with uhdr_huff_encode, uhdr_huff_decode,
-    uhdr_destuff_rst, uhdr_huff_scan_offsets and the progressive scan
-    decoders (uhdr_prog_dc_first, uhdr_prog_dc_refine,
+    uhdr_destuff_rst, uhdr_find_eoi, uhdr_huff_scan_offsets and the
+    progressive scan decoders (uhdr_prog_dc_first, uhdr_prog_dc_refine,
     uhdr_prog_ac_first, uhdr_prog_ac_refine) bound. Builds on first
     call; raises if the build fails."""
     return _load(SRC, _FLAGS, _bind_entropy)
