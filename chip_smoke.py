@@ -2048,8 +2048,8 @@ def main_path_general(dev, smi: str):
                                            RawImage, UhdrEncoder)
     from libultrahdr_dev_tpu_torch.api import BASE_IMG, HDR_IMG, SDR_IMG
     from libultrahdr_dev_tpu_torch.container import icc as icc_mod
-    from libultrahdr_dev_tpu_torch.container import jfif, mux
-    from libultrahdr_dev_tpu_torch.jpeg import codec
+    from libultrahdr_dev_tpu_torch.container import mux
+    from libultrahdr_dev_tpu_torch.jpeg import codec, headers
     from libultrahdr_dev_tpu_torch.jpeg import device_entropy as de
     from libultrahdr_dev_tpu_torch.ops import gainmap as gm
     from libultrahdr_dev_tpu_torch.parallel import batched
@@ -2152,7 +2152,7 @@ def main_path_general(dev, smi: str):
             "API-0: UhdrEncoder bytes differ from JpegR's")
 
     def scan(jpeg):
-        return jpeg[jfif.scan_segments(jpeg, 0)[1]:]
+        return jpeg[headers.read_headers(jpeg).sos_end:]
 
     for k in ("API-2", "API-3", "API-4"):
         require(scan(mux.extract_primary_and_gainmap(out[k])[0])

@@ -164,7 +164,7 @@ def encode_mode(args, device) -> int:
     print(f"encoded {out_path} ({len(out.data)} bytes) in {dt:.2f} ms")
 
     if args.psnr and args.p010_file:
-        primary, _ = mux.extract_primary_and_gainmap(out.data)
+        primary, _ = mux.read_primary_and_gainmap(out.data)
         base = codec.decode_jpeg(primary, device)
         p010 = load_p010(args.p010_file, args.width, args.height,
                          _GAMUTS.get(args.hdr_gamut), ColorTransfer.HLG)

@@ -13,6 +13,7 @@ jpegr.cpp:823-876).
 
 from __future__ import annotations
 
+from ..jpeg.headers import JpegHeaders
 from ..types import GainMapMetadata, err
 from . import jfif, mpf, xmp
 
@@ -100,27 +101,39 @@ def append_gainmap(primary_jpeg: bytes, gainmap_jpeg: bytes,
     return bytes(out)
 
 
+def read_primary_and_gainmap(jpegr) -> tuple[JpegHeaders, JpegHeaders]:
+    """Split a JPEG/R blob into its primary and gain-map images, each
+    one's headers read once (jfif.read_images; jpegr.cpp:823-876)."""
+    images = jfif.read_images(jpegr, limit=2)
+    if not images:
+        raise err("UHDR_CODEC_ERROR", "no images found")
+    if len(images) == 1:
+        raise err("UHDR_CODEC_ERROR", "gain map image not found")
+    return tuple(images)
+
+
 def extract_primary_and_gainmap(jpegr: bytes) -> tuple[bytes, bytes]:
     """Split a JPEG/R blob into (primary_jpeg, gainmap_jpeg) byte ranges
     (jpegr.cpp:823-876)."""
-    ranges = jfif.find_image_ranges(jpegr, limit=2)
-    if not ranges:
-        raise err("UHDR_CODEC_ERROR", "no images found")
-    if len(ranges) == 1:
-        raise err("UHDR_CODEC_ERROR", "gain map image not found")
-    p0, p1 = ranges[0], ranges[1]
-    return jpegr[p0[0]:p0[1]], jpegr[p1[0]:p1[1]]
+    return tuple(jpegr[h.start:h.start + h.end]
+                 for h in read_primary_and_gainmap(jpegr))
+
+
+def uhdr_metadata(images) -> GainMapMetadata | None:
+    """The gain-map metadata where a blob's images (jfif.read_images)
+    make a JPEG/R with parseable gain-map XMP, else None."""
+    if len(images) < 2 or images[1].xmp is None:
+        return None
+    try:
+        return xmp.get_metadata_from_xmp(images[1].xmp)
+    except Exception:
+        return None
 
 
 def is_uhdr_image(data: bytes) -> bool:
     """True if the blob is a JPEG/R with parseable gain-map metadata
     (ultrahdr_api.cpp:855-881 is_uhdr_image)."""
     try:
-        primary, gainmap = extract_primary_and_gainmap(data)
-        info = jfif.parse_jpeg_info(gainmap)
-        if info.xmp is None:
-            return False
-        xmp.get_metadata_from_xmp(info.xmp)
-        return True
+        return uhdr_metadata(jfif.read_images(data)) is not None
     except Exception:
         return False

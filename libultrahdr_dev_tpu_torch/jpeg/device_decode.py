@@ -8,8 +8,9 @@ into lanes by a lengths-only host scan (``scan_foreign_stream``) that
 records each lane's start bit, and the lanes' DC sums are carried
 across them after the decode (``dc_carry``).
 
-Host side: ``parse_device_stream`` reads the markers
-(``parse_device_headers``), destuffs the entropy segment and finds the
+Host side: ``parse_device_stream`` applies the device decoder's rule to
+an image's headers (jpeg/headers.py read_headers; the rule is
+``parse_device_headers``), destuffs the entropy segment and finds the
 lane starts (``destuff_device_stream``); ``pack_streams`` lays one or
 more parsed streams out as the kernel's inputs (one byte buffer plus
 small int32 descriptor arrays), so a batch goes to the device in one
@@ -66,11 +67,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..container import jfif
 from ..device import upload
 from ..kernels import build
 from ..types import UhdrError
-from . import tables
+from . import headers, tables
 from .device_entropy import _build_code_table
 from .native import get_lib
 
@@ -293,29 +293,10 @@ class DeviceStream:
     mcus_y: int
     start_bits: np.ndarray | None = None
     sampling: tuple = (2, 2)
-    icc: bytes | None = None
-    exif: bytes | None = None
-    xmp: bytes | None = None
 
     @property
     def n_lanes(self) -> int:
         return int(self.starts_byte.shape[0])
-
-
-def _parse_dqt(p: bytes, qtables: dict):
-    pos = 0
-    while pos < len(p):
-        pq, tq = p[pos] >> 4, p[pos] & 15
-        pos += 1
-        if pq == 0:
-            zz = np.frombuffer(p[pos:pos + 64], np.uint8)
-            pos += 64
-        else:
-            zz = np.frombuffer(p[pos:pos + 128], ">u2")
-            pos += 128
-        nat = np.zeros(64, np.int32)
-        nat[tables.ZIGZAG] = zz
-        qtables[tq] = nat.reshape(8, 8)
 
 
 @dataclass
@@ -332,75 +313,42 @@ class StreamHeaders:
     mcus_x: int
     mcus_y: int
     sampling: tuple
-    entropy: bytes
-    icc: bytes | None = None
-    exif: bytes | None = None
-    xmp: bytes | None = None
+    entropy: memoryview
 
 
-def parse_device_stream(data: bytes) -> DeviceStream | None:
-    """Parse a JPEG and return a DeviceStream when its headers and
-    entropy segment suit the device decoder (baseline, one scan, 4:2:0,
-    4:2:2 or 4:4:4 YCbCr with U and V sharing tables, or grayscale);
-    None otherwise, and the caller decodes on the host."""
-    hdr = parse_device_headers(data)
-    return None if hdr is None else destuff_device_stream(hdr)
-
-
-def parse_device_headers(data: bytes) -> StreamHeaders | None:
-    """The marker and table walk of parse_device_stream, up to the
-    entropy segment; None where the headers do not suit the device
-    decoder."""
+def parse_device_stream(data) -> DeviceStream | None:
+    """A JPEG (bytes, or its JpegHeaders) as a DeviceStream when its
+    headers and entropy segment suit the device decoder (baseline, one
+    scan, 4:2:0, 4:2:2 or 4:4:4 YCbCr with U and V sharing tables, or
+    grayscale); None otherwise, and the caller decodes on the host."""
     try:
-        segments, sos_end = jfif.scan_segments(data, 0)
+        hdr = headers.of(data)
     except UhdrError:
         return None
-    qtables, htables, scan_sel = {}, {}, {}
-    comps = []
-    w = h = restart = nscans = 0
-    icc = exif = xmp_b = None
-    progressive = False
-    for seg in segments:
-        p = seg.payload
-        if seg.marker == 0xDB:
-            _parse_dqt(p, qtables)
-        elif seg.marker in (0xC0, 0xC1):
-            if len(p) < 6 or len(p) < 6 + p[5] * 3:
-                return None
-            h = (p[1] << 8) | p[2]
-            w = (p[3] << 8) | p[4]
-            comps = [(p[6 + i * 3], p[7 + i * 3] >> 4, p[7 + i * 3] & 15,
-                      p[8 + i * 3]) for i in range(p[5])]
-        elif seg.marker == 0xC2:
-            progressive = True
-        elif seg.marker == 0xC4:
-            pos = 0
-            while pos + 17 <= len(p):
-                tc, th = p[pos] >> 4, p[pos] & 15
-                bits = list(p[pos + 1:pos + 17])
-                pos += 17
-                nvals = sum(bits)
-                if nvals > 256 or pos + nvals > len(p):
-                    return None
-                htables[(tc, th)] = (bits, list(p[pos:pos + nvals]))
-                pos += nvals
-        elif seg.marker == 0xDD:
-            restart = int.from_bytes(p[:2], "big")
-        elif seg.marker == 0xDA:
-            nscans += 1
-            if len(p) >= 1 + p[0] * 2:
-                for i in range(p[0]):
-                    scan_sel[p[1 + i * 2]] = (p[2 + i * 2] >> 4,
-                                              p[2 + i * 2] & 15)
-        elif seg.marker == 0xE1:
-            if p.startswith(jfif.EXIF_SIG) and exif is None:
-                exif = p
-            elif p.startswith(jfif.XMP_SIG) and xmp_b is None:
-                xmp_b = p
-        elif seg.marker == 0xE2:
-            if p.startswith(jfif.ICC_SIG) and icc is None:
-                icc = p
-    if progressive or nscans != 1 or not comps or w == 0 or h == 0:
+    sh = parse_device_headers(hdr)
+    return None if sh is None else destuff_device_stream(sh)
+
+
+def parse_device_headers(hdr: headers.JpegHeaders) -> StreamHeaders | None:
+    """The device decoder's rule on an image's headers (parse_device_
+    stream's up to the entropy segment): its stream headers, else None.
+    In file order, a DQT cut short raises; a DHT stopping a lenient
+    reader, or a baseline frame header cut short, refuses. Non-canonical
+    DHTs are taken: the decode tables suit any DHT."""
+    for f in hdr.faults:
+        if f.kind == "dqt":
+            raise f.error
+        if f.kind == "dht_stop" or (f.kind == "sof_short"
+                                    and f.marker in (0xC0, 0xC1)):
+            return None
+    if hdr.sos is not None and not hdr.sos:
+        raise IndexError("SOS segment without a component count")
+    frames = [f for f in hdr.frames if f.marker in (0xC0, 0xC1)]
+    if (hdr.sos is None or not frames or not frames[-1].comps
+            or any(f.marker == 0xC2 for f in hdr.frames)):
+        return None
+    _, w, h, _, comps = frames[-1]
+    if w == 0 or h == 0:
         return None
     if len(comps) == 1:
         gray, (hs, vs) = True, (1, 1)
@@ -418,20 +366,19 @@ def parse_device_headers(data: bytes) -> StreamHeaders | None:
         mcus_x, mcus_y = -(-w // (8 * hs)), -(-h // (8 * vs))
     else:
         return None
-    if any(c[3] not in qtables for c in comps):
+    if any(c[3] not in hdr.qtables for c in comps):
         return None
+    scan_sel = {cid: (dc, ac) for cid, dc, ac in hdr.scan or ()}
     try:
         sel = [scan_sel[c[0]] for c in comps]
     except KeyError:
         return None
-    if gray:
-        specs = (htables.get((0, sel[0][0])), htables.get((1, sel[0][1])),
-                 None, None)
-    else:
-        if sel[1] != sel[2]:
-            return None
-        specs = (htables.get((0, sel[0][0])), htables.get((1, sel[0][1])),
-                 htables.get((0, sel[1][0])), htables.get((1, sel[1][1])))
+    if not gray and sel[1] != sel[2]:
+        return None
+    dc, ac = hdr.huffman
+    specs = (dc.get(sel[0][0]), ac.get(sel[0][1]),
+             *((None, None) if gray else (dc.get(sel[1][0]),
+                                          ac.get(sel[1][1]))))
     if specs[0] is None or specs[1] is None or (
             not gray and (specs[2] is None or specs[3] is None)):
         return None
@@ -439,14 +386,11 @@ def parse_device_headers(data: bytes) -> StreamHeaders | None:
     # its proper error for it.
     if any(s is not None and sum(s[0]) == 0 for s in specs):
         return None
-
-    eoi = jfif.find_eoi_marker(data, sos_end)
     return StreamHeaders(
-        width=w, height=h, gray=gray, restart_interval=restart,
-        qtables=[qtables[c[3]] for c in comps], specs=specs, mcus_x=mcus_x,
-        mcus_y=mcus_y, sampling=(hs, vs),
-        entropy=data[sos_end:eoi if eoi >= 0 else len(data)], icc=icc,
-        exif=exif, xmp=xmp_b)
+        width=w, height=h, gray=gray, restart_interval=hdr.restart_interval,
+        qtables=[hdr.qtables[c[3]] for c in comps], specs=specs,
+        mcus_x=mcus_x, mcus_y=mcus_y, sampling=(hs, vs),
+        entropy=hdr.entropy)
 
 
 def destuff_device_stream(hdr: StreamHeaders) -> DeviceStream | None:
@@ -476,7 +420,7 @@ def destuff_device_stream(hdr: StreamHeaders) -> DeviceStream | None:
         restart_interval=restart, dest=dest, starts_byte=starts_byte,
         win_len=win_len, qtables=hdr.qtables, specs=hdr.specs,
         mcus_x=hdr.mcus_x, mcus_y=hdr.mcus_y, start_bits=start_bits,
-        sampling=hdr.sampling, icc=hdr.icc, exif=hdr.exif, xmp=hdr.xmp)
+        sampling=hdr.sampling)
 
 
 # ---------------------------------------------------------------------------
@@ -866,10 +810,10 @@ def decode_stream_device(ds: DeviceStream, device) -> list:
 decode_stream_device.launches = 0
 
 
-def decode_jpeg_device(data: bytes, device):
-    """(DeviceStream, decode_stream_device's planes) of a JPEG whose
-    headers suit the device decoder, else None (the JAX
-    device_decode.py:decode_jpeg_device)."""
+def decode_jpeg_device(data, device):
+    """(DeviceStream, decode_stream_device's planes) of a JPEG (bytes,
+    or its JpegHeaders) whose headers suit the device decoder, else None
+    (the JAX device_decode.py:decode_jpeg_device)."""
     ds = parse_device_stream(data)
     if ds is None:
         return None

@@ -363,7 +363,7 @@ class JpegR:
     def get_info(self, jpegr_bytes: bytes) -> JpegRInfo:
         """Container split + header parse without pixel decode
         (jpegr.cpp:624-653 getJPEGRInfo)."""
-        primary, gmap = mux.extract_primary_and_gainmap(jpegr_bytes)
+        primary, gmap = mux.read_primary_and_gainmap(jpegr_bytes)
         pinfo = jfif.parse_jpeg_info(primary)
         ginfo = jfif.parse_jpeg_info(gmap)
         metadata = None

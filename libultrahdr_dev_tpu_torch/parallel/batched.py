@@ -534,16 +534,15 @@ def _check_geometry(w: int, h: int, gw: int, gh: int):
                   f"non-integer map scale {w}x{h} vs {gw}x{gh}")
 
 
-def parse_device_route(blob: bytes, sdr: bool = False) -> HostDecoded | None:
+def parse_device_route(images, sdr: bool = False) -> HostDecoded | None:
     """Host stage of the device route (the JAX _decode_device_path up to
-    its launch): split the JPEG/R, parse and destuff both images, or the
-    base alone for SDR output. None when an image's headers do not suit
-    the device decoder (a 4:2:0 base and a gray gain map). Spans: the
-    split "decode.split"; each image's markers and tables, and the gain
-    map's XMP and checks, "decode.headers"; each destuffing
-    "decode.destuff"."""
-    with span("decode.split"):
-        primary, gainmap = mux.extract_primary_and_gainmap(blob)
+    its launch) on the headers of a JPEG/R's two images
+    (mux.read_primary_and_gainmap): both, or the base alone for SDR
+    output, checked and destuffed. None when an image does not suit the
+    device decoder (a 4:2:0 base and a gray gain map). Spans: each
+    image's rule, the gain map's XMP and checks "decode.headers"; each
+    destuffing "decode.destuff"."""
+    primary, gainmap = images
     with span("decode.headers"):
         hb = dd.parse_device_headers(primary)
     if hb is None or hb.gray or hb.sampling != (2, 2):
@@ -554,15 +553,16 @@ def parse_device_route(blob: bytes, sdr: bool = False) -> HostDecoded | None:
         return None
     if sdr:
         return HostDecoded(ds.width, ds.height, 0, 0,
-                           (ds.qtables[0], ds.qtables[1]), None, icc=ds.icc,
-                           exif=ds.exif, streams=(ds,))
+                           (ds.qtables[0], ds.qtables[1]), None,
+                           icc=primary.icc_chunk, exif=primary.exif,
+                           streams=(ds,))
     with span("decode.headers"):
         hg = dd.parse_device_headers(gainmap)
         if hg is None or not hg.gray:
             return None
-        if hg.xmp is None:
+        if gainmap.xmp is None:
             raise err("UHDR_CODEC_ERROR", "gain map carries no XMP")
-        metadata = xmp.get_metadata_from_xmp(hg.xmp)
+        metadata = xmp.get_metadata_from_xmp(gainmap.xmp)
         _check_geometry(ds.width, ds.height, hg.width, hg.height)
         check_gainmap_metadata(metadata)
     with span("decode.destuff"):
@@ -571,15 +571,15 @@ def parse_device_route(blob: bytes, sdr: bool = False) -> HostDecoded | None:
         return None
     return HostDecoded(ds.width, ds.height, dsg.width, dsg.height,
                        (ds.qtables[0], ds.qtables[1], dsg.qtables[0]),
-                       metadata, icc=ds.icc, exif=ds.exif,
+                       metadata, icc=primary.icc_chunk, exif=primary.exif,
                        streams=(ds, dsg))
 
 
-def decode_host_huffman(blob: bytes, sdr: bool = False) -> HostDecoded:
-    """Host stage of the host route: split a JPEG/R and Huffman-decode
-    both images on the host (jpeg/entropy.cpp), or the base alone for
-    SDR output."""
-    primary, gainmap = mux.extract_primary_and_gainmap(blob)
+def decode_host_huffman(images, sdr: bool = False) -> HostDecoded:
+    """Host stage of the host route on the headers of a JPEG/R's two
+    images: both Huffman-decoded on the host (jpeg/entropy.cpp), or the
+    base alone for SDR output."""
+    primary, gainmap = images
     base = codec.decode_jpeg_coefs(primary)
     if (base.ncomp != 3 or base.comps[0][4] != (2, 2)
             or base.comps[1][4] != (1, 1) or base.comps[2][4] != (1, 1)):
@@ -604,28 +604,34 @@ def decode_host_huffman(blob: bytes, sdr: bool = False) -> HostDecoded:
 
 def decode_host_stage(blobs: list[bytes], output_format: str = "hdr_linear",
                       mesh=None) -> list[HostDecoded]:
-    """Host stage of a batched decode. The route is chosen from the
-    headers alone, for the whole batch: the device route when every
-    blob suits it (parse and destuff only), else host Huffman. For
-    "sdr" output only the base is read: the gain map's headers, XMP and
-    stream are never looked at (the JAX SDR branch, jpegr.py:451-464,
-    555-570). With a mesh each shard's blobs are parsed on a worker of
-    their own, and the route is still the whole batch's. Runs in span
+    """Host stage of a batched decode. Each blob is split and its images'
+    headers read once (span "decode.split"); the route is chosen from
+    them alone, for the whole batch: the device route when every blob
+    suits it (parse and destuff only), else host Huffman. For "sdr"
+    output only the base is decoded: the gain map's XMP and stream are
+    never looked at (the JAX SDR branch, jpegr.py:451-464, 555-570).
+    With a mesh each shard's blobs are parsed on a worker of their own,
+    and the route is still the whole batch's. Runs in span
     "decode.host"; a batch sent to host Huffman adds its frames to
     counter "decode_route_host"."""
     sdr = output_format == "sdr"
     shards = [slice(None)] if mesh is None else mesh.shards(len(blobs))
 
-    def each(fn):
+    def each(fn, items):
         return [f for part in map_shards(
-            lambda sl: [fn(b, sdr) for b in blobs[sl]], shards) for f in part]
+            lambda sl: [fn(x) for x in items[sl]], shards) for f in part]
+
+    def device_route(blob):
+        with span("decode.split"):
+            images = mux.read_primary_and_gainmap(blob)
+        return images, parse_device_route(images, sdr)
 
     with span("decode.host"):
-        frames = each(parse_device_route)
-        if all(f is not None for f in frames):
-            return frames
+        parsed = each(device_route, blobs)
+        if all(f is not None for _, f in parsed):
+            return [f for _, f in parsed]
         counters.bump("decode_route_host", len(blobs))
-        return each(decode_host_huffman)
+        return each(lambda p: decode_host_huffman(p[0], sdr), parsed)
 
 
 def _planes(grids, qtables: torch.Tensor, geom):

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .container import icc as icc_mod
-from .container import jfif, mux, xmp
+from .container import jfif, mux
 from .device import resolve_device, upload
 from .jpeg import codec
 from .jpegr import _OUT, JpegR, upload_frame
@@ -48,9 +48,13 @@ from .ops import editor, gainmap as gm
 from .types import (ColorGamut, ColorTransfer, GainMapMetadata,
                     OutputFormat, PixelFormat, RawImage, err)
 
+def _is_jpeg(data: bytes) -> bool:
+    return len(data) >= 3 and data[0] == 0xFF and data[1] == 0xD8
+
+
 def sniff_format(data: bytes) -> str:
     """JPEG / JPEG_R / HEIF container sniffing (ultrahdr.cpp:69-129)."""
-    if len(data) >= 3 and data[0] == 0xFF and data[1] == 0xD8:
+    if _is_jpeg(data):
         return "jpeg_r" if mux.is_uhdr_image(data) else "jpeg"
     if len(data) >= 12 and data[4:8] == b"ftyp":
         brand = data[8:12]
@@ -134,28 +138,34 @@ class UltraHdr:
     # ------------------------------------------------------------------
 
     def add_image(self, data: bytes):
+        if _is_jpeg(data):
+            return self._add_jpeg(data)
         kind = sniff_format(data)
-        if kind == "jpeg":
-            self.sdr_jpeg = data
-            info = jfif.parse_jpeg_info(data)
-            if info.exif is not None:
-                self.exif = info.exif
-            return self
-        if kind == "jpeg_r":
-            primary, gmap = mux.extract_primary_and_gainmap(data)
-            self.sdr_jpeg = primary
-            self.gainmap_jpeg = gmap
-            ginfo = jfif.parse_jpeg_info(gmap)
-            if ginfo.xmp is not None:
-                self.metadata = xmp.get_metadata_from_xmp(ginfo.xmp)
-            self.gainmap_raw = codec.decode_jpeg(gmap, self.device).planes[0]
-            pinfo = jfif.parse_jpeg_info(primary)
-            if pinfo.exif is not None:
-                self.exif = pinfo.exif
-            return self
         if kind in ("heic", "avif"):
             return self._add_heif(data)
         raise err("UHDR_CODEC_INVALID_PARAM", "unrecognized image format")
+
+    def _add_jpeg(self, data: bytes):
+        """JPEG and JPEG/R ingest: the blob split once and each image's
+        headers read once (jfif.read_images), sniff_format's test
+        (mux.uhdr_metadata) made on them; a JPEG/R's gain map decoded
+        from its headers."""
+        images = jfif.read_images(data)
+        metadata = mux.uhdr_metadata(images)
+        if metadata is None:   # a plain JPEG
+            self.sdr_jpeg = data
+            info = jfif.parse_jpeg_info(images[0] if images else data)
+            if info.exif is not None:
+                self.exif = info.exif
+            return self
+        primary, gmap = images
+        self.sdr_jpeg = data[primary.start:primary.start + primary.end]
+        self.gainmap_jpeg = data[gmap.start:gmap.start + gmap.end]
+        self.metadata = metadata
+        self.gainmap_raw = codec.decode_jpeg(gmap, self.device).planes[0]
+        if primary.exif is not None:
+            self.exif = primary.exif
+        return self
 
     def _add_heif(self, data: bytes):
         """HEIF/AVIF ingest (ultrahdr.cpp:631-743, JAX ultrahdr.py:133):

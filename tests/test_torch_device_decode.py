@@ -19,7 +19,7 @@ import torch
 from libultrahdr_dev_tpu.jpeg import device_decode as jdd
 from libultrahdr_dev_tpu_torch import JpegR, OutputFormat, UhdrError
 from libultrahdr_dev_tpu_torch.container import mux
-from libultrahdr_dev_tpu_torch.jpeg import codec, device_decode as tdd
+from libultrahdr_dev_tpu_torch.jpeg import codec, device_decode as tdd, headers
 from libultrahdr_dev_tpu_torch.jpeg import device_entropy as tde, tables
 from libultrahdr_dev_tpu_torch.parallel import batched
 
@@ -237,7 +237,7 @@ def test_plain_split_model_matches_jax(which):
     (the goldens), the model's one interval holds the bytes that the
     JAX package's lengths-only scan destuffs, from offset 0."""
     data = _all_inputs()[which]
-    hdr = tdd.parse_device_headers(data)
+    hdr = tdd.parse_device_headers(headers.read_headers(data))
     theirs = jdd.parse_device_stream(data)
     n_mcus = hdr.mcus_x * hdr.mcus_y
     r = hdr.restart_interval
@@ -487,8 +487,8 @@ def test_jpegr_decode_device_route_equals_host_route(fmt):
     got = JpegR("cpu").decode(blob, OutputFormat[fmt]).image.planes["rgba"]
     assert codec.entropy_decode.calls == calls   # no host Huffman ran
     host = batched.decode_device_stage(
-        [batched.decode_host_huffman(blob)], OutputFormat[fmt].value,
-        float("inf"), "cpu")[0].numpy()
+        [batched.decode_host_huffman(mux.read_primary_and_gainmap(blob))],
+        OutputFormat[fmt].value, float("inf"), "cpu")[0].numpy()
     assert codec.entropy_decode.calls == calls + 2
     np.testing.assert_array_equal(got.view(host.dtype), host)
 
@@ -531,7 +531,8 @@ def test_non_420_base_takes_host_route_and_raises():
     base = codec.ycbcr_jpeg_headers(W, H, 90, (1, 1)) + scan + b"\xff\xd9"
     _, gm = mux.extract_primary_and_gainmap(_encoded()[0][0])
     blob = mux.append_gainmap(base, gm, batched.api0_metadata("hlg"))
-    assert batched.parse_device_route(blob) is None
+    assert batched.parse_device_route(
+        mux.read_primary_and_gainmap(blob)) is None
     calls = codec.entropy_decode.calls
     with pytest.raises(UhdrError, match="not YCbCr 4:2:0"):
         JpegR("cpu").decode(blob, OutputFormat.HDR_HLG)

@@ -1,4 +1,4 @@
-"""The port's EOI search (libultrahdr_dev_tpu_torch/container/jfif.py
+"""The port's EOI search (libultrahdr_dev_tpu_torch/jpeg/headers.py
 find_eoi_marker, one native pass of jpeg/entropy.cpp uhdr_find_eoi)
 against Python's bytes.find(b"\\xff\\xd9", start) as the plain model, on
 random buffers at several FF densities and on hand-made edges; and the
@@ -13,7 +13,7 @@ import pytest
 from libultrahdr_dev_tpu_torch import (ColorGamut, ColorTransfer, JpegR,
                                        PixelFormat, RawImage)
 from libultrahdr_dev_tpu_torch.container import jfif, mux
-from libultrahdr_dev_tpu_torch.jpeg import device_decode as tdd
+from libultrahdr_dev_tpu_torch.jpeg import device_decode as tdd, headers
 from libultrahdr_dev_tpu_torch.parallel import batched
 
 import test_torch_threads  # noqa: F401  (caps torch's threads)
@@ -65,7 +65,8 @@ def test_find_eoi_marker_as_bytes_find(name):
         starts |= {max(h - 1, 0), h, h + 1}
     for buf in (data, bytearray(data)):
         for start in sorted(starts):
-            assert jfif.find_eoi_marker(buf, start) == _plain(data, start), \
+            assert headers.find_eoi_marker(buf, start) == _plain(
+                data, start), \
                 (type(buf).__name__, start)
 
 
@@ -118,7 +119,8 @@ def test_split_and_marker_walk_as_bytes_find(files, monkeypatch):
         for buf in (blob, bytearray(blob)):
             ranges = jfif.find_image_ranges(buf)
             pair = mux.extract_primary_and_gainmap(buf)
-            heads = [tdd.parse_device_headers(p) for p in pair]
+            heads = [tdd.parse_device_headers(headers.read_headers(p))
+                 for p in pair]
             native[name, type(buf)] = ranges, pair, heads
     calls = []
 
@@ -126,13 +128,14 @@ def test_split_and_marker_walk_as_bytes_find(files, monkeypatch):
         calls.append(start)
         return _plain(data, start)
 
-    monkeypatch.setattr(jfif, "find_eoi_marker", plain)
+    monkeypatch.setattr(headers, "find_eoi_marker", plain)
     for (name, kind), (ranges, pair, heads) in native.items():
         blob = kind(files[name])
         assert jfif.find_image_ranges(blob) == ranges, name
         assert mux.extract_primary_and_gainmap(blob) == pair, name
         n = len(calls)
-        want = [tdd.parse_device_headers(p) for p in pair]
+        want = [tdd.parse_device_headers(headers.read_headers(p))
+                for p in pair]
         assert len(calls) == n + 2   # both walks searched
         assert heads[0] is not None and heads[0].entropy, name
         assert _same(heads, want), name

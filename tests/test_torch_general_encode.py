@@ -27,9 +27,9 @@ from libultrahdr_dev_tpu.types import (ColorTransfer as JTransfer,
 from libultrahdr_dev_tpu_torch import (ColorTransfer, CompressedImage, JpegR,
                                        UhdrEncoder, UhdrError)
 from libultrahdr_dev_tpu_torch.api import BASE_IMG, HDR_IMG, SDR_IMG
-from libultrahdr_dev_tpu_torch.container import jfif, mux as tmux
+from libultrahdr_dev_tpu_torch.container import mux as tmux
 from libultrahdr_dev_tpu_torch.interop import metadata_from_jax
-from libultrahdr_dev_tpu_torch.jpeg import codec as tcodec
+from libultrahdr_dev_tpu_torch.jpeg import codec as tcodec, headers
 from libultrahdr_dev_tpu_torch.ops import gainmap as tgm
 
 from test_torch_api1 import _p010, jax_raw, port_raw, sdr_from_hdr
@@ -167,7 +167,7 @@ def test_api1_general_with_exif_bytes_identical_to_jax():
 
 def _scan(jpeg: bytes) -> bytes:
     """A JPEG's entropy-coded data (after its SOS) to the end."""
-    return jpeg[jfif.scan_segments(jpeg, 0)[1]:]
+    return jpeg[headers.read_headers(jpeg).sos_end:]
 
 
 def _base_jpeg(sdr, gamut=None):

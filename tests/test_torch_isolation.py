@@ -91,7 +91,9 @@ def test_round_trip_from_a_lone_copy_of_the_package(tmp_path):
         assert img.planes["rgba"].shape == (32, 48)
         assert codec.entropy_decode.calls == 0
         from libultrahdr_dev_tpu_torch.parallel import batched
-        f = batched.decode_host_huffman(blob)   # builds entropy.cpp
+        from libultrahdr_dev_tpu_torch.container import mux
+        f = batched.decode_host_huffman(
+            mux.read_primary_and_gainmap(blob))   # builds entropy.cpp
         assert f.grids is not None
         # The arithmetic codec (builds arith.cpp) and its SOF9 decode.
         g = (np.arange(32 * 48) % 251).astype(np.uint8).reshape(32, 48)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from libultrahdr_dev_tpu_torch import device as tdevice
+from libultrahdr_dev_tpu_torch.container import mux
 from libultrahdr_dev_tpu_torch.jpeg import codec
 from libultrahdr_dev_tpu_torch.jpegr import JpegR
 from libultrahdr_dev_tpu_torch.parallel import batched
@@ -110,8 +111,9 @@ def test_upload_counts_its_buffer_bytes():
 
 def test_batch_with_a_refused_blob_counts_its_frames_on_host_huffman():
     blobs = [_jpegr(3), _jpegr(4, arithmetic=True), _jpegr(5)]
-    assert batched.parse_device_route(blobs[0]) is not None
-    assert batched.parse_device_route(blobs[1]) is None
+    images = [mux.read_primary_and_gainmap(b) for b in blobs[:2]]
+    assert batched.parse_device_route(images[0]) is not None
+    assert batched.parse_device_route(images[1]) is None
     before = counters.snapshot().get("decode_route_host", 0)
     frames = batched.decode_host_stage(blobs, "hdr_hlg")
     assert all(f.streams is None and f.grids is not None for f in frames)
