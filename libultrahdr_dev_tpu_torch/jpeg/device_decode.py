@@ -31,8 +31,12 @@ the port decodes one unit a step, and the result does not depend on
 it.
 
 Huffman tables are data: each frame's decode tables are built from its
-own DHT definitions (``decode_tables``), so frames that differ in
-Huffman or quant tables share one launch. A table is the JAX select
+own DHT definitions, so frames that differ in Huffman or quant tables
+share one launch. Every table of a ``pack_streams`` call is built in
+one native pass (``build_tables``: jpeg/entropy.cpp uhdr_decode_tables,
+span "decode.tables", counter "decode_table_sets"; ``decode_tables`` is
+the same call for one stream, ``decode_tables_plain`` its Python
+model), with no state kept between calls. A table is the JAX select
 chain's sorted (boundary, symbol << 5 | length) entries; a unit decodes
 to the last entry whose boundary is <= the next 16 stream bits, which
 equals the chain for any DHT, canonical or not. The kernels stage a
@@ -70,6 +74,8 @@ import torch
 from ..device import upload
 from ..kernels import build
 from ..types import UhdrError
+from ..utils import counters
+from ..utils.profiler import span
 from . import headers, tables
 from .device_entropy import _build_code_table
 from .native import get_lib
@@ -99,18 +105,52 @@ def _chain_consts(bits, vals):
             np.asarray([e[1] for e in entries], np.int64))
 
 
-def decode_tables(specs) -> np.ndarray:
-    """(4, TABLE_WORDS) int32 decode tables of [DC luma, AC luma,
-    DC chroma, AC chroma] from (bits, vals) definitions; a gray stream
-    passes None for the chroma pair, which then repeats the luma one."""
+def _four(specs):
+    """[DC luma, AC luma, DC chroma, AC chroma] of a stream's specs; a
+    gray stream's None chroma pair repeats the luma one."""
     dc_l, ac_l, dc_c, ac_c = specs
+    return dc_l, ac_l, dc_c or dc_l, ac_c or ac_l
+
+
+def decode_tables_plain(specs) -> np.ndarray:
+    """The Python model of decode_tables: the same (4, TABLE_WORDS)
+    int32 tables, one _chain_consts a table. No route calls it."""
     out = np.zeros((4, TABLE_WORDS), np.int32)
-    for i, spec in enumerate((dc_l, ac_l, dc_c or dc_l, ac_c or ac_l)):
+    for i, spec in enumerate(_four(specs)):
         bnd, pck = _chain_consts(*spec)
         out[i, 0] = len(bnd)
         out[i, 1:1 + len(bnd)] = bnd
         out[i, 257:257 + len(pck)] = pck
     return out
+
+
+def build_tables(spec_sets) -> np.ndarray:
+    """(n, 4, TABLE_WORDS) int32 decode tables of n streams' specs (each
+    as decode_tables takes them; bits and vals sequences of ints 0-255)
+    in one native pass (jpeg/entropy.cpp uhdr_decode_tables), byte for
+    byte decode_tables_plain's for any DHT headers.read_dht passes, in
+    span "decode.tables"; counts the n sets in "decode_table_sets"."""
+    with span("decode.tables"):
+        flat = [spec for specs in spec_sets for spec in _four(specs)]
+        bits = b"".join([bytes(b) for b, _ in flat])
+        vals = b"".join([bytes(v).ljust(256, b"\0") for _, v in flat])
+        if len(bits) != 16 * len(flat) or len(vals) != 256 * len(flat):
+            raise ValueError("a DHT has 16 code counts and at most 256 "
+                             "symbols")
+        out = np.empty((len(spec_sets), 4, TABLE_WORDS), np.int32)
+        if get_lib().uhdr_decode_tables(bits, vals, out.ctypes.data,
+                                        len(flat)) < 0:
+            raise ValueError("a DHT counts more than 256 codes")
+    counters.bump("decode_table_sets", len(spec_sets))
+    return out
+
+
+def decode_tables(specs) -> np.ndarray:
+    """(4, TABLE_WORDS) int32 decode tables of [DC luma, AC luma,
+    DC chroma, AC chroma] from (bits, vals) definitions; a gray stream
+    passes None for the chroma pair, which then repeats the luma one.
+    build_tables for one stream."""
+    return build_tables([specs])[0]
 
 
 FAST_BITS = 9                # the kernels' fast lookup: top 9 peek bits
@@ -468,10 +508,11 @@ def pack_streams(streams: list[DeviceStream]) -> Lanes:
     """Lay parsed streams of one geometry out for one B4 launch. `src`
     ends in zero bytes up to a multiple of 16 and 16 more, so that no
     aligned load of the kernels' bit reader leaves it (the descriptors'
-    stream lengths, not the padding, bound what a lane reads)."""
+    stream lengths, not the padding, bound what a lane reads). Every
+    stream's decode tables come from one build_tables call."""
     s0 = streams[0]
     geom = (s0.gray, s0.sampling, s0.mcus_x, s0.mcus_y)
-    rows, lanes, tabs, srcs = [], [], [], []
+    rows, lanes, srcs = [], [], []
     off = lane0 = 0
     for s in streams:
         if (s.gray, s.sampling, s.mcus_x, s.mcus_y) != geom:
@@ -483,14 +524,13 @@ def pack_streams(streams: list[DeviceStream]) -> Lanes:
         lanes.append(np.stack([
             s.starts_byte, s.start_bits if carry
             else np.zeros(s.n_lanes, np.int32)], axis=1))
-        tabs.append(decode_tables(s.specs))
         srcs.append(s.dest)
         off += s.dest.size
         lane0 += s.n_lanes
     srcs.append(np.zeros(-off % 16 + 16, np.uint8))
     return Lanes(np.concatenate(srcs), np.asarray(rows, np.int32),
-                 np.concatenate(lanes).astype(np.int32), np.stack(tabs),
-                 *geom)
+                 np.concatenate(lanes).astype(np.int32),
+                 build_tables([s.specs for s in streams]), *geom)
 
 
 def plane_shapes(gray: bool, sampling, mcus_x: int, mcus_y: int):

@@ -5,7 +5,8 @@
 // route, the destuffing of a restart-interval stream and the
 // lengths-only scan that splits a restart-less stream into lanes for
 // the device decoder (jpeg/device_decode.py), the search for an
-// image's EOI (container/jfif.py), and the four
+// image's EOI (jpeg/headers.py), that decoder's Huffman decode tables
+// (jpeg/device_decode.py decode_tables), and the four
 // progressive scan decoders (uhdr_prog_*) that jpeg/codec.py's
 // multi-scan decode runs scan by scan. It fills
 // the role libjpeg-turbo's entropy coder plays for the reference
@@ -18,6 +19,7 @@
 // Build (jpeg/native.py does this at first use):
 //   g++ -O3 -std=c++17 -shared -fPIC entropy.cpp -o entropy.so
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #if defined(__x86_64__)
@@ -527,6 +529,59 @@ long uhdr_find_eoi(const uint8_t* data, long len, long from) {
   for (; i + 1 < len; ++i)
     if (data[i] == 0xFF && data[i + 1] == 0xD9) return i;
   return -1;
+}
+
+// The device decoder's Huffman decode tables (jpeg/device_decode.py
+// decode_tables; decode_tables_plain is the model), n_tables at a time.
+// Table t is defined by bits[t] (16 code counts, lengths 1 to 16) and
+// vals[t] (its symbols in order, the rest of the row zero). Codes are
+// assigned in vals order as T.81 Annex C does, whatever the counts:
+// non-canonical counts carry the code past its length, so a boundary
+// reaches up to 2^23, and a symbol that repeats in vals keeps its last
+// code. Each symbol with a code gives one entry, boundary = code <<
+// (16 - size) and packed = (symbol << 5) | size, and the entries are
+// sorted ascending by (boundary, packed).
+// bits:   uint8[n_tables][16]
+// vals:   uint8[n_tables][256]
+// out:    int32[n_tables][513], written whole: [entry count,
+//         boundaries[256], packed[256]], the unused words zero
+// Returns 0, or -1 where a table counts more than 256 codes (its row
+// and the rows after it are then not written).
+long uhdr_decode_tables(const uint8_t* bits, const uint8_t* vals,
+                        int32_t* out, long n_tables) {
+  for (long t = 0; t < n_tables; ++t) {
+    const uint8_t* b = bits + 16 * t;
+    const uint8_t* v = vals + 256 * t;
+    int total = 0;
+    for (int len = 0; len < 16; ++len) total += b[len];
+    if (total > 256) return -1;
+    uint32_t code[256];
+    uint8_t size[256] = {};
+    uint32_t c = 0;  // < 2^25 for 256 codes or fewer
+    int k = 0;
+    for (int len = 1; len <= 16; ++len) {
+      for (int i = 0; i < b[len - 1]; ++i, ++k, ++c) {
+        code[v[k]] = c;
+        size[v[k]] = (uint8_t)len;
+      }
+      c <<= 1;
+    }
+    uint64_t keys[256];  // boundary << 16 | packed
+    int n = 0;
+    for (int s = 0; s < 256; ++s)
+      if (size[s])
+        keys[n++] = (uint64_t)(code[s] << (16 - size[s])) << 16 |
+                    (uint32_t)(s << 5 | size[s]);
+    std::sort(keys, keys + n);
+    int32_t* row = out + 513 * t;
+    std::memset(row, 0, 513 * sizeof(int32_t));
+    row[0] = n;
+    for (int i = 0; i < n; ++i) {
+      row[1 + i] = (int32_t)(keys[i] >> 16);
+      row[257 + i] = (int32_t)(keys[i] & 0xFFFF);
+    }
+  }
+  return 0;
 }
 
 // Encode MCU-interleaved zigzag blocks to entropy-coded bytes.

@@ -109,6 +109,9 @@ def _bind_entropy(lib):
     lib.uhdr_find_eoi.restype = ctypes.c_long
     lib.uhdr_find_eoi.argtypes = [ctypes.c_void_p, ctypes.c_long,
                                   ctypes.c_long]
+    lib.uhdr_decode_tables.restype = ctypes.c_long
+    lib.uhdr_decode_tables.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                       ctypes.c_void_p, ctypes.c_long]
     lib.uhdr_huff_scan_offsets.restype = ctypes.c_long
     lib.uhdr_huff_scan_offsets.argtypes = [
         u8p, ctypes.c_long, ctypes.c_long, u8p, ctypes.c_int,
@@ -191,10 +194,11 @@ def _bind_apply(lib):
 
 def get_lib():
     """The ctypes library with uhdr_huff_encode, uhdr_huff_decode,
-    uhdr_destuff_rst, uhdr_find_eoi, uhdr_huff_scan_offsets and the
-    progressive scan decoders (uhdr_prog_dc_first, uhdr_prog_dc_refine,
-    uhdr_prog_ac_first, uhdr_prog_ac_refine) bound. Builds on first
-    call; raises if the build fails."""
+    uhdr_destuff_rst, uhdr_find_eoi, uhdr_decode_tables,
+    uhdr_huff_scan_offsets and the progressive scan decoders
+    (uhdr_prog_dc_first, uhdr_prog_dc_refine, uhdr_prog_ac_first,
+    uhdr_prog_ac_refine) bound. Builds on first call; raises if the
+    build fails."""
     return _load(SRC, _FLAGS, _bind_entropy)
 
 

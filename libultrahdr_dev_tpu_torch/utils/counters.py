@@ -11,7 +11,10 @@ Beside them: "decode_route_host", the frames of batched decodes sent to
 host Huffman because some blob of their batch did not suit the device
 decoder (parallel/batched.py decode_host_stage); "h2d_bytes", the bytes
 of every one-copy upload (device.py upload); "kernels_built", the CUDA
-kernel builds that ran nvcc (kernels/build.py build).
+kernel builds that ran nvcc (kernels/build.py build);
+"decode_table_sets", the streams whose four Huffman decode tables were
+made natively (jpeg/device_decode.py build_tables: two a frame of a
+batched HDR decode, one per image otherwise).
 """
 
 from __future__ import annotations
